@@ -1,0 +1,155 @@
+"""Diagnostic fields and the CFL timestep (icar_tpu/core/diagnostics.py).
+
+Same formulas and the same float32 operation order as the JAX package, so
+``compute_dt`` gives the same bits and the substep count matches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants as C
+
+
+# float32 constants as the JAX package's compiled step holds them: XLA
+# rewrites p / P0 into p * (1/P0), and its float32 power is correctly
+# rounded in nearly every cell, which a float64 power rounded to float32
+# reproduces. The golden ridge trajectory flips on a one-ulp change of the
+# Exner function (see PERF.md), so these bits matter.
+_INV_P0 = float(np.float32(1.0 / C.P0))
+_ROVCP = float(np.float32(C.ROVCP))
+
+
+def exner_function(pressure):
+    """(p/p0)^(Rd/cp) (atm_utilities.f90 exner_function), float32."""
+    x = (pressure * _INV_P0).to(torch.float64)
+    return (x ** _ROVCP).to(pressure.dtype)
+
+
+def interface_from_mass(f):
+    """Interface value below each layer: midpoint between layers, linearly
+    extrapolated below the lowest (time_step.f90:88-89)."""
+    bottom = f[:1] + (f[:1] - f[1:2]) / 2
+    return torch.cat([bottom, (f[:-1] + f[1:]) / 2], dim=0)
+
+
+def compute_iq(q, p_i):
+    """Column-integrated mass of q [kg/m^2] (compute_iq,
+    atm_utilities.f90:66-99), the top layer bounded by a 500 hPa cap."""
+    p_above = torch.cat([p_i[1:], torch.full_like(p_i[:1], 50000.0)], dim=0)
+    dp = torch.clamp(p_i - p_above, min=0.0)
+    return torch.sum(q * dp, dim=0) / C.GRAVITY
+
+
+def compute_ivt(qv, u_mass, v_mass, p_i):
+    """Column-integrated vapor transport (compute_ivt,
+    atm_utilities.f90:35-63)."""
+    speed = torch.sqrt(u_mass ** 2 + v_mass ** 2)
+    return compute_iq(qv * speed, p_i)
+
+
+def diagnostic_update(state, geom, full: bool = True):
+    """Refresh derived fields (diagnostic_update, time_step.f90:49-198).
+
+    ``full=False`` computes only the fields physics consumes; ``full=True``
+    adds the output diagnostics (integrated moisture, 10 m winds, w_real).
+    ``geom`` holds torch tensors (``convert.geometry_to_torch``). Returns a
+    new dict."""
+    s = dict(state)
+    p = s["pressure"]
+    theta = s["potential_temperature"]
+    u, v, w = s["u"], s["v"], s["w"]
+
+    exner = exner_function(p)
+    s["exner"] = exner
+    p_i = interface_from_mass(p)
+    s["pressure_interface"] = p_i
+    temperature = theta * exner
+    s["temperature"] = temperature
+    s["temperature_interface"] = interface_from_mass(temperature)
+    s["density"] = p / (C.RD * temperature)
+    u_mass = (u[:, :, :-1] + u[:, :, 1:]) * 0.5
+    v_mass = (v[:, :-1, :] + v[:, 1:, :]) * 0.5
+    s["u_mass"] = u_mass
+    s["v_mass"] = v_mass
+    if "surface_pressure" in s:
+        s["surface_pressure"] = p_i[0]
+
+    if not full:
+        return s
+
+    if "w_real" in s:
+        uw = u[:, 1:-1, 1:-1] * geom.dzdx[:, 1:-1, 1:-1]
+        vw = v[:, 1:-1, 1:-1] * geom.dzdy[:, 1:-1, 1:-1]
+        w_below = torch.cat([torch.zeros_like(w[:1]), w[:-1]], dim=0)
+        wr = ((uw[:, :, :-1] + uw[:, :, 1:]) * 0.5
+              + (vw[:, :-1, :] + vw[:, 1:, :]) * 0.5
+              + geom.jacobian[:, 1:-1, 1:-1]
+              * (w_below[:, 1:-1, 1:-1] + w[:, 1:-1, 1:-1]) * 0.5)
+        s["w_real"] = s["w_real"].clone()
+        s["w_real"][:, 1:-1, 1:-1] = wr
+
+    # integrated moisture diagnostics
+    if "ivt" in s:
+        s["ivt"] = compute_ivt(s["water_vapor"], u_mass, v_mass, p_i)
+    if "iwv" in s:
+        s["iwv"] = compute_iq(s["water_vapor"], p_i)
+    if "iwl" in s:
+        liquid = torch.zeros_like(p)
+        for k in ("cloud_water", "rain_mass"):
+            if k in s:
+                liquid = liquid + s[k]
+        s["iwl"] = compute_iq(liquid, p_i)
+    if "iwi" in s:
+        ice = torch.zeros_like(p)
+        for k in ("cloud_ice", "snow_mass", "graupel_mass"):
+            if k in s:
+                ice = ice + s[k]
+        s["iwi"] = compute_iq(ice, p_i)
+
+    # 10 m winds / ustar via log-law (time_step.f90:144-161), interior cells
+    if "u_10m" in s and "roughness_z0" in s:
+        z0 = s["roughness_z0"]
+        zlev1 = geom.z[0] - geom.terrain
+        currw = C.KARMAN / torch.log(zlev1 / z0)
+        lastw = torch.log(10.0 / z0) / C.KARMAN
+        u10 = u_mass[0] * currw * lastw
+        v10 = v_mass[0] * currw * lastw
+        ust = torch.sqrt(u_mass[0] ** 2 + v_mass[0] ** 2) * currw
+        # the reference fills interior cells only; edges keep their value
+        for name, val in (("u_10m", u10), ("v_10m", v10), ("ustar", ust)):
+            s[name] = s[name].clone()
+            s[name][1:-1, 1:-1] = val[1:-1, 1:-1]
+    return s
+
+
+def compute_dt(u, v, w, dz_levels, dx, cfl_reduction,
+               cfl_strictness: int = 3):
+    """Maximum stable dt from the CFL criterion with the reference's five
+    strictness modes (compute_dt, time_step.f90:217-330). Returns a 0-d
+    float32 tensor on the winds' device."""
+    sqrt3 = 3.0 ** 0.5 * 1.001
+    three_d_cfl = 0.577350269
+
+    au, av, aw = torch.abs(u), torch.abs(v), torch.abs(w)
+    if cfl_strictness == 1:
+        max1d = torch.maximum(torch.max(au),
+                              torch.maximum(torch.max(av), torch.max(aw)))
+        maxwind = max1d * sqrt3
+    elif cfl_strictness == 5:
+        maxwind = torch.max(au) + torch.max(av) + torch.max(aw)
+    else:
+        ufac = torch.maximum(au[:, :, :-1], au[:, :, 1:]) / dx
+        vfac = torch.maximum(av[:, :-1, :], av[:, 1:, :]) / dx
+        aw_below = torch.cat([aw[:1], aw[:-1]], dim=0)
+        wfac = torch.maximum(aw, aw_below) / dz_levels[:, None, None]
+        maxwind = torch.max(ufac + vfac + wfac)
+        if cfl_strictness == 2:
+            max1d = torch.maximum(torch.max(au), torch.maximum(
+                torch.max(av), torch.max(aw)))
+            maxwind = torch.maximum(maxwind * three_d_cfl, max1d)
+        elif cfl_strictness == 4:
+            maxwind = maxwind * sqrt3
+
+    return cfl_reduction / maxwind

@@ -1,0 +1,90 @@
+"""Donor-cell (upwind) advection on the terrain-following staggered grid:
+the plain PyTorch version of kernel K1 (icar_tpu/ops/advection.py).
+
+Same operation order as the JAX package's jnp path (winds scaled as
+``u * (dt/dx) * J_u``), which made the golden trajectory. The CUDA kernel
+(``csrc/advect_upwind.cu``) computes the same update from the metric winds
+``u * J_u / dx`` times dt, so the two agree to a few float32 ulp. Fields
+are (z, y, x); a stacked (nq, nz, ny, nx) species array advects in one
+call. Density advection is not ported (ROADMAP Slice B).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class CourantWinds(NamedTuple):
+    """dt/dx-normalized metric-weighted winds (setup_module_winds,
+    advect.f90:306-351)."""
+    U_m: torch.Tensor   # (nz, ny, nx-1)  internal x faces
+    V_m: torch.Tensor   # (nz, ny-1, nx)  internal y faces
+    W_m: torch.Tensor   # (nz, ny, nx)    top face of each layer
+
+
+def setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w):
+    """Pre-scale winds for one dt (advect.f90:306-351). U/V are divided by
+    dx; W is not divided by dz because dz varies per cell. ``dt`` is a
+    float32 value (numpy scalar or Python float holding one)."""
+    dt_dx = float(np.float32(dt) / np.float32(dx))
+    U_m = u[:, :, 1:-1] * dt_dx * jaco_u[:, :, 1:-1]
+    V_m = v[:, 1:-1, :] * dt_dx * jaco_v[:, 1:-1, :]
+    W_m = w * float(dt) * jaco_w
+    return CourantWinds(U_m, V_m, W_m)
+
+
+def _upwind_flux(ql, qr, U):
+    return ((U + torch.abs(U)) * ql + (U - torch.abs(U)) * qr) * 0.5
+
+
+def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
+    """Donor-cell update (advect3d, advect.f90:107-178) of a (..., nz, ny,
+    nx) field. Interior cells (x, y in [1, n-2]) are updated; boundary
+    cells pass through."""
+    U_m, V_m, W_m = winds
+
+    # x faces 1..nx-1 between cells (f-1, f); flux difference for cells 1..nx-2
+    fx = _upwind_flux(q[..., :-1], q[..., 1:], U_m)
+    xdiv = fx[..., 1:-1, 1:] - fx[..., 1:-1, :-1]
+
+    fy = _upwind_flux(q[..., :-1, :], q[..., 1:, :], V_m)
+    ydiv = fy[..., 1:, 1:-1] - fy[..., :-1, 1:-1]
+
+    # vertical faces between layers k and k+1 (W_m[k] = flux at top of k)
+    fz = _upwind_flux(q[..., :-1, :, :], q[..., 1:, :, :], W_m[:-1])
+
+    qi = q[..., 1:-1, 1:-1]
+    jacoi = jaco[:, 1:-1, 1:-1]
+    dzi = dz[:, 1:-1, 1:-1]
+    fzi = fz[..., 1:-1, 1:-1]
+
+    dq = (xdiv + ydiv) / jacoi
+    # vertical: the bottom layer loses only through its top face; the top
+    # layer flushes q*W out of the model top (advect.f90:164-172)
+    vert_in = torch.cat([
+        fzi[..., :1, :, :],
+        fzi[..., 1:, :, :] - fzi[..., :-1, :, :],
+        (qi[..., -1:, :, :] * W_m[-1:, 1:-1, 1:-1]) - fzi[..., -1:, :, :]],
+        dim=-3)
+    dq = dq + vert_in / (dzi * jacoi)
+
+    out = q.clone()
+    out[..., 1:-1, 1:-1] = qi - dq
+    return out
+
+
+def advect_upwind(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
+                  jaco, dz, floors=None, near_end=False):
+    """Advect all species of ``stacked_q`` (nq, nz, ny, nx) at once
+    (upwind, advect.f90:380-418). With ``floors`` (nq,) and ``near_end``,
+    clamp each species to its floor (the near-end enforce_limits clamp)."""
+    winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w)
+    out = advect3d_upwind(stacked_q, winds, dz, jaco)
+    if floors is not None and near_end:
+        floor = torch.as_tensor(floors, dtype=out.dtype, device=out.device)
+        out = torch.maximum(out, floor[:, None, None, None])
+    return out
+

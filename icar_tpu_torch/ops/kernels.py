@@ -1,0 +1,250 @@
+"""The port's hand-written CUDA kernels: build, load, wrappers and launch
+counts (the counterpart of icar_tpu/ops/pallas_kernels.py).
+
+The kernels live in ``icar_tpu_torch/csrc/*.cu``, are compiled by ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, and are
+called through ``ctypes`` on PyTorch's current CUDA stream. The library is
+built at the first launch (never at import) into ``icar_tpu_torch/_build/``
+and rebuilt when the sources change.
+
+Each wrapper takes the plain PyTorch version for a tensor on the CPU, and
+launches its kernel for a CUDA tensor; there is no fallback from one to the
+other. ``LAUNCHES`` counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import constants as C
+from ..physics import mp_simple as mp_plain
+from . import advection as adv_plain
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("advect_upwind.cu", "mp_simple.cu")
+# -fmad=false: no multiply-add contraction, so each kernel rounds like its
+# plain version step by step (the ridge trajectory branches on one-ulp
+# differences, see PERF.md); no --use_fast_math, so expf stays accurate
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# kernel launches since the last reset; only the kernel branch counts
+LAUNCHES = {"advect_upwind": 0, "mp_simple": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_INFO: dict = {}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+        if os.path.exists(cand):
+            path = cand
+    if path is None:
+        raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME): the "
+                           "CUDA kernels of icar_tpu_torch cannot be built")
+    return path
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``_build/`` unless a library built from
+    the same sources and flags is already there; returns its path and
+    records the build time and compiler log in ``BUILD_INFO``."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    lib = BUILD_DIR / f"libicar_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True, log="")
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / n) for n in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False,
+                      log=res.stdout + res.stderr)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
+                      ctypes.c_float)
+        lib.icar_advect_upwind.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
+                                           I, F, I, P]
+        lib.icar_advect_upwind.restype = I
+        lib.icar_mp_simple.argtypes = [P, P, P, P, P, P, P, P, P, P, I, L,
+                                       F, F, F, P]
+        lib.icar_mp_simple.restype = I
+        lib.icar_mp_simple_max_nz.argtypes = []
+        lib.icar_mp_simple_max_nz.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, name: str, shape, device):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+
+
+# ---------------------------------------------------------------------------
+# K1: upwind advection
+# ---------------------------------------------------------------------------
+
+class AdvectWinds(NamedTuple):
+    """Loop-invariant advection operands for one interval: the raw winds
+    and metrics (the plain version scales them per substep in the jnp
+    order) and the kernel's metric winds u*J_u/dx, v*J_v/dx, w*J_w
+    (setup_module_winds, advect.f90:306-351, minus the dt factor)."""
+    u: torch.Tensor        # (nz, ny, nx+1)
+    v: torch.Tensor        # (nz, ny+1, nx)
+    w: torch.Tensor        # (nz, ny, nx)
+    jaco_u: torch.Tensor
+    jaco_v: torch.Tensor
+    jaco_w: torch.Tensor
+    dz: torch.Tensor       # advection_dz (nz, ny, nx)
+    jaco: torch.Tensor     # (nz, ny, nx)
+    dx: float
+    uj: torch.Tensor       # (nz, ny, nx-1) internal x faces
+    vj: torch.Tensor       # (nz, ny-1, nx) internal y faces
+    wj: torch.Tensor       # (nz, ny, nx)
+
+
+def prepare_advect_winds(u, v, w, geom) -> AdvectWinds:
+    """The advection operands for winds (u, v, w) on ``geom`` (torch
+    geometry, ``convert.geometry_to_torch``)."""
+    dx = float(geom.dx)
+    uj = (u[:, :, 1:-1] * geom.jacobian_u[:, :, 1:-1]
+          * (1.0 / dx)).contiguous()
+    vj = (v[:, 1:-1, :] * geom.jacobian_v[:, 1:-1, :]
+          * (1.0 / dx)).contiguous()
+    wj = (w * geom.jacobian_w).contiguous()
+    return AdvectWinds(u, v, w, geom.jacobian_u, geom.jacobian_v,
+                       geom.jacobian_w, geom.advection_dz.contiguous(),
+                       geom.jacobian.contiguous(), dx, uj, vj, wj)
+
+
+def advect_upwind(q, winds: AdvectWinds, dt, floors, near_end: bool,
+                  out=None):
+    """Donor-cell update of the species stack ``q`` (S, nz, ny, nx) for
+    one substep of length ``dt`` into ``out`` (allocated when None; must
+    not alias ``q``). ``floors`` (S,) float32 tensor: with ``near_end``
+    each species is clamped to its floor. Returns ``out``."""
+    S, nz, ny, nx = q.shape
+    if q.device.type == "cpu":
+        res = adv_plain.advect_upwind(q, winds.u, winds.v, winds.w, dt,
+                                      winds.dx, winds.jaco_u, winds.jaco_v,
+                                      winds.jaco_w, winds.jaco, winds.dz,
+                                      floors=floors, near_end=near_end)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"advect_upwind: unsupported device {q.device}")
+    if nz < 2 or ny < 3 or nx < 3:
+        raise ValueError(f"advect_upwind: needs nz >= 2, ny >= 3, nx >= 3, "
+                         f"got {(nz, ny, nx)}")
+    dev = q.device
+    _check(q, "q", (S, nz, ny, nx), dev)
+    _check(winds.uj, "uj", (nz, ny, nx - 1), dev)
+    _check(winds.vj, "vj", (nz, ny - 1, nx), dev)
+    for name in ("wj", "dz", "jaco"):
+        _check(getattr(winds, name), name, (nz, ny, nx), dev)
+    _check(floors, "floors", (S,), dev)
+    if out is None:
+        out = torch.empty_like(q)
+    _check(out, "out", (S, nz, ny, nx), dev)
+    if out.data_ptr() == q.data_ptr():
+        raise ValueError("advect_upwind: out must not alias q")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().icar_advect_upwind(
+        q.data_ptr(), out.data_ptr(), winds.uj.data_ptr(),
+        winds.vj.data_ptr(), winds.wj.data_ptr(), winds.dz.data_ptr(),
+        winds.jaco.data_ptr(), floors.data_ptr(), S, nz, ny, nx, float(dt),
+        int(bool(near_end)), stream)
+    _raise_on(err, "advect_upwind")
+    LAUNCHES["advect_upwind"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: SB04 microphysics
+# ---------------------------------------------------------------------------
+
+def mp_simple(theta, qv, qc, qr, qs, pressure, exner, dz, rain, snow, dt,
+              cloud2rain, cloud2snow):
+    """SB04 microphysics, in place: updates the five species (nz, ny, nx)
+    and adds the surface precipitation of this call to the (ny, nx)
+    ``rain``/``snow`` accumulators. Density is p/(Rd*theta*exner) from the
+    entry state; ``dz`` is the mass-level thickness (dz_interface)."""
+    nz, ny, nx = theta.shape
+    if theta.device.type == "cpu":
+        rho = pressure / (C.RD * (theta * exner))
+        out = mp_plain.mp_simple(pressure, theta, exner, rho, qv, qc, qr,
+                                 qs, rain, snow, dt, dz, cloud2rain,
+                                 cloud2snow)
+        for dst, src in zip((theta, qv, qc, qr, qs, rain, snow), out):
+            dst.copy_(src)
+        return
+    if theta.device.type != "cuda":
+        raise ValueError(f"mp_simple: unsupported device {theta.device}")
+    dev = theta.device
+    lib = library()
+    if nz > lib.icar_mp_simple_max_nz():
+        raise ValueError(f"mp_simple: nz={nz} exceeds the kernel's "
+                         f"maximum {lib.icar_mp_simple_max_nz()}")
+    for name, t in (("theta", theta), ("qv", qv), ("qc", qc), ("qr", qr),
+                    ("qs", qs), ("pressure", pressure), ("exner", exner),
+                    ("dz", dz)):
+        _check(t, name, (nz, ny, nx), dev)
+    _check(rain, "rain", (ny, nx), dev)
+    _check(snow, "snow", (ny, nx), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.icar_mp_simple(
+        theta.data_ptr(), qv.data_ptr(), qc.data_ptr(), qr.data_ptr(),
+        qs.data_ptr(), pressure.data_ptr(), exner.data_ptr(), dz.data_ptr(),
+        rain.data_ptr(), snow.data_ptr(), nz, ny * nx, float(dt),
+        float(cloud2rain), float(cloud2snow), stream)
+    _raise_on(err, "mp_simple")
+    LAUNCHES["mp_simple"] += 1
+

@@ -1,0 +1,144 @@
+"""The CUDA kernels K1 (advect_upwind) and K2 (mp_simple) against their
+plain PyTorch versions, on the card; and, on the CPU, that the kernel
+module imports and dispatches without building anything.
+
+The card tests carry the ``gpu`` marker and skip where
+torch.cuda.is_available() is False (decided inside the fixture). On the
+card: ``python -m pytest tests/test_torch_kernels.py -q``.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from icar_tpu_torch import constants as C
+from icar_tpu_torch.core.step import limit_floors
+from icar_tpu_torch.ops import advection as adv_plain
+from icar_tpu_torch.ops import kernels
+from icar_tpu_torch.physics import mp_simple as mp_plain
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ("potential_temperature", "water_vapor", "cloud_water",
+         "rain_mass", "snow_mass")
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture()
+def ridge_state(cuda):
+    """A ridge model on the card after one interval: clouds, rain, snow."""
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=70, ny=24, nz=16, dx=1000.0, hill_height=1200.0,
+                          u_speed=12.0, rh=1.0, device=cuda)
+    m.advance(1200.0)
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near_end", [False, True])
+def test_advect_kernel_matches_plain(ridge_state, near_end):
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in m.advect_names])
+    floors = torch.as_tensor(limit_floors(m.advect_names), device=s["u"].device)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    dt = np.float32(37.25)
+    kernels.reset_launches()
+    got = kernels.advect_upwind(stack, winds, dt, floors, near_end)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["advect_upwind"] == 1
+    want = adv_plain.advect_upwind(stack, s["u"], s["v"], s["w"], dt, g.dx,
+                                   g.jacobian_u, g.jacobian_v, g.jacobian_w,
+                                   g.jacobian, g.advection_dz, floors=floors,
+                                   near_end=near_end)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=5e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_mp_kernel_matches_plain(ridge_state):
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in NAMES])
+    p, ex, dz = s["pressure"], s["exner"], g.dz_interface
+    rain = torch.rand_like(s["precipitation"])
+    snow = torch.rand_like(rain)
+    dt = np.float32(41.5)
+    c2r, c2s = mp_plain.formation_rates(dt)
+    rho = p / (C.RD * (stack[0] * ex))
+    want = mp_plain.mp_simple(p, stack[0], ex, rho, *stack[1:], rain, snow,
+                              dt, dz, c2r, c2s)
+    work = stack.clone()
+    acc = [rain.clone(), snow.clone()]
+    kernels.reset_launches()
+    kernels.mp_simple(*work, p, ex, dz, *acc, dt, c2r, c2s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mp_simple"] == 1
+    for name, got, ref in zip(NAMES + ("rain", "snow"), list(work) + acc,
+                              want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_main_path_launches_each_kernel_per_substep(cuda):
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=40, ny=12, nz=12, dx=1000.0, hill_height=800.0,
+                          device=cuda)
+    kernels.reset_launches()
+    m.advance(900.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"advect_upwind": m.last_n_substeps,
+                                "mp_simple": m.last_n_substeps}
+
+
+def test_kernel_module_builds_nothing_at_import(tmp_path):
+    code = ("import pathlib, sys\n"
+            "import icar_tpu_torch.ops.kernels as k\n"
+            "assert k._LIB is None and k.BUILD_INFO == {}\n"
+            "k.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+            "try:\n"
+            "    k.build()\n"
+            "except RuntimeError as e:\n"
+            "    assert 'nvcc not found' in str(e), e\n"
+            "else:\n"
+            "    raise AssertionError('built without nvcc')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert not list(tmp_path.iterdir())
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrappers run the plain versions and count no
+    kernel launch."""
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=24, ny=8, nz=12, hill_height=800.0,
+                          device="cpu")
+    kernels.reset_launches()
+    m.advance(300.0)
+    assert m.last_n_substeps > 0
+    assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0}
+
+
+def test_wrappers_reject_other_devices():
+    q = torch.zeros((5, 4, 6, 7), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.advect_upwind(q, None, 1.0, None, False)
+    t = torch.zeros((4, 6, 7), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.mp_simple(t, t, t, t, t, t, t, t, t[0], t[0], 1.0, 0.9, 0.9)

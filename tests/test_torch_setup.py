@@ -1,0 +1,154 @@
+"""The port's host-side setup against the JAX package's.
+
+icar_tpu_torch carries numpy-only copies of constants, config, the
+calendar/namelist/model-tracking utilities, registry, grid and the ideal
+case (the machine that runs the port has no jax). These tests hold each
+copy to its original, then check geometry, the ideal case, the options and
+the initial model state against icar_tpu.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# copied module -> top-level definitions the copy leaves out (they need
+# modules the port does not have yet)
+COPIES = {
+    "constants.py": (),
+    "config.py": (),
+    "utils/calendar.py": (),
+    "utils/namelist.py": (),
+    "utils/model_tracking.py": (),
+    "registry.py": (),
+    "grid.py": (),
+    "forcing/ideal.py": ("write_ideal_files",),
+}
+
+
+def _body(path):
+    """Top-level statements after the module docstring, as AST dumps
+    keyed by definition name (or by position for other statements)."""
+    tree = ast.parse(open(path).read())
+    body = tree.body
+    doc = ast.get_docstring(tree)
+    if doc is not None:
+        body = body[1:]
+    return doc, [(getattr(n, "name", None), ast.dump(n)) for n in body]
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copy_matches_original(rel):
+    _, orig = _body(os.path.join(REPO, "icar_tpu", rel))
+    doc_c, copy = _body(os.path.join(REPO, "icar_tpu_torch", rel))
+    assert doc_c.startswith(f"Copy of icar_tpu/{rel}")
+    omitted = COPIES[rel]
+    want = [n for n in orig if n[0] not in omitted]
+    assert copy == want, f"icar_tpu_torch/{rel} drifted from icar_tpu/{rel}"
+
+
+def _options(pkg, **domain):
+    o = pkg.Options()
+    for k, v in domain.items():
+        setattr(o.domain, k, v)
+    return o
+
+
+@pytest.mark.parametrize("case", [
+    dict(nx=40, ny=12, nz=12, hill=900.0, flat_z_height=-5, sleve=False),
+    dict(nx=33, ny=17, nz=8, hill=600.0, flat_z_height=3000.0,
+         sleve=False),
+    dict(nx=30, ny=14, nz=12, hill=300.0, flat_z_height=6000.0,
+         sleve=True),
+])
+def test_geometry_matches(case):
+    import icar_tpu.config as jc
+    import icar_tpu.forcing.ideal as jideal
+    import icar_tpu.grid as jgrid
+    import icar_tpu_torch.config as tc
+    import icar_tpu_torch.forcing.ideal as tideal
+    import icar_tpu_torch.grid as tgrid
+
+    nx, ny, nz = case["nx"], case["ny"], case["nz"]
+    dz = [50.0, 75.0, 125.0, 200.0, 300.0, 400.0] + [500.0] * (nz - 6)
+    geoms = []
+    for cfg, ideal, grid in ((jc, jideal, jgrid), (tc, tideal, tgrid)):
+        o = _options(cfg, nx=nx, ny=ny, nz=nz, dx=1000.0, dz_levels=dz,
+                     flat_z_height=case["flat_z_height"],
+                     sleve=case["sleve"])
+        terrain = ideal.schaer_topography(nx, ny, case["hill"], 1000.0)
+        lat, lon = ideal.ideal_latlon(nx, ny, 1000.0)
+        geoms.append(grid.build_geometry(terrain, lat, lon, o))
+    gj, gt = geoms
+    for f in dataclasses.fields(gj):
+        a, b = getattr(gj, f.name), getattr(gt, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+def test_ideal_case_and_options_match():
+    import icar_tpu.config as jc
+    import icar_tpu.forcing.ideal as jideal
+    import icar_tpu.grid as jgrid
+    import icar_tpu_torch.config as tc
+    import icar_tpu_torch.forcing.ideal as tideal
+
+    assert dataclasses.asdict(jc.Options()) == dataclasses.asdict(
+        tc.Options())
+    o = _options(jc, nx=24, ny=10, nz=9, dx=1000.0,
+                 dz_levels=[50.0, 75.0, 125.0, 200.0, 300.0, 400.0,
+                            500.0, 500.0, 500.0])
+    terrain = jideal.schaer_topography(24, 10, 700.0, 1000.0)
+    lat, lon = jideal.ideal_latlon(24, 10, 1000.0)
+    geom = jgrid.build_geometry(terrain, lat, lon, o)
+    for kw in (dict(u_profile=12.0, rh=1.0), dict(u_profile=8.0),
+               dict(u_profile=np.linspace(5, 15, 9), rh=0.8)):
+        a = jideal.make_ideal_case(geom, **kw)
+        b = tideal.make_ideal_case(geom, **kw)
+        for f in dataclasses.fields(a):
+            np.testing.assert_array_equal(getattr(a, f.name),
+                                          getattr(b, f.name), err_msg=f.name)
+
+
+def test_initial_state_matches_jax():
+    from icar_tpu.models.icar import ideal_ridge_model as jax_model
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+
+    kw = dict(nx=40, ny=12, nz=12, dx=1000.0, hill_height=900.0,
+              u_speed=12.0, rh=1.0)
+    mj = jax_model(**kw)
+    mt = ideal_ridge_model(**kw, device="cpu")
+    assert sorted(mj.state) == sorted(mt.state)
+    assert mj.advect_names == mt.advect_names
+    # w comes out of a cumulative sum, which the two libraries may order
+    # differently
+    for k in ("u", "v", "w", "potential_temperature", "water_vapor",
+              "pressure", "exner"):
+        np.testing.assert_allclose(mt.field(k), np.asarray(mj.field(k)),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    for k, v in mt.state.items():
+        assert v.dtype == torch.float32, k
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, icar_tpu_torch, icar_tpu_torch.models.icar, "
+            "icar_tpu_torch.ops.kernels, icar_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'icar_tpu' "
+            "or m.startswith('icar_tpu.')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
