@@ -3,12 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from icar_tpu_torch/csrc, checks each against its
-plain PyTorch version on the card at the main path's 500x500x20 shapes,
-runs the pinned golden ridge case (tests/golden/ideal_ridge_100.npz) on the
-card, then drives the main path -- ideal_ridge_model(...).advance() at
-500x500x20 -- and checks that it went through both kernels. Prints the
-kernel table as one JSON line, then, as the last line,
+Builds the CUDA kernels from icar_tpu_torch/csrc, then:
+1. checks K1 (upwind) and K2 (SB04) against their plain PyTorch versions on
+   the card at the ridge's 500x500x20 shapes;
+2. runs the pinned golden ridge case (tests/golden/ideal_ridge_100.npz);
+3. drives the upwind ridge -- ideal_ridge_model(...).advance() at
+   500x500x20 -- and checks that it went through K1 and K2 once per
+   substep;
+4. builds the MPDATA ridge (adv=ADV_MPDATA, order 2 with FCT) at
+   500x500x20, and checks K4 (MPDATA) at its shapes, at other orders on a
+   smaller random stack, and K3 (SB04 with the state's density) against
+   their plain versions;
+5. drives the MPDATA ridge and checks that it went through K3 and K4 once
+   per substep and through K1 and K2 not at all.
+Prints the kernel table (time, plain time, bound, launches) as one JSON
+line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing a result. Imports
 nothing of JAX or of the JAX package.
@@ -20,6 +29,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -30,6 +40,13 @@ RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 RIDGE_INTERVAL = 1200.0
 RIDGE_INTERVALS = 2
+# the same ridge with MPDATA advection (icar_tpu_torch.constants.ADV_MPDATA;
+# the defaults mpdata_order=2, flux_corrected_transport=True)
+ADV_MPDATA = 2
+MPDATA_RIDGE = dict(RIDGE, adv=ADV_MPDATA)
+# K4 at the other orders, on a random stack of this shape
+MPDATA_SMALL = (5, 20, 96, 128)
+MPDATA_VARIANTS = ((2, False), (3, True), (4, True))
 
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
@@ -60,8 +77,29 @@ ENSEMBLE_MEAN = {"potential_temperature": 1e-2, "water_vapor": 6e-6,
 # K1 against its plain version: a few float32 ulp (op order differs by
 # design, see csrc/advect_upwind.cu), the tolerance of tests/test_pallas.py
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
-# K2 against its plain version (same op order, no FMA contraction)
+# K2 and K3 against their plain version (same op order, no FMA contraction)
 K2_RTOL, K2_ATOL = 1e-5, 1e-8
+# K4 against its plain version: the winds are scaled in another order, as
+# in K1; the tolerance tests/test_pallas.py allows the TPU kernel
+K4_RTOL, K4_ATOL = 2e-5, 1e-6
+
+# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
+# its bytes (each input read once, each output written once) at the
+# memory's 3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever
+# is longer.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 adds, multiplies and divisions, counted from the kernels' sources
+# (abs, min, max, compares and selects not counted): K1 per interior cell
+# and species (upwind.cuh: six fluxes of 6, 9 for the divergence, 6 wind
+# scalings); K4 per corrective pass, per cell and species (mpdata.cu:
+# pseudo-velocities 141, FCT factors 43, per interior cell the corrective
+# update 50); SB04 (mp_simple.cu) per cell 15, per saturation sweep 18,
+# per level of each fall step 16 (the phase changes of the conversions are
+# not counted, so this bound errs low).
+UPWIND_OPS = 51
+MPDATA_PSEUDO_OPS, MPDATA_FCT_OPS, MPDATA_CORRECTIVE_OPS = 141, 43, 50
+SB04_CELL_OPS, SB04_SWEEP_OPS, SB04_FALL_OPS = 15, 18, 16
 
 
 def log(*args):
@@ -116,6 +154,70 @@ def assert_close(got, want, rtol, atol, what):
     return float(d.max())
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) of work that moves ``nbytes`` and does
+    ``ops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def advect_work(S, nz, ny, nx, order=1, use_fct=False):
+    """Bytes and operations of K1 (order 1) or K4 on an (S, nz, ny, nx)
+    stack: q in and out, five wind/metric fields, the floors."""
+    n = nz * ny * nx
+    nbytes = 4 * (2 * S * n + nz * ny * (nx - 1) + nz * (ny - 1) * nx
+                  + 3 * n + S)
+    interior = S * nz * (ny - 2) * (nx - 2)
+    per_pass = (S * n * (MPDATA_PSEUDO_OPS + (MPDATA_FCT_OPS if use_fct
+                                              else 0))
+                + interior * MPDATA_CORRECTIVE_OPS)
+    return nbytes, UPWIND_OPS * interior + (order - 1) * per_pass
+
+
+def sb04_work(mp_plain, theta, qv, qc, qr, qs, pressure, exner, dz, dt,
+              rho_operand):
+    """Bytes and operations of SB04 (K2, or K3 with ``rho_operand``) on
+    these inputs: the sweeps each cell needs and the fall steps of the
+    columns that hold rain or snow after the conversions."""
+    import torch
+    nz, ny, nx = theta.shape
+    n, plane = nz * ny * nx, ny * nx
+    nbytes = 4 * ((14 if rho_operand else 13) * n + 4 * plane)
+    t = theta * exner
+    *_, niter = mp_plain.saturation_sweeps(pressure, t, qv, qc)
+    c2r, c2s = mp_plain.formation_rates(dt)
+    _, _, _, qr2, qs2 = mp_plain.mp_conversions(pressure, t, qv, qc, qr, qs,
+                                                c2r, c2s)
+    ops = SB04_CELL_OPS * n + SB04_SWEEP_OPS * int(niter.sum())
+    for q, rate in ((qr2, mp_plain.RAIN_FALL_RATE),
+                    (qs2, mp_plain.SNOW_FALL_RATE)):
+        steps = torch.ceil(torch.amax(float(dt) / dz * rate, dim=0))
+        falls = (q != 0).any(dim=0)
+        ops += SB04_FALL_OPS * nz * int(steps[falls].sum())
+    return nbytes, ops
+
+
+def kernel_entry(name, replaces, err, ms, pms, work, launches=None):
+    bms, by = bound(*work)
+    log(f"  {name}: bound {bms:.4f} ms ({by}), kernel at "
+        f"{100 * bms / ms:.1f}% of it")
+    return {"name": name, "route": "cuda",
+            "source": f"icar_tpu_torch/csrc/{SOURCE[name]}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+# the kernels' sources and the TPU kernels they replace
+SOURCE = {"advect_upwind": "advect_upwind.cu", "mp_simple": "mp_simple.cu",
+          "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu"}
+REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
+            "mp_simple": "icar_tpu/ops/pallas_kernels.py:679",
+            "mp_simple_rho": "icar_tpu/ops/pallas_kernels.py:591",
+            "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783"}
+
+
 def check_kernels(model, kernels, step, adv_plain, mp_plain):
     """K1 and K2 against their plain versions on the model's state."""
     import torch
@@ -146,7 +248,8 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain):
     ms1, pms1 = cuda_ms(run_k1), cuda_ms(run_p1)
     log(f"K1 advect_upwind: max_abs_err {err1:.3e} (rtol {K1_RTOL}, atol "
         f"{K1_ATOL}); kernel {ms1:.4f} ms, plain {pms1:.4f} ms")
-    results.append(("advect_upwind", err1, ms1, pms1))
+    results.append(kernel_entry("advect_upwind", REPLACES["advect_upwind"],
+                                err1, ms1, pms1, advect_work(*stack.shape)))
 
     # --- K2 on copies (it updates in place)
     idx = [names.index(k) for k in step.MP_SPECIES]
@@ -186,7 +289,122 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain):
     ms2, pms2 = cuda_ms(run_k2, setup=reset), cuda_ms(run_p2)
     log(f"K2 mp_simple: max_abs_err {err2:.3e} (rtol {K2_RTOL}, atol "
         f"{K2_ATOL}); kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
-    results.append(("mp_simple", err2, ms2, pms2))
+    results.append(kernel_entry(
+        "mp_simple", REPLACES["mp_simple"], err2, ms2, pms2,
+        sb04_work(mp_plain, *(stack[i] for i in idx), p, ex, dz, dt,
+                  False)))
+    return results
+
+
+def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
+    """K4 (at the path's order 2 with FCT, and at other orders on a smaller
+    random stack) and K3 (with the state's density) against their plain
+    versions on the MPDATA model's state."""
+    import torch
+    s = model.state
+    g = model.geom_t
+    adv = model.options.adv
+    names = model.advect_names
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    out = torch.empty_like(stack)
+    results = []
+
+    # --- K4 at the path's shapes and options
+    order, fct = adv.mpdata_order, adv.flux_corrected_transport
+    run_k4 = lambda: kernels.advect_mpdata(stack, winds, dt, order, fct,
+                                           floors, True, out=out)
+    run_p4 = lambda: mpdata_plain.advect_mpdata(
+        stack, s["u"], s["v"], s["w"], dt, g.dx, g.jacobian_u, g.jacobian_v,
+        g.jacobian_w, g.jacobian, g.advection_dz, order=order, use_fct=fct,
+        floors=floors, near_end=True)
+    run_k4()
+    torch.cuda.synchronize()
+    err4 = assert_close(out, run_p4(), K4_RTOL, K4_ATOL,
+                        f"advect_mpdata kernel vs plain (order {order}, "
+                        f"fct {fct})")
+    ms4, pms4 = cuda_ms(run_k4), cuda_ms(run_p4)
+    log(f"K4 advect_mpdata: max_abs_err {err4:.3e} (rtol {K4_RTOL}, atol "
+        f"{K4_ATOL}); kernel {ms4:.4f} ms, plain {pms4:.4f} ms")
+
+    # --- K4 at the other orders on a random stack
+    r = np.random.default_rng(17)
+    S, nz, ny, nx = MPDATA_SMALL
+    dev = stack.device
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    q = f(r.uniform(0.1, 1.0, (S, nz, ny, nx)))
+    u, v = f(r.uniform(-6, 6, (nz, ny, nx + 1))), f(r.uniform(
+        -6, 6, (nz, ny + 1, nx)))
+    w, dz = f(r.uniform(-1, 1, (nz, ny, nx))), f(r.uniform(
+        200, 400, (nz, ny, nx)))
+    ju, jv = f(r.uniform(0.8, 1.2, (nz, ny, nx + 1))), f(r.uniform(
+        0.8, 1.2, (nz, ny + 1, nx)))
+    jw, jaco = f(r.uniform(0.8, 1.2, (nz, ny, nx))), f(r.uniform(
+        0.8, 1.2, (nz, ny, nx)))
+    small_floors = f([-np.inf, 0.0, 0.0, 0.0, 0.5])
+    small = kernels.prepare_advect_winds(u, v, w, SimpleNamespace(
+        dx=1000.0, jacobian_u=ju, jacobian_v=jv, jacobian_w=jw,
+        advection_dz=dz, jacobian=jaco))
+    for o, fc in MPDATA_VARIANTS:
+        got = kernels.advect_mpdata(q, small, np.float32(20.0), o, fc,
+                                    small_floors, True)
+        torch.cuda.synchronize()
+        want = mpdata_plain.advect_mpdata(
+            q, u, v, w, np.float32(20.0), 1000.0, ju, jv, jw, jaco, dz,
+            order=o, use_fct=fc, floors=small_floors, near_end=True)
+        err4 = max(err4, assert_close(
+            got, want, K4_RTOL, K4_ATOL,
+            f"advect_mpdata kernel vs plain (order {o}, fct {fc}, "
+            f"{MPDATA_SMALL} random stack)"))
+    results.append(kernel_entry(
+        "advect_mpdata", REPLACES["advect_mpdata"], err4, ms4, pms4,
+        advect_work(*stack.shape, order, fct)))
+
+    # --- K3 on copies (it updates in place), with the state's density
+    idx = [names.index(k) for k in step.MP_SPECIES]
+    p, ex, rho, dzm = s["pressure"], s["exner"], s["density"], g.dz_interface
+    c2r, c2s = mp_plain.formation_rates(dt)
+    work = torch.empty_like(stack)
+    rain = torch.empty_like(s["precipitation"])
+    snow = torch.empty_like(rain)
+
+    def reset():
+        work.copy_(stack)
+        rain.copy_(s["precipitation"])
+        snow.copy_(s["snowfall"])
+
+    def run_k3():
+        kernels.mp_simple_rho(*(work[i] for i in idx), p, ex, rho, dzm, rain,
+                              snow, dt, c2r, c2s)
+
+    def run_p3():
+        return mp_plain.mp_simple(p, stack[idx[0]], ex, rho,
+                                  *(stack[i] for i in idx[1:]),
+                                  s["precipitation"], s["snowfall"], dt, dzm,
+                                  c2r, c2s)
+
+    reset()
+    run_k3()
+    torch.cuda.synchronize()
+    want = run_p3()
+    err3 = 0.0
+    for name, got, ref in zip(
+            ("theta", "qv", "qc", "qr", "qs", "rain", "snow"),
+            [work[i] for i in idx] + [rain, snow], want):
+        err3 = max(err3, assert_close(got, ref, K2_RTOL, K2_ATOL,
+                                      f"mp_simple_rho kernel vs plain: "
+                                      f"{name}"))
+    ms3, pms3 = cuda_ms(run_k3, setup=reset), cuda_ms(run_p3)
+    log(f"K3 mp_simple_rho: max_abs_err {err3:.3e} (rtol {K2_RTOL}, atol "
+        f"{K2_ATOL}); kernel {ms3:.4f} ms, plain {pms3:.4f} ms")
+    results.append(kernel_entry(
+        "mp_simple_rho", REPLACES["mp_simple_rho"], err3, ms3, pms3,
+        sb04_work(mp_plain, *(stack[i] for i in idx), p, ex, dzm, dt,
+                  True)))
     return results
 
 
@@ -234,6 +452,45 @@ def check_golden(ideal_ridge_model):
     log(f"golden: {steps} substeps, all fields within tolerance")
 
 
+def drive(model, kernels, label, path, interval, intervals, smi):
+    """Advance ``model`` over ``intervals`` intervals with the launch
+    counts set to 0 just before; check the state and that each kernel of
+    ``path`` launched once per substep and the others not at all. Returns
+    the launch counts."""
+    import torch
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    steps = 0
+    t0 = time.perf_counter()
+    for _ in range(intervals):
+        model.advance(interval)
+        steps += model.last_n_substeps
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name, n in launches.items():
+        want = steps if name in path else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches for {steps} "
+                                 f"substeps on the {label} path, expected "
+                                 f"{want}")
+    for f in ("potential_temperature", "water_vapor", "cloud_water",
+              "rain_mass", "snow_mass", "precipitation", "u", "v", "w"):
+        if not torch.isfinite(model.state[f]).all():
+            raise AssertionError(f"{label} path: non-finite {f}")
+    qc_max = float(model.state["cloud_water"].max())
+    pr_max = float(model.state["precipitation"].max())
+    if not (qc_max > 0 and pr_max > 0):
+        raise AssertionError(f"{label} path: no cloud ({qc_max}) or no "
+                             f"precipitation ({pr_max})")
+    gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
+    rate = gp * steps / seconds
+    log(f"{label} path 500x500x20: {steps} substeps in {seconds:.3f} s = "
+        f"{rate / 1e6:.1f}M gp*steps/s on {smi}; qc max {qc_max:.3e}, "
+        f"precip max {pr_max:.3f} mm; launches {launches}")
+    return launches
+
+
 def main():
     smi = device_info()
     sys.path.insert(0, ROOT)
@@ -242,68 +499,60 @@ def main():
     from icar_tpu_torch.models.icar import ideal_ridge_model
     from icar_tpu_torch.ops import advection as adv_plain
     from icar_tpu_torch.ops import kernels
+    from icar_tpu_torch.ops import mpdata as mpdata_plain
     from icar_tpu_torch.physics import mp_simple as mp_plain
 
-    # 1. build the kernels from the checkout's sources
+    # 0. build the kernels from the checkout's sources
     t0 = time.perf_counter()
     kernels.library()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO['path']})")
     log(kernels.BUILD_INFO["log"].strip())
 
-    # 2. kernels against their plain versions on a real 500x500x20 state
+    # 1. K1 and K2 against their plain versions on a real 500x500x20 state
     t0 = time.perf_counter()
     warm = ideal_ridge_model(**RIDGE, device="cuda")
     warm.advance(RIDGE_INTERVAL)
     torch.cuda.synchronize()
     log(f"setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
-    checks = check_kernels(warm, kernels, step, adv_plain, mp_plain)
+    table = check_kernels(warm, kernels, step, adv_plain, mp_plain)
     del warm
 
-    # 3. the golden trajectory on the card
+    # 2. the golden trajectory on the card
     check_golden(ideal_ridge_model)
 
-    # 4. the main path at full width, counting kernel launches
+    # 3. the upwind ridge at full width, counting kernel launches
     model = ideal_ridge_model(**RIDGE, device="cuda")
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    steps = 0
-    t0 = time.perf_counter()
-    for _ in range(RIDGE_INTERVALS):
-        model.advance(RIDGE_INTERVAL)
-        steps += model.last_n_substeps
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    for name, n in launches.items():
-        if n != steps:
-            raise AssertionError(f"{name}: {n} launches for {steps} "
-                                 "substeps on the main path")
-    for f in ("potential_temperature", "water_vapor", "cloud_water",
-              "rain_mass", "snow_mass", "precipitation", "u", "v", "w"):
-        if not torch.isfinite(model.state[f]).all():
-            raise AssertionError(f"main path: non-finite {f}")
-    qc_max = float(model.state["cloud_water"].max())
-    pr_max = float(model.state["precipitation"].max())
-    if not (qc_max > 0 and pr_max > 0):
-        raise AssertionError(f"main path: no cloud ({qc_max}) or no "
-                             f"precipitation ({pr_max})")
-    gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
-    rate = gp * steps / seconds
-    log(f"main path 500x500x20: {steps} substeps in {seconds:.3f} s = "
-        f"{rate / 1e6:.1f}M gp*steps/s on {smi}; qc max {qc_max:.3e}, "
-        f"precip max {pr_max:.3f} mm")
+    launches = drive(model, kernels, "upwind", ("advect_upwind",
+                                                "mp_simple"),
+                     RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+    del model
 
-    table = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"icar_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for (name, err, ms, pms), replaces in zip(
-            checks, ("icar_tpu/ops/pallas_kernels.py:167",
-                     "icar_tpu/ops/pallas_kernels.py:679"))]}
-    print(json.dumps(table))
+    # 4. K4 and K3 against their plain versions on a real MPDATA state
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**MPDATA_RIDGE, device="cuda")
+    warm.advance(RIDGE_INTERVAL)
+    torch.cuda.synchronize()
+    log(f"MPDATA setup + first interval at 500x500x20: "
+        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
+    table += check_mpdata_kernels(warm, kernels, step, mpdata_plain,
+                                  mp_plain)
+    del warm
+
+    # 5. the MPDATA ridge at full width, counting kernel launches
+    model = ideal_ridge_model(**MPDATA_RIDGE, device="cuda")
+    mpdata_launches = drive(model, kernels, "MPDATA",
+                            ("mp_simple_rho", "advect_mpdata"),
+                            RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+    for entry in table:
+        name = entry["name"]
+        entry["launches"] = (mpdata_launches[name]
+                             if name in ("mp_simple_rho", "advect_mpdata")
+                             else launches[name])
+
+    print(json.dumps({"kernels": table}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -49,14 +49,31 @@ def compute_ivt(qv, u_mass, v_mass, p_i):
     return compute_iq(qv * speed, p_i)
 
 
-def diagnostic_update(state, geom, full: bool = True):
+# the partial refreshes the substep loop may ask for (``needs``)
+PARTIAL_FIELDS = frozenset(("density",))
+
+
+def diagnostic_update(state, geom, full: bool = True, needs=None):
     """Refresh derived fields (diagnostic_update, time_step.f90:49-198).
 
     ``full=False`` computes only the fields physics consumes; ``full=True``
     adds the output diagnostics (integrated moisture, 10 m winds, w_real).
-    ``geom`` holds torch tensors (``convert.geometry_to_torch``). Returns a
-    new dict."""
+    ``needs``, a subset of ``PARTIAL_FIELDS``, refreshes only those fields
+    from the state's exner (the general loop's per-substep refresh: density
+    is the one derived field the ported physics reads that changes within
+    an interval). ``geom`` holds torch tensors
+    (``convert.geometry_to_torch``). Returns a new dict."""
     s = dict(state)
+    if needs is not None:
+        unknown = set(needs) - PARTIAL_FIELDS
+        if unknown:
+            raise NotImplementedError(
+                f"partial refresh of {sorted(unknown)} is not ported yet: "
+                "Slice C (full physics column) in ROADMAP.md")
+        if "density" in needs:
+            temperature = s["potential_temperature"] * s["exner"]
+            s["density"] = s["pressure"] / (C.RD * temperature)
+        return s
     p = s["pressure"]
     theta = s["potential_temperature"]
     u, v, w = s["u"], s["v"], s["w"]

@@ -1,6 +1,7 @@
-"""One forcing interval of the ridge configuration: SB04 microphysics then
-upwind advection, substep by substep (icar_tpu/core/step.py, which runs it
-as ``fast_step`` on the TPU and as the general path elsewhere).
+"""One forcing interval of the ridge configurations: SB04 microphysics then
+upwind or MPDATA advection, substep by substep (icar_tpu/core/step.py,
+which runs the upwind case as ``fast_step`` on the TPU and the MPDATA case
+as its general loop ``step``).
 
 The substep loop runs on the host. Per interval: the partial diagnostics,
 one CFL dt quantized to 1/64 s (read to the host once), the five advected
@@ -8,9 +9,14 @@ species stacked in their natural (S, nz, ny, nx) layout, and the
 loop-invariant advection winds. Per substep: the microphysics kernel
 updates the stack in place, the advection kernel writes into a second
 buffer (the two swap), and, when forcing tendencies are set, the boundary
-ring relaxes towards them before the near-end floor clamp. Time is carried
-in float32 as the JAX loop carries it, so the substep lengths and the
-clamp's timing match. On CPU tensors the kernels' plain versions run.
+ring relaxes towards them before the near-end floor clamp. With upwind
+advection (the fast path) SB04 forms the density in its kernel (K2) and
+the surface precipitation of the interval is added to the state at its
+end; with MPDATA (the general loop) the state's density is refreshed each
+substep and handed to SB04 (K3), which accumulates precipitation in the
+state substep by substep, and MPDATA (K4) advects the stack. Time is
+carried in float32 as the JAX loop carries it, so the substep lengths and
+the clamp's timing match. On CPU tensors the kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ LIMITED_FIELDS = (
     "graupel_mass", "cloud_number", "ice_number", "rain_number",
     "snow_number", "graupel_number",
 )
+
+# the derived fields the general loop refreshes every substep: SB04 reads
+# the density, which follows theta (icar_tpu/core/step.py _substep_needs
+# for this configuration)
+SUBSTEP_NEEDS = frozenset(("density",))
 
 # the species SB04 updates, in the kernel's argument order
 MP_SPECIES = ("potential_temperature", "water_vapor", "cloud_water",
@@ -79,6 +90,8 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
             f"{MP_SPECIES} is ported (ROADMAP Slice B adds more)")
     dqdt = dqdt or {}
     device = state["pressure"].device
+    mpdata = options.physics.advection == C.ADV_MPDATA
+    adv = options.adv
 
     state = diagnostic_update(state, geom, full=False)
     dt_static = quantized_dt(state["u"], state["v"], state["w"],
@@ -105,9 +118,14 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
         floor_b = floors[:, None, None, None]
         no_floor = torch.full_like(floor_b, -np.inf)
 
-    rain = torch.zeros((geom.ny, geom.nx), dtype=torch.float32,
-                       device=device)
-    snow = torch.zeros_like(rain)
+    if mpdata:
+        # the general loop accumulates in the state, substep by substep
+        rain = state["precipitation"].clone()
+        snow = state["snowfall"].clone()
+    else:
+        rain = torch.zeros((geom.ny, geom.nx), dtype=torch.float32,
+                           device=device)
+        snow = torch.zeros_like(rain)
     t = np.float32(0.0)
     end_time = np.float32(seconds)
     n = 0
@@ -116,11 +134,21 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
         near_end = bool((end_time - t) < dt * np.float32(2))
         c2r, c2s = formation_rates(dt)
         th, qv, qc, qr, qs = (stack[i] for i in species)
-        kernels.mp_simple(th, qv, qc, qr, qs, pressure, exner, dz_mp, rain,
-                          snow, dt, c2r, c2s)
         # the near-end clamp folds into advection unless forcing follows
-        kernels.advect_upwind(stack, winds, dt, floors,
-                              near_end and tend is None, out=spare)
+        clamp = near_end and tend is None
+        if mpdata:
+            state["potential_temperature"] = th
+            state = diagnostic_update(state, geom, needs=SUBSTEP_NEEDS)
+            kernels.mp_simple_rho(th, qv, qc, qr, qs, pressure, exner,
+                                  state["density"], dz_mp, rain, snow, dt,
+                                  c2r, c2s)
+            kernels.advect_mpdata(stack, winds, dt, adv.mpdata_order,
+                                  adv.flux_corrected_transport, floors,
+                                  clamp, out=spare)
+        else:
+            kernels.mp_simple(th, qv, qc, qr, qs, pressure, exner, dz_mp,
+                              rain, snow, dt, c2r, c2s)
+            kernels.advect_upwind(stack, winds, dt, floors, clamp, out=spare)
         stack, spare = spare, stack
         if tend is not None:
             # boundary-ring relaxation of the advected species (apply_
@@ -133,7 +161,11 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     state = dict(state)
     for i, k in enumerate(adv_names):
         state[k] = stack[i]
-    state["precipitation"] = state["precipitation"] + rain
-    state["snowfall"] = state["snowfall"] + snow
+    if mpdata:
+        state["precipitation"] = rain
+        state["snowfall"] = snow
+    else:
+        state["precipitation"] = state["precipitation"] + rain
+        state["snowfall"] = state["snowfall"] + snow
     state = diagnostic_update(state, geom, full=True)
     return state, n

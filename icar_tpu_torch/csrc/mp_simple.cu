@@ -1,22 +1,25 @@
-// SB04 "simple" microphysics, one column per thread: kernel K2.
+// SB04 "simple" microphysics, one column per thread: kernels K2 and K3.
 //
 // Replaces the Pallas TPU kernels icar_tpu/ops/pallas_kernels.py:679
-// (_mp_padded_kernel, on the padded species stack) and :591
-// (_mp_simple_kernel, on flat fields); both run _mp_tile (:511). Same
-// scheme as physics/mp_simple.py (mp_simple.f90:595-646): density
-// p/(Rd*theta*exner); saturation adjustment (at most 15 sweeps, each cell
-// until its own vapour change is below MAXERR, non-converged cells revert);
-// cloud->rain/snow, melting, rain evaporation, snow sublimation; then two
-// CFL-substepped upstream fall loops (rain, snow) with evaporation between
-// substeps; the surface outflow adds to the rain/snow accumulators.
+// (_mp_padded_kernel, K2, on the padded species stack; density computed in
+// the kernel) and :591 (_mp_simple_kernel, K3, on flat fields; density an
+// operand); both run _mp_tile (:511). One templated kernel serves both:
+// K2 (icar_mp_simple) forms the density p/(Rd*theta*exner) from the entry
+// state as the diagnostics do, K3 (icar_mp_simple_rho) reads it from its
+// rho operand, whatever that holds. Same scheme as physics/mp_simple.py
+// (mp_simple.f90:595-646): saturation adjustment (at most 15 sweeps, each
+// cell until its own vapour change is below MAXERR, non-converged cells
+// revert); cloud->rain/snow, melting, rain evaporation, snow sublimation;
+// then two CFL-substepped upstream fall loops (rain, snow) with evaporation
+// between substeps; the surface outflow adds to the rain/snow accumulators.
 //
 // What bounds it on an H100: latency and registers, not bytes. It reads
-// ten and writes seven values per cell, but does tens of sweeps of
-// transcendental math per cell, with data-dependent loop counts per cell
-// and per column. The design keeps one column per thread in registers and
-// local memory (at most MAX_NZ levels), so every sweep and fall step runs
-// out of registers/L1 and nothing between the entry load and the final
-// store touches device memory. The scheme is column-local, so the species
+// ten (K3: eleven) and writes seven values per cell, but does tens of
+// sweeps of transcendental math per cell, with data-dependent loop counts
+// per cell and per column. The design keeps one column per thread in
+// registers and local memory (at most MAX_NZ levels), so every sweep and
+// fall step runs out of registers/L1 and nothing between the entry load and
+// the final store touches device memory. The scheme is column-local, so the species
 // are updated in place: no thread reads another thread's column. The five
 // species arrive as separate pointers, so the same kernel serves a species
 // stack (views of one tensor) and separate fields.
@@ -146,6 +149,8 @@ __device__ float sediment(float* q, float* qv, float* t, const float* p,
   return precip;
 }
 
+// kRhoOperand: read the density from rho_g (K3), else form it (K2)
+template <bool kRhoOperand>
 __global__ void mp_simple_kernel(float* __restrict__ th,
                                  float* __restrict__ qv_g,
                                  float* __restrict__ qc_g,
@@ -154,6 +159,7 @@ __global__ void mp_simple_kernel(float* __restrict__ th,
                                  const float* __restrict__ p_g,
                                  const float* __restrict__ exner_g,
                                  const float* __restrict__ dz_g,
+                                 const float* __restrict__ rho_g,
                                  float* __restrict__ rain,
                                  float* __restrict__ snow, int nz, long ncol,
                                  float dt, float cloud2rain,
@@ -168,8 +174,9 @@ __global__ void mp_simple_kernel(float* __restrict__ th,
     const long c = (long)k * ncol + col;
     const float pk = p_g[c];
     float tk = th[c] * exner_g[c];
-    // density p/(Rd*T) from the entry temperature, as the diagnostics do
-    rho[k] = pk / (RD * tk);
+    // density: the operand, or p/(Rd*T) from the entry temperature, as
+    // the diagnostics compute it
+    rho[k] = kRhoOperand ? rho_g[c] : pk / (RD * tk);
     p[k] = pk;
     dz[k] = dz_g[c];
     float qvk = qv_g[c];
@@ -258,20 +265,46 @@ __global__ void mp_simple_kernel(float* __restrict__ th,
   snow[col] = snow[col] + sed_s;
 }
 
+template <bool kRhoOperand>
+int launch_mp_simple(float* th, float* qv, float* qc, float* qr, float* qs,
+                     const float* p, const float* exner, const float* dz,
+                     const float* rho, float* rain, float* snow, int nz,
+                     long ncol, float dt, float cloud2rain, float cloud2snow,
+                     void* stream) {
+  if (nz < 1 || nz > MAX_NZ) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((ncol + threads - 1) / threads);
+  mp_simple_kernel<kRhoOperand>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          th, qv, qc, qr, qs, p, exner, dz, rho, rain, snow, nz, ncol, dt,
+          cloud2rain, cloud2snow);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int icar_mp_simple_max_nz() { return MAX_NZ; }
 
+// K2: density from the entry state
 extern "C" int icar_mp_simple(float* th, float* qv, float* qc, float* qr,
                               float* qs, const float* p, const float* exner,
                               const float* dz, float* rain, float* snow,
                               int nz, long ncol, float dt, float cloud2rain,
                               float cloud2snow, void* stream) {
-  if (nz < 1 || nz > MAX_NZ) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((ncol + threads - 1) / threads);
-  mp_simple_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      th, qv, qc, qr, qs, p, exner, dz, rain, snow, nz, ncol, dt, cloud2rain,
-      cloud2snow);
-  return (int)cudaGetLastError();
+  return launch_mp_simple<false>(th, qv, qc, qr, qs, p, exner, dz, nullptr,
+                                 rain, snow, nz, ncol, dt, cloud2rain,
+                                 cloud2snow, stream);
+}
+
+// K3: density as an operand
+extern "C" int icar_mp_simple_rho(float* th, float* qv, float* qc, float* qr,
+                                  float* qs, const float* p,
+                                  const float* exner, const float* rho,
+                                  const float* dz, float* rain, float* snow,
+                                  int nz, long ncol, float dt,
+                                  float cloud2rain, float cloud2snow,
+                                  void* stream) {
+  return launch_mp_simple<true>(th, qv, qc, qr, qs, p, exner, dz, rho, rain,
+                                snow, nz, ncol, dt, cloud2rain, cloud2snow,
+                                stream);
 }

@@ -1,10 +1,12 @@
 """The model assembly: geometry + state + the interval loop
 (icar_tpu/models/icar.py).
 
-``ICARModel`` runs on the torch device it is given; it never picks one.
-Only the ideal-ridge main path is ported: SB04 microphysics, upwind
-advection and balance-only winds, with no other physics. Any other option
-raises ``NotImplementedError`` naming the ROADMAP slice that ports it.
+``ICARModel`` runs on the torch device it is given, the card ("cuda") by
+default; it never falls back to another. The ported configurations are the
+ideal ridge with SB04 microphysics, upwind or MPDATA advection (any order,
+with or without FCT) and balance-only winds, with no other physics. Any
+other option raises ``NotImplementedError`` naming the ROADMAP slice that
+ports it.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def _unported(options: Options):
     checks = (
         (ph.microphysics == C.MP_SIMPLE, f"microphysics={ph.microphysics}",
          "Slice B (Thompson) and Slice F (the other schemes)"),
-        (ph.advection == C.ADV_UPWIND, f"advection={ph.advection}",
-         "Slice B (MPDATA)"),
+        (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
+         f"advection={ph.advection}", "Slice B (advection options)"),
         (ph.windtype == C.WIND_NONE, f"wind={ph.windtype}",
          "Slice C (wind=2/3) and Slice D (linear winds)"),
         (ph.radiation == C.RA_NONE, f"radiation={ph.radiation}",
@@ -60,13 +62,17 @@ class ICARModel:
     """An ICAR model instance on one torch device."""
 
     def __init__(self, options: Options, terrain: np.ndarray,
-                 lat: np.ndarray, lon: np.ndarray, *, device):
+                 lat: np.ndarray, lon: np.ndarray, *, device="cuda"):
         why = _unported(options)
         if why is not None:
             raise NotImplementedError(why)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ICARModel: no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
         options.domain.ny, options.domain.nx = terrain.shape
         self.options = options.validate()
-        self.device = torch.device(device)
+        self.device = device
         self.geom = build_geometry(terrain, lat, lon, options)
         self.geom_t = geometry_to_torch(self.geom, self.device)
         self.state = create_state(options, self.device)
@@ -151,10 +157,11 @@ def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,
                       dz_levels=None, rad=C.RA_NONE, pbl=C.PBL_NONE,
                       lsm=C.LSM_NONE, water=C.WATER_NONE,
                       adv=C.ADV_UPWIND, conv=C.CU_NONE,
-                      options_cb=None, *, device) -> ICARModel:
+                      options_cb=None, *, device="cuda") -> ICARModel:
     """The standard ideal-ridge case (tests/gen_ideal_test.py semantics),
-    with the JAX package's defaults, on ``device``. ``options_cb(options)``
-    can adjust scheme sub-options before the model is built."""
+    with the JAX package's defaults, on ``device`` (the card by default).
+    ``options_cb(options)`` can adjust scheme sub-options before the model
+    is built."""
     from ..forcing.ideal import (ideal_latlon, make_ideal_case,
                                  schaer_topography)
 

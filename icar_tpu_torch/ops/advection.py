@@ -6,7 +6,9 @@ Same operation order as the JAX package's jnp path (winds scaled as
 (``csrc/advect_upwind.cu``) computes the same update from the metric winds
 ``u * J_u / dx`` times dt, so the two agree to a few float32 ulp. Fields
 are (z, y, x); a stacked (nq, nz, ny, nx) species array advects in one
-call. Density advection is not ported (ROADMAP Slice B).
+call, with (nz, ...) winds or per-species (nq, nz, ...) winds (MPDATA's
+corrective passes, ``mpdata.py``). Density advection is not ported
+(ROADMAP Slice B).
 """
 
 from __future__ import annotations
@@ -53,8 +55,11 @@ def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
     fy = _upwind_flux(q[..., :-1, :], q[..., 1:, :], V_m)
     ydiv = fy[..., 1:, 1:-1] - fy[..., :-1, 1:-1]
 
-    # vertical faces between layers k and k+1 (W_m[k] = flux at top of k)
-    fz = _upwind_flux(q[..., :-1, :, :], q[..., 1:, :, :], W_m[:-1])
+    # vertical faces between layers k and k+1 (W_m[k] = flux at top of k);
+    # the winds index batch-generically too (MPDATA's corrective pass
+    # passes per-species 4D pseudo-velocities)
+    fz = _upwind_flux(q[..., :-1, :, :], q[..., 1:, :, :],
+                      W_m[..., :-1, :, :])
 
     qi = q[..., 1:-1, 1:-1]
     jacoi = jaco[:, 1:-1, 1:-1]
@@ -67,7 +72,7 @@ def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
     vert_in = torch.cat([
         fzi[..., :1, :, :],
         fzi[..., 1:, :, :] - fzi[..., :-1, :, :],
-        (qi[..., -1:, :, :] * W_m[-1:, 1:-1, 1:-1]) - fzi[..., -1:, :, :]],
+        (qi[..., -1:, :, :] * W_m[..., -1:, 1:-1, 1:-1]) - fzi[..., -1:, :, :]],
         dim=-3)
     dq = dq + vert_in / (dzi * jacoi)
 

@@ -2,10 +2,11 @@
 counts (the counterpart of icar_tpu/ops/pallas_kernels.py).
 
 The kernels live in ``icar_tpu_torch/csrc/*.cu``, are compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, and are
-called through ``ctypes`` on PyTorch's current CUDA stream. The library is
-built at the first launch (never at import) into ``icar_tpu_torch/_build/``
-and rebuilt when the sources change.
+for ``sm_90a`` (one process per source, all started together) and linked
+into one shared library with a plain C interface, called through
+``ctypes`` on PyTorch's current CUDA stream. The library is built at the
+first launch (never at import) into ``icar_tpu_torch/_build/`` and rebuilt
+when the sources change.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU, and
 launches its kernel for a CUDA tensor; there is no fallback from one to the
@@ -28,19 +29,22 @@ import torch
 from .. import constants as C
 from ..physics import mp_simple as mp_plain
 from . import advection as adv_plain
+from . import mpdata as mpdata_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("advect_upwind.cu", "mp_simple.cu")
+SOURCES = ("advect_upwind.cu", "mp_simple.cu", "mpdata.cu")
+HEADERS = ("upwind.cuh",)
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain version step by step (the ridge trajectory branches on one-ulp
 # differences, see PERF.md); no --use_fast_math, so expf stays accurate
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches since the last reset; only the kernel branch counts
-LAUNCHES = {"advect_upwind": 0, "mp_simple": 0}
+# calls that launched a kernel since the last reset (K4's call is one
+# sequence of launches); only the kernel branch counts
+LAUNCHES = {"advect_upwind": 0, "mp_simple": 0, "mp_simple_rho": 0,
+            "advect_mpdata": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -67,26 +71,43 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/`` unless a library built from
     the same sources and flags is already there; returns its path and
-    records the build time and compiler log in ``BUILD_INFO``."""
+    records the build time and compiler log in ``BUILD_INFO``. Each source
+    compiles in its own nvcc process, all at once, then one link."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     lib = BUILD_DIR / f"libicar_kernels_{h.hexdigest()[:16]}.so"
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True, log="")
         return lib
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / n) for n in SOURCES)]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(n).stem}.{tag}.o" for n in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / n), "-o",
+                               str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for n, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(n, p.returncode, log) for n, p, log
+              in zip(SOURCES, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{n} ({rc}):\n{log}" for n, rc, log in failed))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(o) for o in objs)],
+                         capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    for o in objs:
+        o.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False,
-                      log=res.stdout + res.stderr)
+                      log="".join(logs) + res.stdout + res.stderr)
     return lib
 
 
@@ -103,6 +124,12 @@ def library() -> ctypes.CDLL:
         lib.icar_mp_simple.argtypes = [P, P, P, P, P, P, P, P, P, P, I, L,
                                        F, F, F, P]
         lib.icar_mp_simple.restype = I
+        lib.icar_mp_simple_rho.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
+                                           I, L, F, F, F, P]
+        lib.icar_mp_simple_rho.restype = I
+        lib.icar_advect_mpdata.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
+                                           P, P, I, I, I, I, F, I, I, I, P]
+        lib.icar_advect_mpdata.restype = I
         lib.icar_mp_simple_max_nz.argtypes = []
         lib.icar_mp_simple_max_nz.restype = I
         _LIB = lib
@@ -217,34 +244,133 @@ def mp_simple(theta, qv, qc, qr, qs, pressure, exner, dz, rain, snow, dt,
     and adds the surface precipitation of this call to the (ny, nx)
     ``rain``/``snow`` accumulators. Density is p/(Rd*theta*exner) from the
     entry state; ``dz`` is the mass-level thickness (dz_interface)."""
-    nz, ny, nx = theta.shape
     if theta.device.type == "cpu":
         rho = pressure / (C.RD * (theta * exner))
-        out = mp_plain.mp_simple(pressure, theta, exner, rho, qv, qc, qr,
-                                 qs, rain, snow, dt, dz, cloud2rain,
-                                 cloud2snow)
-        for dst, src in zip((theta, qv, qc, qr, qs, rain, snow), out):
-            dst.copy_(src)
+        _mp_plain(theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
+                  snow, dt, cloud2rain, cloud2snow)
         return
+    _mp_kernel("mp_simple", theta, qv, qc, qr, qs, pressure, exner, None,
+               dz, rain, snow, dt, cloud2rain, cloud2snow)
+
+
+# ---------------------------------------------------------------------------
+# K3: SB04 microphysics with the density as an operand
+# ---------------------------------------------------------------------------
+
+def mp_simple_rho(theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
+                  snow, dt, cloud2rain, cloud2snow):
+    """``mp_simple`` with the density ``rho`` (nz, ny, nx) given, as the
+    general interval loop passes the state's density: the scheme reads
+    whatever ``rho`` holds."""
+    if theta.device.type == "cpu":
+        _mp_plain(theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
+                  snow, dt, cloud2rain, cloud2snow)
+        return
+    _mp_kernel("mp_simple_rho", theta, qv, qc, qr, qs, pressure, exner, rho,
+               dz, rain, snow, dt, cloud2rain, cloud2snow)
+
+
+def _mp_plain(theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain, snow,
+              dt, cloud2rain, cloud2snow):
+    out = mp_plain.mp_simple(pressure, theta, exner, rho, qv, qc, qr, qs,
+                             rain, snow, dt, dz, cloud2rain, cloud2snow)
+    for dst, src in zip((theta, qv, qc, qr, qs, rain, snow), out):
+        dst.copy_(src)
+
+
+def _mp_kernel(name, theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
+               snow, dt, cloud2rain, cloud2snow):
+    """Launch K2 (``rho`` None) or K3 on CUDA tensors."""
+    nz, ny, nx = theta.shape
     if theta.device.type != "cuda":
-        raise ValueError(f"mp_simple: unsupported device {theta.device}")
+        raise ValueError(f"{name}: unsupported device {theta.device}")
     dev = theta.device
     lib = library()
     if nz > lib.icar_mp_simple_max_nz():
-        raise ValueError(f"mp_simple: nz={nz} exceeds the kernel's "
+        raise ValueError(f"{name}: nz={nz} exceeds the kernel's "
                          f"maximum {lib.icar_mp_simple_max_nz()}")
-    for name, t in (("theta", theta), ("qv", qv), ("qc", qc), ("qr", qr),
-                    ("qs", qs), ("pressure", pressure), ("exner", exner),
-                    ("dz", dz)):
-        _check(t, name, (nz, ny, nx), dev)
+    fields = [("theta", theta), ("qv", qv), ("qc", qc), ("qr", qr),
+              ("qs", qs), ("pressure", pressure), ("exner", exner),
+              ("dz", dz)]
+    if rho is not None:
+        fields.append(("rho", rho))
+    for fname, t in fields:
+        _check(t, fname, (nz, ny, nx), dev)
     _check(rain, "rain", (ny, nx), dev)
     _check(snow, "snow", (ny, nx), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.icar_mp_simple(
-        theta.data_ptr(), qv.data_ptr(), qc.data_ptr(), qr.data_ptr(),
-        qs.data_ptr(), pressure.data_ptr(), exner.data_ptr(), dz.data_ptr(),
-        rain.data_ptr(), snow.data_ptr(), nz, ny * nx, float(dt),
-        float(cloud2rain), float(cloud2snow), stream)
-    _raise_on(err, "mp_simple")
-    LAUNCHES["mp_simple"] += 1
+    species = (theta.data_ptr(), qv.data_ptr(), qc.data_ptr(), qr.data_ptr(),
+               qs.data_ptr(), pressure.data_ptr(), exner.data_ptr())
+    rest = (rain.data_ptr(), snow.data_ptr(), nz, ny * nx, float(dt),
+            float(cloud2rain), float(cloud2snow), stream)
+    if rho is None:
+        err = lib.icar_mp_simple(*species, dz.data_ptr(), *rest)
+    else:
+        err = lib.icar_mp_simple_rho(*species, rho.data_ptr(), dz.data_ptr(),
+                                     *rest)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
 
+
+# ---------------------------------------------------------------------------
+# K4: MPDATA advection
+# ---------------------------------------------------------------------------
+
+def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
+                  floors, near_end: bool, out=None):
+    """MPDATA update (``order`` >= 1 passes, optional FCT) of the species
+    stack ``q`` (S, nz, ny, nx) for one substep of length ``dt`` into
+    ``out`` (allocated when None; must not alias ``q``). ``floors`` (S,)
+    float32 tensor: with ``near_end`` each species is clamped to its
+    floor. The kernel's workspace (intermediate solutions, pseudo-
+    velocities, FCT factors) is allocated here. Returns ``out``."""
+    S, nz, ny, nx = q.shape
+    order = int(order)
+    if q.device.type == "cpu":
+        res = mpdata_plain.advect_mpdata(
+            q, winds.u, winds.v, winds.w, dt, winds.dx, winds.jaco_u,
+            winds.jaco_v, winds.jaco_w, winds.jaco, winds.dz, order=order,
+            use_fct=use_fct, floors=floors, near_end=near_end)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"advect_mpdata: unsupported device {q.device}")
+    if order < 1:
+        raise ValueError(f"advect_mpdata: order must be >= 1, got {order}")
+    if nz < 2 or ny < 3 or nx < 3:
+        raise ValueError(f"advect_mpdata: needs nz >= 2, ny >= 3, nx >= 3, "
+                         f"got {(nz, ny, nx)}")
+    dev = q.device
+    _check(q, "q", (S, nz, ny, nx), dev)
+    _check(winds.uj, "uj", (nz, ny, nx - 1), dev)
+    _check(winds.vj, "vj", (nz, ny - 1, nx), dev)
+    for name in ("wj", "dz", "jaco"):
+        _check(getattr(winds, name), name, (nz, ny, nx), dev)
+    _check(floors, "floors", (S,), dev)
+    if out is None:
+        out = torch.empty_like(q)
+    _check(out, "out", (S, nz, ny, nx), dev)
+    if out.data_ptr() == q.data_ptr():
+        raise ValueError("advect_mpdata: out must not alias q")
+    corrective = order >= 2
+    # the workspace is freed on return while the launches may still run:
+    # the caching allocator hands it out again only to later work on the
+    # same stream, which runs after them
+    empty = lambda *shape: torch.empty(shape, dtype=q.dtype, device=dev)
+    scratch = empty(min(order - 1, 2), S, nz, ny, nx)
+    u2 = empty(S, nz, ny, nx - 1) if corrective else empty(0)
+    v2 = empty(S, nz, ny - 1, nx) if corrective else empty(0)
+    w2 = empty(S, nz, ny, nx) if corrective else empty(0)
+    beta = empty(6, S, nz, ny, nx) if corrective and use_fct else empty(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().icar_advect_mpdata(
+        q.data_ptr(), out.data_ptr(), scratch.data_ptr(), u2.data_ptr(),
+        v2.data_ptr(), w2.data_ptr(), beta.data_ptr(), winds.uj.data_ptr(),
+        winds.vj.data_ptr(), winds.wj.data_ptr(), winds.dz.data_ptr(),
+        winds.jaco.data_ptr(), floors.data_ptr(), S, nz, ny, nx, float(dt),
+        order, int(bool(use_fct)), int(bool(near_end)), stream)
+    _raise_on(err, "advect_mpdata")
+    LAUNCHES["advect_mpdata"] += 1
+    return out

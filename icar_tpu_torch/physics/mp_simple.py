@@ -53,14 +53,11 @@ def sat_mr(temperature, pressure):
     return 0.6219907 * e_s / (pressure - e_s)
 
 
-def cloud_conversion(pressure, temperature, qv, qc):
-    """Saturation adjustment with latent heating (cloud_conversion,
-    mp_simple.f90:198-280). Returns (temperature, qv, qc, qvsat).
-
-    Each cell iterates until its own vapour change is below MAXERR, at
-    most N_SAT_ITERS times; a cell still active in the last sweep reverts
-    to its entry state (mp_simple.f90:248-255)."""
-    pre_t, pre_qc = temperature, qc
+def saturation_sweeps(pressure, temperature, qv, qc):
+    """The sweeps of the saturation adjustment (cloud_conversion,
+    mp_simple.f90:198-280): each cell iterates until its own vapour change
+    is below MAXERR, at most N_SAT_ITERS times. Returns (temperature, qv,
+    qc, qvsat, niter), niter the sweeps each cell took."""
     vapor2temp = (LH_VAPOR + (373.15 - temperature) * DLHVDT) / HEAT_CAPACITY
     t = temperature
     qvsat = torch.zeros_like(qv)
@@ -98,7 +95,18 @@ def cloud_conversion(pressure, temperature, qv, qc):
         qv = torch.where(active, qv_new, qv)
         qc = torch.where(active, qc_new, qc)
         niter = niter + active.to(torch.int32)
+    return t, qv, qc, qvsat, niter
 
+
+def cloud_conversion(pressure, temperature, qv, qc):
+    """Saturation adjustment with latent heating (cloud_conversion,
+    mp_simple.f90:198-280). Returns (temperature, qv, qc, qvsat).
+
+    A cell still active in the last of its ``saturation_sweeps`` reverts
+    to its entry state (mp_simple.f90:248-255)."""
+    pre_t, pre_qc = temperature, qc
+    t, qv, qc, qvsat, niter = saturation_sweeps(pressure, temperature, qv,
+                                                qc)
     failed = niter >= N_SAT_ITERS
     t = torch.where(failed, pre_t, t)
     qv = torch.where(failed, sat_mr(pre_t, pressure), qv)

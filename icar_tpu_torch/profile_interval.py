@@ -1,0 +1,88 @@
+"""Where the device time of one forcing interval goes: the ideal ridge
+(SB04 with upwind or MPDATA advection) under torch.profiler.
+
+    python -m icar_tpu_torch.profile_interval [--adv upwind|mpdata]
+        [--nx 500] [--ny 500] [--nz 20] [--interval 1200] [--device cuda]
+
+Builds the model (the bench's ridge, 500x500x20 by default), advances one
+interval to warm up (the kernel build and first launches), then profiles
+one more interval and prints each device activity (kernels, copies,
+memsets) with its total time and count, then one JSON line: the wall time
+of the profiled interval, the summed device time, the device's idle share
+(1 - device time / wall, on one stream) and the card's name. The wall time
+includes the profiler's own cost. With ``--device cpu`` there is no device
+time and the idle share is null.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from . import constants as C
+from .models.icar import ideal_ridge_model
+
+# bench.py's ridge case apart from its size (chip_smoke.py RIDGE)
+RIDGE = dict(dx=1000.0, hill_height=1000.0, u_speed=10.0, rh=0.95,
+             flat_z_height=-5)
+ADVECTION = {"upwind": C.ADV_UPWIND, "mpdata": C.ADV_MPDATA}
+
+
+def device_times(prof):
+    """{name: [device microseconds, count]} of the profile's device-side
+    events, longest first."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = out.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us()
+            t[1] += 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--adv", choices=sorted(ADVECTION), default="mpdata")
+    ap.add_argument("--nx", type=int, default=500)
+    ap.add_argument("--ny", type=int, default=500)
+    ap.add_argument("--nz", type=int, default=20)
+    ap.add_argument("--interval", type=float, default=1200.0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    model = ideal_ridge_model(nx=args.nx, ny=args.ny, nz=args.nz, **RIDGE,
+                              adv=ADVECTION[args.adv], device=args.device)
+    on_card = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model.advance(args.interval)
+    sync()
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        model.advance(args.interval)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    times = device_times(prof)
+    device_ms = sum(t for t, _ in times.values()) / 1e3
+    for name, (us, count) in times.items():
+        print(f"{us / 1e3:10.3f} ms {100 * us / 1e3 / wall_ms:5.1f}% "
+              f"{count:5d}x  {name}")
+    print(json.dumps({
+        "adv": args.adv, "shape": [args.nz, args.ny, args.nx],
+        "substeps": model.last_n_substeps, "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall_ms if on_card else None,
+        "device": (torch.cuda.get_device_name(model.device) if on_card
+                   else "cpu")}))
+    return times
+
+
+if __name__ == "__main__":
+    main()

@@ -50,6 +50,29 @@ def test_diagnostic_update_matches(ridge, full):
                                    err_msg=k)
 
 
+def test_density_refresh_matches(ridge):
+    """The general loop's per-substep refresh (needs={"density"}) from a
+    state whose theta moved since its exner was computed."""
+    geom, s = ridge
+    s = dict(s)
+    s["potential_temperature"] = (s["potential_temperature"] + 0.5
+                                  ).astype(np.float32)
+    want = jdiag.diagnostic_update({k: jnp.asarray(v) for k, v in s.items()},
+                                   geom, full=False, needs={"density"})
+    got = tdiag.diagnostic_update(state_from_numpy(s, "cpu"),
+                                  geometry_to_torch(geom, "cpu"),
+                                  needs={"density"})
+    assert sorted(got) == sorted(s)
+    np.testing.assert_allclose(got["density"].numpy(),
+                               np.asarray(want["density"]), rtol=1e-6)
+    for k in s:
+        if k != "density":
+            np.testing.assert_array_equal(got[k].numpy(), s[k], err_msg=k)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdiag.diagnostic_update(state_from_numpy(s, "cpu"), None,
+                                needs={"temperature"})
+
+
 def test_exner_matches_compiled_reference():
     """The Exner function gives the bits the JAX package's compiled step
     gives in all but a handful of cells (XLA turns p/P0 into p*(1/P0))."""

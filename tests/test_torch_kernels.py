@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 (advect_upwind) and K2 (mp_simple) against their
-plain PyTorch versions, on the card; and, on the CPU, that the kernel
-module imports and dispatches without building anything.
+"""The CUDA kernels K1 (advect_upwind), K2 (mp_simple), K3 (mp_simple_rho)
+and K4 (advect_mpdata) against their plain PyTorch versions, on the card;
+and, on the CPU, that the kernel module imports and dispatches without
+building anything.
 
 The card tests carry the ``gpu`` marker and skip where
 torch.cuda.is_available() is False (decided inside the fixture). On the
@@ -19,6 +20,7 @@ from icar_tpu_torch import constants as C
 from icar_tpu_torch.core.step import limit_floors
 from icar_tpu_torch.ops import advection as adv_plain
 from icar_tpu_torch.ops import kernels
+from icar_tpu_torch.ops import mpdata as mpdata_plain
 from icar_tpu_torch.physics import mp_simple as mp_plain
 
 torch.set_num_threads(1)
@@ -100,7 +102,76 @@ def test_main_path_launches_each_kernel_per_substep(cuda):
     m.advance(900.0)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"advect_upwind": m.last_n_substeps,
-                                "mp_simple": m.last_n_substeps}
+                                "mp_simple": m.last_n_substeps,
+                                "mp_simple_rho": 0, "advect_mpdata": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order,fct,near_end", [
+    (1, True, True), (2, True, False), (2, True, True), (2, False, False),
+    (3, True, True), (4, True, False)])
+def test_mpdata_kernel_matches_plain(ridge_state, order, fct, near_end):
+    """K4 against its plain version, rtol 2e-5, atol 1e-6 (the Pallas
+    kernel's tolerance against jnp in tests/test_pallas.py)."""
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in m.advect_names])
+    floors = torch.as_tensor(limit_floors(m.advect_names), device=s["u"].device)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    dt = np.float32(37.25)
+    kernels.reset_launches()
+    got = kernels.advect_mpdata(stack, winds, dt, order, fct, floors,
+                                near_end)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["advect_mpdata"] == 1
+    want = mpdata_plain.advect_mpdata(
+        stack, s["u"], s["v"], s["w"], dt, g.dx, g.jacobian_u, g.jacobian_v,
+        g.jacobian_w, g.jacobian, g.advection_dz, order=order, use_fct=fct,
+        floors=floors, near_end=near_end)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_mp_rho_kernel_matches_plain(ridge_state):
+    """K3 with a density that is not p/(Rd*T), against its plain version
+    (K2's tolerance)."""
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in NAMES])
+    p, ex, dz = s["pressure"], s["exner"], g.dz_interface
+    gen = torch.Generator(device=p.device).manual_seed(5)
+    rho = (p / (C.RD * (stack[0] * ex))) * (
+        0.7 + 0.6 * torch.rand(p.shape, generator=gen, device=p.device))
+    rain = torch.rand_like(s["precipitation"])
+    snow = torch.rand_like(rain)
+    dt = np.float32(41.5)
+    c2r, c2s = mp_plain.formation_rates(dt)
+    want = mp_plain.mp_simple(p, stack[0], ex, rho, *stack[1:], rain, snow,
+                              dt, dz, c2r, c2s)
+    work = stack.clone()
+    acc = [rain.clone(), snow.clone()]
+    kernels.reset_launches()
+    kernels.mp_simple_rho(*work, p, ex, rho, dz, *acc, dt, c2r, c2s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mp_simple_rho"] == 1
+    for name, got, ref in zip(NAMES + ("rain", "snow"), list(work) + acc,
+                              want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_mpdata_path_launches_each_kernel_per_substep(cuda):
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=40, ny=12, nz=12, dx=1000.0, hill_height=800.0,
+                          adv=C.ADV_MPDATA, device=cuda)
+    kernels.reset_launches()
+    m.advance(900.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0,
+                                "mp_simple_rho": m.last_n_substeps,
+                                "advect_mpdata": m.last_n_substeps}
 
 
 def test_kernel_module_builds_nothing_at_import(tmp_path):
@@ -132,13 +203,28 @@ def test_cpu_tensors_take_the_plain_version():
     kernels.reset_launches()
     m.advance(300.0)
     assert m.last_n_substeps > 0
-    assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0}
+    assert set(kernels.LAUNCHES.values()) == {0}
+
+
+def test_cpu_tensors_take_the_plain_versions_on_the_mpdata_path():
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=24, ny=8, nz=12, hill_height=800.0,
+                          adv=C.ADV_MPDATA, device="cpu")
+    kernels.reset_launches()
+    m.advance(300.0)
+    assert m.last_n_substeps > 0
+    assert set(kernels.LAUNCHES.values()) == {0}
 
 
 def test_wrappers_reject_other_devices():
     q = torch.zeros((5, 4, 6, 7), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.advect_upwind(q, None, 1.0, None, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.advect_mpdata(q, None, 1.0, 2, True, None, False)
     t = torch.zeros((4, 6, 7), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mp_simple(t, t, t, t, t, t, t, t, t[0], t[0], 1.0, 0.9, 0.9)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.mp_simple_rho(t, t, t, t, t, t, t, t, t, t[0], t[0], 1.0,
+                              0.9, 0.9)

@@ -4,7 +4,10 @@
 the CPU: the same substep count as tests/golden/ideal_ridge_100.npz, and
 fields within the bounds chip_smoke.py holds the card to. (b) A JAX
 model's state carried across with convert.state_from_numpy, then one
-interval in both packages, without and with boundary forcing.
+interval in both packages, without and with boundary forcing. (c) The same
+for the MPDATA ridge (SB04 + MPDATA, the JAX package's general loop):
+cell by cell off SB04's revert edge (rh 0.9), and within the spread bounds
+below on it (the bench's rh 0.95).
 
 This case branches on one-ulp differences (the 15-sweep saturation revert
 of SB04), so over a whole 1800 s interval the two packages agree in the
@@ -17,6 +20,7 @@ agree cell by cell at rtol 1e-5, atol 1e-7 (precipitation rtol 1e-4).
 import os
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -52,9 +56,9 @@ def test_golden_case_on_cpu():
     assert not failed, "\n".join(report)
 
 
-def _pair(forcing):
-    mj = jax_model(**TEST_CASE)
-    mt = ideal_ridge_model(**TEST_CASE, device="cpu")
+def _pair(forcing, case=TEST_CASE, options_cb=None):
+    mj = jax_model(**case, options_cb=options_cb)
+    mt = ideal_ridge_model(**case, options_cb=options_cb, device="cpu")
     mt.state = state_from_numpy({k: np.asarray(v)
                                  for k, v in mj.state.items()}, "cpu")
     if forcing:
@@ -104,7 +108,7 @@ def test_interval_matches_jax(forcing):
 
 @pytest.mark.parametrize("option,value", [
     ("microphysics", C.MP_THOMPSON), ("microphysics", C.MP_NONE),
-    ("advection", C.ADV_MPDATA), ("windtype", C.WIND_LINEAR),
+    ("advection", C.ADV_NONE), ("windtype", C.WIND_LINEAR),
     ("windtype", C.WIND_ITERATIVE), ("radiation", C.RA_SIMPLE),
     ("boundarylayer", C.PBL_SIMPLE), ("landsurface", C.LSM_NOAH),
     ("watersurface", C.WATER_LAKE), ("convection", C.CU_TIEDTKE),
@@ -134,9 +138,132 @@ def test_wind_forcing_not_ported():
 
 
 def test_device_is_required():
+    """The device defaults to the card; without one the model refuses to
+    start rather than run on the CPU."""
+    import inspect
     from icar_tpu_torch.config import Options
-    with pytest.raises(TypeError):
+    for fn in (ideal_ridge_model, ICARModel):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         ideal_ridge_model(nx=20, ny=8, nz=10)
-    with pytest.raises(TypeError):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         ICARModel(Options(), np.zeros((8, 20)), np.zeros((8, 20)),
                   np.zeros((8, 20)))
+
+
+# ---------------------------------------------------------------------------
+# (c) the MPDATA ridge: SB04 with the state's density (K3) + MPDATA (K4)
+# ---------------------------------------------------------------------------
+
+# rh 0.9 keeps the case off SB04's 15-sweep revert edge, so the two
+# packages agree to a few ulp over a whole interval. The bench's rh 0.95
+# (BENCH_MPDATA_CASE) sits on that edge: there the JAX package itself,
+# rerun with theta and qv nudged by one ulp, leaves the tight tolerance
+# (asserted in test_mpdata_bench_case_interval_within_the_spread).
+MPDATA_CASE = dict(nx=40, ny=12, nz=12, dx=1000.0, hill_height=1200.0,
+                   u_speed=10.0, rh=0.9, adv=C.ADV_MPDATA)
+# bench.py's MPDATA ridge (its defaults: hill 1000 m, u 10 m/s, rh 0.95)
+# cut to 40x12x12
+BENCH_MPDATA_CASE = dict(nx=40, ny=12, nz=12, dx=1000.0, hill_height=1000.0,
+                         u_speed=10.0, rh=0.95, adv=C.ADV_MPDATA)
+
+
+def _mpdata_options(order, fct):
+    def cb(o):
+        o.adv.mpdata_order = order
+        o.adv.flux_corrected_transport = fct
+    return cb
+
+
+def _assert_fields_match(mt, mj, rtol, atol, precip_rtol, precip_atol):
+    for k in PROGNOSTICS:
+        np.testing.assert_allclose(mt.field(k), np.asarray(mj.field(k)),
+                                   rtol=rtol, atol=atol, err_msg=k)
+    for k in ("precipitation", "snowfall"):
+        np.testing.assert_allclose(mt.field(k), np.asarray(mj.field(k)),
+                                   rtol=precip_rtol, atol=precip_atol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("order,fct,forcing", [
+    (2, True, False), (2, True, True), (3, True, False), (2, False, False)])
+def test_mpdata_short_interval_matches_jax(order, fct, forcing):
+    """Three substeps (a shortened last one and the near-end clamp
+    included), cell by cell at rtol 1e-5, atol 1e-7 (precipitation rtol
+    1e-4): SB04's exp differs by an ulp between the libraries."""
+    mj, mt = _pair(forcing, MPDATA_CASE, _mpdata_options(order, fct))
+    s, g = mt.state, mt.geom_t
+    dt = quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx, 0.9, 3)
+    seconds = float(np.float32(2.5) * dt)
+    mj.advance(seconds)
+    mt.advance(seconds)
+    assert mt.last_n_substeps == mj.last_n_substeps == 3
+    _assert_fields_match(mt, mj, 1e-5, 1e-7, 1e-4, 1e-7)
+
+
+def test_mpdata_interval_matches_jax():
+    """One 1200 s interval (24 substeps): the same substep count, fields at
+    rtol 1e-5, atol 1e-7, precipitation at rtol 1e-4, atol 2e-5 (24
+    float32 additions per cell; 8.5e-6 mm seen on cells of 0.05 mm), and a
+    cloud that rains."""
+    mj, mt = _pair(False, MPDATA_CASE)
+    mj.advance(1200.0)
+    mt.advance(1200.0)
+    assert mt.last_n_substeps == mj.last_n_substeps == 24
+    _assert_fields_match(mt, mj, 1e-5, 1e-7, 1e-4, 2e-5)
+    assert mt.field("cloud_water").max() > 1e-4
+    assert mt.field("precipitation").max() > 0.5
+    for k in ("u", "v", "w"):
+        np.testing.assert_array_equal(mt.field(k), np.asarray(mj.field(k)))
+
+
+def _nudged_jax_model(case, seed):
+    """The JAX model of ``case`` with theta and qv each moved one ulp up or
+    down per cell (seeded)."""
+    m = jax_model(**case)
+    r = np.random.default_rng(seed)
+    m.state = dict(m.state)
+    for k in ("potential_temperature", "water_vapor"):
+        a = np.asarray(m.state[k])
+        to = np.where(r.uniform(size=a.shape) < 0.5, np.inf, -np.inf)
+        m.state[k] = jnp.asarray(np.nextafter(a, to.astype(np.float32)))
+    return m
+
+
+def _leaves_tight_tolerance(got, want):
+    """Whether ``got`` leaves test_mpdata_interval_matches_jax's tolerance
+    of ``want`` in some field."""
+    for k in PROGNOSTICS + ("precipitation",):
+        rtol, atol = (1e-4, 2e-5) if k == "precipitation" else (1e-5, 1e-7)
+        if not np.allclose(got[k], want[k], rtol=rtol, atol=atol):
+            return True
+    return False
+
+
+def test_mpdata_bench_case_interval_within_the_spread():
+    """bench.py's MPDATA ridge (rh 0.95) over one 1200 s interval. It sits
+    on SB04's revert edge: the JAX package rerun with theta and qv nudged
+    by one ulp leaves the tight tolerance. So, as for the golden case, the
+    port is held to the same substep count (22), the winds, and twice the
+    JAX package's one-ulp spread of the golden case (chip_smoke.py
+    ENSEMBLE_MAX per cell, ENSEMBLE_MEAN as a domain mean)."""
+    mj, mt = _pair(False, BENCH_MPDATA_CASE)
+    nudged = _nudged_jax_model(BENCH_MPDATA_CASE, 0)
+    for m in (mj, mt, nudged):
+        m.advance(1200.0)
+    assert (mt.last_n_substeps == mj.last_n_substeps
+            == nudged.last_n_substeps == 22)
+    fields = PROGNOSTICS + ("precipitation",)
+    want = {k: np.asarray(mj.field(k)) for k in fields}
+    assert _leaves_tight_tolerance(
+        {k: np.asarray(nudged.field(k)) for k in fields}, want)
+    for k, bound in chip_smoke.ENSEMBLE_MAX.items():
+        got = mt.field(k)
+        d = np.abs(got - want[k])
+        assert np.isfinite(got).all(), k
+        assert (d <= bound + 1e-4 * np.abs(want[k])).all(), (k, d.max())
+        assert d.mean() <= chip_smoke.ENSEMBLE_MEAN[k], (k, d.mean())
+    for k in ("u", "v", "w", "snowfall"):
+        np.testing.assert_array_equal(mt.field(k), np.asarray(mj.field(k)))

@@ -158,3 +158,73 @@ def test_wrapper_on_cpu_updates_in_place():
     for name, g, w in zip(NAMES, list(stack) + acc, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
     assert kernels.LAUNCHES == before
+
+
+def _scaled_density(rho, seed):
+    """A density that is not p/(Rd*T): the diagnostic one scaled by a
+    seeded factor in [0.7, 1.3] per cell."""
+    r = np.random.default_rng(100 + seed)
+    return (rho * r.uniform(0.7, 1.3, rho.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,regime", CASES[:3])
+def test_density_operand_path_matches_pallas_kernel(seed, regime):
+    """The port's K3 path (kernels.mp_simple_rho on CPU tensors) against
+    the JAX package's K3 entry, mp_simple_tpu, in interpret mode, with a
+    density that is not the diagnostic one; and the density is read: the
+    diagnostic density gives another result."""
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = _columns(
+        seed, regime)
+    rho2 = _scaled_density(rho, seed)
+    dt = np.float32(40.0)
+    c2r, c2s = tmp.formation_rates(dt)
+    args = (p, theta, exner, rho2, qv, qc, qr, qs, rain, snow)
+    prev = pk.force_interpret(True)
+    try:
+        want = pk.mp_simple_tpu(*[jnp.asarray(a) for a in args], dt,
+                                jnp.asarray(dz), np.float32(c2r),
+                                np.float32(c2s))
+    finally:
+        pk.force_interpret(prev)
+    fields = [torch.tensor(a) for a in (theta, qv, qc, qr, qs, rain, snow)]
+    before = dict(kernels.LAUNCHES)
+    kernels.mp_simple_rho(*fields[:5], torch.tensor(p), torch.tensor(exner),
+                          torch.tensor(rho2), torch.tensor(dz), *fields[5:],
+                          dt, c2r, c2s)
+    assert kernels.LAUNCHES == before
+    for name, g, w in zip(NAMES, fields, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+    diag = tmp.mp_simple(*[torch.tensor(a) for a in
+                           (p, theta, exner, rho, qv, qc, qr, qs, rain,
+                            snow)], dt, torch.tensor(dz), c2r, c2s)
+    assert not torch.equal(diag[3], fields[3]), "density operand not read"
+
+
+def test_density_operand_wrapper_on_cpu_updates_in_place():
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = _columns(7, "mixed")
+    rho2 = _scaled_density(rho, 7)
+    dt = np.float32(45.0)
+    c2r, c2s = tmp.formation_rates(dt)
+    want = tmp.mp_simple(*[torch.tensor(a) for a in
+                           (p, theta, exner, rho2, qv, qc, qr, qs, rain,
+                            snow)], dt, torch.tensor(dz), c2r, c2s)
+    stack = torch.tensor(np.stack([theta, qv, qc, qr, qs]))
+    acc = [torch.tensor(rain), torch.tensor(snow)]
+    kernels.mp_simple_rho(*stack, torch.tensor(p), torch.tensor(exner),
+                          torch.tensor(rho2), torch.tensor(dz), *acc, dt,
+                          c2r, c2s)
+    for name, g, w in zip(NAMES, list(stack) + acc, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+
+
+def test_saturation_sweeps_count_each_cells_iterations():
+    """The sweep counts behind cloud_conversion's revert: at most
+    N_SAT_ITERS, and the planted cell runs all of them."""
+    p, _, _, _, qv, qc, _, _, _, _, _ = _columns(3, "mixed")
+    t = np.full_like(p, 280.0)
+    t[4, 2, 3] = REVERT_CELL["t"]
+    *_, niter = tmp.saturation_sweeps(torch.tensor(p), torch.tensor(t),
+                                      torch.tensor(qv), torch.tensor(qc))
+    assert int(niter.max()) == tmp.N_SAT_ITERS == int(niter[4, 2, 3])
+    assert int(niter.min()) >= 1
