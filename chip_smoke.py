@@ -15,7 +15,14 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    smaller random stack, and K3 (SB04 with the state's density) against
    their plain versions;
 5. drives the MPDATA ridge and checks that it went through K3 and K4 once
-   per substep and through K1 and K2 not at all.
+   per substep and through K1 and K2 not at all;
+6. builds the Thompson ridge (the MPDATA ridge with mp=MP_THOMPSON, the
+   path of bench.py --config mpdata_thompson) at 500x500x20, and checks K5
+   (Thompson) against its plain version on its state, on random
+   mixed-regime stacks at dt 30, 90 and 150, and on an inert and an
+   ice-supersaturated state;
+7. drives the Thompson ridge and checks that it went through K5 and K4
+   once per substep and through K1, K2 and K3 not at all.
 Prints the kernel table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
@@ -47,6 +54,13 @@ MPDATA_RIDGE = dict(RIDGE, adv=ADV_MPDATA)
 # K4 at the other orders, on a random stack of this shape
 MPDATA_SMALL = (5, 20, 96, 128)
 MPDATA_VARIANTS = ((2, False), (3, True), (4, True))
+# the same MPDATA ridge with Thompson microphysics
+# (icar_tpu_torch.constants.MP_THOMPSON): bench.py --config mpdata_thompson
+MP_THOMPSON = 1
+THOMPSON_RIDGE = dict(MPDATA_RIDGE, mp=MP_THOMPSON)
+# K5 on random mixed-regime stacks of this shape at these dt
+THOMPSON_SMALL = (20, 96, 128)
+THOMPSON_DTS = (30.0, 90.0, 150.0)
 
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
@@ -82,6 +96,11 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-8
 # K4 against its plain version: the winds are scaled in another order, as
 # in K1; the tolerance tests/test_pallas.py allows the TPU kernel
 K4_RTOL, K4_ATOL = 2e-5, 1e-6
+# K5 against its plain version (same operation order, no contraction, the
+# same libm on the card): per field, at most K5_SHARE of the cells beyond
+# K5_RTOL relative (atol 1e-6 of the field's largest magnitude), where an
+# ulp could move a bin or a threshold; the surface accumulators likewise
+K5_RTOL, K5_SHARE = 1e-5, 1e-4
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its bytes (each input read once, each output written once) at the
@@ -97,9 +116,17 @@ F32_OPS_PER_S = 67e12
 # update 50); SB04 (mp_simple.cu) per cell 15, per saturation sweep 18,
 # per level of each fall step 16 (the phase changes of the conversions are
 # not counted, so this bound errs low).
+# K5 (mp_thompson.cu, counted with each transcendental call -- expf, logf,
+# log10f, powf, sqrtf -- as one operation, so this bound errs low): per
+# cell 1652 (pass A's prep 45, prep 368, bins 60, core 1070, fills and
+# final update 109); per level of a column, 3 per species for its step
+# count; per level of each sedimentation step, 12 for a mass, 22 for a mass
+# and a number, and 3 per column and step for the surface flux.
 UPWIND_OPS = 51
 MPDATA_PSEUDO_OPS, MPDATA_FCT_OPS, MPDATA_CORRECTIVE_OPS = 141, 43, 50
 SB04_CELL_OPS, SB04_SWEEP_OPS, SB04_FALL_OPS = 15, 18, 16
+K5_CELL_OPS, K5_CFL_OPS, K5_SED_MASS_OPS, K5_SED_NUMBER_OPS = 1652, 3, 12, 22
+K5_SFC_OPS = 3
 
 
 def log(*args):
@@ -211,11 +238,13 @@ def kernel_entry(name, replaces, err, ms, pms, work, launches=None):
 
 # the kernels' sources and the TPU kernels they replace
 SOURCE = {"advect_upwind": "advect_upwind.cu", "mp_simple": "mp_simple.cu",
-          "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu"}
+          "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu",
+          "mp_thompson": "mp_thompson.cu"}
 REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
             "mp_simple": "icar_tpu/ops/pallas_kernels.py:679",
             "mp_simple_rho": "icar_tpu/ops/pallas_kernels.py:591",
-            "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783"}
+            "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783",
+            "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107"}
 
 
 def check_kernels(model, kernels, step, adv_plain, mp_plain):
@@ -408,6 +437,172 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     return results
 
 
+def thompson_states(tp, dev):
+    """Random stacks in the scheme's field order, made with numpy from a
+    seed as tests/test_torch_thompson.py makes them: mixed-regime columns
+    (warm rain, mixed phase, riming, glaciated) at THOMPSON_SMALL, an inert
+    state (dry, subsaturated, sub-R1 traces, a few cells under the vapour
+    floor) and an ice-supersaturated one (228 K, 140% over ice)."""
+    import torch
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    nz, ny, nx = THOMPSON_SMALL
+    dz = np.full((nz, ny, nx), 400.0, np.float32)
+    z = np.cumsum(dz, axis=0) - 200.0
+    p = (1e5 * np.exp(-z / 8000.0)).astype(np.float32)
+    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
+    rslf = lambda pp, tt: tp.rslf(f(pp), f(tt)).cpu().numpy()
+    out = []
+    for seed, dt in zip((1, 2, 3), THOMPSON_DTS):
+        r = np.random.default_rng(seed)
+        t = (r.uniform(250.0, 300.0, (ny, nx))[None] - 0.0065 * z
+             + r.uniform(-3, 3, (nz, ny, nx)))
+        qv = rslf(p, t) * r.uniform(0.3, 1.3, (nz, ny, nx))
+
+        def hydro(scale):
+            q = r.uniform(0, scale, (nz, ny, nx))
+            return np.where(r.uniform(size=q.shape) < 0.6, q, 0.0)
+        fields = [t / exner, qv, hydro(1.5e-3), hydro(3e-4), hydro(1e-3),
+                  hydro(8e-4), hydro(5e-4), hydro(1e6), hydro(5e6)]
+        out.append((f"mixed seed {seed}", dt, fields))
+    r = np.random.default_rng(11)
+    t = 285.0 - 0.0065 * z + r.uniform(-2, 2, (nz, ny, nx))
+    qv = rslf(p, t) * 0.3
+    qv[0, 0, :3] = 3e-8
+    trace = np.where(r.uniform(size=(nz, ny, nx)) < 0.3, 5e-13, 0.0)
+    out.append(("inert", 45.0, [t / exner, qv] + [trace] * 5
+                + [trace * 1e6] * 2))
+    t = np.full((nz, ny, nx), 228.0)
+    pc = np.full((nz, ny, nx), 4e4, np.float32)
+    exc = ((pc / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
+    qv = tp.rsif(f(pc), f(t)).cpu().numpy() * 1.4
+    zero = np.zeros((nz, ny, nx))
+    out.append(("ice-supersaturated", 45.0, [t / exc, qv] + [zero] * 7,
+                exc, pc))
+    states = []
+    for entry in out:
+        name, dt, fields = entry[:3]
+        ex, pr = (entry[3], entry[4]) if len(entry) > 3 else (exner, p)
+        states.append((name, dt, torch.stack([f(a) for a in fields]),
+                       f(ex), f(pr), f(dz)))
+    return states
+
+
+def thompson_compare(got, want, what):
+    """Hold K5's fields (and accumulators) ``got`` against the plain
+    version's ``want``: at most K5_SHARE of the cells of each beyond
+    K5_RTOL. Returns the largest absolute difference."""
+    names = ("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni", "nr", "rain",
+             "snow", "graupel")
+    worst, shares = 0.0, []
+    for name, g, w in zip(names, got, want):
+        g = g.detach().cpu().numpy().astype(np.float64)
+        w = w.detach().cpu().numpy().astype(np.float64)
+        if not np.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+        d = np.abs(g - w)
+        rel = d / (np.abs(w) + 1e-6 * np.abs(w).max() + 1e-30)
+        share = float(np.mean(rel > K5_RTOL))
+        shares.append(f"{name} {share:.2e}")
+        if share > K5_SHARE:
+            raise AssertionError(f"{what}: {name} has {share:.3%} of its "
+                                 f"cells beyond rtol {K5_RTOL}")
+        worst = max(worst, float(d.max()))
+    log(f"  {what}: max abs err {worst:.3e}; shares beyond rtol {K5_RTOL}: "
+        + ", ".join(shares))
+    return worst
+
+
+def thompson_work(tp, kernels, stack, smap, exner, p, dz, dt, params):
+    """Bytes and operations of K5 on these inputs: the stack read and
+    written, exner, p, dz, the tables and constants read, the accumulators
+    read and written; the per-cell work, and the sedimentation steps this
+    state's columns take (from the plain version's terminal velocities)."""
+    import torch
+    _, nz, ny, nx = stack.shape
+    n, plane = nz * ny * nx, ny * nx
+    tabs = tp.device_tables(params, stack.device)
+    nbytes = (4 * (2 * 9 * n + 3 * n + 2 * 3 * plane)
+              + sum(t.numel() * t.element_size() for t in tabs.values()))
+    _, c = tp.get_tables(params)
+    P = tp._prep_block(*(stack[i] for i in smap), exner, p, c, params)
+    I = tp._index_block(P, c)
+    DT = tp._f32(dt)
+    O = tp._core_block(P, I["idx_i"], tp._lookup(tabs, I), DT, c, params)
+
+    def steps(vt):
+        per_k = torch.where(vt > 1e-3, torch.trunc(DT * vt / dz) + 1, 0)
+        return int(torch.clamp(torch.amax(per_k, dim=0), min=1).sum())
+    s_num = steps(torch.maximum(O["vtrk"], O["vtnrk"])) + steps(O["vtik"])
+    s_mass = steps(O["vtsk"]) + steps(O["vtgk"])
+    ops = ((K5_CELL_OPS + 4 * K5_CFL_OPS) * n
+           + nz * (K5_SED_NUMBER_OPS * s_num + K5_SED_MASS_OPS * s_mass)
+           + K5_SFC_OPS * (s_num + s_mass))
+    log(f"  K5 work: {nbytes / 1e9:.4f} GB, {ops / 1e9:.4f} G operations "
+        f"({s_num + s_mass} column sedimentation steps)")
+    return nbytes, ops
+
+
+def check_thompson_kernel(model, kernels, step, tp):
+    """K5 against its plain version on the Thompson ridge's state at the
+    path's dt, and on the random states of thompson_states."""
+    import torch
+    s = model.state
+    g = model.geom_t
+    names = model.advect_names
+    stack = torch.stack([s[k] for k in names])
+    smap = tp.stack_smap(names)
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    params = step.thompson_params(model.options)
+    p, ex = s["pressure"].contiguous(), s["exner"].contiguous()
+    dz = g.dz_mass.contiguous()
+    work = torch.empty_like(stack)
+    acc = [torch.empty_like(s["precipitation"]) for _ in range(3)]
+    acc0 = [s[k] for k in ("precipitation", "snowfall", "graupel")]
+
+    def reset():
+        work.copy_(stack)
+        for a, a0 in zip(acc, acc0):
+            a.copy_(a0)
+
+    def run_k5():
+        kernels.mp_thompson_stack(work, smap, ex, p, dz, dt, *acc, params)
+
+    def run_p5():
+        return tp.mp_thompson_stack(stack, names, ex, p, dz, dt, *acc0,
+                                    params)
+
+    reset()
+    run_k5()
+    torch.cuda.synchronize()
+    out, *want_acc = run_p5()
+    err5 = thompson_compare([work[i] for i in smap] + acc,
+                            [out[i] for i in smap] + want_acc,
+                            f"mp_thompson kernel vs plain (ridge state, dt "
+                            f"{float(dt)})")
+    ms5, pms5 = cuda_ms(run_k5, setup=reset), cuda_ms(run_p5)
+    log(f"K5 mp_thompson: max_abs_err {err5:.3e}; kernel {ms5:.4f} ms, "
+        f"plain {pms5:.4f} ms")
+
+    for name, sdt, q, sex, sp, sdz in thompson_states(tp, stack.device):
+        z = torch.zeros(q.shape[2:], device=q.device)
+        want, *wacc = tp.mp_thompson_stack(q, tp.SPECIES, sex, sp, sdz,
+                                           np.float32(sdt), z, z, z)
+        got = q.clone()
+        gacc = [z.clone() for _ in range(3)]
+        kernels.mp_thompson_stack(got, tuple(range(9)), sex, sp, sdz,
+                                  np.float32(sdt), *gacc, params)
+        torch.cuda.synchronize()
+        err5 = max(err5, thompson_compare(
+            list(got) + gacc, list(want) + wacc,
+            f"mp_thompson kernel vs plain ({name}, dt {sdt}, "
+            f"{tuple(q.shape)})"))
+    return [kernel_entry("mp_thompson", REPLACES["mp_thompson"], err5, ms5,
+                         pms5, thompson_work(tp, kernels, stack, smap, ex, p,
+                                             dz, dt, params))]
+
+
 def golden_mismatches(fields, ref):
     """Hold ``fields`` (name -> array) against the golden arrays ``ref``.
     Returns (report lines, names of fields out of tolerance)."""
@@ -452,11 +647,17 @@ def check_golden(ideal_ridge_model):
     log(f"golden: {steps} substeps, all fields within tolerance")
 
 
-def drive(model, kernels, label, path, interval, intervals, smi):
+DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
+                "rain_mass", "snow_mass", "precipitation", "u", "v", "w")
+
+
+def drive(model, kernels, label, path, interval, intervals, smi,
+          fields=DRIVE_FIELDS):
     """Advance ``model`` over ``intervals`` intervals with the launch
-    counts set to 0 just before; check the state and that each kernel of
-    ``path`` launched once per substep and the others not at all. Returns
-    the launch counts."""
+    counts set to 0 just before; check that ``fields`` are finite, that
+    there is cloud and precipitation, and that each kernel of ``path``
+    launched once per substep and the others not at all. Returns the launch
+    counts."""
     import torch
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -474,8 +675,7 @@ def drive(model, kernels, label, path, interval, intervals, smi):
             raise AssertionError(f"{name}: {n} launches for {steps} "
                                  f"substeps on the {label} path, expected "
                                  f"{want}")
-    for f in ("potential_temperature", "water_vapor", "cloud_water",
-              "rain_mass", "snow_mass", "precipitation", "u", "v", "w"):
+    for f in fields:
         if not torch.isfinite(model.state[f]).all():
             raise AssertionError(f"{label} path: non-finite {f}")
     qc_max = float(model.state["cloud_water"].max())
@@ -501,6 +701,7 @@ def main():
     from icar_tpu_torch.ops import kernels
     from icar_tpu_torch.ops import mpdata as mpdata_plain
     from icar_tpu_torch.physics import mp_simple as mp_plain
+    from icar_tpu_torch.physics import mp_thompson as thompson_plain
 
     # 0. build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -545,11 +746,34 @@ def main():
     mpdata_launches = drive(model, kernels, "MPDATA",
                             ("mp_simple_rho", "advect_mpdata"),
                             RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+    del model
+
+    # 6. K5 against its plain version on a real Thompson-ridge state
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
+    warm.advance(RIDGE_INTERVAL)
+    torch.cuda.synchronize()
+    log(f"Thompson setup + first interval at 500x500x20: "
+        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
+    table += check_thompson_kernel(warm, kernels, step, thompson_plain)
+    del warm
+
+    # 7. the Thompson ridge at full width, counting kernel launches
+    model = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
+    thompson_launches = drive(
+        model, kernels, "Thompson", ("mp_thompson", "advect_mpdata"),
+        RIDGE_INTERVAL, RIDGE_INTERVALS, smi,
+        fields=tuple(model.advect_names) + ("precipitation", "snowfall",
+                                            "graupel", "u", "v", "w"))
+    del model
     for entry in table:
         name = entry["name"]
-        entry["launches"] = (mpdata_launches[name]
-                             if name in ("mp_simple_rho", "advect_mpdata")
-                             else launches[name])
+        if name == "mp_thompson":
+            entry["launches"] = thompson_launches[name]
+        elif name in ("mp_simple_rho", "advect_mpdata"):
+            entry["launches"] = mpdata_launches[name]
+        else:
+            entry["launches"] = launches[name]
 
     print(json.dumps({"kernels": table}))
     print(smi)

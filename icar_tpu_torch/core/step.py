@@ -1,26 +1,29 @@
-"""One forcing interval of the ridge configurations: SB04 microphysics then
+"""One forcing interval of the ridge configurations: microphysics then
 upwind or MPDATA advection, substep by substep (icar_tpu/core/step.py,
 which runs the upwind case as ``fast_step`` on the TPU and the MPDATA case
 as its general loop ``step``).
 
 The substep loop runs on the host. Per interval: the partial diagnostics,
-one CFL dt quantized to 1/64 s (read to the host once), the five advected
+one CFL dt quantized to 1/64 s (read to the host once), the advected
 species stacked in their natural (S, nz, ny, nx) layout, and the
 loop-invariant advection winds. Per substep: the microphysics kernel
 updates the stack in place, the advection kernel writes into a second
 buffer (the two swap), and, when forcing tendencies are set, the boundary
 ring relaxes towards them before the near-end floor clamp. With upwind
-advection (the fast path) SB04 forms the density in its kernel (K2) and
-the surface precipitation of the interval is added to the state at its
-end; with MPDATA (the general loop) the state's density is refreshed each
-substep and handed to SB04 (K3), which accumulates precipitation in the
-state substep by substep, and MPDATA (K4) advects the stack. Time is
-carried in float32 as the JAX loop carries it, so the substep lengths and
-the clamp's timing match. On CPU tensors the kernels' plain versions run.
+advection (the fast path, SB04 only) SB04 forms the density in its kernel
+(K2) and the surface precipitation of the interval is added to the state
+at its end. With MPDATA (the general loop) the state's density is
+refreshed each substep, the microphysics accumulates precipitation in the
+state substep by substep -- SB04 (K3) on its five species with that
+density, or Thompson (K5) on its nine species with the mass-level
+thickness -- and MPDATA (K4) advects the stack. Time is carried in float32
+as the JAX loop carries it, so the substep lengths and the clamp's timing
+match. On CPU tensors the kernels' plain versions run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,7 +31,9 @@ import torch
 
 from .. import constants as C
 from ..ops import kernels
+from ..physics import mp_thompson
 from ..physics.mp_simple import formation_rates
+from ..physics.thompson_tables import ThompsonParams
 from .diagnostics import compute_dt, diagnostic_update
 
 # fields clamped to >= 0 near the end of an interval (enforce_limits,
@@ -47,6 +52,37 @@ SUBSTEP_NEEDS = frozenset(("density",))
 # the species SB04 updates, in the kernel's argument order
 MP_SPECIES = ("potential_temperature", "water_vapor", "cloud_water",
               "rain_mass", "snow_mass")
+
+
+def thompson_params(options) -> ThompsonParams:
+    """The Thompson parameters of ``options.mp`` (icar_tpu/core/step.py
+    builds them the same way)."""
+    return ThompsonParams(**{f.name: getattr(options.mp, f.name)
+                             for f in dataclasses.fields(ThompsonParams)})
+
+
+def _check_species(mp: int, mpdata: bool, adv_names):
+    """Raise NotImplementedError unless the microphysics and its advected
+    species are a ported pair."""
+    if mp == C.MP_SIMPLE:
+        want = MP_SPECIES
+    elif mp == C.MP_THOMPSON:
+        if not mpdata:
+            raise NotImplementedError(
+                "Thompson microphysics with upwind advection is not ported "
+                "yet: Slice B (Thompson + upwind) in ROADMAP.md")
+        want = mp_thompson.SPECIES
+    elif mp == C.MP_THOMPSON_AER:
+        raise NotImplementedError(
+            f"Thompson-aerosol microphysics (mp=5) is not ported yet: "
+            f"{mp_thompson.AEROSOL_SLICE} in ROADMAP.md")
+    else:
+        raise NotImplementedError(
+            f"microphysics={mp} is not ported yet: Slice F in ROADMAP.md")
+    if sorted(adv_names) != sorted(want):
+        raise NotImplementedError(
+            f"advected species {tuple(adv_names)}: only the set {want} of "
+            f"microphysics={mp} is ported")
 
 
 def boundary_mask(ny: int, nx: int, device) -> torch.Tensor:
@@ -84,13 +120,12 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     state and the number of substeps. ``geom`` holds torch tensors;
     ``dqdt`` maps advected species to boundary forcing tendencies."""
     adv_names = tuple(adv_names)
-    if sorted(adv_names) != sorted(MP_SPECIES):
-        raise NotImplementedError(
-            f"advected species {adv_names}: only the SB04 set "
-            f"{MP_SPECIES} is ported (ROADMAP Slice B adds more)")
+    mp = options.physics.microphysics
+    mpdata = options.physics.advection == C.ADV_MPDATA
+    _check_species(mp, mpdata, adv_names)
+    thompson = mp == C.MP_THOMPSON
     dqdt = dqdt or {}
     device = state["pressure"].device
-    mpdata = options.physics.advection == C.ADV_MPDATA
     adv = options.adv
 
     state = diagnostic_update(state, geom, full=False)
@@ -103,11 +138,17 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     spare = torch.empty_like(stack)
     pressure = state["pressure"].contiguous()
     exner = state["exner"].contiguous()
-    dz_mp = geom.dz_interface.contiguous()
+    # SB04 takes the interface thickness, Thompson the mass-level one
+    # (icar_tpu/core/step.py:996)
+    dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
     winds = kernels.prepare_advect_winds(state["u"], state["v"], state["w"],
                                          geom)
     floors = torch.as_tensor(limit_floors(adv_names), device=device)
-    species = [adv_names.index(k) for k in MP_SPECIES]
+    if thompson:
+        smap = mp_thompson.stack_smap(adv_names)
+        tparams = thompson_params(options)
+    else:
+        species = [adv_names.index(k) for k in MP_SPECIES]
 
     tend = None
     if any(k in dqdt for k in adv_names):
@@ -122,6 +163,8 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
         # the general loop accumulates in the state, substep by substep
         rain = state["precipitation"].clone()
         snow = state["snowfall"].clone()
+        if thompson:
+            graupel = state["graupel"].clone()
     else:
         rain = torch.zeros((geom.ny, geom.nx), dtype=torch.float32,
                            device=device)
@@ -132,22 +175,28 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     while t < end_time - np.float32(1e-3):
         dt = min(dt_static, end_time - t)
         near_end = bool((end_time - t) < dt * np.float32(2))
-        c2r, c2s = formation_rates(dt)
-        th, qv, qc, qr, qs = (stack[i] for i in species)
         # the near-end clamp folds into advection unless forcing follows
         clamp = near_end and tend is None
         if mpdata:
+            th = stack[smap[0] if thompson else species[0]]
             state["potential_temperature"] = th
             state = diagnostic_update(state, geom, needs=SUBSTEP_NEEDS)
-            kernels.mp_simple_rho(th, qv, qc, qr, qs, pressure, exner,
-                                  state["density"], dz_mp, rain, snow, dt,
-                                  c2r, c2s)
+            if thompson:
+                kernels.mp_thompson_stack(stack, smap, exner, pressure,
+                                          dz_mp, dt, rain, snow, graupel,
+                                          tparams)
+            else:
+                c2r, c2s = formation_rates(dt)
+                kernels.mp_simple_rho(*(stack[i] for i in species),
+                                      pressure, exner, state["density"],
+                                      dz_mp, rain, snow, dt, c2r, c2s)
             kernels.advect_mpdata(stack, winds, dt, adv.mpdata_order,
                                   adv.flux_corrected_transport, floors,
                                   clamp, out=spare)
         else:
-            kernels.mp_simple(th, qv, qc, qr, qs, pressure, exner, dz_mp,
-                              rain, snow, dt, c2r, c2s)
+            c2r, c2s = formation_rates(dt)
+            kernels.mp_simple(*(stack[i] for i in species), pressure, exner,
+                              dz_mp, rain, snow, dt, c2r, c2s)
             kernels.advect_upwind(stack, winds, dt, floors, clamp, out=spare)
         stack, spare = spare, stack
         if tend is not None:
@@ -164,6 +213,8 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     if mpdata:
         state["precipitation"] = rain
         state["snowfall"] = snow
+        if thompson:
+            state["graupel"] = graupel
     else:
         state["precipitation"] = state["precipitation"] + rain
         state["snowfall"] = state["snowfall"] + snow

@@ -3,10 +3,11 @@
 
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
-ideal ridge with SB04 microphysics, upwind or MPDATA advection (any order,
-with or without FCT) and balance-only winds, with no other physics. Any
-other option raises ``NotImplementedError`` naming the ROADMAP slice that
-ports it.
+ideal ridge with balance-only winds and no other physics, with SB04
+microphysics and upwind or MPDATA advection (any order, with or without
+FCT), or with Thompson microphysics (mp=1) and MPDATA advection. Any other
+option raises ``NotImplementedError`` naming the ROADMAP slice that ports
+it.
 """
 
 from __future__ import annotations
@@ -30,9 +31,15 @@ from ..ops import wind as wind_ops
 def _unported(options: Options):
     """Why ``options`` leaves the ported slice, or None."""
     ph = options.physics
+    mp_slice = ("Slice F (Thompson-aerosol, mp=5)"
+                if ph.microphysics == C.MP_THOMPSON_AER
+                else "Slice F (the other schemes)")
     checks = (
-        (ph.microphysics == C.MP_SIMPLE, f"microphysics={ph.microphysics}",
-         "Slice B (Thompson) and Slice F (the other schemes)"),
+        (ph.microphysics in (C.MP_SIMPLE, C.MP_THOMPSON),
+         f"microphysics={ph.microphysics}", mp_slice),
+        (ph.microphysics != C.MP_THOMPSON or ph.advection == C.ADV_MPDATA,
+         f"microphysics={ph.microphysics} with advection={ph.advection}",
+         "Slice B (Thompson + upwind)"),
         (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
          f"advection={ph.advection}", "Slice B (advection options)"),
         (ph.windtype == C.WIND_NONE, f"wind={ph.windtype}",

@@ -28,12 +28,14 @@ import torch
 
 from .. import constants as C
 from ..physics import mp_simple as mp_plain
+from ..physics import mp_thompson as thompson_plain
 from . import advection as adv_plain
 from . import mpdata as mpdata_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("advect_upwind.cu", "mp_simple.cu", "mpdata.cu")
+SOURCES = ("advect_upwind.cu", "mp_simple.cu", "mpdata.cu",
+           "mp_thompson.cu")
 HEADERS = ("upwind.cuh",)
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain version step by step (the ridge trajectory branches on one-ulp
@@ -44,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # calls that launched a kernel since the last reset (K4's call is one
 # sequence of launches); only the kernel branch counts
 LAUNCHES = {"advect_upwind": 0, "mp_simple": 0, "mp_simple_rho": 0,
-            "advect_mpdata": 0}
+            "advect_mpdata": 0, "mp_thompson": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -132,6 +134,12 @@ def library() -> ctypes.CDLL:
         lib.icar_advect_mpdata.restype = I
         lib.icar_mp_simple_max_nz.argtypes = []
         lib.icar_mp_simple_max_nz.restype = I
+        lib.icar_mp_thompson.argtypes = [P] * 16 + [I, L, F, P]
+        lib.icar_mp_thompson.restype = I
+        lib.icar_mp_thompson_max_nz.argtypes = []
+        lib.icar_mp_thompson_max_nz.restype = I
+        lib.icar_mp_thompson_n_consts.argtypes = []
+        lib.icar_mp_thompson_n_consts.restype = I
         _LIB = lib
     return _LIB
 
@@ -374,3 +382,64 @@ def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
     _raise_on(err, "advect_mpdata")
     LAUNCHES["advect_mpdata"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: Thompson microphysics
+# ---------------------------------------------------------------------------
+
+def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
+                      snow, graupel, params=None):
+    """Thompson microphysics (mp=1), in place: updates the species stack
+    ``qstack`` (9, nz, ny, nx), whose row ``smap[i]`` holds the scheme's
+    i-th field of (th, qv, qc, qi, qr, qs, qg, ni, nr), and adds this
+    call's surface precipitation to the (ny, nx) accumulators:
+    rain += ppt_rain + ppt_snow + ppt_graupel + ppt_ice, snow += ppt_snow +
+    ppt_ice, graupel += ppt_graupel. ``dz_mass`` is the mass-level
+    thickness. The lookup tables and the kernel's constants go to the
+    device once per parameter set (``mp_thompson.device_tables``)."""
+    params = params or thompson_plain.ThompsonParams()
+    smap = tuple(int(i) for i in smap)
+    if sorted(smap) != list(range(9)):
+        raise ValueError(f"mp_thompson_stack: smap {smap} is not a "
+                         f"permutation of the 9 stack rows")
+    S, nz, ny, nx = qstack.shape
+    if qstack.device.type == "cpu":
+        outs = thompson_plain.thompson_step(
+            *(qstack[i] for i in smap), exner, pressure, dz_mass, dt, params)
+        for pos, row in enumerate(smap):
+            qstack[row].copy_(outs[pos])
+        ppt_rain, ppt_ice, ppt_snow, ppt_graupel = outs[9:]
+        rain.copy_(rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice)
+        snow.copy_(snow + ppt_snow + ppt_ice)
+        graupel.copy_(graupel + ppt_graupel)
+        return
+    if qstack.device.type != "cuda":
+        raise ValueError(f"mp_thompson: unsupported device {qstack.device}")
+    dev = qstack.device
+    lib = library()
+    if nz > lib.icar_mp_thompson_max_nz():
+        raise ValueError(f"mp_thompson: nz={nz} exceeds the kernel's "
+                         f"maximum {lib.icar_mp_thompson_max_nz()}")
+    _check(qstack, "qstack", (9, nz, ny, nx), dev)
+    for fname, t in (("exner", exner), ("pressure", pressure),
+                     ("dz_mass", dz_mass)):
+        _check(t, fname, (nz, ny, nx), dev)
+    for fname, t in (("rain", rain), ("snow", snow), ("graupel", graupel)):
+        _check(t, fname, (ny, nx), dev)
+    tabs = thompson_plain.device_tables(params, dev)
+    consts = tabs["consts"]
+    if consts.numel() != lib.icar_mp_thompson_n_consts():
+        raise ValueError(f"mp_thompson: {consts.numel()} constants, the "
+                         f"kernel reads {lib.icar_mp_thompson_n_consts()}")
+    smap_c = (ctypes.c_int * 9)(*smap)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.icar_mp_thompson(
+        qstack.data_ptr(), ctypes.addressof(smap_c), exner.data_ptr(),
+        pressure.data_ptr(), dz_mass.data_ptr(),
+        *(tabs[g].data_ptr() for g in thompson_plain.BIG_STACKS
+          + thompson_plain.SMALL_STACKS),
+        consts.data_ptr(), rain.data_ptr(), snow.data_ptr(),
+        graupel.data_ptr(), nz, ny * nx, float(dt), stream)
+    _raise_on(err, "mp_thompson")
+    LAUNCHES["mp_thompson"] += 1

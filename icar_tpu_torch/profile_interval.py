@@ -1,8 +1,10 @@
 """Where the device time of one forcing interval goes: the ideal ridge
-(SB04 with upwind or MPDATA advection) under torch.profiler.
+(SB04 with upwind or MPDATA advection, or Thompson with MPDATA) under
+torch.profiler.
 
     python -m icar_tpu_torch.profile_interval [--adv upwind|mpdata]
-        [--nx 500] [--ny 500] [--nz 20] [--interval 1200] [--device cuda]
+        [--mp simple|thompson] [--nx 500] [--ny 500] [--nz 20]
+        [--interval 1200] [--device cuda]
 
 Builds the model (the bench's ridge, 500x500x20 by default), advances one
 interval to warm up (the kernel build and first launches), then profiles
@@ -31,6 +33,7 @@ from .models.icar import ideal_ridge_model
 RIDGE = dict(dx=1000.0, hill_height=1000.0, u_speed=10.0, rh=0.95,
              flat_z_height=-5)
 ADVECTION = {"upwind": C.ADV_UPWIND, "mpdata": C.ADV_MPDATA}
+MICROPHYSICS = {"simple": C.MP_SIMPLE, "thompson": C.MP_THOMPSON}
 
 
 def device_times(prof):
@@ -48,6 +51,7 @@ def device_times(prof):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--adv", choices=sorted(ADVECTION), default="mpdata")
+    ap.add_argument("--mp", choices=sorted(MICROPHYSICS), default="simple")
     ap.add_argument("--nx", type=int, default=500)
     ap.add_argument("--ny", type=int, default=500)
     ap.add_argument("--nz", type=int, default=20)
@@ -56,7 +60,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     model = ideal_ridge_model(nx=args.nx, ny=args.ny, nz=args.nz, **RIDGE,
-                              adv=ADVECTION[args.adv], device=args.device)
+                              adv=ADVECTION[args.adv],
+                              mp=MICROPHYSICS[args.mp], device=args.device)
     on_card = model.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     model.advance(args.interval)
@@ -75,7 +80,7 @@ def main(argv=None):
         print(f"{us / 1e3:10.3f} ms {100 * us / 1e3 / wall_ms:5.1f}% "
               f"{count:5d}x  {name}")
     print(json.dumps({
-        "adv": args.adv, "shape": [args.nz, args.ny, args.nx],
+        "adv": args.adv, "mp": args.mp, "shape": [args.nz, args.ny, args.nx],
         "substeps": model.last_n_substeps, "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1 - device_ms / wall_ms if on_card else None,

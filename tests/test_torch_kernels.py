@@ -1,7 +1,7 @@
-"""The CUDA kernels K1 (advect_upwind), K2 (mp_simple), K3 (mp_simple_rho)
-and K4 (advect_mpdata) against their plain PyTorch versions, on the card;
-and, on the CPU, that the kernel module imports and dispatches without
-building anything.
+"""The CUDA kernels K1 (advect_upwind), K2 (mp_simple), K3 (mp_simple_rho),
+K4 (advect_mpdata) and K5 (mp_thompson) against their plain PyTorch
+versions, on the card; and, on the CPU, that the kernel module imports and
+dispatches without building anything.
 
 The card tests carry the ``gpu`` marker and skip where
 torch.cuda.is_available() is False (decided inside the fixture). On the
@@ -22,6 +22,7 @@ from icar_tpu_torch.ops import advection as adv_plain
 from icar_tpu_torch.ops import kernels
 from icar_tpu_torch.ops import mpdata as mpdata_plain
 from icar_tpu_torch.physics import mp_simple as mp_plain
+from icar_tpu_torch.physics import mp_thompson as thompson_plain
 
 torch.set_num_threads(1)
 
@@ -103,7 +104,8 @@ def test_main_path_launches_each_kernel_per_substep(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"advect_upwind": m.last_n_substeps,
                                 "mp_simple": m.last_n_substeps,
-                                "mp_simple_rho": 0, "advect_mpdata": 0}
+                                "mp_simple_rho": 0, "advect_mpdata": 0,
+                                "mp_thompson": 0}
 
 
 @pytest.mark.gpu
@@ -171,7 +173,134 @@ def test_mpdata_path_launches_each_kernel_per_substep(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0,
                                 "mp_simple_rho": m.last_n_substeps,
-                                "advect_mpdata": m.last_n_substeps}
+                                "advect_mpdata": m.last_n_substeps,
+                                "mp_thompson": 0}
+
+
+def thompson_state(seed, nz=20, ny=7, nx=13, device="cpu"):
+    """A mixed-regime Thompson stack in the scheme's field order (warm rain,
+    mixed phase, riming, glaciated; tests/test_torch_thompson.py
+    mixed_state) with exner, p and dz; with ``seed`` None an inert one."""
+    r = np.random.default_rng(seed if seed is not None else 11)
+    dz = np.full((nz, ny, nx), 400.0 * 20 / nz, np.float32)
+    z = np.cumsum(dz, axis=0) - dz / 2
+    p = (1e5 * np.exp(-z / 8000.0)).astype(np.float32)
+    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    if seed is None:
+        t = 285.0 - 0.0065 * z + r.uniform(-2, 2, (nz, ny, nx))
+        qv = thompson_plain.rslf(f(p), f(t)).cpu().numpy() * 0.3
+        trace = np.where(r.uniform(size=(nz, ny, nx)) < 0.3, 5e-13, 0.0)
+        fields = [t / exner, qv] + [trace] * 5 + [trace * 1e6] * 2
+    else:
+        t = (r.uniform(250.0, 300.0, (ny, nx))[None] - 0.0065 * z
+             + r.uniform(-3, 3, (nz, ny, nx)))
+        qv = (thompson_plain.rslf(f(p), f(t)).cpu().numpy()
+              * r.uniform(0.3, 1.3, (nz, ny, nx)))
+
+        def hydro(scale):
+            q = r.uniform(0, scale, (nz, ny, nx))
+            return np.where(r.uniform(size=q.shape) < 0.6, q, 0.0)
+        fields = [t / exner, qv, hydro(1.5e-3), hydro(3e-4), hydro(1e-3),
+                  hydro(8e-4), hydro(5e-4), hydro(1e6), hydro(5e6)]
+    return torch.stack([f(a) for a in fields]), f(exner), f(p), f(dz)
+
+
+def _k5_matches_plain(q, ex, p, dz, dt, order=tuple(range(9))):
+    """K5 on the stack rows ``order`` against the plain version: per field
+    at most 1e-4 of the cells beyond rtol 1e-5 (chip_smoke.py's K5
+    tolerance; on the card the two agree bit for bit in its runs)."""
+    stack = torch.empty_like(q)
+    for i, row in enumerate(order):
+        stack[row] = q[i]
+    acc = [torch.rand(q.shape[2:], device=q.device) for _ in range(3)]
+    want = thompson_plain.mp_thompson(*q, ex, p, dz, dt, *acc)
+    got_acc = [a.clone() for a in acc]
+    kernels.reset_launches()
+    kernels.mp_thompson_stack(stack, order, ex, p, dz, dt, *got_acc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mp_thompson"] == 1
+    got = [stack[row] for row in order] + got_acc
+    for name, g, w in zip(("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni",
+                           "nr", "rain", "snow", "graupel"), got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        assert np.isfinite(g).all(), name
+        rel = np.abs(g - w) / (np.abs(w) + 1e-6 * np.abs(w).max() + 1e-30)
+        assert np.mean(rel > 1e-5) <= 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,dt", [(1, 30.0), (2, 90.0), (3, 150.0)])
+def test_thompson_kernel_matches_plain(cuda, seed, dt):
+    """Mixed regimes; 7 x 13 columns, so the grid's last block is ragged;
+    a permuted stack order."""
+    q, ex, p, dz = thompson_state(seed, device=cuda)
+    _k5_matches_plain(q, ex, p, dz, np.float32(dt),
+                      order=(3, 0, 8, 1, 2, 7, 4, 6, 5))
+
+
+@pytest.mark.gpu
+def test_thompson_kernel_at_max_nz(cuda):
+    nz = kernels.library().icar_mp_thompson_max_nz()
+    q, ex, p, dz = thompson_state(4, nz=nz, ny=5, nx=9, device=cuda)
+    _k5_matches_plain(q, ex, p, dz, np.float32(60.0))
+    with pytest.raises(ValueError, match="exceeds"):
+        big = thompson_state(4, nz=nz + 1, ny=2, nx=3, device=cuda)
+        kernels.mp_thompson_stack(big[0], tuple(range(9)), *big[1:], 60.0,
+                                  *(torch.zeros((2, 3), device=cuda),) * 3)
+
+
+@pytest.mark.gpu
+def test_thompson_kernel_inert_state(cuda):
+    q, ex, p, dz = thompson_state(None, device=cuda)
+    _k5_matches_plain(q, ex, p, dz, np.float32(45.0))
+
+
+@pytest.mark.gpu
+def test_thompson_path_launches_each_kernel_per_substep(cuda):
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(nx=40, ny=12, nz=12, dx=1000.0, hill_height=800.0,
+                          mp=C.MP_THOMPSON, adv=C.ADV_MPDATA, device=cuda)
+    kernels.reset_launches()
+    m.advance(900.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0,
+                                "mp_simple_rho": 0,
+                                "advect_mpdata": m.last_n_substeps,
+                                "mp_thompson": m.last_n_substeps}
+
+
+def test_thompson_wrapper_on_cpu_tensors_builds_and_launches_nothing(
+        tmp_path):
+    """K5's wrapper on CPU tensors runs the plain version: the same values
+    as the plain function, no launch counted, no library built (nvcc is
+    not on the path)."""
+    code = ("import pathlib, sys, numpy as np, torch\n"
+            "import icar_tpu_torch.ops.kernels as k\n"
+            "from icar_tpu_torch.physics import mp_thompson as tp\n"
+            "k.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+            "r = np.random.default_rng(0)\n"
+            "q = torch.tensor(r.uniform(0, 1e-3, (9, 6, 4, 5)),\n"
+            "                 dtype=torch.float32)\n"
+            "q[0] = 290.0; q[1] = 0.01; q[7] = 1e5; q[8] = 1e5\n"
+            "ex = torch.full((6, 4, 5), 0.95); p = torch.full((6, 4, 5), 8e4)\n"
+            "dz = torch.full((6, 4, 5), 300.0)\n"
+            "z = torch.zeros(4, 5)\n"
+            "want = tp.mp_thompson_stack(q, tp.SPECIES, ex, p, dz, 30.0,\n"
+            "                            z, z, z)\n"
+            "acc = [z.clone() for _ in range(3)]\n"
+            "k.mp_thompson_stack(q, tuple(range(9)), ex, p, dz, 30.0, *acc)\n"
+            "assert torch.equal(q, want[0])\n"
+            "assert all(torch.equal(a, w) for a, w in zip(acc, want[1:]))\n"
+            "assert set(k.LAUNCHES.values()) == {0}\n"
+            "assert k._LIB is None and k.BUILD_INFO == {}\n")
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=os.path.dirname(
+        sys.executable), CUDA_HOME=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert not list(tmp_path.iterdir())
 
 
 def test_kernel_module_builds_nothing_at_import(tmp_path):
@@ -222,6 +351,10 @@ def test_wrappers_reject_other_devices():
         kernels.advect_upwind(q, None, 1.0, None, False)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.advect_mpdata(q, None, 1.0, 2, True, None, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.mp_thompson_stack(torch.zeros((9, 4, 6, 7), device="meta"),
+                                  tuple(range(9)), None, None, None, 1.0,
+                                  None, None, None)
     t = torch.zeros((4, 6, 7), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mp_simple(t, t, t, t, t, t, t, t, t[0], t[0], 1.0, 0.9, 0.9)

@@ -18,3 +18,12 @@ def test_profile_interval_on_cpu(adv, capsys):
     assert out["adv"] == adv and out["device"] == "cpu"
     assert out["substeps"] > 0 and out["wall_ms"] > 0
     assert out["device_ms"] == 0 and out["device_idle_share"] is None
+
+
+def test_profile_interval_thompson_on_cpu(capsys):
+    times = profile_interval.main(["--adv", "mpdata", "--mp", "thompson",
+                                   "--nx", "24", "--ny", "8", "--nz", "12",
+                                   "--interval", "300", "--device", "cpu"])
+    assert times == {}
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["mp"] == "thompson" and out["substeps"] > 0
