@@ -16,13 +16,13 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    their plain versions;
 5. drives the MPDATA ridge and checks that it went through K3 and K4 once
    per substep and through K1 and K2 not at all;
-6. builds the Thompson ridge (the MPDATA ridge with mp=MP_THOMPSON, the
-   path of bench.py --config mpdata_thompson) at 500x500x20, and checks K5
-   (Thompson) against its plain version on its state, on random
-   mixed-regime stacks at dt 30, 90 and 150, and on an inert and an
-   ice-supersaturated state;
-7. drives the Thompson ridge and checks that it went through K5 and K4
-   once per substep and through K1, K2 and K3 not at all.
+6. drives the Thompson ridge (the MPDATA ridge with mp=MP_THOMPSON, the
+   path of bench.py --config mpdata_thompson) at 500x500x20 and checks that
+   it went through K5 and K4 once per substep and through K1, K2 and K3 not
+   at all;
+7. checks K5 (Thompson) against its plain version on the state that drive
+   left, on random mixed-regime stacks at dt 30, 90 and 150, and on an
+   inert and an ice-supersaturated state.
 Prints the kernel table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
@@ -437,97 +437,50 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     return results
 
 
-def thompson_states(tp, dev):
-    """Random stacks in the scheme's field order, made with numpy from a
-    seed as tests/test_torch_thompson.py makes them: mixed-regime columns
-    (warm rain, mixed phase, riming, glaciated) at THOMPSON_SMALL, an inert
-    state (dry, subsaturated, sub-R1 traces, a few cells under the vapour
-    floor) and an ice-supersaturated one (228 K, 140% over ice)."""
-    import torch
-    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
-    nz, ny, nx = THOMPSON_SMALL
-    dz = np.full((nz, ny, nx), 400.0, np.float32)
-    z = np.cumsum(dz, axis=0) - 200.0
-    p = (1e5 * np.exp(-z / 8000.0)).astype(np.float32)
-    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
-    rslf = lambda pp, tt: tp.rslf(f(pp), f(tt)).cpu().numpy()
-    out = []
-    for seed, dt in zip((1, 2, 3), THOMPSON_DTS):
-        r = np.random.default_rng(seed)
-        t = (r.uniform(250.0, 300.0, (ny, nx))[None] - 0.0065 * z
-             + r.uniform(-3, 3, (nz, ny, nx)))
-        qv = rslf(p, t) * r.uniform(0.3, 1.3, (nz, ny, nx))
-
-        def hydro(scale):
-            q = r.uniform(0, scale, (nz, ny, nx))
-            return np.where(r.uniform(size=q.shape) < 0.6, q, 0.0)
-        fields = [t / exner, qv, hydro(1.5e-3), hydro(3e-4), hydro(1e-3),
-                  hydro(8e-4), hydro(5e-4), hydro(1e6), hydro(5e6)]
-        out.append((f"mixed seed {seed}", dt, fields))
-    r = np.random.default_rng(11)
-    t = 285.0 - 0.0065 * z + r.uniform(-2, 2, (nz, ny, nx))
-    qv = rslf(p, t) * 0.3
-    qv[0, 0, :3] = 3e-8
-    trace = np.where(r.uniform(size=(nz, ny, nx)) < 0.3, 5e-13, 0.0)
-    out.append(("inert", 45.0, [t / exner, qv] + [trace] * 5
-                + [trace * 1e6] * 2))
-    t = np.full((nz, ny, nx), 228.0)
-    pc = np.full((nz, ny, nx), 4e4, np.float32)
-    exc = ((pc / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
-    qv = tp.rsif(f(pc), f(t)).cpu().numpy() * 1.4
-    zero = np.zeros((nz, ny, nx))
-    out.append(("ice-supersaturated", 45.0, [t / exc, qv] + [zero] * 7,
-                exc, pc))
-    states = []
-    for entry in out:
-        name, dt, fields = entry[:3]
-        ex, pr = (entry[3], entry[4]) if len(entry) > 3 else (exner, p)
-        states.append((name, dt, torch.stack([f(a) for a in fields]),
-                       f(ex), f(pr), f(dz)))
-    return states
+def thompson_states(cases, dev):
+    """(name, dt, stack, exner, p, dz) of the random states of
+    icar_tpu_torch.physics.thompson_cases at THOMPSON_SMALL: mixed-regime
+    columns (warm rain, mixed phase, riming, glaciated) at THOMPSON_DTS, an
+    inert state (dry, subsaturated, sub-R1 traces, a few cells under the
+    vapour floor) and an ice-supersaturated one (228 K, 140% over ice)."""
+    states = [(f"mixed seed {seed}", dt, cases.mixed_state(seed,
+                                                           *THOMPSON_SMALL))
+              for seed, dt in zip((1, 2, 3), THOMPSON_DTS)]
+    states += [("inert", 45.0, cases.inert_state(*THOMPSON_SMALL)),
+               ("ice-supersaturated", 45.0,
+                cases.ice_supersaturated_state(*THOMPSON_SMALL))]
+    return [(name, dt) + cases.as_stack(state, dev)
+            for name, dt, state in states]
 
 
-def thompson_compare(got, want, what):
-    """Hold K5's fields (and accumulators) ``got`` against the plain
-    version's ``want``: at most K5_SHARE of the cells of each beyond
-    K5_RTOL. Returns the largest absolute difference."""
-    names = ("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni", "nr", "rain",
-             "snow", "graupel")
-    worst, shares = 0.0, []
-    for name, g, w in zip(names, got, want):
-        g = g.detach().cpu().numpy().astype(np.float64)
-        w = w.detach().cpu().numpy().astype(np.float64)
-        if not np.isfinite(g).all():
-            raise AssertionError(f"{what}: non-finite {name}")
-        d = np.abs(g - w)
-        rel = d / (np.abs(w) + 1e-6 * np.abs(w).max() + 1e-30)
-        share = float(np.mean(rel > K5_RTOL))
-        shares.append(f"{name} {share:.2e}")
-        if share > K5_SHARE:
-            raise AssertionError(f"{what}: {name} has {share:.3%} of its "
-                                 f"cells beyond rtol {K5_RTOL}")
-        worst = max(worst, float(d.max()))
+def thompson_compare(cases, got, want, what):
+    """Hold K5's fields and accumulators ``got`` against the plain
+    version's ``want`` (thompson_cases.compare at K5_RTOL, K5_SHARE).
+    Returns the largest absolute difference."""
+    worst, shares = cases.compare(got, want, K5_RTOL, K5_SHARE, what)
     log(f"  {what}: max abs err {worst:.3e}; shares beyond rtol {K5_RTOL}: "
-        + ", ".join(shares))
+        + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
     return worst
 
 
-def thompson_work(tp, kernels, stack, smap, exner, p, dz, dt, params):
+def thompson_work(tp, stack, smap, exner, p, dz, dt, params):
     """Bytes and operations of K5 on these inputs: the stack read and
-    written, exner, p, dz, the tables and constants read, the accumulators
-    read and written; the per-cell work, and the sedimentation steps this
-    state's columns take (from the plain version's terminal velocities)."""
+    written, exner, p and dz read, the accumulators read and written (the
+    table entries each cell reads where a predicate holds are left out, so
+    the byte count errs low); the per-cell work, and the sedimentation
+    steps this state's columns take (from the plain version's terminal
+    velocities)."""
     import torch
     _, nz, ny, nx = stack.shape
     n, plane = nz * ny * nx, ny * nx
-    tabs = tp.device_tables(params, stack.device)
-    nbytes = (4 * (2 * 9 * n + 3 * n + 2 * 3 * plane)
-              + sum(t.numel() * t.element_size() for t in tabs.values()))
+    nbytes = 4 * (2 * 9 * n + 3 * n + 2 * 3 * plane)
     _, c = tp.get_tables(params)
     P = tp._prep_block(*(stack[i] for i in smap), exner, p, c, params)
     I = tp._index_block(P, c)
     DT = tp._f32(dt)
-    O = tp._core_block(P, I["idx_i"], tp._lookup(tabs, I), DT, c, params)
+    O = tp._core_block(P, I["idx_i"],
+                       tp._lookup(tp.device_tables(params, stack.device), I),
+                       DT, c, params)
 
     def steps(vt):
         per_k = torch.where(vt > 1e-3, torch.trunc(DT * vt / dz) + 1, 0)
@@ -542,7 +495,7 @@ def thompson_work(tp, kernels, stack, smap, exner, p, dz, dt, params):
     return nbytes, ops
 
 
-def check_thompson_kernel(model, kernels, step, tp):
+def check_thompson_kernel(model, kernels, step, tp, cases):
     """K5 against its plain version on the Thompson ridge's state at the
     path's dt, and on the random states of thompson_states."""
     import torch
@@ -577,7 +530,7 @@ def check_thompson_kernel(model, kernels, step, tp):
     run_k5()
     torch.cuda.synchronize()
     out, *want_acc = run_p5()
-    err5 = thompson_compare([work[i] for i in smap] + acc,
+    err5 = thompson_compare(cases, [work[i] for i in smap] + acc,
                             [out[i] for i in smap] + want_acc,
                             f"mp_thompson kernel vs plain (ridge state, dt "
                             f"{float(dt)})")
@@ -585,7 +538,7 @@ def check_thompson_kernel(model, kernels, step, tp):
     log(f"K5 mp_thompson: max_abs_err {err5:.3e}; kernel {ms5:.4f} ms, "
         f"plain {pms5:.4f} ms")
 
-    for name, sdt, q, sex, sp, sdz in thompson_states(tp, stack.device):
+    for name, sdt, q, sex, sp, sdz in thompson_states(cases, stack.device):
         z = torch.zeros(q.shape[2:], device=q.device)
         want, *wacc = tp.mp_thompson_stack(q, tp.SPECIES, sex, sp, sdz,
                                            np.float32(sdt), z, z, z)
@@ -595,12 +548,12 @@ def check_thompson_kernel(model, kernels, step, tp):
                                   np.float32(sdt), *gacc, params)
         torch.cuda.synchronize()
         err5 = max(err5, thompson_compare(
-            list(got) + gacc, list(want) + wacc,
+            cases, list(got) + gacc, list(want) + wacc,
             f"mp_thompson kernel vs plain ({name}, dt {sdt}, "
             f"{tuple(q.shape)})"))
     return [kernel_entry("mp_thompson", REPLACES["mp_thompson"], err5, ms5,
-                         pms5, thompson_work(tp, kernels, stack, smap, ex, p,
-                                             dz, dt, params))]
+                         pms5, thompson_work(tp, stack, smap, ex, p, dz, dt,
+                                             params))]
 
 
 def golden_mismatches(fields, ref):
@@ -702,6 +655,7 @@ def main():
     from icar_tpu_torch.ops import mpdata as mpdata_plain
     from icar_tpu_torch.physics import mp_simple as mp_plain
     from icar_tpu_torch.physics import mp_thompson as thompson_plain
+    from icar_tpu_torch.physics import thompson_cases
 
     # 0. build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -748,23 +702,20 @@ def main():
                             RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
     del model
 
-    # 6. K5 against its plain version on a real Thompson-ridge state
-    t0 = time.perf_counter()
-    warm = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
-    warm.advance(RIDGE_INTERVAL)
-    torch.cuda.synchronize()
-    log(f"Thompson setup + first interval at 500x500x20: "
-        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
-    table += check_thompson_kernel(warm, kernels, step, thompson_plain)
-    del warm
-
-    # 7. the Thompson ridge at full width, counting kernel launches
+    # 6. the Thompson ridge at full width, counting kernel launches; its
+    # lookup tables are built and uploaded as set-up, before the timed run
     model = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
+    thompson_plain.device_tables(step.thompson_params(model.options),
+                                 model.state["pressure"].device)
     thompson_launches = drive(
         model, kernels, "Thompson", ("mp_thompson", "advect_mpdata"),
         RIDGE_INTERVAL, RIDGE_INTERVALS, smi,
         fields=tuple(model.advect_names) + ("precipitation", "snowfall",
                                             "graupel", "u", "v", "w"))
+
+    # 7. K5 against its plain version on the state the drive left
+    table += check_thompson_kernel(model, kernels, step, thompson_plain,
+                                   thompson_cases)
     del model
     for entry in table:
         name = entry["name"]

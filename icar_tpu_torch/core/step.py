@@ -62,27 +62,16 @@ def thompson_params(options) -> ThompsonParams:
 
 
 def _check_species(mp: int, mpdata: bool, adv_names):
-    """Raise NotImplementedError unless the microphysics and its advected
-    species are a ported pair."""
-    if mp == C.MP_SIMPLE:
-        want = MP_SPECIES
-    elif mp == C.MP_THOMPSON:
-        if not mpdata:
-            raise NotImplementedError(
-                "Thompson microphysics with upwind advection is not ported "
-                "yet: Slice B (Thompson + upwind) in ROADMAP.md")
-        want = mp_thompson.SPECIES
-    elif mp == C.MP_THOMPSON_AER:
-        raise NotImplementedError(
-            f"Thompson-aerosol microphysics (mp=5) is not ported yet: "
-            f"{mp_thompson.AEROSOL_SLICE} in ROADMAP.md")
-    else:
-        raise NotImplementedError(
-            f"microphysics={mp} is not ported yet: Slice F in ROADMAP.md")
-    if sorted(adv_names) != sorted(want):
-        raise NotImplementedError(
-            f"advected species {tuple(adv_names)}: only the set {want} of "
-            f"microphysics={mp} is ported")
+    """Raise ValueError unless the microphysics, the advection and the
+    advected species are a pair that the loop runs (which options are
+    ported is ICARModel's decision, models/icar.py ``_unported``)."""
+    want = {C.MP_SIMPLE: MP_SPECIES,
+            C.MP_THOMPSON: mp_thompson.SPECIES if mpdata else None}.get(mp)
+    if want is None or sorted(adv_names) != sorted(want):
+        raise ValueError(
+            f"run_interval: microphysics={mp} with "
+            f"{'MPDATA' if mpdata else 'upwind'} advection and the species "
+            f"{tuple(adv_names)} is not a configuration it runs")
 
 
 def boundary_mask(ny: int, nx: int, device) -> torch.Tensor:

@@ -18,12 +18,13 @@
 // ppt_ice, graupel + ppt_graupel. It allocates nothing.
 //
 // What bounds it on an H100: by bytes, reading the 9 species and exner, p,
-// dz and writing the 9 species is 84 bytes per cell; with the tables read
-// once (19.6 MB) that is 0.45 GB, 0.133 ms at 3.35 TB/s, at 500x500x20. By
-// operations, chip_smoke.py counts this source's float32 operations per
-// cell (1652, each transcendental call -- expf, logf, log10f, powf, sqrtf --
-// counted as one, so that bound errs low) and per sedimentation step: about
-// 8.7 G on the 500x500x20 ridge's state, 0.13 ms at 67 TFLOP/s. Bytes bound
+// dz and writing the 9 species is 84 bytes per cell, 0.42 GB at 500x500x20
+// (with the accumulators 0.426 GB), 0.127 ms at 3.35 TB/s; the table entries
+// a cell reads only where a predicate holds are not counted. By operations,
+// chip_smoke.py counts this source's float32 operations per cell (1652,
+// each transcendental call -- expf, logf, log10f, powf, sqrtf -- counted as
+// one, so that bound errs low) and per sedimentation step: about 8.7 G on
+// the 500x500x20 ridge's state, 0.130 ms at 67 TFLOP/s. Operations bound
 // it, barely. In practice it is latency and registers: a few hundred live
 // values per cell, data-dependent loops per column, and the table values
 // each cell reads fall in the L2 (the bf16 stacks, 19.5 MB, fit its 50 MB).

@@ -405,14 +405,11 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
                          f"permutation of the 9 stack rows")
     S, nz, ny, nx = qstack.shape
     if qstack.device.type == "cpu":
-        outs = thompson_plain.thompson_step(
-            *(qstack[i] for i in smap), exner, pressure, dz_mass, dt, params)
-        for pos, row in enumerate(smap):
-            qstack[row].copy_(outs[pos])
-        ppt_rain, ppt_ice, ppt_snow, ppt_graupel = outs[9:]
-        rain.copy_(rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice)
-        snow.copy_(snow + ppt_snow + ppt_ice)
-        graupel.copy_(graupel + ppt_graupel)
+        res = thompson_plain.mp_thompson_smap(
+            qstack, smap, exner, pressure, dz_mass, dt, rain, snow, graupel,
+            params)
+        for dst, src in zip((qstack, rain, snow, graupel), res):
+            dst.copy_(src)
         return
     if qstack.device.type != "cuda":
         raise ValueError(f"mp_thompson: unsupported device {qstack.device}")

@@ -1235,6 +1235,14 @@ def thompson_step(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d, exner,
     return outs[:9] + tuple(o[0] for o in outs[9:])
 
 
+def _accumulate(rain, snow, graupel, ppt_rain, ppt_ice, ppt_snow,
+                ppt_graupel):
+    """The surface accumulators after one step, in the JAX order
+    (icar_tpu/physics/mp_thompson.py mp_thompson_stack)."""
+    return (rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice,
+            snow + ppt_snow + ppt_ice, graupel + ppt_graupel)
+
+
 def mp_thompson(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz, dt,
                 rain, snow, graupel, params: ThompsonParams = None):
     """One Thompson step over the full grid (mp_gt_driver,
@@ -1242,13 +1250,9 @@ def mp_thompson(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz, dt,
     [mm]; ni/nr are number mixing ratios [kg^-1].
 
     Returns (th, qv, qc, qi, qr, qs, qg, ni, nr, rain, snow, graupel)."""
-    (th, qv, qc, qi, qr, qs_, qg, ni, nr,
-     ppt_rain, ppt_ice, ppt_snow, ppt_graupel) = thompson_step(
-        th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz, dt, params)
-    rain = rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice
-    snow = snow + ppt_snow + ppt_ice
-    graupel = graupel + ppt_graupel
-    return th, qv, qc, qi, qr, qs_, qg, ni, nr, rain, snow, graupel
+    outs = thompson_step(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz,
+                         dt, params)
+    return outs[:9] + _accumulate(rain, snow, graupel, *outs[9:])
 
 
 # registry name -> scheme position of (th, qv, qc, qi, qr, qs, qg, ni, nr)
@@ -1280,16 +1284,21 @@ def mp_thompson_stack(qstack, names, exner, p, dz, dt, rain, snow, graupel,
     if smap is None:
         raise ValueError(f"mp_thompson_stack: {tuple(names)} is not the set "
                          f"of Thompson species {SPECIES}")
+    return mp_thompson_smap(qstack, smap, exner, p, dz, dt, rain, snow,
+                            graupel, params)
+
+
+def mp_thompson_smap(qstack, smap, exner, p, dz, dt, rain, snow, graupel,
+                     params: ThompsonParams = None):
+    """mp_thompson_stack with the stack order given as ``smap`` (scheme
+    position -> stack row, as stack_smap returns it): the plain version of
+    kernel K5's wrapper."""
     outs = thompson_step(*(qstack[i] for i in smap), exner, p, dz, dt,
                          params)
     out_stack = torch.empty_like(qstack)
     for pos, row in enumerate(smap):
         out_stack[row] = outs[pos]
-    ppt_rain, ppt_ice, ppt_snow, ppt_graupel = outs[9:]
-    rain = rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice
-    snow = snow + ppt_snow + ppt_ice
-    graupel = graupel + ppt_graupel
-    return out_stack, rain, snow, graupel
+    return (out_stack,) + _accumulate(rain, snow, graupel, *outs[9:])
 
 
 def mp_thompson_aer(*args, **kwargs):

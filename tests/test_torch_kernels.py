@@ -23,6 +23,7 @@ from icar_tpu_torch.ops import kernels
 from icar_tpu_torch.ops import mpdata as mpdata_plain
 from icar_tpu_torch.physics import mp_simple as mp_plain
 from icar_tpu_torch.physics import mp_thompson as thompson_plain
+from icar_tpu_torch.physics import thompson_cases
 
 torch.set_num_threads(1)
 
@@ -177,39 +178,11 @@ def test_mpdata_path_launches_each_kernel_per_substep(cuda):
                                 "mp_thompson": 0}
 
 
-def thompson_state(seed, nz=20, ny=7, nx=13, device="cpu"):
-    """A mixed-regime Thompson stack in the scheme's field order (warm rain,
-    mixed phase, riming, glaciated; tests/test_torch_thompson.py
-    mixed_state) with exner, p and dz; with ``seed`` None an inert one."""
-    r = np.random.default_rng(seed if seed is not None else 11)
-    dz = np.full((nz, ny, nx), 400.0 * 20 / nz, np.float32)
-    z = np.cumsum(dz, axis=0) - dz / 2
-    p = (1e5 * np.exp(-z / 8000.0)).astype(np.float32)
-    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
-    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    if seed is None:
-        t = 285.0 - 0.0065 * z + r.uniform(-2, 2, (nz, ny, nx))
-        qv = thompson_plain.rslf(f(p), f(t)).cpu().numpy() * 0.3
-        trace = np.where(r.uniform(size=(nz, ny, nx)) < 0.3, 5e-13, 0.0)
-        fields = [t / exner, qv] + [trace] * 5 + [trace * 1e6] * 2
-    else:
-        t = (r.uniform(250.0, 300.0, (ny, nx))[None] - 0.0065 * z
-             + r.uniform(-3, 3, (nz, ny, nx)))
-        qv = (thompson_plain.rslf(f(p), f(t)).cpu().numpy()
-              * r.uniform(0.3, 1.3, (nz, ny, nx)))
-
-        def hydro(scale):
-            q = r.uniform(0, scale, (nz, ny, nx))
-            return np.where(r.uniform(size=q.shape) < 0.6, q, 0.0)
-        fields = [t / exner, qv, hydro(1.5e-3), hydro(3e-4), hydro(1e-3),
-                  hydro(8e-4), hydro(5e-4), hydro(1e6), hydro(5e6)]
-    return torch.stack([f(a) for a in fields]), f(exner), f(p), f(dz)
-
-
-def _k5_matches_plain(q, ex, p, dz, dt, order=tuple(range(9))):
-    """K5 on the stack rows ``order`` against the plain version: per field
-    at most 1e-4 of the cells beyond rtol 1e-5 (chip_smoke.py's K5
-    tolerance; on the card the two agree bit for bit in its runs)."""
+def _k5_matches_plain(state, dt, order=tuple(range(9))):
+    """K5 on the stack rows ``order`` against the plain version, held to
+    chip_smoke.py's tolerance (thompson_cases.compare; on the card the two
+    agree bit for bit in its runs)."""
+    q, ex, p, dz = thompson_cases.as_stack(state, "cuda")
     stack = torch.empty_like(q)
     for i, row in enumerate(order):
         stack[row] = q[i]
@@ -220,13 +193,7 @@ def _k5_matches_plain(q, ex, p, dz, dt, order=tuple(range(9))):
     kernels.mp_thompson_stack(stack, order, ex, p, dz, dt, *got_acc)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mp_thompson"] == 1
-    got = [stack[row] for row in order] + got_acc
-    for name, g, w in zip(("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni",
-                           "nr", "rain", "snow", "graupel"), got, want):
-        g, w = g.cpu().numpy(), w.cpu().numpy()
-        assert np.isfinite(g).all(), name
-        rel = np.abs(g - w) / (np.abs(w) + 1e-6 * np.abs(w).max() + 1e-30)
-        assert np.mean(rel > 1e-5) <= 1e-4, name
+    thompson_cases.compare([stack[row] for row in order] + got_acc, want)
 
 
 @pytest.mark.gpu
@@ -234,26 +201,26 @@ def _k5_matches_plain(q, ex, p, dz, dt, order=tuple(range(9))):
 def test_thompson_kernel_matches_plain(cuda, seed, dt):
     """Mixed regimes; 7 x 13 columns, so the grid's last block is ragged;
     a permuted stack order."""
-    q, ex, p, dz = thompson_state(seed, device=cuda)
-    _k5_matches_plain(q, ex, p, dz, np.float32(dt),
+    _k5_matches_plain(thompson_cases.mixed_state(seed), np.float32(dt),
                       order=(3, 0, 8, 1, 2, 7, 4, 6, 5))
 
 
 @pytest.mark.gpu
 def test_thompson_kernel_at_max_nz(cuda):
     nz = kernels.library().icar_mp_thompson_max_nz()
-    q, ex, p, dz = thompson_state(4, nz=nz, ny=5, nx=9, device=cuda)
-    _k5_matches_plain(q, ex, p, dz, np.float32(60.0))
+    _k5_matches_plain(thompson_cases.mixed_state(4, nz, 5, 9, 8000.0 / nz),
+                      np.float32(60.0))
+    big = thompson_cases.as_stack(
+        thompson_cases.mixed_state(4, nz + 1, 2, 3, 8000.0 / (nz + 1)), cuda)
     with pytest.raises(ValueError, match="exceeds"):
-        big = thompson_state(4, nz=nz + 1, ny=2, nx=3, device=cuda)
         kernels.mp_thompson_stack(big[0], tuple(range(9)), *big[1:], 60.0,
                                   *(torch.zeros((2, 3), device=cuda),) * 3)
 
 
 @pytest.mark.gpu
 def test_thompson_kernel_inert_state(cuda):
-    q, ex, p, dz = thompson_state(None, device=cuda)
-    _k5_matches_plain(q, ex, p, dz, np.float32(45.0))
+    _k5_matches_plain(thompson_cases.inert_state(20, 7, 13),
+                      np.float32(45.0))
 
 
 @pytest.mark.gpu

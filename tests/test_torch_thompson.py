@@ -40,84 +40,14 @@ from icar_tpu.physics import mp_thompson as mj
 from icar_tpu.physics.thompson_tables import ThompsonParams as JParams
 from icar_tpu.physics.thompson_tables import get_tables as jget_tables
 from icar_tpu_torch.physics import mp_thompson as mt
+from icar_tpu_torch.physics.thompson_cases import (
+    FIELDS, OUTPUTS, column, compare, ice_supersaturated_state, inert_state,
+    mixed_state)
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni", "nr")
-OUT_NAMES = NAMES + ("rain", "snow", "graupel")
-
-
-def mixed_state(seed, nz=20, ny=7, nx=13):
-    """Randomized columns spanning warm rain, mixed-phase and glaciated
-    regimes with every species present somewhere
-    (tests/test_thompson_pallas.py _mixed_state, numpy only)."""
-    r = np.random.default_rng(seed)
-    dz = np.full((nz, ny, nx), 400.0, np.float32)
-    z = np.cumsum(dz, axis=0) - 200.0
-    p = 1e5 * np.exp(-z / 8000.0)
-    t_sfc = r.uniform(250.0, 300.0, (ny, nx))
-    t = t_sfc[None] - 0.0065 * z + r.uniform(-3, 3, (nz, ny, nx))
-    exner = (p / 1e5) ** (287.04 / 1004.0)
-    qvs = mt.rslf(torch.tensor(p, dtype=torch.float32),
-                  torch.tensor(t, dtype=torch.float32)).numpy()
-    qv = qvs * r.uniform(0.3, 1.3, (nz, ny, nx))
-
-    def hydro(scale):
-        q = r.uniform(0, scale, (nz, ny, nx))
-        return np.where(r.uniform(size=q.shape) < 0.6, q, 0.0)
-
-    f = lambda a: np.asarray(a, np.float32)
-    return dict(th=f(t / exner), qv=f(qv), qc=f(hydro(1.5e-3)),
-                qi=f(hydro(3e-4)), qr=f(hydro(1e-3)), qs=f(hydro(8e-4)),
-                qg=f(hydro(5e-4)), ni=f(hydro(1e6)), nr=f(hydro(5e6)),
-                exner=f(exner), p=f(p), dz=f(dz))
-
-
-def _column(nz, ny, nx, t, p=None):
-    """dz, p, exner of a standard column at temperature t (K)."""
-    dz = np.full((nz, ny, nx), 400.0, np.float32)
-    z = np.cumsum(dz, axis=0) - 200.0
-    if p is None:
-        p = (1e5 * np.exp(-z / 8000.0)).astype(np.float32)
-    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
-    return dz, p, exner
-
-
-def inert_state():
-    """Dry, water-subsaturated, below the ice nucleation trigger, with a few
-    cells under the 1e-7 vapour floor and sub-R1 traces
-    (tests/test_thompson_pallas.py test_inert_tile_skip_matches_full)."""
-    nz, ny, nx = 10, 5, 11
-    r = np.random.default_rng(11)
-    dz, p, exner = _column(nz, ny, nx, None)
-    z = np.cumsum(dz, axis=0) - 200.0
-    t = (285.0 - 0.0065 * z + r.uniform(-2, 2, (nz, ny, nx))).astype(
-        np.float32)
-    qvs = mt.rslf(torch.tensor(p), torch.tensor(t)).numpy()
-    qv = (qvs * 0.3).astype(np.float32)
-    qv[0, 0, :3] = 3e-8
-    qtrace = np.where(r.uniform(size=(nz, ny, nx)) < 0.3, 5e-13,
-                      0.0).astype(np.float32)
-    return dict(th=t / exner, qv=qv, qc=qtrace, qi=qtrace, qr=qtrace,
-                qs=qtrace, qg=qtrace, ni=qtrace * 1e6, nr=qtrace * 1e6,
-                exner=exner, p=p, dz=dz)
-
-
-def ice_supersaturated_state():
-    """No hydrometeors, water-subsaturated, ice supersaturation 40% at
-    228 K: only nucleation acts (test_thompson_pallas.py
-    test_ice_supersaturated_tile_goes_active)."""
-    nz, ny, nx = 6, 3, 7
-    dz = np.full((nz, ny, nx), 400.0, np.float32)
-    p = np.full((nz, ny, nx), 4e4, np.float32)
-    t = np.full((nz, ny, nx), 228.0, np.float32)
-    exner = ((p / 1e5) ** (287.04 / 1004.0)).astype(np.float32)
-    qvsi = mt.rsif(torch.tensor(p), torch.tensor(t)).numpy()
-    qv = (qvsi * 1.4).astype(np.float32)
-    z = np.zeros((nz, ny, nx), np.float32)
-    return dict(th=t / exner, qv=qv, qc=z, qi=z, qr=z, qs=z, qg=z, ni=z,
-                nr=z, exner=exner, p=p, dz=dz)
+NAMES, OUT_NAMES = FIELDS, OUTPUTS
 
 
 def riming_state(seed=5, nz=12, ny=5, nx=9):
@@ -125,7 +55,7 @@ def riming_state(seed=5, nz=12, ny=5, nx=9):
     every cell: snow and graupel rime, Hallett-Mossop splinters, rimed snow
     converts to graupel."""
     r = np.random.default_rng(seed)
-    dz, p, exner = _column(nz, ny, nx, None)
+    dz, _, p, exner = column(nz, ny, nx)
     t = r.uniform(253.0, 268.0, (nz, ny, nx)).astype(np.float32)
     qvs = mt.rslf(torch.tensor(p), torch.tensor(t)).numpy()
     f = lambda a: np.asarray(a, np.float32)
@@ -369,6 +299,23 @@ def test_direct_lookups_match_the_gated_gathers():
                    mt._index_block(P, cj))
     assert float(G["tcs_racs1"].abs().max()) > 0.0
     assert_fractions(got, want, 0.01, "rain only", bound_2d=0.005)
+
+
+def test_compare_holds_the_share_of_cells_beyond_rtol():
+    """thompson_cases.compare, K5's tolerance against its plain version:
+    equal inputs pass with no share; one cell of 1000 off by 1e-3 passes
+    at share 1e-3 and fails at 1e-4, naming the field; a NaN fails."""
+    want = [torch.full((10, 10, 10), 2.0) for _ in OUT_NAMES]
+    worst, shares = compare(want, want)
+    assert worst == 0.0 and set(shares.values()) == {0.0}
+    got = [w.clone() for w in want]
+    got[4][3, 3, 3] *= 1.001
+    assert compare(got, want, share=1e-3)[1]["qr"] == 1e-3
+    with pytest.raises(AssertionError, match="qr"):
+        compare(got, want, share=1e-4)
+    got[4][3, 3, 3] = float("nan")
+    with pytest.raises(AssertionError, match="non-finite qr"):
+        compare(got, want, share=1.0)
 
 
 def test_aerosol_scheme_raises():

@@ -102,3 +102,17 @@ def test_thompson_ridge_takes_the_plain_versions_on_the_cpu():
 def test_unported_thompson_options_raise(mp, adv, match):
     with pytest.raises(NotImplementedError, match=match):
         ideal_ridge_model(nx=20, ny=8, nz=10, mp=mp, adv=adv, device="cpu")
+
+
+@pytest.mark.parametrize("names,adv", [(slice(0, 5), C.ADV_MPDATA),
+                                       (slice(None), C.ADV_UPWIND)])
+def test_run_interval_refuses_what_it_does_not_run(names, adv):
+    """The loop runs Thompson only on its nine species and with MPDATA;
+    anything else is refused before a substep."""
+    from icar_tpu_torch.core.step import run_interval
+    m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0,
+                          mp=C.MP_THOMPSON, adv=C.ADV_MPDATA, device="cpu")
+    m.options.physics.advection = adv
+    with pytest.raises(ValueError, match="not a configuration it runs"):
+        run_interval(m.state, m.geom_t, m.options, m.advect_names[names],
+                     60.0)
