@@ -20,10 +20,14 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    path of bench.py --config mpdata_thompson) at 500x500x20 and checks that
    it went through K5 and K4 once per substep and through K1, K2 and K3 not
    at all;
-7. checks K5 (Thompson) against its plain version on the state that drive
-   left, on random mixed-regime stacks at dt 30, 90 and 150, and on an
-   inert and an ice-supersaturated state.
-Prints the kernel table (time, plain time, bound, launches) as one JSON
+7. checks K4 on the 9-species stack and K5 (Thompson) against their plain
+   versions on the state that drive left, K5 also on random mixed-regime
+   stacks at dt 30, 90 and 150, and on an inert and an ice-supersaturated
+   state.
+After each drive it prints the float64 digest of the final state (sum and
+sum of squares of each advected field, u, v, w and each accumulator), and
+K4 is also timed without its skip of empty species. Prints the kernel
+table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing a result. Imports
@@ -239,11 +243,13 @@ def kernel_entry(name, replaces, err, ms, pms, work, launches=None):
 # the kernels' sources and the TPU kernels they replace
 SOURCE = {"advect_upwind": "advect_upwind.cu", "mp_simple": "mp_simple.cu",
           "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu",
+          "advect_mpdata_9species": "mpdata.cu",
           "mp_thompson": "mp_thompson.cu"}
 REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
             "mp_simple": "icar_tpu/ops/pallas_kernels.py:679",
             "mp_simple_rho": "icar_tpu/ops/pallas_kernels.py:591",
             "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783",
+            "advect_mpdata_9species": "icar_tpu/ops/pallas_kernels.py:783",
             "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107"}
 
 
@@ -359,6 +365,7 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     ms4, pms4 = cuda_ms(run_k4), cuda_ms(run_p4)
     log(f"K4 advect_mpdata: max_abs_err {err4:.3e} (rtol {K4_RTOL}, atol "
         f"{K4_ATOL}); kernel {ms4:.4f} ms, plain {pms4:.4f} ms")
+    time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms4)
 
     # --- K4 at the other orders on a random stack
     r = np.random.default_rng(17)
@@ -435,6 +442,56 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
         sb04_work(mp_plain, *(stack[i] for i in idx), p, ex, dzm, dt,
                   True)))
     return results
+
+
+def time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms):
+    """Log K4's time without its skip of empty species beside ``ms``, its
+    time with it, taken in turns (off, on, on, off)."""
+    run = lambda skip: kernels.advect_mpdata(stack, winds, dt, order, fct,
+                                             floors, True, out=out,
+                                             skip_empty=skip)
+    times = [cuda_ms(lambda: run(False)), cuda_ms(lambda: run(True)),
+             cuda_ms(lambda: run(True)), cuda_ms(lambda: run(False))]
+    log(f"  K4 on {tuple(stack.shape)}: skip of empty species on "
+        f"{ms:.4f} ms; in turns off/on/on/off "
+        + " / ".join(f"{t:.4f}" for t in times) + " ms")
+
+
+def check_mpdata_thompson(model, kernels, step, mpdata_plain):
+    """K4 on the Thompson path's 9-species stack, at its order and FCT,
+    against its plain version on the state the Thompson drive left."""
+    import torch
+    s = model.state
+    g = model.geom_t
+    adv = model.options.adv
+    names = model.advect_names
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    out = torch.empty_like(stack)
+    order, fct = adv.mpdata_order, adv.flux_corrected_transport
+    run_k4 = lambda: kernels.advect_mpdata(stack, winds, dt, order, fct,
+                                           floors, True, out=out)
+    run_p4 = lambda: mpdata_plain.advect_mpdata(
+        stack, s["u"], s["v"], s["w"], dt, g.dx, g.jacobian_u, g.jacobian_v,
+        g.jacobian_w, g.jacobian, g.advection_dz, order=order, use_fct=fct,
+        floors=floors, near_end=True)
+    run_k4()
+    torch.cuda.synchronize()
+    err = assert_close(out, run_p4(), K4_RTOL, K4_ATOL,
+                       f"advect_mpdata kernel vs plain ({len(names)} species, "
+                       f"order {order}, fct {fct})")
+    ms, pms = cuda_ms(run_k4), cuda_ms(run_p4)
+    log(f"K4 advect_mpdata, {len(names)} species: max_abs_err {err:.3e} "
+        f"(rtol {K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms")
+    time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms)
+    return [kernel_entry("advect_mpdata_9species",
+                         REPLACES["advect_mpdata_9species"], err, ms, pms,
+                         advect_work(*stack.shape, order, fct))]
 
 
 def thompson_states(cases, dev):
@@ -609,9 +666,10 @@ def drive(model, kernels, label, path, interval, intervals, smi,
     """Advance ``model`` over ``intervals`` intervals with the launch
     counts set to 0 just before; check that ``fields`` are finite, that
     there is cloud and precipitation, and that each kernel of ``path``
-    launched once per substep and the others not at all. Returns the launch
-    counts."""
+    launched once per substep and the others not at all; log the rate and
+    the final state's digest. Returns the launch counts."""
     import torch
+    from icar_tpu_torch.core.state import state_digest
     torch.cuda.synchronize()
     kernels.reset_launches()
     steps = 0
@@ -641,6 +699,8 @@ def drive(model, kernels, label, path, interval, intervals, smi,
     log(f"{label} path 500x500x20: {steps} substeps in {seconds:.3f} s = "
         f"{rate / 1e6:.1f}M gp*steps/s on {smi}; qc max {qc_max:.3e}, "
         f"precip max {pr_max:.3f} mm; launches {launches}")
+    log(f"digest {label}: " + json.dumps(state_digest(
+        model.state, list(model.advect_names) + ["u", "v", "w"])))
     return launches
 
 
@@ -713,7 +773,9 @@ def main():
         fields=tuple(model.advect_names) + ("precipitation", "snowfall",
                                             "graupel", "u", "v", "w"))
 
-    # 7. K5 against its plain version on the state the drive left
+    # 7. K4 with 9 species and K5 against their plain versions on the state
+    # the drive left
+    table += check_mpdata_thompson(model, kernels, step, mpdata_plain)
     table += check_thompson_kernel(model, kernels, step, thompson_plain,
                                    thompson_cases)
     del model
@@ -721,6 +783,8 @@ def main():
         name = entry["name"]
         if name == "mp_thompson":
             entry["launches"] = thompson_launches[name]
+        elif name == "advect_mpdata_9species":
+            entry["launches"] = thompson_launches["advect_mpdata"]
         elif name in ("mp_simple_rho", "advect_mpdata"):
             entry["launches"] = mpdata_launches[name]
         else:

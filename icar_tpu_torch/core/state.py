@@ -43,3 +43,18 @@ def create_state(options: Options, device) -> State:
 def advected_names(options: Options) -> List[str]:
     """Ordered list of advected species (vars_to_advect)."""
     return list(collect_requests(options).advect)
+
+
+# the surface accumulators a state may hold
+ACCUMULATORS = ("precipitation", "snowfall", "graupel")
+
+
+def state_digest(state: State, names) -> Dict[str, List[float]]:
+    """[sum, sum of squares], in float64, of each field in ``names`` and
+    each accumulator the state holds: a fingerprint of a run's final state
+    that two runs share when their fields agree bit for bit."""
+    out = {}
+    for name in list(names) + [a for a in ACCUMULATORS if a in state]:
+        x = state[name].double()
+        out[name] = [float(x.sum()), float((x * x).sum())]
+    return out

@@ -1,5 +1,5 @@
 // Fused donor-cell (upwind) advection of a species stack: kernel K1
-// (device code in upwind.cuh, shared with kernel K4).
+// (its update in upwind.cuh, shared with kernel K4).
 //
 // Replaces the Pallas TPU kernel icar_tpu/ops/pallas_kernels.py:167
 // (_advect_kernel, launched by _advect_call). Same update as
@@ -23,6 +23,51 @@
 // contraction) and without --use_fast_math, so divisions stay IEEE.
 
 #include "upwind.cuh"
+
+namespace {
+
+// Kernel K1: one thread per cell of the (S, nz, ny, nx) stack, winds
+// shared by all species and scaled by dt here. grid: x = tiles of the
+// (ny*nx) plane, y = species*nz + level. With near_end set, each species
+// is clamped to its floor.
+__global__ void advect_upwind_kernel(
+    const float* __restrict__ q, float* __restrict__ out,
+    const float* __restrict__ uj,   // (nz, ny, nx-1) internal x faces
+    const float* __restrict__ vj,   // (nz, ny-1, nx) internal y faces
+    const float* __restrict__ wj,   // (nz, ny, nx)   top face of each layer
+    const float* __restrict__ dz,   // (nz, ny, nx)
+    const float* __restrict__ jaco, // (nz, ny, nx)
+    const float* __restrict__ floors,  // (S,)
+    int nz, int ny, int nx, float dt, int near_end) {
+  const long plane = (long)ny * nx;
+  const long cell = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= plane) return;
+  const int sk = blockIdx.y;            // species * nz + level
+  const int s = sk / nz;
+  const int k = sk - s * nz;
+  const int j = (int)(cell / nx);
+  const int i = (int)(cell - (long)j * nx);
+
+  const float* qs = q + (long)s * nz * plane;   // this species
+  const long c = (long)k * plane + cell;        // (k, j, i) in a 3D field
+  const float qc = qs[c];
+  float res = qc;
+
+  if (j >= 1 && j <= ny - 2 && i >= 1 && i <= nx - 2) {
+    const long fxrow = ((long)k * ny + j) * (nx - 1);
+    const long fy = ((long)k * (ny - 1) + j) * nx + i;
+    res = upwind_update(
+        qc, qs[c - 1], qs[c + 1], qs[c - nx], qs[c + nx],
+        k > 0 ? qs[c - plane] : 0.0f, k < nz - 1 ? qs[c + plane] : 0.0f,
+        uj[fxrow + i - 1] * dt, uj[fxrow + i] * dt, vj[fy - nx] * dt,
+        vj[fy] * dt, k > 0 ? wj[c - plane] * dt : 0.0f, wj[c] * dt, dz[c],
+        jaco[c], k, nz);
+  }
+  if (near_end) res = fmaxf(res, floors[s]);
+  out[(long)s * nz * plane + c] = res;
+}
+
+}  // namespace
 
 extern "C" int icar_advect_upwind(const float* q, float* out,
                                   const float* uj, const float* vj,

@@ -129,9 +129,13 @@ def library() -> ctypes.CDLL:
         lib.icar_mp_simple_rho.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
                                            I, L, F, F, F, P]
         lib.icar_mp_simple_rho.restype = I
-        lib.icar_advect_mpdata.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
-                                           P, P, I, I, I, I, F, I, I, I, P]
+        lib.icar_advect_mpdata.argtypes = [P, P, P, P, P, P, P, P, P, I, I,
+                                           I, I, F, I, I, I, I, P]
         lib.icar_advect_mpdata.restype = I
+        lib.icar_advect_mpdata_max_nz.argtypes = []
+        lib.icar_advect_mpdata_max_nz.restype = I
+        lib.icar_mpdata_div.argtypes = [P, P, P, L, P]
+        lib.icar_mpdata_div.restype = I
         lib.icar_mp_simple_max_nz.argtypes = []
         lib.icar_mp_simple_max_nz.restype = I
         lib.icar_mp_thompson.argtypes = [P] * 16 + [I, L, F, P]
@@ -325,13 +329,16 @@ def _mp_kernel(name, theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
 # ---------------------------------------------------------------------------
 
 def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
-                  floors, near_end: bool, out=None):
+                  floors, near_end: bool, out=None, skip_empty: bool = True):
     """MPDATA update (``order`` >= 1 passes, optional FCT) of the species
     stack ``q`` (S, nz, ny, nx) for one substep of length ``dt`` into
     ``out`` (allocated when None; must not alias ``q``). ``floors`` (S,)
     float32 tensor: with ``near_end`` each species is clamped to its
-    floor. The kernel's workspace (intermediate solutions, pseudo-
-    velocities, FCT factors) is allocated here. Returns ``out``."""
+    floor. The intermediate solutions of orders >= 2 are allocated here;
+    the kernel keeps everything else on chip. ``skip_empty`` lets the
+    kernel skip the tiles and levels whose window holds only +0 in a
+    species (the bits are the same either way; off only to time the skip).
+    Returns ``out``."""
     S, nz, ny, nx = q.shape
     order = int(order)
     if q.device.type == "cpu":
@@ -350,6 +357,10 @@ def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
     if nz < 2 or ny < 3 or nx < 3:
         raise ValueError(f"advect_mpdata: needs nz >= 2, ny >= 3, nx >= 3, "
                          f"got {(nz, ny, nx)}")
+    lib = library()
+    if nz > lib.icar_advect_mpdata_max_nz():
+        raise ValueError(f"advect_mpdata: nz={nz} exceeds the kernel's "
+                         f"maximum {lib.icar_advect_mpdata_max_nz()}")
     dev = q.device
     _check(q, "q", (S, nz, ny, nx), dev)
     _check(winds.uj, "uj", (nz, ny, nx - 1), dev)
@@ -362,23 +373,18 @@ def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
     _check(out, "out", (S, nz, ny, nx), dev)
     if out.data_ptr() == q.data_ptr():
         raise ValueError("advect_mpdata: out must not alias q")
-    corrective = order >= 2
-    # the workspace is freed on return while the launches may still run:
+    # the scratch is freed on return while the launches may still run:
     # the caching allocator hands it out again only to later work on the
     # same stream, which runs after them
-    empty = lambda *shape: torch.empty(shape, dtype=q.dtype, device=dev)
-    scratch = empty(min(order - 1, 2), S, nz, ny, nx)
-    u2 = empty(S, nz, ny, nx - 1) if corrective else empty(0)
-    v2 = empty(S, nz, ny - 1, nx) if corrective else empty(0)
-    w2 = empty(S, nz, ny, nx) if corrective else empty(0)
-    beta = empty(6, S, nz, ny, nx) if corrective and use_fct else empty(0)
+    scratch = torch.empty((min(order - 1, 2), S, nz, ny, nx), dtype=q.dtype,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().icar_advect_mpdata(
-        q.data_ptr(), out.data_ptr(), scratch.data_ptr(), u2.data_ptr(),
-        v2.data_ptr(), w2.data_ptr(), beta.data_ptr(), winds.uj.data_ptr(),
+    err = lib.icar_advect_mpdata(
+        q.data_ptr(), out.data_ptr(), scratch.data_ptr(), winds.uj.data_ptr(),
         winds.vj.data_ptr(), winds.wj.data_ptr(), winds.dz.data_ptr(),
         winds.jaco.data_ptr(), floors.data_ptr(), S, nz, ny, nx, float(dt),
-        order, int(bool(use_fct)), int(bool(near_end)), stream)
+        order, int(bool(use_fct)), int(bool(near_end)),
+        int(bool(skip_empty)), stream)
     _raise_on(err, "advect_mpdata")
     LAUNCHES["advect_mpdata"] += 1
     return out

@@ -110,16 +110,26 @@ def test_main_path_launches_each_kernel_per_substep(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("species", [5, 9])
 @pytest.mark.parametrize("order,fct,near_end", [
     (1, True, True), (2, True, False), (2, True, True), (2, False, False),
     (3, True, True), (4, True, False)])
-def test_mpdata_kernel_matches_plain(ridge_state, order, fct, near_end):
+def test_mpdata_kernel_matches_plain(ridge_state, order, fct, near_end,
+                                     species):
     """K4 against its plain version, rtol 2e-5, atol 1e-6 (the Pallas
-    kernel's tolerance against jnp in tests/test_pallas.py)."""
+    kernel's tolerance against jnp in tests/test_pallas.py), on the ridge's
+    5 species and on a 9-species stack like the Thompson path's (the 5,
+    two species that are zero everywhere, which the kernel skips, and two
+    scaled copies)."""
     m = ridge_state
     s, g = m.state, m.geom_t
     stack = torch.stack([s[k] for k in m.advect_names])
     floors = torch.as_tensor(limit_floors(m.advect_names), device=s["u"].device)
+    if species == 9:
+        zero = torch.zeros_like(stack[2])
+        stack = torch.cat([stack, torch.stack(
+            [zero, 0.5 * stack[2], zero, 1e3 * stack[3]])])
+        floors = torch.cat([floors, torch.zeros_like(floors[:4])])
     winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
     dt = np.float32(37.25)
     kernels.reset_launches()
@@ -133,6 +143,23 @@ def test_mpdata_kernel_matches_plain(ridge_state, order, fct, near_end):
         floors=floors, near_end=near_end)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_mpdata_division_keeps_the_bits(cuda):
+    """K4's branch-free division (hardware reciprocal estimate, two residual
+    corrections, IEEE division outside its range) gives PyTorch's IEEE
+    a / b bit for bit on 2^24 pairs over the whole float32 range."""
+    from test_torch_mpdata_kernel import div_operands, same_bits
+    a, b = (torch.tensor(x, device=cuda) for x in div_operands(9, 1 << 24))
+    q = torch.empty_like(a)
+    err = kernels.library().icar_mpdata_div(
+        a.data_ptr(), b.data_ptr(), q.data_ptr(), a.numel(),
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    want = a / b
+    torch.cuda.synchronize()
+    assert same_bits(q.cpu().numpy(), want.cpu().numpy()).all()
 
 
 @pytest.mark.gpu
