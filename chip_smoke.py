@@ -25,9 +25,8 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    stacks at dt 30, 90 and 150, and on an inert and an ice-supersaturated
    state.
 After each drive it prints the float64 digest of the final state (sum and
-sum of squares of each advected field, u, v, w and each accumulator), and
-K4 is also timed without its skip of empty species. Prints the kernel
-table (time, plain time, bound, launches) as one JSON
+sum of squares of each advected field, u, v, w and each accumulator).
+Prints the kernel table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing a result. Imports
@@ -365,7 +364,6 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     ms4, pms4 = cuda_ms(run_k4), cuda_ms(run_p4)
     log(f"K4 advect_mpdata: max_abs_err {err4:.3e} (rtol {K4_RTOL}, atol "
         f"{K4_ATOL}); kernel {ms4:.4f} ms, plain {pms4:.4f} ms")
-    time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms4)
 
     # --- K4 at the other orders on a random stack
     r = np.random.default_rng(17)
@@ -444,19 +442,6 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     return results
 
 
-def time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms):
-    """Log K4's time without its skip of empty species beside ``ms``, its
-    time with it, taken in turns (off, on, on, off)."""
-    run = lambda skip: kernels.advect_mpdata(stack, winds, dt, order, fct,
-                                             floors, True, out=out,
-                                             skip_empty=skip)
-    times = [cuda_ms(lambda: run(False)), cuda_ms(lambda: run(True)),
-             cuda_ms(lambda: run(True)), cuda_ms(lambda: run(False))]
-    log(f"  K4 on {tuple(stack.shape)}: skip of empty species on "
-        f"{ms:.4f} ms; in turns off/on/on/off "
-        + " / ".join(f"{t:.4f}" for t in times) + " ms")
-
-
 def check_mpdata_thompson(model, kernels, step, mpdata_plain):
     """K4 on the Thompson path's 9-species stack, at its order and FCT,
     against its plain version on the state the Thompson drive left."""
@@ -488,7 +473,6 @@ def check_mpdata_thompson(model, kernels, step, mpdata_plain):
     log(f"K4 advect_mpdata, {len(names)} species: max_abs_err {err:.3e} "
         f"(rtol {K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
         f"{pms:.4f} ms")
-    time_skip(kernels, stack, winds, dt, order, fct, floors, out, ms)
     return [kernel_entry("advect_mpdata_9species",
                          REPLACES["advect_mpdata_9species"], err, ms, pms,
                          advect_work(*stack.shape, order, fct))]

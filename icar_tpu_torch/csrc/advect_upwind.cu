@@ -1,5 +1,6 @@
 // Fused donor-cell (upwind) advection of a species stack: kernel K1
-// (its update in upwind.cuh, shared with kernel K4).
+// (upwind_tile_kernel in upwind.cuh, whose launch is also K4's upwind
+// pass).
 //
 // Replaces the Pallas TPU kernel icar_tpu/ops/pallas_kernels.py:167
 // (_advect_kernel, launched by _advect_call). Same update as
@@ -9,13 +10,14 @@
 //
 // What bounds it on an H100: device-memory bytes. Per cell it reads q and
 // five wind/metric operands and writes one value, a few dozen flops, far
-// below the card's flop-per-byte balance. The design is one thread per
-// cell of the natural (S, nz, ny, nx) float32 stack with x fastest, so
-// every load and the store coalesce across a warp; each operand is read
-// once from DRAM and the neighbour reads (x+-1, y+-1, z+-1 of q, the
-// neighbouring faces) come from L1/L2. The output is a separate buffer
-// because neighbours are read. The TPU kernel's 128-lane padded frame,
-// 16-row tiles and DMA halo windows are TPU constraints and are gone.
+// below the card's flop-per-byte balance. The design is one block per tile
+// of 8 x 32 columns, looping over the levels and species, one thread per
+// column, so every load and the store coalesce across a warp; the
+// neighbour reads (x+-1, y+-1, z+-1 of q, the neighbouring faces) come from
+// L1/L2, and a species that is +0 over a tile's window is only stored. The
+// output is a separate buffer because neighbours are read. The TPU
+// kernel's 128-lane padded frame, 16-row tiles and DMA halo windows are
+// TPU constraints and are gone.
 //
 // Arithmetic follows the TPU kernel's order ((u*J_u/dx)*dt); the plain
 // PyTorch version follows the jnp path's (u*(dt/dx)*J_u), so the two agree
@@ -24,61 +26,15 @@
 
 #include "upwind.cuh"
 
-namespace {
-
-// Kernel K1: one thread per cell of the (S, nz, ny, nx) stack, winds
-// shared by all species and scaled by dt here. grid: x = tiles of the
-// (ny*nx) plane, y = species*nz + level. With near_end set, each species
-// is clamped to its floor.
-__global__ void advect_upwind_kernel(
-    const float* __restrict__ q, float* __restrict__ out,
-    const float* __restrict__ uj,   // (nz, ny, nx-1) internal x faces
-    const float* __restrict__ vj,   // (nz, ny-1, nx) internal y faces
-    const float* __restrict__ wj,   // (nz, ny, nx)   top face of each layer
-    const float* __restrict__ dz,   // (nz, ny, nx)
-    const float* __restrict__ jaco, // (nz, ny, nx)
-    const float* __restrict__ floors,  // (S,)
-    int nz, int ny, int nx, float dt, int near_end) {
-  const long plane = (long)ny * nx;
-  const long cell = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= plane) return;
-  const int sk = blockIdx.y;            // species * nz + level
-  const int s = sk / nz;
-  const int k = sk - s * nz;
-  const int j = (int)(cell / nx);
-  const int i = (int)(cell - (long)j * nx);
-
-  const float* qs = q + (long)s * nz * plane;   // this species
-  const long c = (long)k * plane + cell;        // (k, j, i) in a 3D field
-  const float qc = qs[c];
-  float res = qc;
-
-  if (j >= 1 && j <= ny - 2 && i >= 1 && i <= nx - 2) {
-    const long fxrow = ((long)k * ny + j) * (nx - 1);
-    const long fy = ((long)k * (ny - 1) + j) * nx + i;
-    res = upwind_update(
-        qc, qs[c - 1], qs[c + 1], qs[c - nx], qs[c + nx],
-        k > 0 ? qs[c - plane] : 0.0f, k < nz - 1 ? qs[c + plane] : 0.0f,
-        uj[fxrow + i - 1] * dt, uj[fxrow + i] * dt, vj[fy - nx] * dt,
-        vj[fy] * dt, k > 0 ? wj[c - plane] * dt : 0.0f, wj[c] * dt, dz[c],
-        jaco[c], k, nz);
-  }
-  if (near_end) res = fmaxf(res, floors[s]);
-  out[(long)s * nz * plane + c] = res;
-}
-
-}  // namespace
-
 extern "C" int icar_advect_upwind(const float* q, float* out,
                                   const float* uj, const float* vj,
                                   const float* wj, const float* dz,
                                   const float* jaco, const float* floors,
                                   int S, int nz, int ny, int nx, float dt,
                                   int near_end, void* stream) {
-  const long plane = (long)ny * nx;
-  const int threads = 256;
-  dim3 grid((unsigned)((plane + threads - 1) / threads), (unsigned)(S * nz));
-  advect_upwind_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      q, out, uj, vj, wj, dz, jaco, floors, nz, ny, nx, dt, near_end);
+  if (!fits_int_index(nz, ny, nx)) return (int)cudaErrorInvalidValue;
+  const dim3 tiles = upwind_tiles(ny, nx);
+  upwind_tile_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      q, out, uj, vj, wj, dz, jaco, floors, S, nz, ny, nx, dt, near_end);
   return (int)cudaGetLastError();
 }

@@ -130,7 +130,7 @@ def library() -> ctypes.CDLL:
                                            I, L, F, F, F, P]
         lib.icar_mp_simple_rho.restype = I
         lib.icar_advect_mpdata.argtypes = [P, P, P, P, P, P, P, P, P, I, I,
-                                           I, I, F, I, I, I, I, P]
+                                           I, I, F, I, I, I, P]
         lib.icar_advect_mpdata.restype = I
         lib.icar_advect_mpdata_max_nz.argtypes = []
         lib.icar_advect_mpdata_max_nz.restype = I
@@ -329,16 +329,13 @@ def _mp_kernel(name, theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
 # ---------------------------------------------------------------------------
 
 def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
-                  floors, near_end: bool, out=None, skip_empty: bool = True):
+                  floors, near_end: bool, out=None):
     """MPDATA update (``order`` >= 1 passes, optional FCT) of the species
     stack ``q`` (S, nz, ny, nx) for one substep of length ``dt`` into
     ``out`` (allocated when None; must not alias ``q``). ``floors`` (S,)
     float32 tensor: with ``near_end`` each species is clamped to its
     floor. The intermediate solutions of orders >= 2 are allocated here;
-    the kernel keeps everything else on chip. ``skip_empty`` lets the
-    kernel skip the tiles and levels whose window holds only +0 in a
-    species (the bits are the same either way; off only to time the skip).
-    Returns ``out``."""
+    the kernel keeps everything else on chip. Returns ``out``."""
     S, nz, ny, nx = q.shape
     order = int(order)
     if q.device.type == "cpu":
@@ -383,8 +380,7 @@ def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
         q.data_ptr(), out.data_ptr(), scratch.data_ptr(), winds.uj.data_ptr(),
         winds.vj.data_ptr(), winds.wj.data_ptr(), winds.dz.data_ptr(),
         winds.jaco.data_ptr(), floors.data_ptr(), S, nz, ny, nx, float(dt),
-        order, int(bool(use_fct)), int(bool(near_end)),
-        int(bool(skip_empty)), stream)
+        order, int(bool(use_fct)), int(bool(near_end)), stream)
     _raise_on(err, "advect_mpdata")
     LAUNCHES["advect_mpdata"] += 1
     return out

@@ -47,7 +47,7 @@ static dim3 blockIdx, threadIdx, blockDim;
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -99,17 +99,32 @@ _REPLACE = (
      "static float mpdata_smem[1 << 16];"),
     ("div_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(",
      "DIV_LAUNCH("),
-    ("mpdata_pass_kernel<<<tiles, THREADS, smem, st>>>(", "PASS_LAUNCH("),
+    ("mpdata_pass_kernel<<<tiles, PASS_THREADS, smem, st>>>(", "PASS_LAUNCH("),
     ("upwind_tile_kernel<<<tiles, THREADS, 0, st>>>(", "UPWIND_LAUNCH("),
 )
 
 
+def _build(d, src, name, defines=()):
+    lib = d / f"lib{name}.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1",
+                    "-ffp-contract=off", "-fno-fast-math", "-fPIC",
+                    "-shared", f"-I{d}", *defines, "-o", str(lib), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    so = ctypes.CDLL(str(lib))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.icar_advect_mpdata.argtypes = [P] * 9 + [I, I, I, I, F, I, I, I, P]
+    so.icar_advect_mpdata.restype = I
+    so.icar_advect_mpdata_max_nz.restype = I
+    so.icar_mpdata_div.argtypes = [P, P, P, ctypes.c_long, P]
+    so.icar_mpdata_div.restype = I
+    return so
+
+
 @pytest.fixture(scope="module")
-def cpu_kernel(tmp_path_factory):
-    """csrc/mpdata.cu (with upwind.cuh) built by g++ against the stub
-    runtime: no FMA contraction, no fast math, as nvcc builds it."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def cpu_source(tmp_path_factory):
+    """csrc/mpdata.cu (with upwind.cuh) prepared for g++: the stub runtime
+    beside it, the launches replaced by loops over the blocks."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
     d = tmp_path_factory.mktemp("k4cpu")
     (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
@@ -120,19 +135,21 @@ def cpu_kernel(tmp_path_factory):
         assert src.count(old) == 1, old
         src = src.replace(old, new)
     (d / "k4.cpp").write_text(src)
-    lib = d / "libk4.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-fno-fast-math", "-fPIC", "-shared", f"-I{d}",
-                    "-o", str(lib), str(d / "k4.cpp")], check=True,
-                   capture_output=True, timeout=300)
-    so = ctypes.CDLL(str(lib))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    so.icar_advect_mpdata.argtypes = [P] * 9 + [I, I, I, I, F, I, I, I, I, P]
-    so.icar_advect_mpdata.restype = I
-    so.icar_advect_mpdata_max_nz.restype = I
-    so.icar_mpdata_div.argtypes = [P, P, P, ctypes.c_long, P]
-    so.icar_mpdata_div.restype = I
-    return so
+    return d
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel(cpu_source):
+    """The kernel source built by g++ against the stub runtime: no FMA
+    contraction, no fast math, as nvcc builds it."""
+    return _build(cpu_source, cpu_source / "k4.cpp", "k4")
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel_no_skip(cpu_source):
+    """The same, built with the skips of +0 tiles and levels turned off."""
+    return _build(cpu_source, cpu_source / "k4.cpp", "k4noskip",
+                  ["-DADVECT_NO_SKIP"])
 
 
 def _case(seed, S, nz, ny, nx, zero_window=None):
@@ -162,7 +179,7 @@ def _case(seed, S, nz, ny, nx, zero_window=None):
     return d
 
 
-def _run_cpu_kernel(so, d, dt, order, fct, near_end, skip_empty=True):
+def _run_cpu_kernel(so, d, dt, order, fct, near_end):
     q, w = d["q"], d["winds"]
     S, nz, ny, nx = q.shape
     out = torch.full_like(q, float("nan"))
@@ -171,7 +188,7 @@ def _run_cpu_kernel(so, d, dt, order, fct, near_end, skip_empty=True):
         q.data_ptr(), out.data_ptr(), scratch.data_ptr(), w.uj.data_ptr(),
         w.vj.data_ptr(), w.wj.data_ptr(), w.dz.data_ptr(), w.jaco.data_ptr(),
         d["floors"].data_ptr(), S, nz, ny, nx, float(dt), order, int(fct),
-        int(near_end), int(skip_empty), None)
+        int(near_end), None)
     assert err == 0
     return out
 
@@ -220,15 +237,16 @@ def test_kernel_source_small_shapes(cpu_kernel, shape, order, fct,
 
 
 @pytest.mark.parametrize("near_end", [False, True])
-def test_skipping_empty_species_keeps_the_bits(cpu_kernel, near_end):
+def test_skipping_empty_species_keeps_the_bits(cpu_kernel, cpu_kernel_no_skip,
+                                              near_end):
     """Tiles and levels whose window is zero in a species take what the
-    full computation gives: the same bits, skip on or off; the skipped
-    tiles hold max(0, floor) or 0."""
+    full computation gives: the same bits as a build without the skips;
+    the skipped tiles hold max(0, floor) or 0."""
     S, nz, ny, nx, zw = SHAPES["tiles"]
     d = _case(13, S, nz, ny, nx, zw)
     dt = np.float32(20.0)
-    on = _run_cpu_kernel(cpu_kernel, d, dt, 2, True, near_end, True)
-    off = _run_cpu_kernel(cpu_kernel, d, dt, 2, True, near_end, False)
+    on = _run_cpu_kernel(cpu_kernel, d, dt, 2, True, near_end)
+    off = _run_cpu_kernel(cpu_kernel_no_skip, d, dt, 2, True, near_end)
     assert torch.equal(on.view(torch.int32), off.view(torch.int32))
     floor = float(d["floors"][2]) if near_end else 0.0
     assert torch.equal(on[2], torch.full_like(on[2], max(0.0, floor)))
@@ -244,7 +262,7 @@ def test_kernel_source_refuses_what_it_cannot_take(cpu_kernel):
     for nz, order in ((too_deep, 2), (4, 0)):
         assert so.icar_advect_mpdata(None, None, None, None, None, None, None,
                                      None, None, 1, nz, 8, 8, 1.0, order, 1,
-                                     0, 1, None) == 1
+                                     0, None) == 1
 
 
 def div_operands(seed, n):
