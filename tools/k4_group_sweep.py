@@ -1,14 +1,12 @@
 #!/usr/bin/env python3
-"""Kernel K4 (icar_tpu_torch/csrc/mpdata.cu) with 1, 2 or 3 species per
-march of its corrective pass, on one NVIDIA GPU.
+"""Builds of kernel K4 (icar_tpu_torch/csrc/mpdata.cu) that differ in
+build defines, against each other on one NVIDIA GPU.
 
     python tools/k4_group_sweep.py [--ref DIR] [--reps 7]
 
-A group of species marches up the levels together and shares the staged
-wind and metric planes (W*dt/dz, the dt-scaled face winds, the jacobian).
-Each variant is mpdata.cu built with ``-DK4_GROUP=G -DK4_THREADS=T
-[-DK4_MINB=B]`` and the port's nvcc flags, all builds at once; ``--ref``
-adds DIR/mpdata.cu built the same way. The script prints ptxas's
+Each variant of VARIANTS is mpdata.cu built with its defines and the
+port's nvcc flags, all builds at once; ``--ref`` adds DIR/mpdata.cu built
+the same way. The script prints ptxas's
 registers, spills and stack of ``mpdata_pass_kernel`` for each build;
 counts the cells whose float32 bits differ from the first variant on a
 random (5, 20, 96, 128) stack at orders 1-4 with and without FCT, and on
@@ -40,9 +38,11 @@ from icar_tpu_torch.core import step  # noqa: E402
 from icar_tpu_torch.models.icar import ideal_ridge_model  # noqa: E402
 from icar_tpu_torch.ops import kernels  # noqa: E402
 
-# name: (species per march, threads per block, least blocks per SM)
-VARIANTS = {"G1": (1, 256, 4), "G2": (2, 512, 2), "G2_t256": (2, 256, 2),
-            "G3": (3, 768, 1)}
+# name: build defines (UPWIND_UNROLL: unrolling of the upwind kernel's cell
+# loop; K4_STAGE_UNROLL: of the corrective pass's staging loop)
+VARIANTS = {"base": [], "U2": ["-DUPWIND_UNROLL=2"],
+            "U4": ["-DUPWIND_UNROLL=4"], "S2": ["-DK4_STAGE_UNROLL=2"],
+            "U4S2": ["-DUPWIND_UNROLL=4", "-DK4_STAGE_UNROLL=2"]}
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 PATHS = {"MPDATA": dict(adv=C.ADV_MPDATA),
@@ -64,9 +64,8 @@ def pass_kernel_info(log: str) -> str:
 def build_all(ref):
     out = kernels.BUILD_DIR / "k4_sweep"
     out.mkdir(parents=True, exist_ok=True)
-    jobs = {n: (kernels.CSRC / "mpdata.cu",
-                [f"-DK4_GROUP={g}", f"-DK4_THREADS={t}", f"-DK4_MINB={b}"])
-            for n, (g, t, b) in VARIANTS.items()}
+    jobs = {n: (kernels.CSRC / "mpdata.cu", flags)
+            for n, flags in VARIANTS.items()}
     if ref:
         jobs["ref"] = (Path(ref) / "mpdata.cu", ["-I", str(kernels.CSRC)])
     procs = {n: subprocess.Popen(
