@@ -38,11 +38,8 @@ from icar_tpu_torch.core import step  # noqa: E402
 from icar_tpu_torch.models.icar import ideal_ridge_model  # noqa: E402
 from icar_tpu_torch.ops import kernels  # noqa: E402
 
-# name: build defines (UPWIND_UNROLL: unrolling of the upwind kernel's cell
-# loop; K4_STAGE_UNROLL: of the corrective pass's staging loop)
-VARIANTS = {"base": [], "U2": ["-DUPWIND_UNROLL=2"],
-            "U4": ["-DUPWIND_UNROLL=4"], "S2": ["-DK4_STAGE_UNROLL=2"],
-            "U4S2": ["-DUPWIND_UNROLL=4", "-DK4_STAGE_UNROLL=2"]}
+# name: build defines
+VARIANTS = {"base": []}
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 PATHS = {"MPDATA": dict(adv=C.ADV_MPDATA),
