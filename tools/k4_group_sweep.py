@@ -38,10 +38,10 @@ from icar_tpu_torch.core import step  # noqa: E402
 from icar_tpu_torch.models.icar import ideal_ridge_model  # noqa: E402
 from icar_tpu_torch.ops import kernels  # noqa: E402
 
-# name: build defines (UPWIND_CHUNK: species whose loads the upwind kernel
-# issues together)
-VARIANTS = {"C4": [], "C2": ["-DUPWIND_CHUNK=2"], "C8": ["-DUPWIND_CHUNK=8"],
-            "C1": ["-DUPWIND_CHUNK=1"]}
+# name: build defines (K4_GROUP species per march, K4_THREADS per block,
+# K4_MINB blocks per SM at least)
+VARIANTS = {"G2": [], "G1": ["-DK4_GROUP=1", "-DK4_MINB=4"],
+            "G3": ["-DK4_GROUP=3", "-DK4_MINB=1"]}
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 PATHS = {"MPDATA": dict(adv=C.ADV_MPDATA),
