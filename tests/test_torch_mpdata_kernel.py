@@ -99,7 +99,7 @@ _REPLACE = (
      "static float mpdata_smem[1 << 16];"),
     ("div_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(",
      "DIV_LAUNCH("),
-    ("mpdata_pass_kernel<<<tiles, PASS_THREADS, smem, st>>>(", "PASS_LAUNCH("),
+    ("mpdata_pass_kernel<<<tiles, THREADS, smem, st>>>(", "PASS_LAUNCH("),
     ("upwind_tile_kernel<<<tiles, THREADS, 0, st>>>(", "UPWIND_LAUNCH("),
 )
 
