@@ -16,14 +16,17 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    their plain versions;
 5. drives the MPDATA ridge and checks that it went through K3 and K4 once
    per substep and through K1 and K2 not at all;
-6. drives the Thompson ridge (the MPDATA ridge with mp=MP_THOMPSON, the
-   path of bench.py --config mpdata_thompson) at 500x500x20 and checks that
+6. checks and times K5 (Thompson) on the Thompson ridge's initial state
+   (the MPDATA ridge with mp=MP_THOMPSON, the path of bench.py --config
+   mpdata_thompson), then drives that ridge at 500x500x20 and checks that
    it went through K5 and K4 once per substep and through K1, K2 and K3 not
    at all;
-7. checks K4 on the 9-species stack and K5 (Thompson) against their plain
-   versions on the state that drive left, K5 also on random mixed-regime
-   stacks at dt 30, 90 and 150, and on an inert and an ice-supersaturated
-   state.
+7. checks K4 on the 9-species stack and K5 against their plain versions
+   on the state that drive left, K5 also on random mixed-regime stacks at
+   dt 30, 90 and 150, on an inert and an ice-supersaturated state, and at
+   80 levels; K5's line in the table adds its time on the initial state,
+   the share of column tiles it found active on each ridge state, and its
+   registers, spills and shared memory from the build log.
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -35,6 +38,7 @@ nothing of JAX or of the JAX package.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +68,8 @@ THOMPSON_RIDGE = dict(MPDATA_RIDGE, mp=MP_THOMPSON)
 # K5 on random mixed-regime stacks of this shape at these dt
 THOMPSON_SMALL = (20, 96, 128)
 THOMPSON_DTS = (30.0, 90.0, 150.0)
+# and deeper than K2-K4 take, on a column count no tile size divides
+THOMPSON_DEEP = (80, 47, 101)
 
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
@@ -536,9 +542,38 @@ def thompson_work(tp, stack, smap, exner, p, dz, dt, params):
     return nbytes, ops
 
 
-def check_thompson_kernel(model, kernels, step, tp, cases):
-    """K5 against its plain version on the Thompson ridge's state at the
-    path's dt, and on the random states of thompson_states."""
+def ptxas_figures(log_text, marker):
+    """Registers, spills, stack frame and static shared memory of each
+    entry function whose name holds ``marker``, from nvcc's ``-Xptxas -v``
+    log: {short name: {...}}."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or marker not in name:
+            continue
+        short = re.search(marker + r"_[a-z]+_kernel", name)
+        fig = out.setdefault(short.group(0) if short else name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            fig.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fig["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            fig["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def k5_on_state(model, kernels, step, tp, cases, label):
+    """K5 against its plain version on ``model``'s state at the path's dt,
+    both timed; returns (max abs err, kernel ms, plain ms, share of active
+    tiles, work)."""
     import torch
     s = model.state
     g = model.geom_t
@@ -561,25 +596,48 @@ def check_thompson_kernel(model, kernels, step, tp, cases):
             a.copy_(a0)
 
     def run_k5():
-        kernels.mp_thompson_stack(work, smap, ex, p, dz, dt, *acc, params)
+        return kernels.mp_thompson_stack(work, smap, ex, p, dz, dt, *acc,
+                                         params)
 
     def run_p5():
         return tp.mp_thompson_stack(stack, names, ex, p, dz, dt, *acc0,
                                     params)
 
     reset()
-    run_k5()
+    n_active = run_k5()
     torch.cuda.synchronize()
+    _, nz, ny, nx = stack.shape
+    ntiles = -(-(ny * nx) // kernels.library().icar_mp_thompson_tile_columns(
+        nz))
+    share = int(n_active[0]) / ntiles
     out, *want_acc = run_p5()
-    err5 = thompson_compare(cases, [work[i] for i in smap] + acc,
-                            [out[i] for i in smap] + want_acc,
-                            f"mp_thompson kernel vs plain (ridge state, dt "
-                            f"{float(dt)})")
-    ms5, pms5 = cuda_ms(run_k5, setup=reset), cuda_ms(run_p5)
-    log(f"K5 mp_thompson: max_abs_err {err5:.3e}; kernel {ms5:.4f} ms, "
-        f"plain {pms5:.4f} ms")
+    err = thompson_compare(cases, [work[i] for i in smap] + acc,
+                           [out[i] for i in smap] + want_acc,
+                           f"mp_thompson kernel vs plain ({label}, dt "
+                           f"{float(dt)})")
+    ms, pms = cuda_ms(run_k5, setup=reset), cuda_ms(run_p5)
+    log(f"K5 mp_thompson on the {label}: max_abs_err {err:.3e}; "
+        f"{int(n_active[0])} of {ntiles} tiles active ({100 * share:.2f}%); "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    return err, ms, pms, share, thompson_work(tp, stack, smap, ex, p, dz, dt,
+                                              params)
 
-    for name, sdt, q, sex, sp, sdz in thompson_states(cases, stack.device):
+
+def check_thompson_kernel(model, kernels, step, tp, cases, initial):
+    """K5 against its plain version on the Thompson ridge's state after
+    the drive (its entry's time and bound), on the random states of
+    thompson_states and at THOMPSON_DEEP levels; ``initial`` is
+    k5_on_state's result on the ridge's initial state."""
+    import torch
+    err5, ms5, pms5, share, work5 = k5_on_state(
+        model, kernels, step, tp, cases, "ridge state after two intervals")
+    dev = model.state["pressure"].device
+    params = step.thompson_params(model.options)
+    deep = cases.as_stack(cases.mixed_state(4, *THOMPSON_DEEP,
+                                            8000.0 / THOMPSON_DEEP[0]), dev)
+    states = thompson_states(cases, dev)
+    states.append((f"mixed seed 4, nz {THOMPSON_DEEP[0]}", 60.0) + deep)
+    for name, sdt, q, sex, sp, sdz in states:
         z = torch.zeros(q.shape[2:], device=q.device)
         want, *wacc = tp.mp_thompson_stack(q, tp.SPECIES, sex, sp, sdz,
                                            np.float32(sdt), z, z, z)
@@ -592,9 +650,23 @@ def check_thompson_kernel(model, kernels, step, tp, cases):
             cases, list(got) + gacc, list(want) + wacc,
             f"mp_thompson kernel vs plain ({name}, dt {sdt}, "
             f"{tuple(q.shape)})"))
-    return [kernel_entry("mp_thompson", REPLACES["mp_thompson"], err5, ms5,
-                         pms5, thompson_work(tp, stack, smap, ex, p, dz, dt,
-                                             params))]
+    err5 = max(err5, initial[0])
+    entry = kernel_entry("mp_thompson", REPLACES["mp_thompson"], err5, ms5,
+                         pms5, work5)
+    lib = kernels.library()
+    nz = model.state["pressure"].shape[0]
+    entry.update(
+        ms_initial_state=initial[1], plain_ms_initial_state=initial[2],
+        bound_ms_initial_state=bound(*initial[4])[0],
+        active_tile_share={"initial_state": initial[3],
+                           "after_two_intervals": share},
+        tile_columns=lib.icar_mp_thompson_tile_columns(nz),
+        dynamic_smem_bytes=lib.icar_mp_thompson_smem_bytes(nz),
+        ptxas=ptxas_figures(kernels.BUILD_INFO["log"], "mp_thompson"))
+    log(f"  K5 build: {json.dumps(entry['ptxas'])}; "
+        f"{entry['dynamic_smem_bytes']} B of dynamic shared memory per "
+        f"{entry['tile_columns']}-column tile")
+    return [entry]
 
 
 def golden_mismatches(fields, ref):
@@ -692,7 +764,12 @@ def main():
     smi = device_info()
     sys.path.insert(0, ROOT)
     import torch
-    from icar_tpu_torch.core import step
+    try:
+        from icar_tpu_torch.core import step
+    except ModuleNotFoundError as e:
+        # the script alone, without the repository around it
+        raise SystemExit(f"chip_smoke.py: {e}; run it from the root of a "
+                         f"checkout of the repository") from e
     from icar_tpu_torch.models.icar import ideal_ridge_model
     from icar_tpu_torch.ops import advection as adv_plain
     from icar_tpu_torch.ops import kernels
@@ -751,6 +828,10 @@ def main():
     model = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
     thompson_plain.device_tables(step.thompson_params(model.options),
                                  model.state["pressure"].device)
+    # K5 on the fresh initial state (clear air: every tile inert), before
+    # the drive, whose launch counts start at 0
+    k5_initial = k5_on_state(model, kernels, step, thompson_plain,
+                             thompson_cases, "ridge's initial state")
     thompson_launches = drive(
         model, kernels, "Thompson", ("mp_thompson", "advect_mpdata"),
         RIDGE_INTERVAL, RIDGE_INTERVALS, smi,
@@ -761,7 +842,7 @@ def main():
     # the drive left
     table += check_mpdata_thompson(model, kernels, step, mpdata_plain)
     table += check_thompson_kernel(model, kernels, step, thompson_plain,
-                                   thompson_cases)
+                                   thompson_cases, k5_initial)
     del model
     for entry in table:
         name = entry["name"]

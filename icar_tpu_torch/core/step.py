@@ -101,6 +101,17 @@ def quantized_dt(u, v, w, dz_levels, dx, cfl_reduction,
     return np.float32(dt.item())
 
 
+def path_kernels(options) -> Tuple[str, ...]:
+    """The kernels (names of ``kernels.LAUNCHES``) the interval loop
+    launches for ``options`` on the card."""
+    mpdata = options.physics.advection == C.ADV_MPDATA
+    if options.physics.microphysics == C.MP_THOMPSON:
+        return ("mp_thompson", "advect_mpdata")
+    if mpdata:
+        return ("mp_simple_rho", "advect_mpdata")
+    return ("mp_simple", "advect_upwind")
+
+
 def run_interval(state: Dict[str, torch.Tensor], geom, options,
                  adv_names: Sequence[str], seconds: float,
                  dqdt: Optional[Dict[str, torch.Tensor]] = None

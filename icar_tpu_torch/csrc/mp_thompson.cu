@@ -1,4 +1,4 @@
-// Thompson two-moment microphysics (mp=1), one column per thread: kernel K5.
+// Thompson two-moment microphysics (mp=1) on column tiles: kernel K5.
 //
 // Replaces the Pallas TPU kernel icar_tpu/ops/thompson_kernel.py:107
 // (_core_kernel, launched by thompson_core_call :213), which runs the
@@ -20,7 +20,8 @@
 // What bounds it on an H100: by bytes, reading the 9 species and exner, p,
 // dz and writing the 9 species is 84 bytes per cell, 0.42 GB at 500x500x20
 // (with the accumulators 0.426 GB), 0.127 ms at 3.35 TB/s; the table entries
-// a cell reads only where a predicate holds are not counted. By operations,
+// a cell reads only where a predicate holds are not counted. By operations
+// (the scheme's, on every cell, whatever skips them),
 // chip_smoke.py counts this source's float32 operations per cell (1652,
 // each transcendental call -- expf, logf, log10f, powf, sqrtf -- counted as
 // one, so that bound errs low) and per sedimentation step: about 8.7 G on
@@ -28,23 +29,42 @@
 // it, barely. In practice it is latency and registers: a few hundred live
 // values per cell, data-dependent loops per column, and the table values
 // each cell reads fall in the L2 (the bf16 stacks, 19.5 MB, fit its 50 MB).
+// Most columns of a ridge state hold no cloud and are inert, so the
+// design spends the scheme's work only on active tiles, and spreads
+// those tiles' cells over threads instead of walking each column serially.
 //
 // Design. The scheme is coupled along the column three times: the
 // top-down running minimum of the graupel intercept (in prep and again after
 // the update), the top-down fill of the terminal velocities (where the rain
 // velocity feeds snow's and graupel's), and the four sedimentation loops,
-// whose step count is per column. One thread owns one column (x fastest
-// across threads, so each level's loads coalesce) and keeps per-level
-// intermediates in local arrays sized by MAX_NZ; the passes are: (A) the
-// prep intercept of every level, then its running minimum; (B) prep,
-// bins, table values and core per level; (C) the top-down fills and the
-// second running minimum; (D) sedimentation; (E) melt/freeze and the final
-// update per level, which re-reads the entry state (the stack is written
-// only here, so the update is in place). Each cell reads its big-table
-// values directly (bf16, widened with __bfloat162float) where the predicate
-// that consumes them holds, and the small float32 tables directly: the
-// values the TPU's one-hot contractions return. Every column is computed:
-// the TPU kernel's inert-tile skip is left for later work.
+// whose step count is per column. Two launches:
+// - the classify pass, one warp per tile of C consecutive columns (x
+//   fastest, so each level's loads coalesce), tests the TPU kernel's
+//   activity predicate on every cell (thompson_kernel.py:136-150) and votes.
+//   An inert tile -- no hydrometeor above R1, no water supersaturation, ice
+//   supersaturation under the nucleation trigger -- is finished there: the
+//   final update with every tendency zero, which is what the full scheme
+//   computes on it, bit for bit (theta goes through th*exner/exner as the
+//   full path forms it; the TPU's branch keeps theta). An active tile is
+//   appended to a device list through an atomic counter;
+// - the active pass, one block per listed tile (launched over every tile;
+//   a block past the count returns), keeps the tile's per-cell
+//   intermediates (N_SF floats a cell) in dynamic shared memory and runs
+//   the scheme in phases separated by barriers: (A) the prep intercept, one
+//   thread per cell, then its running minimum, one per column; (B) prep,
+//   bins, table values and core, one thread per cell; (C) the top-down fills
+//   and the second running minimum, one per column; (D) the four
+//   sedimentation loops, one thread per (species, column), since each
+//   species adds only into its own tendencies; the surface sums, one per
+//   column; (E) melt/freeze and the final update, one per cell, re-reading
+//   the entry state (the stack is written only there, so the update is in
+//   place). C is 32 where two tiles fit an SM's shared memory and halves
+//   with depth, so any nz whose one-column tile fits is taken. Every loop is
+//   block-stride, so the source also runs one thread per block on a CPU.
+// Each cell reads its big-table values directly (bf16, widened with
+// __bfloat162float) where the predicate that consumes them holds, and the
+// small float32 tables directly: the values the TPU's one-hot contractions
+// return. The phases reorder no arithmetic within a cell or a column.
 //
 // Numerics. The constants that depend on the Thompson parameters arrive as
 // one float32 array built in Python (mp_thompson.kernel_constants, in the
@@ -62,8 +82,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#define MAX_NZ 64
 
 // the table shapes (thompson_tables.py NTB_*, NBC/NBR/NBS)
 #define NTB_C 37
@@ -1051,22 +1069,22 @@ __device__ void core_level(const float* K, const Prep& P, const Tables& T,
   O.qgten = qgten;
 }
 
-// explicit flux-form sedimentation of one species of the column over its
+// explicit flux-form sedimentation of one species of one column over its
 // own step count (mp_thompson.f90:2657-2780; _sediment): updates rx (and
 // nx with kNumber), accumulates the tendencies into qsed/nsed, returns the
-// surface flux sum
+// surface flux sum. Level k of each array is at [k * st].
 template <bool kNumber>
 __device__ float sediment(float* rx, float* nx, const float* vtm,
                           const float* vtn, const float* rho,
                           const float* dz, float* qsed, float* nsed, int nz,
-                          float dt, float floor_m, float floor_n,
+                          int st, float dt, float floor_m, float floor_n,
                           bool cfl_max) {
   int nstep = 1;
   for (int k = 0; k < nz; ++k) {
-    qsed[k] = 0.0f;
-    if (kNumber) nsed[k] = 0.0f;
-    const float v = cfl_max ? jmax(vtm[k], vtn[k]) : vtm[k];
-    const int per_k = v > F(1e-3) ? (int)truncf(dt * v / dz[k]) + 1 : 0;
+    qsed[k * st] = 0.0f;
+    if (kNumber) nsed[k * st] = 0.0f;
+    const float v = cfl_max ? jmax(vtm[k * st], vtn[k * st]) : vtm[k * st];
+    const int per_k = v > F(1e-3) ? (int)truncf(dt * v / dz[k * st]) + 1 : 0;
     nstep = max(nstep, per_k);
   }
   const float onstep = 1.0f / (float)nstep;
@@ -1077,19 +1095,20 @@ __device__ float sediment(float* rx, float* nx, const float* vtm,
     const float sed_m0 = sed_m;
     float rx0 = 0.0f;
     for (int k = 0; k < nz; ++k) {
-      const float odzq = 1.0f / dz[k];
-      const float orho = 1.0f / rho[k];
-      const float up_m = k + 1 < nz ? vtm[k + 1] * rx[k + 1] : 0.0f;
+      const int i = k * st, up = i + st;
+      const float odzq = 1.0f / dz[i];
+      const float orho = 1.0f / rho[i];
+      const float up_m = k + 1 < nz ? vtm[up] * rx[up] : 0.0f;
       const float div_m = up_m - sed_m;
-      qsed[k] = qsed[k] + div_m * odzq * onstep * orho;
-      rx[k] = jmax(rx[k] + div_m * odzq * dt * onstep, floor_m);
+      qsed[i] = qsed[i] + div_m * odzq * onstep * orho;
+      rx[i] = jmax(rx[i] + div_m * odzq * dt * onstep, floor_m);
       if (k == 0) rx0 = rx[0];
       sed_m = up_m;
       if (kNumber) {
-        const float up_n = k + 1 < nz ? vtn[k + 1] * nx[k + 1] : 0.0f;
+        const float up_n = k + 1 < nz ? vtn[up] * nx[up] : 0.0f;
         const float div_n = up_n - sed_n;
-        nsed[k] = nsed[k] + div_n * odzq * onstep * orho;
-        nx[k] = jmax(nx[k] + div_n * odzq * dt * onstep, floor_n);
+        nsed[i] = nsed[i] + div_n * odzq * onstep * orho;
+        nx[i] = jmax(nx[i] + div_n * odzq * dt * onstep, floor_n);
         sed_n = up_n;
       }
     }
@@ -1121,203 +1140,382 @@ __device__ __forceinline__ Level load_level(const float* q, Smap sm,
   return in;
 }
 
-__global__ void __launch_bounds__(128)
-mp_thompson_kernel(float* __restrict__ q, Smap sm,
-                   const float* __restrict__ exner_g,
-                   const float* __restrict__ p_g,
-                   const float* __restrict__ dz_g, TabPtrs tp,
-                   const float* __restrict__ kc, float* __restrict__ rain,
-                   float* __restrict__ snow, float* __restrict__ graupel,
-                   int nz, long ncol, float dt) {
-  __shared__ float K[N_CONSTS];
-  for (int i = threadIdx.x; i < N_CONSTS; i += blockDim.x) K[i] = kc[i];
-  __syncthreads();
-  const long col = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  const long plane = (long)nz * ncol;   // one species of the stack
-  const float odt = 1.0f / dt;
+// a level's tendencies after sedimentation
+struct Tend {
+  float t, qv, qc, qi, ni, qr, nr, qs, qg;
+};
 
-  float n0[MAX_NZ], rho[MAX_NZ], dz[MAX_NZ], ocp[MAX_NZ], lvap[MAX_NZ];
-  float tempk[MAX_NZ], rhof[MAX_NZ];
-  float tten[MAX_NZ], qvten[MAX_NZ], qcten[MAX_NZ], qiten[MAX_NZ];
-  float niten[MAX_NZ], qrten[MAX_NZ], nrten[MAX_NZ], qsten[MAX_NZ];
-  float qgten[MAX_NZ];
-  float rr[MAX_NZ], nr[MAX_NZ], ri[MAX_NZ], ni[MAX_NZ], rs[MAX_NZ];
-  float rg[MAX_NZ];
-  float vtr[MAX_NZ], vtnr[MAX_NZ], vti[MAX_NZ], vtni[MAX_NZ], vts[MAX_NZ];
-  float vtg[MAX_NZ], qsed[MAX_NZ], nsed[MAX_NZ];
+// instant melt / homogeneous freeze and the final update of one level, in
+// place (mp_thompson.f90:2782-2870 and the driver's qv floor); re-reads
+// nothing but the entry state ``in``
+__device__ void final_level(const float* K, float* q, Smap sm, long c,
+                            long plane, const Level& in, Tend d, float ocp,
+                            float lvap, float rk, float dt, float odt) {
+  const float t1d = in.th * in.exner;
+  const bool L_qc = in.qc > R1, L_qi = in.qi > R1, L_qr = in.qr > R1;
+  const float qc1d = L_qc ? in.qc : 0.0f;
+  const float qi1d = L_qi ? in.qi : 0.0f;
+  const float ni1d = L_qi ? in.ni : 0.0f;
+  const float qr1d = L_qr ? in.qr : 0.0f;
+  const float nr1d = L_qr ? in.nr : 0.0f;
+  const float qs1d = in.qs > R1 ? in.qs : 0.0f;
+  const float qg1d = in.qg > R1 ? in.qg : 0.0f;
+  float tt = d.t, qct = d.qc, qit = d.qi, nit = d.ni;
+  const float temp = t1d + dt * tt;
 
-  // (A) the prep graupel intercept of each level, then its running minimum
-  // from the model top down
-  for (int k = 0; k < nz; ++k) {
-    const long c = (long)k * ncol + col;
-    Prep P;
-    prep_level<false>(K, load_level(q, sm, exner_g, p_g, c, plane), 0.0f, P);
-    n0[k] = P.n0exp;
+  const float xri = jmax(qi1d + qit * dt, 0.0f);
+  if (temp > T_0 && xri > 0.0f) {
+    qct = qct + xri * odt;
+    qit = qit - xri * odt;
+    nit = -ni1d * odt;
+    tt = tt - K[K_LFUS] * ocp * xri * odt;
   }
-  for (int k = nz - 2; k >= 0; --k) n0[k] = jmin(n0[k], n0[k + 1]);
+  const float xrc = jmax(qc1d + qct * dt, 0.0f);
+  if (temp < HGFR && xrc > 0.0f) {
+    const float lfus2 = LSUB - lvap;
+    qit = qit + xrc * odt;
+    nit = nit + xrc * K[K_R_XM0I] * odt;
+    qct = qct - xrc * odt;
+    tt = tt + lfus2 * ocp * xrc * odt;
+  }
 
-  // (B) prep, bins, table values and core of each level
-  for (int k = 0; k < nz; ++k) {
-    const long c = (long)k * ncol + col;
+  const float t_out = t1d + tt * dt;
+  float qv_out = jmax(in.qv + d.qv * dt, F(1e-10));
+  float qc_out = qc1d + qct * dt;
+  if (qc_out <= R1) qc_out = 0.0f;
+  float qi_out = qi1d + qit * dt;
+  float ni_out = jmax(R2 / rk, ni1d + nit * dt);
+  if (qi_out <= R1) {
+    qi_out = 0.0f;
+    ni_out = 0.0f;
+  } else {
+    float lami_f = cpow(K[K_AMI_CIG1_OIG1] * ni_out / jmax(qi_out, R1),
+                        K[K_OBMI]);
+    const float xDi_f = K[K_XDI_NUM] / lami_f;
+    lami_f = xDi_f < F(20e-6) ? K[K_LAMI_LO]
+                              : (xDi_f > F(300e-6) ? K[K_LAMI_HI] : lami_f);
+    ni_out = jmin(K[K_CIG0_OIG2] * qi_out * K[K_RAMI] * cube(lami_f),
+                  F(250e3) / rk);
+  }
+  float qr_out = qr1d + d.qr * dt;
+  float nr_out = jmax(R2 / rk, nr1d + d.nr * dt);
+  if (qr_out <= R1) {
+    qr_out = 0.0f;
+    nr_out = 0.0f;
+  } else {
+    const float lamr_f = cpow(K[K_AMR_CRG2_ORG2] * nr_out
+                                  / jmax(qr_out, R1), K[K_OBMR]);
+    const float mvd_f = clip(K[K_MVDNUM_R] / lamr_f, K[K_MVD_LO],
+                             F(2.5e-3));
+    nr_out = rain_nr_from_mvd(K, qr_out, mvd_f);
+  }
+  float qs_out = qs1d + d.qs * dt;
+  if (qs_out <= R1) qs_out = 0.0f;
+  float qg_out = qg1d + d.qg * dt;
+  if (qg_out <= R1) qg_out = 0.0f;
+  qv_out = jmax(qv_out, F(1e-7));   // the driver's qv floor
+
+  q[sm.row[0] * plane + c] = t_out / in.exner;
+  q[sm.row[1] * plane + c] = qv_out;
+  q[sm.row[2] * plane + c] = qc_out;
+  q[sm.row[3] * plane + c] = qi_out;
+  q[sm.row[4] * plane + c] = qr_out;
+  q[sm.row[5] * plane + c] = qs_out;
+  q[sm.row[6] * plane + c] = qg_out;
+  q[sm.row[7] * plane + c] = ni_out;
+  q[sm.row[8] * plane + c] = nr_out;
+}
+
+// the TPU kernel's activity predicate (thompson_kernel.py:136-150) on one
+// cell: a hydrometeor above R1, water supersaturation above EPS, or ice
+// supersaturation at the nucleation trigger. Where it fails on every cell
+// of a column, the scheme's rates, condensation, evaporation and fall
+// speeds are all zero there (each is gated by one of these), so the column
+// gets exactly final_level with zero tendencies.
+__device__ __forceinline__ bool cell_active(const Level& in) {
+  const float temp = in.th * in.exner;
+  const float qv_c = jmax(in.qv, F(1e-10));
+  const float hyd = jmax(jmax(jmax(in.qc, in.qi), jmax(in.qr, in.qs)), in.qg);
+  return hyd > R1 || qv_c / rslf(in.p, temp) - 1.0f > EPS
+         || qv_c / rsif(in.p, temp) >= F(1.25);
+}
+
+// the per-cell values the active tile keeps in shared memory, one array
+// of (nz, C) each
+enum Sf {
+  S_N0, S_RHO, S_OCP, S_LVAP, S_TEMP, S_RHOF, S_DZ,
+  S_TTEN, S_QVTEN, S_QCTEN, S_QITEN, S_NITEN, S_QRTEN, S_NRTEN, S_QSTEN,
+  S_QGTEN, S_RR, S_NR, S_RI, S_NI, S_RS, S_RG,
+  S_VTR, S_VTNR, S_VTI, S_VTNI, S_VTS, S_VTG,
+  S_QSED_R, S_NSED_R, S_QSED_I, S_NSED_I, S_QSED_S, S_QSED_G, N_SF
+};
+
+constexpr int K5_THREADS = 128;       // 4 species x 32 columns in pass D
+constexpr int K5_TILE_MAX = 32;       // columns of a tile, one warp's width
+constexpr int KC_PAD = (N_CONSTS + 3) / 4 * 4;
+// a tile's shared memory: two blocks per SM where it fits, else one
+constexpr long K5_SMEM_TWO = 113 * 1024;
+constexpr long K5_SMEM_MAX = 232448;
+
+__host__ __device__ inline long active_smem(int cols, int nz) {
+  return 4L * (KC_PAD + 4L * cols + (long)N_SF * cols * nz);
+}
+
+// columns per tile at nz levels (a power of two), 0 if one column's tile
+// does not fit in a block's shared memory
+inline int tile_columns(int nz) {
+  for (int cols = K5_TILE_MAX; cols > 1; cols /= 2)
+    if (active_smem(cols, nz) <= K5_SMEM_TWO) return cols;
+  return active_smem(1, nz) <= K5_SMEM_MAX ? 1 : 0;
+}
+
+// Classify pass: one warp per tile of C consecutive columns. Each lane
+// tests its columns down the levels, the warp votes; an active tile is
+// appended to the list, an inert tile is finished here.
+__global__ void __launch_bounds__(32)
+mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
+                            const float* __restrict__ exner_g,
+                            const float* __restrict__ p_g,
+                            const float* __restrict__ kc,
+                            float* __restrict__ rain,
+                            float* __restrict__ snow,
+                            float* __restrict__ graupel, int nz, long ncol,
+                            int cols, float dt, int* __restrict__ n_active,
+                            int* __restrict__ tiles) {
+  const long plane = (long)nz * ncol;
+  const long col0 = (long)blockIdx.x * cols;
+  const int cn = (int)min((long)cols, ncol - col0);
+  int act = 0;
+#ifdef THOMPSON_NO_SKIP
+  act = 1;
+#else
+  for (int c = threadIdx.x; c < cn; c += blockDim.x)
+    for (int k = 0; k < nz && !act; ++k)
+      act = cell_active(load_level(q, sm, exner_g, p_g,
+                                   (long)k * ncol + col0 + c, plane));
+#endif
+  if (__any_sync(0xffffffffu, act)) {
+    if (threadIdx.x == 0) tiles[atomicAdd(n_active, 1)] = (int)blockIdx.x;
+    return;
+  }
+  const float odt = 1.0f / dt;
+  const Tend zero{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c = threadIdx.x; c < cn; c += blockDim.x) {
+    const long col = col0 + c;
+    for (int k = 0; k < nz; ++k) {
+      const long i = (long)k * ncol + col;
+      // the melt/freeze branches and the number diagnostics that read
+      // ocp, lvap and rho are not taken on an inert cell
+      final_level(kc, q, sm, i, plane,
+                  load_level(q, sm, exner_g, p_g, i, plane), zero, 1.0f,
+                  1.0f, 1.0f, dt, odt);
+    }
+    rain[col] = rain[col] + 0.0f + 0.0f + 0.0f + 0.0f;
+    snow[col] = snow[col] + 0.0f + 0.0f;
+    graupel[col] = graupel[col] + 0.0f;
+  }
+}
+
+// Active pass: one block per listed tile (blocks past the count return).
+// The tile's C columns x nz levels keep their intermediates in shared
+// memory; the passes are separated by barriers and every loop is
+// block-stride.
+__global__ void __launch_bounds__(K5_THREADS)
+mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
+                          const float* __restrict__ exner_g,
+                          const float* __restrict__ p_g,
+                          const float* __restrict__ dz_g, TabPtrs tp,
+                          const float* __restrict__ kc,
+                          float* __restrict__ rain, float* __restrict__ snow,
+                          float* __restrict__ graupel, int nz, long ncol,
+                          int cols, float dt,
+                          const int* __restrict__ n_active,
+                          const int* __restrict__ tiles) {
+  if ((int)blockIdx.x >= *n_active) return;
+  extern __shared__ float k5_smem[];
+  float* K = k5_smem;
+  float* ppt = K + KC_PAD;                      // (4, C): rain, ice, snow, graupel
+  float* S = ppt + 4 * cols;
+  const int cells = cols * nz;
+  auto f = [&](int field) { return S + field * cells; };
+  const long col0 = (long)tiles[blockIdx.x] * cols;
+  const int cn = (int)min((long)cols, ncol - col0);
+  const long plane = (long)nz * ncol;
+  const float odt = 1.0f / dt;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  for (int i = tid; i < N_CONSTS; i += nth) K[i] = kc[i];
+  __syncthreads();
+
+  // (A) the prep graupel intercept of each cell, then its running minimum
+  // from the model top down, one thread per column
+  float* n0 = f(S_N0);
+  for (int i = tid; i < cells; i += nth) {
+    const int k = i / cols, c = i - k * cols;
+    if (c >= cn) continue;
     Prep P;
-    prep_level<true>(K, load_level(q, sm, exner_g, p_g, c, plane), n0[k], P);
+    prep_level<false>(K, load_level(q, sm, exner_g, p_g,
+                                    (long)k * ncol + col0 + c, plane),
+                      0.0f, P);
+    n0[i] = P.n0exp;
+  }
+  __syncthreads();
+  for (int c = tid; c < cn; c += nth)
+    for (int k = nz - 2; k >= 0; --k)
+      n0[k * cols + c] = jmin(n0[k * cols + c], n0[(k + 1) * cols + c]);
+  __syncthreads();
+
+  // (B) prep, bins, table values and core of each cell
+  for (int i = tid; i < cells; i += nth) {
+    const int k = i / cols, c = i - k * cols;
+    if (c >= cn) continue;
+    const long g = (long)k * ncol + col0 + c;
+    Prep P;
+    prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
     Tables T;
     lookup(K, P, tp, T);
     Core O;
     core_level(K, P, T, dt, odt, O);
-    dz[k] = dz_g[c];
-    rho[k] = O.rho; ocp[k] = O.ocp; lvap[k] = O.lvap; tempk[k] = O.temp;
-    rhof[k] = O.rhof; n0[k] = O.n0exp;
-    tten[k] = O.tten; qvten[k] = O.qvten; qcten[k] = O.qcten;
-    qiten[k] = O.qiten; niten[k] = O.niten; qrten[k] = O.qrten;
-    nrten[k] = O.nrten; qsten[k] = O.qsten; qgten[k] = O.qgten;
-    rr[k] = O.rr; nr[k] = O.nr; ri[k] = O.ri; ni[k] = O.ni; rs[k] = O.rs;
-    rg[k] = O.rg;
-    vtr[k] = O.vtr; vtnr[k] = O.vtnr; vti[k] = O.vti; vtni[k] = O.vtni;
-    vts[k] = O.vts;
+    f(S_DZ)[i] = dz_g[g];
+    f(S_RHO)[i] = O.rho; f(S_OCP)[i] = O.ocp; f(S_LVAP)[i] = O.lvap;
+    f(S_TEMP)[i] = O.temp; f(S_RHOF)[i] = O.rhof; n0[i] = O.n0exp;
+    f(S_TTEN)[i] = O.tten; f(S_QVTEN)[i] = O.qvten;
+    f(S_QCTEN)[i] = O.qcten; f(S_QITEN)[i] = O.qiten;
+    f(S_NITEN)[i] = O.niten; f(S_QRTEN)[i] = O.qrten;
+    f(S_NRTEN)[i] = O.nrten; f(S_QSTEN)[i] = O.qsten;
+    f(S_QGTEN)[i] = O.qgten;
+    f(S_RR)[i] = O.rr; f(S_NR)[i] = O.nr; f(S_RI)[i] = O.ri;
+    f(S_NI)[i] = O.ni; f(S_RS)[i] = O.rs; f(S_RG)[i] = O.rg;
+    f(S_VTR)[i] = O.vtr; f(S_VTNR)[i] = O.vtnr; f(S_VTI)[i] = O.vti;
+    f(S_VTNI)[i] = O.vtni; f(S_VTS)[i] = O.vts;
   }
+  __syncthreads();
 
-  // (C) top-down: fill each velocity from the level above where the
-  // species is absent; snow and graupel above freezing fall at least as
-  // fast as the filled rain; graupel's intercept takes its running minimum
-  {
+  // (C) top-down, one thread per column: fill each velocity from the level
+  // above where the species is absent; snow and graupel above freezing
+  // fall at least as fast as the filled rain; graupel's intercept takes its
+  // running minimum
+  for (int c = tid; c < cn; c += nth) {
     float a_r = 0.0f, a_nr = 0.0f, a_i = 0.0f, a_ni = 0.0f, a_s = 0.0f,
           a_g = 0.0f, n0min = 0.0f;
     for (int k = nz - 1; k >= 0; --k) {
-      if (rr[k] > R1) { a_r = vtr[k]; a_nr = vtnr[k]; }
-      vtr[k] = a_r;
-      vtnr[k] = a_nr;
-      if (ri[k] > R1) { a_i = vti[k]; a_ni = vtni[k]; }
-      vti[k] = a_i;
-      vtni[k] = a_ni;
-      const float vts_full = tempk[k] > T_0 ? jmax(vts[k], vtr[k]) : vts[k];
-      if (rs[k] > R1) a_s = vts_full;
-      vts[k] = a_s;
-      n0min = k == nz - 1 ? n0[k] : jmin(n0[k], n0min);
+      const int i = k * cols + c;
+      if (f(S_RR)[i] > R1) { a_r = f(S_VTR)[i]; a_nr = f(S_VTNR)[i]; }
+      f(S_VTR)[i] = a_r;
+      f(S_VTNR)[i] = a_nr;
+      if (f(S_RI)[i] > R1) { a_i = f(S_VTI)[i]; a_ni = f(S_VTNI)[i]; }
+      f(S_VTI)[i] = a_i;
+      f(S_VTNI)[i] = a_ni;
+      const float tk = f(S_TEMP)[i];
+      const float vts = f(S_VTS)[i];
+      const float vts_full = tk > T_0 ? jmax(vts, f(S_VTR)[i]) : vts;
+      if (f(S_RS)[i] > R1) a_s = vts_full;
+      f(S_VTS)[i] = a_s;
+      n0min = k == nz - 1 ? n0[i] : jmin(n0[i], n0min);
       float ilamg, n0g;
-      graupel_slope(K, n0min, rg[k], &ilamg, &n0g);
-      const float v = rhof[k] * K[K_AVG] * K[K_CGG5] * K[K_OGG3]
+      graupel_slope(K, n0min, f(S_RG)[i], &ilamg, &n0g);
+      const float v = f(S_RHOF)[i] * K[K_AVG] * K[K_CGG5] * K[K_OGG3]
                       * cpow(ilamg, K[K_BVG]);
-      const float vtg_full = tempk[k] > T_0 ? jmax(v, vtr[k]) : v;
-      if (rg[k] > R1) a_g = vtg_full;
-      vtg[k] = a_g;
+      const float vtg_full = tk > T_0 ? jmax(v, f(S_VTR)[i]) : v;
+      if (f(S_RG)[i] > R1) a_g = vtg_full;
+      f(S_VTG)[i] = a_g;
     }
   }
+  __syncthreads();
 
-  // (D) sedimentation: rain, ice, snow, graupel
-  const float ppt_rain = sediment<true>(rr, nr, vtr, vtnr, rho, dz, qsed,
-                                        nsed, nz, dt, R1, R2, true);
-  for (int k = 0; k < nz; ++k) {
-    qrten[k] = qrten[k] + qsed[k];
-    nrten[k] = nrten[k] + nsed[k];
-  }
-  const float ppt_ice = sediment<true>(ri, ni, vti, vtni, rho, dz, qsed,
-                                       nsed, nz, dt, R1, R2, false);
-  for (int k = 0; k < nz; ++k) {
-    qiten[k] = qiten[k] + qsed[k];
-    niten[k] = niten[k] + nsed[k];
-  }
-  const float ppt_snow = sediment<false>(rs, rs, vts, vts, rho, dz, qsed,
-                                         nsed, nz, dt, R1, R2, false);
-  for (int k = 0; k < nz; ++k) qsten[k] = qsten[k] + qsed[k];
-  const float ppt_graupel = sediment<false>(rg, rg, vtg, vtg, rho, dz, qsed,
-                                            nsed, nz, dt, R1, R2, false);
-  for (int k = 0; k < nz; ++k) qgten[k] = qgten[k] + qsed[k];
-
-  // (E) instant melt / homogeneous freeze and the final update, in place
-  for (int k = 0; k < nz; ++k) {
-    const long c = (long)k * ncol + col;
-    const Level in = load_level(q, sm, exner_g, p_g, c, plane);
-    const float t1d = in.th * in.exner;
-    const bool L_qc = in.qc > R1, L_qi = in.qi > R1, L_qr = in.qr > R1;
-    const float qc1d = L_qc ? in.qc : 0.0f;
-    const float qi1d = L_qi ? in.qi : 0.0f;
-    const float ni1d = L_qi ? in.ni : 0.0f;
-    const float qr1d = L_qr ? in.qr : 0.0f;
-    const float nr1d = L_qr ? in.nr : 0.0f;
-    const float qs1d = in.qs > R1 ? in.qs : 0.0f;
-    const float qg1d = in.qg > R1 ? in.qg : 0.0f;
-    float tt = tten[k], qct = qcten[k], qit = qiten[k], nit = niten[k];
-    const float temp = t1d + dt * tt;
-
-    const float xri = jmax(qi1d + qit * dt, 0.0f);
-    if (temp > T_0 && xri > 0.0f) {
-      qct = qct + xri * odt;
-      qit = qit - xri * odt;
-      nit = -ni1d * odt;
-      tt = tt - K[K_LFUS] * ocp[k] * xri * odt;
-    }
-    const float xrc = jmax(qc1d + qct * dt, 0.0f);
-    if (temp < HGFR && xrc > 0.0f) {
-      const float lfus2 = LSUB - lvap[k];
-      qit = qit + xrc * odt;
-      nit = nit + xrc * K[K_R_XM0I] * odt;
-      qct = qct - xrc * odt;
-      tt = tt + lfus2 * ocp[k] * xrc * odt;
-    }
-
-    const float rk = rho[k];
-    const float t_out = t1d + tt * dt;
-    float qv_out = jmax(in.qv + qvten[k] * dt, F(1e-10));
-    float qc_out = qc1d + qct * dt;
-    if (qc_out <= R1) qc_out = 0.0f;
-    float qi_out = qi1d + qit * dt;
-    float ni_out = jmax(R2 / rk, ni1d + nit * dt);
-    if (qi_out <= R1) {
-      qi_out = 0.0f;
-      ni_out = 0.0f;
+  // (D) sedimentation, one thread per (species, column): each species'
+  // fall adds only into its own tendencies
+  for (int j = tid; j < 4 * cols; j += nth) {
+    const int s = j / cols, c = j - s * cols;
+    if (c >= cn) continue;
+    const float* rho = f(S_RHO) + c;
+    const float* dz = f(S_DZ) + c;
+    float sfc;
+    if (s == 0) {
+      float *qs = f(S_QSED_R) + c, *ns = f(S_NSED_R) + c;
+      sfc = sediment<true>(f(S_RR) + c, f(S_NR) + c, f(S_VTR) + c,
+                           f(S_VTNR) + c, rho, dz, qs, ns, nz, cols, dt, R1,
+                           R2, true);
+      for (int k = 0; k < nz; ++k) {
+        const int i = k * cols + c;
+        f(S_QRTEN)[i] = f(S_QRTEN)[i] + f(S_QSED_R)[i];
+        f(S_NRTEN)[i] = f(S_NRTEN)[i] + f(S_NSED_R)[i];
+      }
+    } else if (s == 1) {
+      float *qs = f(S_QSED_I) + c, *ns = f(S_NSED_I) + c;
+      sfc = sediment<true>(f(S_RI) + c, f(S_NI) + c, f(S_VTI) + c,
+                           f(S_VTNI) + c, rho, dz, qs, ns, nz, cols, dt, R1,
+                           R2, false);
+      for (int k = 0; k < nz; ++k) {
+        const int i = k * cols + c;
+        f(S_QITEN)[i] = f(S_QITEN)[i] + f(S_QSED_I)[i];
+        f(S_NITEN)[i] = f(S_NITEN)[i] + f(S_NSED_I)[i];
+      }
     } else {
-      float lami_f = cpow(K[K_AMI_CIG1_OIG1] * ni_out / jmax(qi_out, R1),
-                          K[K_OBMI]);
-      const float xDi_f = K[K_XDI_NUM] / lami_f;
-      lami_f = xDi_f < F(20e-6) ? K[K_LAMI_LO]
-                                : (xDi_f > F(300e-6) ? K[K_LAMI_HI] : lami_f);
-      ni_out = jmin(K[K_CIG0_OIG2] * qi_out * K[K_RAMI] * cube(lami_f),
-                    F(250e3) / rk);
+      const int m = s == 2 ? S_RS : S_RG, v = s == 2 ? S_VTS : S_VTG;
+      const int qd = s == 2 ? S_QSED_S : S_QSED_G;
+      const int tn = s == 2 ? S_QSTEN : S_QGTEN;
+      sfc = sediment<false>(f(m) + c, f(m) + c, f(v) + c, f(v) + c, rho, dz,
+                            f(qd) + c, f(qd) + c, nz, cols, dt, R1, R2,
+                            false);
+      for (int k = 0; k < nz; ++k) {
+        const int i = k * cols + c;
+        f(tn)[i] = f(tn)[i] + f(qd)[i];
+      }
     }
-    float qr_out = qr1d + qrten[k] * dt;
-    float nr_out = jmax(R2 / rk, nr1d + nrten[k] * dt);
-    if (qr_out <= R1) {
-      qr_out = 0.0f;
-      nr_out = 0.0f;
-    } else {
-      const float lamr_f = cpow(K[K_AMR_CRG2_ORG2] * nr_out
-                                    / jmax(qr_out, R1), K[K_OBMR]);
-      const float mvd_f = clip(K[K_MVDNUM_R] / lamr_f, K[K_MVD_LO],
-                               F(2.5e-3));
-      nr_out = rain_nr_from_mvd(K, qr_out, mvd_f);
-    }
-    float qs_out = qs1d + qsten[k] * dt;
-    if (qs_out <= R1) qs_out = 0.0f;
-    float qg_out = qg1d + qgten[k] * dt;
-    if (qg_out <= R1) qg_out = 0.0f;
-    qv_out = jmax(qv_out, F(1e-7));   // the driver's qv floor
-
-    q[sm.row[0] * plane + c] = t_out / in.exner;
-    q[sm.row[1] * plane + c] = qv_out;
-    q[sm.row[2] * plane + c] = qc_out;
-    q[sm.row[3] * plane + c] = qi_out;
-    q[sm.row[4] * plane + c] = qr_out;
-    q[sm.row[5] * plane + c] = qs_out;
-    q[sm.row[6] * plane + c] = qg_out;
-    q[sm.row[7] * plane + c] = ni_out;
-    q[sm.row[8] * plane + c] = nr_out;
+    ppt[s * cols + c] = sfc;
   }
-  rain[col] = rain[col] + ppt_rain + ppt_snow + ppt_graupel + ppt_ice;
-  snow[col] = snow[col] + ppt_snow + ppt_ice;
-  graupel[col] = graupel[col] + ppt_graupel;
+  __syncthreads();
+
+  // the surface accumulators, in the JAX order
+  for (int c = tid; c < cn; c += nth) {
+    const long col = col0 + c;
+    const float p_rain = ppt[c], p_ice = ppt[cols + c],
+                p_snow = ppt[2 * cols + c], p_graupel = ppt[3 * cols + c];
+    rain[col] = rain[col] + p_rain + p_snow + p_graupel + p_ice;
+    snow[col] = snow[col] + p_snow + p_ice;
+    graupel[col] = graupel[col] + p_graupel;
+  }
+
+  // (E) instant melt / homogeneous freeze and the final update of each cell
+  for (int i = tid; i < cells; i += nth) {
+    const int k = i / cols, c = i - k * cols;
+    if (c >= cn) continue;
+    const long g = (long)k * ncol + col0 + c;
+    const Tend d{f(S_TTEN)[i], f(S_QVTEN)[i], f(S_QCTEN)[i], f(S_QITEN)[i],
+                 f(S_NITEN)[i], f(S_QRTEN)[i], f(S_NRTEN)[i], f(S_QSTEN)[i],
+                 f(S_QGTEN)[i]};
+    final_level(K, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
+                d, f(S_OCP)[i], f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
+  }
 }
 
 }  // namespace
 
-extern "C" int icar_mp_thompson_max_nz() { return MAX_NZ; }
+// the deepest column K5 takes: one column's tile fills a block's shared
+// memory
+extern "C" int icar_mp_thompson_max_nz() {
+  return (int)((K5_SMEM_MAX / 4 - KC_PAD - 4) / N_SF);
+}
+
+// columns per tile at nz levels (0: nz is too deep)
+extern "C" int icar_mp_thompson_tile_columns(int nz) {
+  return nz < 1 ? 0 : tile_columns(nz);
+}
+
+// the active pass's dynamic shared memory per block at nz levels
+extern "C" long icar_mp_thompson_smem_bytes(int nz) {
+  const int cols = icar_mp_thompson_tile_columns(nz);
+  return cols == 0 ? 0 : active_smem(cols, nz);
+}
 
 extern "C" int icar_mp_thompson_n_consts() { return N_CONSTS; }
 
 // K5: Thompson microphysics on the (9, nz, ncol) stack, in place; smap is a
 // host array of 9 stack rows; the seven tables and the constants are device
-// arrays (see physics/mp_thompson.py device_tables, kernel_constants)
+// arrays (see physics/mp_thompson.py device_tables, kernel_constants);
+// n_active (one int) and tiles (ceil(ncol / C) ints, C =
+// icar_mp_thompson_tile_columns(nz)) are device scratch: the count and list
+// of active tiles
 extern "C" int icar_mp_thompson(float* stack, const int* smap,
                                 const float* exner, const float* p,
                                 const float* dz, const void* racs,
@@ -1325,16 +1523,30 @@ extern "C" int icar_mp_thompson(float* stack, const int* smap,
                                 const float* efrw, const float* efsw,
                                 const float* qcfz, const float* iaus,
                                 const float* consts, float* rain, float* snow,
-                                float* graupel, int nz, long ncol, float dt,
-                                void* stream) {
-  if (nz < 1 || nz > MAX_NZ || ncol < 1) return (int)cudaErrorInvalidValue;
+                                float* graupel, int* n_active, int* tiles,
+                                int nz, long ncol, float dt, void* stream) {
+  const int cols = nz < 1 ? 0 : tile_columns(nz);
+  if (cols == 0 || ncol < 1) return (int)cudaErrorInvalidValue;
   Smap sm;
   for (int i = 0; i < 9; ++i) sm.row[i] = smap[i];
   TabPtrs tp{(const __nv_bfloat16*)racs, (const __nv_bfloat16*)racg,
              (const __nv_bfloat16*)qrfz, efrw, efsw, qcfz, iaus};
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((ncol + threads - 1) / threads);
-  mp_thompson_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      stack, sm, exner, p, dz, tp, consts, rain, snow, graupel, nz, ncol, dt);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned ntiles = (unsigned)((ncol + cols - 1) / cols);
+  cudaError_t err = cudaMemsetAsync(n_active, 0, sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  mp_thompson_classify_kernel<<<ntiles, 32, 0, st>>>(
+      stack, sm, exner, p, consts, rain, snow, graupel, nz, ncol, cols, dt,
+      n_active, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long smem = active_smem(cols, nz);
+  err = cudaFuncSetAttribute(mp_thompson_active_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mp_thompson_active_kernel<<<ntiles, K5_THREADS, smem, st>>>(
+      stack, sm, exner, p, dz, tp, consts, rain, snow, graupel, nz, ncol,
+      cols, dt, n_active, tiles);
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,10 @@ from ..config import Options
 from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
 from ..core.state import advected_names, create_state
-from ..core.step import run_interval
+from ..core.step import path_kernels, run_interval
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
+from ..ops import kernels
 from ..ops import wind as wind_ops
 
 
@@ -74,6 +75,11 @@ class ICARModel:
         if why is not None:
             raise NotImplementedError(why)
         device = torch.device(device)
+        if device.type == "cuda":
+            # a kernel of the path takes fewer levels: refuse before any
+            # state is built
+            kernels.check_levels(path_kernels(options),
+                                 int(options.domain.nz))
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ICARModel: no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")

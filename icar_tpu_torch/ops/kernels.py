@@ -43,8 +43,16 @@ HEADERS = ("upwind.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# calls that launched a kernel since the last reset (K4's call is one
-# sequence of launches); only the kernel branch counts
+# the most levels each kernel takes: the MAX_NZ of csrc/mp_simple.cu (K2,
+# K3) and csrc/mpdata.cu (K4), and for K5 the deepest column whose
+# one-column tile fits a block's shared memory (icar_mp_thompson_max_nz);
+# K1 has no limit. Kept here so that a model can be refused before the
+# library is built; the CPU tests hold these to the sources.
+MAX_NZ = {"advect_upwind": None, "mp_simple": 64, "mp_simple_rho": 64,
+          "advect_mpdata": 64, "mp_thompson": 1703}
+
+# calls that launched a kernel since the last reset (K4's and K5's calls
+# are each one sequence of launches); only the kernel branch counts
 LAUNCHES = {"advect_upwind": 0, "mp_simple": 0, "mp_simple_rho": 0,
             "advect_mpdata": 0, "mp_thompson": 0}
 
@@ -55,6 +63,16 @@ BUILD_INFO: dict = {}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_levels(path, nz: int):
+    """Raise ValueError if a kernel of ``path`` (names of LAUNCHES) takes
+    fewer than ``nz`` levels."""
+    for name in path:
+        limit = MAX_NZ[name]
+        if limit is not None and nz > limit:
+            raise ValueError(f"nz={nz} exceeds the {limit} levels kernel "
+                             f"{name} takes on the card")
 
 
 def _nvcc() -> str:
@@ -138,10 +156,14 @@ def library() -> ctypes.CDLL:
         lib.icar_mpdata_div.restype = I
         lib.icar_mp_simple_max_nz.argtypes = []
         lib.icar_mp_simple_max_nz.restype = I
-        lib.icar_mp_thompson.argtypes = [P] * 16 + [I, L, F, P]
+        lib.icar_mp_thompson.argtypes = [P] * 18 + [I, L, F, P]
         lib.icar_mp_thompson.restype = I
         lib.icar_mp_thompson_max_nz.argtypes = []
         lib.icar_mp_thompson_max_nz.restype = I
+        lib.icar_mp_thompson_tile_columns.argtypes = [I]
+        lib.icar_mp_thompson_tile_columns.restype = I
+        lib.icar_mp_thompson_smem_bytes.argtypes = [I]
+        lib.icar_mp_thompson_smem_bytes.restype = L
         lib.icar_mp_thompson_n_consts.argtypes = []
         lib.icar_mp_thompson_n_consts.restype = I
         _LIB = lib
@@ -399,7 +421,12 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
     rain += ppt_rain + ppt_snow + ppt_graupel + ppt_ice, snow += ppt_snow +
     ppt_ice, graupel += ppt_graupel. ``dz_mass`` is the mass-level
     thickness. The lookup tables and the kernel's constants go to the
-    device once per parameter set (``mp_thompson.device_tables``)."""
+    device once per parameter set (``mp_thompson.device_tables``).
+
+    For a CUDA stack, returns a one-element int32 device tensor that holds,
+    once the launches have run, the number of column tiles the kernel found
+    active (of ``ceil(ny * nx / C)``, C = ``tile_columns(nz)``); else
+    None."""
     params = params or thompson_plain.ThompsonParams()
     smap = tuple(int(i) for i in smap)
     if sorted(smap) != list(range(9)):
@@ -412,12 +439,13 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
             params)
         for dst, src in zip((qstack, rain, snow, graupel), res):
             dst.copy_(src)
-        return
+        return None
     if qstack.device.type != "cuda":
         raise ValueError(f"mp_thompson: unsupported device {qstack.device}")
     dev = qstack.device
     lib = library()
-    if nz > lib.icar_mp_thompson_max_nz():
+    cols = lib.icar_mp_thompson_tile_columns(nz)
+    if cols == 0:
         raise ValueError(f"mp_thompson: nz={nz} exceeds the kernel's "
                          f"maximum {lib.icar_mp_thompson_max_nz()}")
     _check(qstack, "qstack", (9, nz, ny, nx), dev)
@@ -432,6 +460,11 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
         raise ValueError(f"mp_thompson: {consts.numel()} constants, the "
                          f"kernel reads {lib.icar_mp_thompson_n_consts()}")
     smap_c = (ctypes.c_int * 9)(*smap)
+    # the count and list of active tiles (freed on return while the
+    # launches may still run: the caching allocator hands them out again
+    # only to later work on the same stream)
+    n_active = torch.empty(1, dtype=torch.int32, device=dev)
+    tiles = torch.empty(-(-(ny * nx) // cols), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.icar_mp_thompson(
         qstack.data_ptr(), ctypes.addressof(smap_c), exner.data_ptr(),
@@ -439,6 +472,8 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
         *(tabs[g].data_ptr() for g in thompson_plain.BIG_STACKS
           + thompson_plain.SMALL_STACKS),
         consts.data_ptr(), rain.data_ptr(), snow.data_ptr(),
-        graupel.data_ptr(), nz, ny * nx, float(dt), stream)
+        graupel.data_ptr(), n_active.data_ptr(), tiles.data_ptr(), nz,
+        ny * nx, float(dt), stream)
     _raise_on(err, "mp_thompson")
     LAUNCHES["mp_thompson"] += 1
+    return n_active

@@ -234,14 +234,25 @@ def test_thompson_kernel_matches_plain(cuda, seed, dt):
 
 @pytest.mark.gpu
 def test_thompson_kernel_at_max_nz(cuda):
+    """K5 takes more levels than K2-K4: at 80 levels (8-column tiles, a
+    ragged last tile) and at its own limit (one-column tiles) it matches
+    the plain version; one level more raises. A model deeper than its
+    path's kernels take is refused before it is built."""
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    _k5_matches_plain(thompson_cases.mixed_state(4, 80, 5, 9, 100.0),
+                      np.float32(60.0))
     nz = kernels.library().icar_mp_thompson_max_nz()
-    _k5_matches_plain(thompson_cases.mixed_state(4, nz, 5, 9, 8000.0 / nz),
+    assert nz == kernels.MAX_NZ["mp_thompson"] > 64
+    _k5_matches_plain(thompson_cases.mixed_state(4, nz, 1, 3, 8000.0 / nz),
                       np.float32(60.0))
     big = thompson_cases.as_stack(
         thompson_cases.mixed_state(4, nz + 1, 2, 3, 8000.0 / (nz + 1)), cuda)
     with pytest.raises(ValueError, match="exceeds"):
         kernels.mp_thompson_stack(big[0], tuple(range(9)), *big[1:], 60.0,
                                   *(torch.zeros((2, 3), device=cuda),) * 3)
+    with pytest.raises(ValueError, match="advect_mpdata"):
+        ideal_ridge_model(nx=20, ny=8, nz=65, mp=C.MP_THOMPSON,
+                          adv=C.ADV_MPDATA, device=cuda)
 
 
 @pytest.mark.gpu

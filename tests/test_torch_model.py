@@ -153,6 +153,41 @@ def test_device_is_required():
                   np.zeros((8, 20)))
 
 
+PATHS = [(C.MP_SIMPLE, C.ADV_UPWIND, "mp_simple"),
+         (C.MP_SIMPLE, C.ADV_MPDATA, "mp_simple_rho"),
+         (C.MP_THOMPSON, C.ADV_MPDATA, "advect_mpdata")]
+
+
+@pytest.mark.parametrize("mp,adv,kernel", PATHS)
+def test_card_model_deeper_than_its_kernels_is_refused(mp, adv, kernel):
+    """On the card, nz = 65 is refused at construction with a ValueError
+    naming the first kernel of the path that takes only 64 levels (K5
+    alone would take it), before the no-card check; on the CPU the same
+    model builds."""
+    with pytest.raises(ValueError, match=f"nz=65 exceeds the 64 levels "
+                                         f"kernel {kernel} takes"):
+        ideal_ridge_model(nx=20, ny=8, nz=65, mp=mp, adv=adv, device="cuda")
+    m = ideal_ridge_model(nx=20, ny=8, nz=65, mp=mp, adv=adv, device="cpu")
+    assert m.state["pressure"].shape == (65, 8, 20)
+
+
+@pytest.mark.parametrize("mp,adv,kernel", PATHS)
+def test_card_model_at_64_levels_passes_the_level_check(mp, adv, kernel):
+    """nz = 64 passes every kernel's limit on each path; without a card
+    the model then stops at the no-card check."""
+    from icar_tpu_torch.core.step import path_kernels
+    from icar_tpu_torch.ops import kernels
+    m = ideal_ridge_model(nx=20, ny=8, nz=64, mp=mp, adv=adv, device="cpu")
+    path = path_kernels(m.options)
+    assert kernel in path
+    kernels.check_levels(path, 64)
+    with pytest.raises(ValueError, match=kernel):
+        kernels.check_levels(path, 65)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ideal_ridge_model(nx=20, ny=8, nz=64, mp=mp, adv=adv)
+
+
 # ---------------------------------------------------------------------------
 # (c) the MPDATA ridge: SB04 with the state's density (K3) + MPDATA (K4)
 # ---------------------------------------------------------------------------

@@ -330,20 +330,42 @@ _STUB_RUNTIME = """#pragma once
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 using std::max;
 using std::min;
 struct dim3_ { unsigned x, y, z; };
 static dim3_ blockIdx, threadIdx, blockDim;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
-#define __shared__ static
 #define __restrict__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 inline void __syncthreads() {}
+inline int __any_sync(unsigned, int p) { return p; }
+inline int atomicAdd(int* a, int v) { int old = *a; *a += v; return old; }
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// each launch is a loop over its blocks, one thread per block (the
+// kernels' loops are block-stride between barriers)
+#define BLOCKS_LAUNCH(kernel, ...)                                  \\
+  do {                                                              \\
+    blockDim.x = 1; threadIdx.x = 0;                                \\
+    for (unsigned b_ = 0; b_ < ntiles; ++b_) {                      \\
+      blockIdx.x = b_;                                              \\
+      kernel(__VA_ARGS__);                                          \\
+    }                                                               \\
+  } while (0)
 """
 _STUB_BF16 = """#pragma once
 #include <cstdint>
@@ -354,55 +376,77 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   return f;
 }
 """
-_LAUNCH = ("  mp_thompson_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(\n"
-           "      stack, sm, exner, p, dz, tp, consts, rain, snow, graupel, "
-           "nz, ncol, dt);\n")
-_LOOP = ("  (void)blocks; (void)threads; (void)stream;\n"
-         "  blockDim.x = 1; threadIdx.x = 0;\n"
-         "  for (long b = 0; b < ncol; ++b) {\n"
-         "    blockIdx.x = (unsigned)b;\n"
-         "    mp_thompson_kernel(stack, sm, exner, p, dz, tp, consts, rain,\n"
-         "                       snow, graupel, nz, ncol, dt);\n  }\n")
+_REPLACE = (
+    ("extern __shared__ float k5_smem[];", "static float k5_smem[1 << 16];"),
+    ("mp_thompson_classify_kernel<<<ntiles, 32, 0, st>>>(",
+     "BLOCKS_LAUNCH(mp_thompson_classify_kernel, "),
+    ("mp_thompson_active_kernel<<<ntiles, K5_THREADS, smem, st>>>(",
+     "BLOCKS_LAUNCH(mp_thompson_active_kernel, "),
+)
+
+
+def _build_cpu_kernel(d, defines=()):
+    lib = d / f"libk5{''.join(defines)}.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1",
+                    "-ffp-contract=off", "-fno-fast-math", "-fPIC", "-shared",
+                    f"-I{d}", *defines, "-o", str(lib), str(d / "k5.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    so = ctypes.CDLL(str(lib))
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+    so.icar_mp_thompson.argtypes = [P] * 18 + [I, L, F, P]
+    so.icar_mp_thompson.restype = I
+    so.icar_mp_thompson_tile_columns.argtypes = [I]
+    so.icar_mp_thompson_tile_columns.restype = I
+    so.icar_mp_thompson_max_nz.restype = I
+    return so
 
 
 @pytest.fixture(scope="module")
-def cpu_kernel(tmp_path_factory):
-    """csrc/mp_thompson.cu built by g++ with stub CUDA definitions: each
-    block is one thread, run in turn (no FMA contraction, glibc's libm)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def cpu_builds(tmp_path_factory):
+    """csrc/mp_thompson.cu built by g++ with stub CUDA definitions, each
+    launch a loop over its blocks, one thread per block (no FMA
+    contraction, glibc's libm): {"skip": the source as it is, "no_skip":
+    built with -DTHOMPSON_NO_SKIP, which classifies every tile active}."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
     d = tmp_path_factory.mktemp("k5cpu")
     (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
     (d / "cuda_bf16.h").write_text(_STUB_BF16)
     src = open(os.path.join(REPO, "icar_tpu_torch", "csrc",
                             "mp_thompson.cu")).read()
-    assert _LAUNCH in src
-    (d / "k5.cpp").write_text(src.replace(_LAUNCH, _LOOP))
-    lib = d / "libk5.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-fno-fast-math", "-fPIC", "-shared", f"-I{d}",
-                    "-o", str(lib), str(d / "k5.cpp")], check=True,
-                   capture_output=True, timeout=300)
-    so = ctypes.CDLL(str(lib))
-    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-    so.icar_mp_thompson.argtypes = [P] * 16 + [I, L, F, P]
-    so.icar_mp_thompson.restype = I
-    return so
+    for old, new in _REPLACE:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    (d / "k5.cpp").write_text(src)
+    return {"skip": _build_cpu_kernel(d),
+            "no_skip": _build_cpu_kernel(d, ("-DTHOMPSON_NO_SKIP",))}
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel(cpu_builds):
+    return cpu_builds["skip"]
 
 
 def _run_cpu_kernel(so, stack, smap, c, dt, acc):
+    """K5's C entry on the CPU build; returns (active tiles, tiles)."""
     tabs = mt.device_tables(mt.ThompsonParams(), "cpu")
     T = {k: torch.tensor(c[k]) for k in ("exner", "p", "dz")}
     sm = (ctypes.c_int * 9)(*smap)
     _, nz, ny, nx = stack.shape
+    cols = so.icar_mp_thompson_tile_columns(nz)
+    ntiles = -(-(ny * nx) // cols)
+    n_active = torch.full((1,), -1, dtype=torch.int32)
+    tiles = torch.full((ntiles,), -1, dtype=torch.int32)
     err = so.icar_mp_thompson(
         stack.data_ptr(), ctypes.addressof(sm), T["exner"].data_ptr(),
         T["p"].data_ptr(), T["dz"].data_ptr(),
         *(tabs[g].data_ptr() for g in mt.BIG_STACKS + mt.SMALL_STACKS),
-        tabs["consts"].data_ptr(), *(a.data_ptr() for a in acc), nz,
-        ny * nx, float(dt), None)
+        tabs["consts"].data_ptr(), *(a.data_ptr() for a in acc),
+        n_active.data_ptr(), tiles.data_ptr(), nz, ny * nx, float(dt), None)
     assert err == 0
+    n = int(n_active[0])
+    assert sorted(tiles[:n].tolist()) == sorted(set(tiles[:n].tolist()))
+    return n, ntiles
 
 
 @pytest.mark.parametrize("seed,dt", [(1, 30.0), (2, 90.0), (3, 150.0)])
@@ -423,3 +467,155 @@ def test_kernel_source_on_the_cpu_matches_the_plain_version(cpu_kernel, seed,
     got = [stack[row].numpy() for row in order]
     got += [a.numpy() for a in acc]
     assert_fractions(got, want, 0.015, "kernel source")
+
+
+def interleaved_state(seed=5, nz=10, ny=8, nx=32):
+    """Rows of inert columns (thompson_cases.inert_state) between rows of
+    mixed-regime ones: at nx = 32 the kernel's 32-column tiles alternate
+    inert and active."""
+    inert = inert_state(nz, ny, nx)
+    mixed = mixed_state(seed, nz, ny, nx)
+    odd = (np.arange(ny) % 2 == 1)[None, :, None]
+    return {k: np.where(odd, mixed[k], inert[k]).astype(np.float32)
+            if k in NAMES else inert[k] for k in inert}
+
+
+def trigger_edge_state(nz=6, nx=32):
+    """One cell per row of 32 columns (one tile) moved to either side of a
+    trigger of the activity predicate, in otherwise inert columns: a
+    hydrometeor at R1 and one float32 step above it; qv at the plain
+    rslf, and one to three steps either side of it (water saturation); in
+    a 228 K cell, qv at 1.25 times the plain rsif and two steps either
+    side (the ice nucleation trigger)."""
+    steps = [("qc", 0), ("qc", 1), ("qr", 0), ("qg", 1), ("qi", 1),
+             ("qs", 0)]
+    steps += [("w", j) for j in (-3, -1, 0, 1, 3)]
+    steps += [("i", j) for j in (-2, -1, 0, 1, 2)]
+    ny = len(steps)
+    s = inert_state(nz, ny, nx)
+    for k in NAMES[2:]:
+        s[k] = np.zeros_like(s[k])
+    k, x = 2, 7
+    r1 = np.float32(1e-12)
+    up = lambda v, n: v if n == 0 else np.float32(
+        np.nextafter(v, np.float32(np.inf if n > 0 else -np.inf))) \
+        if abs(n) == 1 else up(up(v, np.sign(n)), n - np.sign(n))
+    p = torch.tensor(s["p"][k, 0, x])
+    for row, (what, n) in enumerate(steps):
+        if what in NAMES:
+            s[what][k, row, x] = up(r1, n)
+            continue
+        t = np.float32(228.0) if what == "i" else np.float32(
+            s["th"][k, row, x] * s["exner"][k, row, x])
+        s["th"][k, row, x] = t / s["exner"][k, row, x]
+        t = np.float32(s["th"][k, row, x] * s["exner"][k, row, x])
+        sat = (mt.rslf(p, torch.tensor(t)) if what == "w"
+               else mt.rsif(p, torch.tensor(t)) * np.float32(1.25))
+        s["qv"][k, row, x] = up(np.float32(sat), n)
+    return s
+
+
+def _stack_of(c):
+    return torch.stack([torch.tensor(c[k]) for k in NAMES])
+
+
+def _cpu_kernel_outputs(so, c, dt, seed=0):
+    """The CPU build's fields and accumulators (random accumulators made
+    from ``seed``, one of them -0.0) and its (active tiles, tiles)."""
+    stack = _stack_of(c)
+    r = np.random.default_rng(seed)
+    acc = [torch.tensor(r.uniform(0, 5, c["p"].shape[1:]).astype(np.float32))
+           for _ in range(3)]
+    acc[0][0, 0] = -0.0
+    counts = _run_cpu_kernel(so, stack, tuple(range(9)), c, dt, acc)
+    return list(stack) + acc, counts
+
+
+BIT_STATES = {
+    "inert": lambda: inert_state(),
+    "mixed 1": lambda: mixed_state(1),
+    "mixed 2": lambda: mixed_state(2),
+    "mixed 3": lambda: mixed_state(3),
+    "ice supersaturated": lambda: ice_supersaturated_state(),
+    "riming": lambda: riming_state(),
+    "interleaved": lambda: interleaved_state(),
+    "trigger edges": lambda: trigger_edge_state(),
+}
+
+
+@pytest.mark.parametrize("name", list(BIT_STATES))
+def test_inert_tile_skip_keeps_the_bits(cpu_builds, name):
+    """The kernel with its inert-tile skip against a build that classifies
+    every tile active (-DTHOMPSON_NO_SKIP): every field and accumulator
+    equal bit for bit (-0.0 and +0.0 told apart). The inert state skips
+    every tile and the interleaved one every other; at the trigger edges
+    some tiles skip and some do not."""
+    c = BIT_STATES[name]()
+    got, (n, ntiles) = _cpu_kernel_outputs(cpu_builds["skip"], c, 45.0)
+    want, (n_all, _) = _cpu_kernel_outputs(cpu_builds["no_skip"], c, 45.0)
+    assert n_all == ntiles
+    for field, g, w in zip(OUT_NAMES, got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), field
+    if name == "inert":
+        assert n == 0
+    elif name == "interleaved":
+        assert n == ntiles // 2
+    elif name == "trigger edges":
+        assert 0 < n < ntiles
+    else:
+        assert n == ntiles
+
+
+@pytest.mark.parametrize("ny,active", [(6, 6), (7, 6)])
+def test_kernel_source_at_80_levels_on_a_ragged_tile_grid(cpu_builds, ny,
+                                                          active):
+    """nz = 80 takes tiles of 8 columns (the shared memory of a 32-column
+    tile would not fit); rows of 7 columns, inert and mixed in turn, leave
+    the last tile ragged: active at ny = 6, inert at ny = 7. Held to the
+    plain version as the kernel-source test above, and to the build without
+    the skip bit for bit."""
+    so = cpu_builds["skip"]
+    assert so.icar_mp_thompson_tile_columns(80) == 8
+    c = interleaved_state(4, 80, ny, 7)
+    c["dz"] = np.full_like(c["dz"], 100.0)
+    got, (n, ntiles) = _cpu_kernel_outputs(so, c, 30.0)
+    assert (n, ntiles) == (active, -(-ny * 7 // 8))
+    want, _ = _cpu_kernel_outputs(cpu_builds["no_skip"], c, 30.0)
+    for field, g, w in zip(OUT_NAMES, got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), field
+    r = np.random.default_rng(0)
+    acc0 = [r.uniform(0, 5, c["p"].shape[1:]).astype(np.float32)
+            for _ in range(3)]
+    acc0[0][0, 0] = -0.0
+    T = {k: torch.tensor(v) for k, v in c.items()}
+    plain = mt.mp_thompson(*(T[k] for k in NAMES), T["exner"], T["p"],
+                           T["dz"], np.float32(30.0),
+                           *(torch.tensor(a) for a in acc0))
+    assert_fractions([g.numpy() for g in got], [w.numpy() for w in plain],
+                     0.015, "kernel source, nz 80")
+
+
+def test_kernel_level_limits_follow_the_sources(cpu_builds):
+    """ops/kernels.MAX_NZ, which a model on the card is checked against
+    before it is built, equals each source's limit: the MAX_NZ of
+    mp_simple.cu (K2, K3) and mpdata.cu (K4) read from the text, and K5's
+    from its CPU build, where the tile shrinks with depth down to one
+    column and stops there."""
+    import re
+    from icar_tpu_torch.ops import kernels
+    csrc = os.path.join(REPO, "icar_tpu_torch", "csrc")
+    for src, names in (("mp_simple.cu", ("mp_simple", "mp_simple_rho")),
+                       ("mpdata.cu", ("advect_mpdata",))):
+        text = open(os.path.join(csrc, src)).read()
+        limits = re.findall(r"^(?:#define MAX_NZ|constexpr int MAX_NZ =)"
+                            r"\s+(\d+)", text, re.M)
+        assert len(limits) == 1, src
+        for name in names:
+            assert kernels.MAX_NZ[name] == int(limits[0]), name
+    so = cpu_builds["skip"]
+    top = so.icar_mp_thompson_max_nz()
+    assert kernels.MAX_NZ["mp_thompson"] == top
+    assert so.icar_mp_thompson_tile_columns(20) == 32
+    assert so.icar_mp_thompson_tile_columns(top) == 1
+    assert so.icar_mp_thompson_tile_columns(top + 1) == 0
+    assert kernels.MAX_NZ["advect_upwind"] is None
