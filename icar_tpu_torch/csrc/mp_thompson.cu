@@ -1250,11 +1250,19 @@ enum Sf {
   S_QSED_R, S_NSED_R, S_QSED_I, S_NSED_I, S_QSED_S, S_QSED_G, N_SF
 };
 
-constexpr int K5_THREADS = 128;       // 4 species x 32 columns in pass D
-constexpr int K5_TILE_MAX = 32;       // columns of a tile, one warp's width
-constexpr int KC_PAD = (N_CONSTS + 3) / 4 * 4;
-// a tile's shared memory: two blocks per SM where it fits, else one
-constexpr long K5_SMEM_TWO = 113 * 1024;
+#ifndef K5_THREADS
+#define K5_THREADS 128                // 4 species x 32 columns in pass D
+#endif
+#ifndef K5_TILE_MAX
+#define K5_TILE_MAX 32                // columns of a tile, one warp's width
+#endif
+#ifndef K5_MIN_BLOCKS
+#define K5_MIN_BLOCKS 2               // resident active-pass blocks per SM
+#endif
+constexpr int KC_PAD = (N_CONSTS + 4) / 4 * 4;   // and a spare word
+// a tile's shared memory: K5_MIN_BLOCKS blocks per SM where it fits (an
+// SM has 228 KB, 1 KB of it reserved per block), else one
+constexpr long K5_SMEM_TARGET = 228L * 1024 / K5_MIN_BLOCKS - 1024;
 constexpr long K5_SMEM_MAX = 232448;
 
 __host__ __device__ inline long active_smem(int cols, int nz) {
@@ -1265,14 +1273,14 @@ __host__ __device__ inline long active_smem(int cols, int nz) {
 // does not fit in a block's shared memory
 inline int tile_columns(int nz) {
   for (int cols = K5_TILE_MAX; cols > 1; cols /= 2)
-    if (active_smem(cols, nz) <= K5_SMEM_TWO) return cols;
+    if (active_smem(cols, nz) <= K5_SMEM_TARGET) return cols;
   return active_smem(1, nz) <= K5_SMEM_MAX ? 1 : 0;
 }
 
-// Classify pass: one warp per tile of C consecutive columns. Each lane
-// tests its columns down the levels, the warp votes; an active tile is
-// appended to the list, an inert tile is finished here.
-__global__ void __launch_bounds__(32)
+// Classify pass: one block per tile of C consecutive columns, one thread
+// per cell (x fastest). The block votes; an active tile is appended to the
+// list, an inert tile is finished here.
+__global__ void __launch_bounds__(K5_THREADS)
 mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
                             const float* __restrict__ exner_g,
                             const float* __restrict__ p_g,
@@ -1280,47 +1288,67 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
                             float* __restrict__ rain,
                             float* __restrict__ snow,
                             float* __restrict__ graupel, int nz, long ncol,
-                            int cols, float dt, int* __restrict__ n_active,
+                            int cols, float dt, int* __restrict__ counts,
                             int* __restrict__ tiles) {
   const long plane = (long)nz * ncol;
   const long col0 = (long)blockIdx.x * cols;
   const int cn = (int)min((long)cols, ncol - col0);
+  const int cells = cols * nz;
   int act = 0;
 #ifdef THOMPSON_NO_SKIP
   act = 1;
 #else
-  for (int c = threadIdx.x; c < cn; c += blockDim.x)
-    for (int k = 0; k < nz && !act; ++k)
+  for (int i = threadIdx.x; i < cells && !act; i += blockDim.x) {
+    const int k = i / cols, c = i - k * cols;
+    if (c < cn)
       act = cell_active(load_level(q, sm, exner_g, p_g,
                                    (long)k * ncol + col0 + c, plane));
+  }
 #endif
-  if (__any_sync(0xffffffffu, act)) {
-    if (threadIdx.x == 0) tiles[atomicAdd(n_active, 1)] = (int)blockIdx.x;
+  if (__syncthreads_or(act)) {
+    if (threadIdx.x == 0) tiles[atomicAdd(counts, 1)] = (int)blockIdx.x;
     return;
   }
   const float odt = 1.0f / dt;
   const Tend zero{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int k = i / cols, c = i - k * cols;
+    if (c >= cn) continue;
+    const long g = (long)k * ncol + col0 + c;
+    // the melt/freeze branches and the number diagnostics that read ocp,
+    // lvap and rho are not taken on an inert cell
+    final_level(kc, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
+                zero, 1.0f, 1.0f, 1.0f, dt, odt);
+  }
   for (int c = threadIdx.x; c < cn; c += blockDim.x) {
     const long col = col0 + c;
-    for (int k = 0; k < nz; ++k) {
-      const long i = (long)k * ncol + col;
-      // the melt/freeze branches and the number diagnostics that read
-      // ocp, lvap and rho are not taken on an inert cell
-      final_level(kc, q, sm, i, plane,
-                  load_level(q, sm, exner_g, p_g, i, plane), zero, 1.0f,
-                  1.0f, 1.0f, dt, odt);
-    }
     rain[col] = rain[col] + 0.0f + 0.0f + 0.0f + 0.0f;
     snow[col] = snow[col] + 0.0f + 0.0f;
     graupel[col] = graupel[col] + 0.0f;
   }
 }
 
-// Active pass: one block per listed tile (blocks past the count return).
-// The tile's C columns x nz levels keep their intermediates in shared
-// memory; the passes are separated by barriers and every loop is
-// block-stride.
-__global__ void __launch_bounds__(K5_THREADS)
+#ifdef K5_PHASE_CLOCKS
+// the active pass's time per phase, summed over tiles (thread 0's clock
+// after each barrier): a measurement build only
+__device__ unsigned long long k5_clocks[8];
+#define K5_CLOCK_START() long long k5_t = clock64()
+#define K5_CLOCK_MARK(n)                                                   \
+  do {                                                                     \
+    const long long now = clock64();                                       \
+    if (tid == 0) atomicAdd(&k5_clocks[n], (unsigned long long)(now - k5_t)); \
+    k5_t = now;                                                            \
+  } while (0)
+#else
+#define K5_CLOCK_START()
+#define K5_CLOCK_MARK(n)
+#endif
+
+// Active pass: as many blocks as the card holds at once; each claims the
+// listed tiles one by one (counts[1]) until the list is done. A tile's C
+// columns x nz levels keep their intermediates in shared memory; the
+// passes are separated by barriers and every loop is block-stride.
+__global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS)
 mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
                           const float* __restrict__ exner_g,
                           const float* __restrict__ p_g,
@@ -1328,168 +1356,193 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
                           const float* __restrict__ kc,
                           float* __restrict__ rain, float* __restrict__ snow,
                           float* __restrict__ graupel, int nz, long ncol,
-                          int cols, float dt,
-                          const int* __restrict__ n_active,
+                          int cols, float dt, int* __restrict__ counts,
                           const int* __restrict__ tiles) {
-  if ((int)blockIdx.x >= *n_active) return;
+  const int n_active = counts[0];
+  if ((int)blockIdx.x >= n_active) return;
   extern __shared__ float k5_smem[];
   float* K = k5_smem;
-  float* ppt = K + KC_PAD;                      // (4, C): rain, ice, snow, graupel
+  int* slot = (int*)(K + KC_PAD - 1);   // the claimed list entry
+  float* ppt = K + KC_PAD;              // (4, C): rain, ice, snow, graupel
   float* S = ppt + 4 * cols;
   const int cells = cols * nz;
   auto f = [&](int field) { return S + field * cells; };
-  const long col0 = (long)tiles[blockIdx.x] * cols;
-  const int cn = (int)min((long)cols, ncol - col0);
   const long plane = (long)nz * ncol;
   const float odt = 1.0f / dt;
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < N_CONSTS; i += nth) K[i] = kc[i];
-  __syncthreads();
+  for (;;) {
+    if (tid == 0) *slot = atomicAdd(counts + 1, 1);
+    __syncthreads();
+    const int t = *slot;
+    if (t >= n_active) return;
+    K5_CLOCK_START();
+    const long col0 = (long)tiles[t] * cols;
+    const int cn = (int)min((long)cols, ncol - col0);
 
-  // (A) the prep graupel intercept of each cell, then its running minimum
-  // from the model top down, one thread per column
-  float* n0 = f(S_N0);
-  for (int i = tid; i < cells; i += nth) {
-    const int k = i / cols, c = i - k * cols;
-    if (c >= cn) continue;
-    Prep P;
-    prep_level<false>(K, load_level(q, sm, exner_g, p_g,
-                                    (long)k * ncol + col0 + c, plane),
-                      0.0f, P);
-    n0[i] = P.n0exp;
-  }
-  __syncthreads();
-  for (int c = tid; c < cn; c += nth)
-    for (int k = nz - 2; k >= 0; --k)
-      n0[k * cols + c] = jmin(n0[k * cols + c], n0[(k + 1) * cols + c]);
-  __syncthreads();
-
-  // (B) prep, bins, table values and core of each cell
-  for (int i = tid; i < cells; i += nth) {
-    const int k = i / cols, c = i - k * cols;
-    if (c >= cn) continue;
-    const long g = (long)k * ncol + col0 + c;
-    Prep P;
-    prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
-    Tables T;
-    lookup(K, P, tp, T);
-    Core O;
-    core_level(K, P, T, dt, odt, O);
-    f(S_DZ)[i] = dz_g[g];
-    f(S_RHO)[i] = O.rho; f(S_OCP)[i] = O.ocp; f(S_LVAP)[i] = O.lvap;
-    f(S_TEMP)[i] = O.temp; f(S_RHOF)[i] = O.rhof; n0[i] = O.n0exp;
-    f(S_TTEN)[i] = O.tten; f(S_QVTEN)[i] = O.qvten;
-    f(S_QCTEN)[i] = O.qcten; f(S_QITEN)[i] = O.qiten;
-    f(S_NITEN)[i] = O.niten; f(S_QRTEN)[i] = O.qrten;
-    f(S_NRTEN)[i] = O.nrten; f(S_QSTEN)[i] = O.qsten;
-    f(S_QGTEN)[i] = O.qgten;
-    f(S_RR)[i] = O.rr; f(S_NR)[i] = O.nr; f(S_RI)[i] = O.ri;
-    f(S_NI)[i] = O.ni; f(S_RS)[i] = O.rs; f(S_RG)[i] = O.rg;
-    f(S_VTR)[i] = O.vtr; f(S_VTNR)[i] = O.vtnr; f(S_VTI)[i] = O.vti;
-    f(S_VTNI)[i] = O.vtni; f(S_VTS)[i] = O.vts;
-  }
-  __syncthreads();
-
-  // (C) top-down, one thread per column: fill each velocity from the level
-  // above where the species is absent; snow and graupel above freezing
-  // fall at least as fast as the filled rain; graupel's intercept takes its
-  // running minimum
-  for (int c = tid; c < cn; c += nth) {
-    float a_r = 0.0f, a_nr = 0.0f, a_i = 0.0f, a_ni = 0.0f, a_s = 0.0f,
-          a_g = 0.0f, n0min = 0.0f;
-    for (int k = nz - 1; k >= 0; --k) {
-      const int i = k * cols + c;
-      if (f(S_RR)[i] > R1) { a_r = f(S_VTR)[i]; a_nr = f(S_VTNR)[i]; }
-      f(S_VTR)[i] = a_r;
-      f(S_VTNR)[i] = a_nr;
-      if (f(S_RI)[i] > R1) { a_i = f(S_VTI)[i]; a_ni = f(S_VTNI)[i]; }
-      f(S_VTI)[i] = a_i;
-      f(S_VTNI)[i] = a_ni;
-      const float tk = f(S_TEMP)[i];
-      const float vts = f(S_VTS)[i];
-      const float vts_full = tk > T_0 ? jmax(vts, f(S_VTR)[i]) : vts;
-      if (f(S_RS)[i] > R1) a_s = vts_full;
-      f(S_VTS)[i] = a_s;
-      n0min = k == nz - 1 ? n0[i] : jmin(n0[i], n0min);
-      float ilamg, n0g;
-      graupel_slope(K, n0min, f(S_RG)[i], &ilamg, &n0g);
-      const float v = f(S_RHOF)[i] * K[K_AVG] * K[K_CGG5] * K[K_OGG3]
-                      * cpow(ilamg, K[K_BVG]);
-      const float vtg_full = tk > T_0 ? jmax(v, f(S_VTR)[i]) : v;
-      if (f(S_RG)[i] > R1) a_g = vtg_full;
-      f(S_VTG)[i] = a_g;
+    // (A) the prep graupel intercept of each cell, then its running minimum
+    // from the model top down, one thread per column
+    float* n0 = f(S_N0);
+    for (int i = tid; i < cells; i += nth) {
+      const int k = i / cols, c = i - k * cols;
+      if (c >= cn) continue;
+      Prep P;
+      prep_level<false>(K, load_level(q, sm, exner_g, p_g,
+                                      (long)k * ncol + col0 + c, plane),
+                        0.0f, P);
+      n0[i] = P.n0exp;
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    K5_CLOCK_MARK(0);
+    for (int c = tid; c < cn; c += nth)
+      for (int k = nz - 2; k >= 0; --k)
+        n0[k * cols + c] = jmin(n0[k * cols + c], n0[(k + 1) * cols + c]);
+    __syncthreads();
+    K5_CLOCK_MARK(1);
 
-  // (D) sedimentation, one thread per (species, column): each species'
-  // fall adds only into its own tendencies
-  for (int j = tid; j < 4 * cols; j += nth) {
-    const int s = j / cols, c = j - s * cols;
-    if (c >= cn) continue;
-    const float* rho = f(S_RHO) + c;
-    const float* dz = f(S_DZ) + c;
-    float sfc;
-    if (s == 0) {
-      float *qs = f(S_QSED_R) + c, *ns = f(S_NSED_R) + c;
-      sfc = sediment<true>(f(S_RR) + c, f(S_NR) + c, f(S_VTR) + c,
-                           f(S_VTNR) + c, rho, dz, qs, ns, nz, cols, dt, R1,
-                           R2, true);
-      for (int k = 0; k < nz; ++k) {
+    // (B) prep, bins, table values and core of each cell
+    for (int i = tid; i < cells; i += nth) {
+      const int k = i / cols, c = i - k * cols;
+      if (c >= cn) continue;
+      const long g = (long)k * ncol + col0 + c;
+      Prep P;
+      prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
+      Tables T;
+      lookup(K, P, tp, T);
+      Core O;
+      core_level(K, P, T, dt, odt, O);
+      f(S_DZ)[i] = dz_g[g];
+      f(S_RHO)[i] = O.rho; f(S_OCP)[i] = O.ocp; f(S_LVAP)[i] = O.lvap;
+      f(S_TEMP)[i] = O.temp; f(S_RHOF)[i] = O.rhof; n0[i] = O.n0exp;
+      f(S_TTEN)[i] = O.tten; f(S_QVTEN)[i] = O.qvten;
+      f(S_QCTEN)[i] = O.qcten; f(S_QITEN)[i] = O.qiten;
+      f(S_NITEN)[i] = O.niten; f(S_QRTEN)[i] = O.qrten;
+      f(S_NRTEN)[i] = O.nrten; f(S_QSTEN)[i] = O.qsten;
+      f(S_QGTEN)[i] = O.qgten;
+      f(S_RR)[i] = O.rr; f(S_NR)[i] = O.nr; f(S_RI)[i] = O.ri;
+      f(S_NI)[i] = O.ni; f(S_RS)[i] = O.rs; f(S_RG)[i] = O.rg;
+      f(S_VTR)[i] = O.vtr; f(S_VTNR)[i] = O.vtnr; f(S_VTI)[i] = O.vti;
+      f(S_VTNI)[i] = O.vtni; f(S_VTS)[i] = O.vts;
+    }
+    __syncthreads();
+    K5_CLOCK_MARK(2);
+
+    // (C) top-down, one thread per column: fill each velocity from the level
+    // above where the species is absent; snow and graupel above freezing
+    // fall at least as fast as the filled rain; graupel's intercept takes its
+    // running minimum
+    for (int c = tid; c < cn; c += nth) {
+      float a_r = 0.0f, a_nr = 0.0f, a_i = 0.0f, a_ni = 0.0f, a_s = 0.0f,
+            a_g = 0.0f, n0min = 0.0f;
+      for (int k = nz - 1; k >= 0; --k) {
         const int i = k * cols + c;
-        f(S_QRTEN)[i] = f(S_QRTEN)[i] + f(S_QSED_R)[i];
-        f(S_NRTEN)[i] = f(S_NRTEN)[i] + f(S_NSED_R)[i];
-      }
-    } else if (s == 1) {
-      float *qs = f(S_QSED_I) + c, *ns = f(S_NSED_I) + c;
-      sfc = sediment<true>(f(S_RI) + c, f(S_NI) + c, f(S_VTI) + c,
-                           f(S_VTNI) + c, rho, dz, qs, ns, nz, cols, dt, R1,
-                           R2, false);
-      for (int k = 0; k < nz; ++k) {
-        const int i = k * cols + c;
-        f(S_QITEN)[i] = f(S_QITEN)[i] + f(S_QSED_I)[i];
-        f(S_NITEN)[i] = f(S_NITEN)[i] + f(S_NSED_I)[i];
-      }
-    } else {
-      const int m = s == 2 ? S_RS : S_RG, v = s == 2 ? S_VTS : S_VTG;
-      const int qd = s == 2 ? S_QSED_S : S_QSED_G;
-      const int tn = s == 2 ? S_QSTEN : S_QGTEN;
-      sfc = sediment<false>(f(m) + c, f(m) + c, f(v) + c, f(v) + c, rho, dz,
-                            f(qd) + c, f(qd) + c, nz, cols, dt, R1, R2,
-                            false);
-      for (int k = 0; k < nz; ++k) {
-        const int i = k * cols + c;
-        f(tn)[i] = f(tn)[i] + f(qd)[i];
+        if (f(S_RR)[i] > R1) { a_r = f(S_VTR)[i]; a_nr = f(S_VTNR)[i]; }
+        f(S_VTR)[i] = a_r;
+        f(S_VTNR)[i] = a_nr;
+        if (f(S_RI)[i] > R1) { a_i = f(S_VTI)[i]; a_ni = f(S_VTNI)[i]; }
+        f(S_VTI)[i] = a_i;
+        f(S_VTNI)[i] = a_ni;
+        const float tk = f(S_TEMP)[i];
+        const float vts = f(S_VTS)[i];
+        const float vts_full = tk > T_0 ? jmax(vts, f(S_VTR)[i]) : vts;
+        if (f(S_RS)[i] > R1) a_s = vts_full;
+        f(S_VTS)[i] = a_s;
+        n0min = k == nz - 1 ? n0[i] : jmin(n0[i], n0min);
+        float ilamg, n0g;
+        graupel_slope(K, n0min, f(S_RG)[i], &ilamg, &n0g);
+        const float v = f(S_RHOF)[i] * K[K_AVG] * K[K_CGG5] * K[K_OGG3]
+                        * cpow(ilamg, K[K_BVG]);
+        const float vtg_full = tk > T_0 ? jmax(v, f(S_VTR)[i]) : v;
+        if (f(S_RG)[i] > R1) a_g = vtg_full;
+        f(S_VTG)[i] = a_g;
       }
     }
-    ppt[s * cols + c] = sfc;
-  }
-  __syncthreads();
+    __syncthreads();
+    K5_CLOCK_MARK(3);
 
-  // the surface accumulators, in the JAX order
-  for (int c = tid; c < cn; c += nth) {
-    const long col = col0 + c;
-    const float p_rain = ppt[c], p_ice = ppt[cols + c],
-                p_snow = ppt[2 * cols + c], p_graupel = ppt[3 * cols + c];
-    rain[col] = rain[col] + p_rain + p_snow + p_graupel + p_ice;
-    snow[col] = snow[col] + p_snow + p_ice;
-    graupel[col] = graupel[col] + p_graupel;
-  }
+    // (D) sedimentation, one thread per (species, column): each species'
+    // fall adds only into its own tendencies
+    for (int j = tid; j < 4 * cols; j += nth) {
+      const int s = j / cols, c = j - s * cols;
+      if (c >= cn) continue;
+      const float* rho = f(S_RHO) + c;
+      const float* dz = f(S_DZ) + c;
+      float sfc;
+      if (s == 0) {
+        float *qs = f(S_QSED_R) + c, *ns = f(S_NSED_R) + c;
+        sfc = sediment<true>(f(S_RR) + c, f(S_NR) + c, f(S_VTR) + c,
+                             f(S_VTNR) + c, rho, dz, qs, ns, nz, cols, dt, R1,
+                             R2, true);
+        for (int k = 0; k < nz; ++k) {
+          const int i = k * cols + c;
+          f(S_QRTEN)[i] = f(S_QRTEN)[i] + f(S_QSED_R)[i];
+          f(S_NRTEN)[i] = f(S_NRTEN)[i] + f(S_NSED_R)[i];
+        }
+      } else if (s == 1) {
+        float *qs = f(S_QSED_I) + c, *ns = f(S_NSED_I) + c;
+        sfc = sediment<true>(f(S_RI) + c, f(S_NI) + c, f(S_VTI) + c,
+                             f(S_VTNI) + c, rho, dz, qs, ns, nz, cols, dt, R1,
+                             R2, false);
+        for (int k = 0; k < nz; ++k) {
+          const int i = k * cols + c;
+          f(S_QITEN)[i] = f(S_QITEN)[i] + f(S_QSED_I)[i];
+          f(S_NITEN)[i] = f(S_NITEN)[i] + f(S_NSED_I)[i];
+        }
+      } else {
+        const int m = s == 2 ? S_RS : S_RG, v = s == 2 ? S_VTS : S_VTG;
+        const int qd = s == 2 ? S_QSED_S : S_QSED_G;
+        const int tn = s == 2 ? S_QSTEN : S_QGTEN;
+        sfc = sediment<false>(f(m) + c, f(m) + c, f(v) + c, f(v) + c, rho, dz,
+                              f(qd) + c, f(qd) + c, nz, cols, dt, R1, R2,
+                              false);
+        for (int k = 0; k < nz; ++k) {
+          const int i = k * cols + c;
+          f(tn)[i] = f(tn)[i] + f(qd)[i];
+        }
+      }
+      ppt[s * cols + c] = sfc;
+    }
+    __syncthreads();
+    K5_CLOCK_MARK(4);
 
-  // (E) instant melt / homogeneous freeze and the final update of each cell
-  for (int i = tid; i < cells; i += nth) {
-    const int k = i / cols, c = i - k * cols;
-    if (c >= cn) continue;
-    const long g = (long)k * ncol + col0 + c;
-    const Tend d{f(S_TTEN)[i], f(S_QVTEN)[i], f(S_QCTEN)[i], f(S_QITEN)[i],
-                 f(S_NITEN)[i], f(S_QRTEN)[i], f(S_NRTEN)[i], f(S_QSTEN)[i],
-                 f(S_QGTEN)[i]};
-    final_level(K, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
-                d, f(S_OCP)[i], f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
+    // the surface accumulators, in the JAX order
+    for (int c = tid; c < cn; c += nth) {
+      const long col = col0 + c;
+      const float p_rain = ppt[c], p_ice = ppt[cols + c],
+                  p_snow = ppt[2 * cols + c], p_graupel = ppt[3 * cols + c];
+      rain[col] = rain[col] + p_rain + p_snow + p_graupel + p_ice;
+      snow[col] = snow[col] + p_snow + p_ice;
+      graupel[col] = graupel[col] + p_graupel;
+    }
+
+    // (E) instant melt / homogeneous freeze and the final update of each cell
+    for (int i = tid; i < cells; i += nth) {
+      const int k = i / cols, c = i - k * cols;
+      if (c >= cn) continue;
+      const long g = (long)k * ncol + col0 + c;
+      const Tend d{f(S_TTEN)[i], f(S_QVTEN)[i], f(S_QCTEN)[i], f(S_QITEN)[i],
+                   f(S_NITEN)[i], f(S_QRTEN)[i], f(S_NRTEN)[i], f(S_QSTEN)[i],
+                   f(S_QGTEN)[i]};
+      final_level(K, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
+                  d, f(S_OCP)[i], f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
+    }
+    __syncthreads();   // the next tile reuses the shared memory
+    K5_CLOCK_MARK(5);
   }
 }
 
 }  // namespace
+
+#ifdef K5_PHASE_CLOCKS
+// copy the phase clocks to host[8] and zero them
+extern "C" int icar_mp_thompson_phase_clocks(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, k5_clocks, sizeof(k5_clocks));
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(k5_clocks, zero, sizeof(k5_clocks));
+  return (int)err;
+}
+#endif
 
 // the deepest column K5 takes: one column's tile fills a block's shared
 // memory
@@ -1513,9 +1566,9 @@ extern "C" int icar_mp_thompson_n_consts() { return N_CONSTS; }
 // K5: Thompson microphysics on the (9, nz, ncol) stack, in place; smap is a
 // host array of 9 stack rows; the seven tables and the constants are device
 // arrays (see physics/mp_thompson.py device_tables, kernel_constants);
-// n_active (one int) and tiles (ceil(ncol / C) ints, C =
-// icar_mp_thompson_tile_columns(nz)) are device scratch: the count and list
-// of active tiles
+// counts (two ints) and tiles (ceil(ncol / C) ints, C =
+// icar_mp_thompson_tile_columns(nz)) are device scratch: the number of
+// active tiles and of tiles claimed, and the list of active tiles
 extern "C" int icar_mp_thompson(float* stack, const int* smap,
                                 const float* exner, const float* p,
                                 const float* dz, const void* racs,
@@ -1523,7 +1576,7 @@ extern "C" int icar_mp_thompson(float* stack, const int* smap,
                                 const float* efrw, const float* efsw,
                                 const float* qcfz, const float* iaus,
                                 const float* consts, float* rain, float* snow,
-                                float* graupel, int* n_active, int* tiles,
+                                float* graupel, int* counts, int* tiles,
                                 int nz, long ncol, float dt, void* stream) {
   const int cols = nz < 1 ? 0 : tile_columns(nz);
   if (cols == 0 || ncol < 1) return (int)cudaErrorInvalidValue;
@@ -1532,21 +1585,30 @@ extern "C" int icar_mp_thompson(float* stack, const int* smap,
   TabPtrs tp{(const __nv_bfloat16*)racs, (const __nv_bfloat16*)racg,
              (const __nv_bfloat16*)qrfz, efrw, efsw, qcfz, iaus};
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned ntiles = (unsigned)((ncol + cols - 1) / cols);
-  cudaError_t err = cudaMemsetAsync(n_active, 0, sizeof(int), st);
+  const long ntiles = (ncol + cols - 1) / cols;
+  const long smem = active_smem(cols, nz);
+  cudaError_t err = cudaFuncSetAttribute(
+      mp_thompson_active_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mp_thompson_active_kernel, K5_THREADS, (size_t)smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  mp_thompson_classify_kernel<<<ntiles, 32, 0, st>>>(
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_THREADS, 0, st>>>(
       stack, sm, exner, p, consts, rain, snow, graupel, nz, ncol, cols, dt,
-      n_active, tiles);
+      counts, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long smem = active_smem(cols, nz);
-  err = cudaFuncSetAttribute(mp_thompson_active_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mp_thompson_active_kernel<<<ntiles, K5_THREADS, smem, st>>>(
+  const long resident = (long)per_sm * sms;
+  const unsigned grid = (unsigned)(ntiles < resident ? ntiles : resident);
+  mp_thompson_active_kernel<<<grid, K5_THREADS, smem, st>>>(
       stack, sm, exner, p, dz, tp, consts, rain, snow, graupel, nz, ncol,
-      cols, dt, n_active, tiles);
+      cols, dt, counts, tiles);
   return (int)cudaGetLastError();
 }

@@ -91,14 +91,17 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/`` unless a library built from
     the same sources and flags is already there; returns its path and
-    records the build time and compiler log in ``BUILD_INFO``. Each source
-    compiles in its own nvcc process, all at once, then one link."""
+    records the build time and compiler log (kept beside the library, so
+    a cached build has it too) in ``BUILD_INFO``. Each source compiles in
+    its own nvcc process, all at once, then one link."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     lib = BUILD_DIR / f"libicar_kernels_{h.hexdigest()[:16]}.so"
+    log_path = lib.with_suffix(".log")
     if lib.exists():
-        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True, log="")
+        log = log_path.read_text() if log_path.exists() else ""
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True, log=log)
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -125,9 +128,10 @@ def build() -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stderr}")
+    log = "".join(logs) + res.stdout + res.stderr
+    log_path.write_text(log)
     os.replace(tmp, lib)
-    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False,
-                      log="".join(logs) + res.stdout + res.stderr)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
     return lib
 
 
@@ -460,10 +464,10 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
         raise ValueError(f"mp_thompson: {consts.numel()} constants, the "
                          f"kernel reads {lib.icar_mp_thompson_n_consts()}")
     smap_c = (ctypes.c_int * 9)(*smap)
-    # the count and list of active tiles (freed on return while the
-    # launches may still run: the caching allocator hands them out again
-    # only to later work on the same stream)
-    n_active = torch.empty(1, dtype=torch.int32, device=dev)
+    # the counts of active and claimed tiles and the list of active tiles
+    # (freed on return while the launches may still run: the caching
+    # allocator hands them out again only to later work on the same stream)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
     tiles = torch.empty(-(-(ny * nx) // cols), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.icar_mp_thompson(
@@ -472,8 +476,8 @@ def mp_thompson_stack(qstack, smap, exner, pressure, dz_mass, dt, rain,
         *(tabs[g].data_ptr() for g in thompson_plain.BIG_STACKS
           + thompson_plain.SMALL_STACKS),
         consts.data_ptr(), rain.data_ptr(), snow.data_ptr(),
-        graupel.data_ptr(), n_active.data_ptr(), tiles.data_ptr(), nz,
+        graupel.data_ptr(), counts.data_ptr(), tiles.data_ptr(), nz,
         ny * nx, float(dt), stream)
     _raise_on(err, "mp_thompson")
     LAUNCHES["mp_thompson"] += 1
-    return n_active
+    return counts[:1]

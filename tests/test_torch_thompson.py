@@ -342,12 +342,27 @@ static dim3_ blockIdx, threadIdx, blockDim;
 #define __restrict__
 #define __launch_bounds__(...)
 inline void __syncthreads() {}
-inline int __any_sync(unsigned, int p) { return p; }
+inline int __syncthreads_or(int p) { return p; }
 inline int atomicAdd(int* a, int v) { int old = *a; *a += v; return old; }
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// two SMs holding one active-pass block each: the blocks claim the
+// listed tiles in turn
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
   return cudaSuccess;
@@ -358,10 +373,10 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 // each launch is a loop over its blocks, one thread per block (the
 // kernels' loops are block-stride between barriers)
-#define BLOCKS_LAUNCH(kernel, ...)                                  \\
+#define BLOCKS_LAUNCH(blocks, kernel, ...)                          \\
   do {                                                              \\
     blockDim.x = 1; threadIdx.x = 0;                                \\
-    for (unsigned b_ = 0; b_ < ntiles; ++b_) {                      \\
+    for (unsigned b_ = 0; b_ < (unsigned)(blocks); ++b_) {          \\
       blockIdx.x = b_;                                              \\
       kernel(__VA_ARGS__);                                          \\
     }                                                               \\
@@ -378,10 +393,10 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 """
 _REPLACE = (
     ("extern __shared__ float k5_smem[];", "static float k5_smem[1 << 16];"),
-    ("mp_thompson_classify_kernel<<<ntiles, 32, 0, st>>>(",
-     "BLOCKS_LAUNCH(mp_thompson_classify_kernel, "),
-    ("mp_thompson_active_kernel<<<ntiles, K5_THREADS, smem, st>>>(",
-     "BLOCKS_LAUNCH(mp_thompson_active_kernel, "),
+    ("mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_THREADS, 0, st>>>(",
+     "BLOCKS_LAUNCH(ntiles, mp_thompson_classify_kernel, "),
+    ("mp_thompson_active_kernel<<<grid, K5_THREADS, smem, st>>>(",
+     "BLOCKS_LAUNCH(grid, mp_thompson_active_kernel, "),
 )
 
 
@@ -435,16 +450,19 @@ def _run_cpu_kernel(so, stack, smap, c, dt, acc):
     _, nz, ny, nx = stack.shape
     cols = so.icar_mp_thompson_tile_columns(nz)
     ntiles = -(-(ny * nx) // cols)
-    n_active = torch.full((1,), -1, dtype=torch.int32)
+    counts = torch.full((2,), -1, dtype=torch.int32)
     tiles = torch.full((ntiles,), -1, dtype=torch.int32)
     err = so.icar_mp_thompson(
         stack.data_ptr(), ctypes.addressof(sm), T["exner"].data_ptr(),
         T["p"].data_ptr(), T["dz"].data_ptr(),
         *(tabs[g].data_ptr() for g in mt.BIG_STACKS + mt.SMALL_STACKS),
         tabs["consts"].data_ptr(), *(a.data_ptr() for a in acc),
-        n_active.data_ptr(), tiles.data_ptr(), nz, ny * nx, float(dt), None)
+        counts.data_ptr(), tiles.data_ptr(), nz, ny * nx, float(dt), None)
     assert err == 0
-    n = int(n_active[0])
+    n = int(counts[0])
+    # every listed tile was claimed once, and each block that started (at
+    # most the two the stub's card holds) ended on one failed claim
+    assert int(counts[1]) == n + min(2, ntiles, n)
     assert sorted(tiles[:n].tolist()) == sorted(set(tiles[:n].tolist()))
     return n, ntiles
 
