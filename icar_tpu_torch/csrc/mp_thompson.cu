@@ -1240,6 +1240,23 @@ __device__ __forceinline__ bool cell_active(const Level& in) {
          || qv_c / rsif(in.p, temp) >= F(1.25);
 }
 
+// what core_level leaves on a cell where cell_active fails: no process
+// runs there, so every tendency is zero, each species sits at its floor
+// with no fall speed (the snow speed is filled from above before it is
+// read), and the thermodynamics are those of the entry state
+__device__ void inert_core(const float* K, const Level& in, Core& O) {
+  const float temp = in.th * in.exner;
+  const Thermo h = thermo(K, temp, in.p, jmax(in.qv, F(1e-10)));
+  O.rho = h.rho; O.ocp = h.ocp; O.lvap = h.lvap; O.temp = temp;
+  O.rhof = h.rhof;
+  O.n0exp = graupel_n0_exp(R1, temp, 0.0f, false);
+  O.rr = R1; O.nr = R2; O.ri = R1; O.ni = R2; O.rs = R1; O.rg = R1;
+  O.vtr = 0.0f; O.vtnr = 0.0f; O.vti = 0.0f; O.vtni = 0.0f; O.vts = 0.0f;
+  O.tten = 0.0f; O.qvten = 0.0f; O.qcten = 0.0f; O.qiten = 0.0f;
+  O.niten = 0.0f; O.qrten = 0.0f; O.nrten = 0.0f; O.qsten = 0.0f;
+  O.qgten = 0.0f;
+}
+
 // the per-cell values the active tile keeps in shared memory, one array
 // of (nz, C) each
 enum Sf {
@@ -1259,14 +1276,15 @@ enum Sf {
 #ifndef K5_MIN_BLOCKS
 #define K5_MIN_BLOCKS 2               // resident active-pass blocks per SM
 #endif
-constexpr int KC_PAD = (N_CONSTS + 4) / 4 * 4;   // and a spare word
+// the constants and two spare words
+constexpr int KC_PAD = (N_CONSTS + 2 + 3) / 4 * 4;
 // a tile's shared memory: K5_MIN_BLOCKS blocks per SM where it fits (an
 // SM has 228 KB, 1 KB of it reserved per block), else one
 constexpr long K5_SMEM_TARGET = 228L * 1024 / K5_MIN_BLOCKS - 1024;
 constexpr long K5_SMEM_MAX = 232448;
 
 __host__ __device__ inline long active_smem(int cols, int nz) {
-  return 4L * (KC_PAD + 4L * cols + (long)N_SF * cols * nz);
+  return 4L * (KC_PAD + 4L * cols + (N_SF + 1L) * cols * nz);
 }
 
 // columns per tile at nz levels (a power of two), 0 if one column's tile
@@ -1363,10 +1381,12 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
   extern __shared__ float k5_smem[];
   float* K = k5_smem;
   int* slot = (int*)(K + KC_PAD - 1);   // the claimed list entry
+  int* n_listed = (int*)(K + KC_PAD - 2);   // active cells of the tile
   float* ppt = K + KC_PAD;              // (4, C): rain, ice, snow, graupel
   float* S = ppt + 4 * cols;
   const int cells = cols * nz;
   auto f = [&](int field) { return S + field * cells; };
+  int* listed = (int*)(S + N_SF * cells);   // their cell indices
   const long plane = (long)nz * ncol;
   const float odt = 1.0f / dt;
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -1400,18 +1420,11 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
     __syncthreads();
     K5_CLOCK_MARK(1);
 
-    // (B) prep, bins, table values and core of each cell
-    for (int i = tid; i < cells; i += nth) {
-      const int k = i / cols, c = i - k * cols;
-      if (c >= cn) continue;
-      const long g = (long)k * ncol + col0 + c;
-      Prep P;
-      prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
-      Tables T;
-      lookup(K, P, tp, T);
-      Core O;
-      core_level(K, P, T, dt, odt, O);
-      f(S_DZ)[i] = dz_g[g];
+    // (B) prep, bins, table values and core of each cell: a cell where the
+    // activity predicate fails takes what the core would leave there
+    // (inert_core); the others are listed and computed densely
+    auto keep = [&](int i, const Core& O, float dz) {
+      f(S_DZ)[i] = dz;
       f(S_RHO)[i] = O.rho; f(S_OCP)[i] = O.ocp; f(S_LVAP)[i] = O.lvap;
       f(S_TEMP)[i] = O.temp; f(S_RHOF)[i] = O.rhof; n0[i] = O.n0exp;
       f(S_TTEN)[i] = O.tten; f(S_QVTEN)[i] = O.qvten;
@@ -1423,6 +1436,37 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       f(S_NI)[i] = O.ni; f(S_RS)[i] = O.rs; f(S_RG)[i] = O.rg;
       f(S_VTR)[i] = O.vtr; f(S_VTNR)[i] = O.vtnr; f(S_VTI)[i] = O.vti;
       f(S_VTNI)[i] = O.vtni; f(S_VTS)[i] = O.vts;
+    };
+    if (tid == 0) *n_listed = 0;
+    __syncthreads();
+    for (int i = tid; i < cells; i += nth) {
+      const int k = i / cols, c = i - k * cols;
+      if (c >= cn) continue;
+      const long g = (long)k * ncol + col0 + c;
+#ifndef THOMPSON_NO_SKIP
+      const Level in = load_level(q, sm, exner_g, p_g, g, plane);
+      if (!cell_active(in)) {
+        Core O;
+        inert_core(K, in, O);
+        keep(i, O, dz_g[g]);
+        continue;
+      }
+#endif
+      listed[atomicAdd(n_listed, 1)] = i;
+    }
+    __syncthreads();
+    const int n_cells = *n_listed;
+    for (int j = tid; j < n_cells; j += nth) {
+      const int i = listed[j];
+      const int k = i / cols, c = i - k * cols;
+      const long g = (long)k * ncol + col0 + c;
+      Prep P;
+      prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
+      Tables T;
+      lookup(K, P, tp, T);
+      Core O;
+      core_level(K, P, T, dt, odt, O);
+      keep(i, O, dz_g[g]);
     }
     __syncthreads();
     K5_CLOCK_MARK(2);
@@ -1547,7 +1591,7 @@ extern "C" int icar_mp_thompson_phase_clocks(unsigned long long* host) {
 // the deepest column K5 takes: one column's tile fills a block's shared
 // memory
 extern "C" int icar_mp_thompson_max_nz() {
-  return (int)((K5_SMEM_MAX / 4 - KC_PAD - 4) / N_SF);
+  return (int)((K5_SMEM_MAX / 4 - KC_PAD - 4) / (N_SF + 1));
 }
 
 // columns per tile at nz levels (0: nz is too deep)
