@@ -56,9 +56,9 @@
 //   list (a cell that fails the predicate takes the core's result, all
 //   tendencies zero, without computing it); (C) the top-down fills and the
 //   second running minimum, one per column, with graupel's fall speed one
-//   per cell; (D) the four sedimentation loops, each step one thread per
-//   (species, level, column), since a level's update reads only old values
-//   and each species adds only into its own tendencies; the surface sums,
+//   per cell; (D) the four sedimentation loops, one thread per (species,
+//   column), since each species adds only into its own tendencies; the
+//   surface sums,
 //   one per column; (E) melt/freeze and the final update, one per cell,
 //   re-reading the entry state (the stack is written only there, so the
 //   update is in place). C is 32 where two tiles fit an SM's shared memory and halves
@@ -1072,6 +1072,53 @@ __device__ void core_level(const float* K, const Prep& P, const Tables& T,
   O.qgten = qgten;
 }
 
+// explicit flux-form sedimentation of one species of one column over its
+// own step count (mp_thompson.f90:2657-2780; _sediment): updates rx (and
+// nx with kNumber), accumulates the tendencies into qsed/nsed, returns the
+// surface flux sum. Level k of each array is at [k * st]; odz and orho
+// hold 1/dz and 1/rho.
+template <bool kNumber>
+__device__ float sediment(float* rx, float* nx, const float* vtm,
+                          const float* vtn, const float* dz, const float* odz,
+                          const float* orho, float* qsed, float* nsed, int nz,
+                          int st, float dt, bool cfl_max) {
+  int nstep = 1;
+  for (int k = 0; k < nz; ++k) {
+    qsed[k * st] = 0.0f;
+    if (kNumber) nsed[k * st] = 0.0f;
+    const float v = cfl_max ? jmax(vtm[k * st], vtn[k * st]) : vtm[k * st];
+    const int per_k = v > F(1e-3) ? (int)truncf(dt * v / dz[k * st]) + 1 : 0;
+    nstep = max(nstep, per_k);
+  }
+  const float onstep = 1.0f / (float)nstep;
+  float sfc = 0.0f;
+  for (int s = 0; s < nstep; ++s) {
+    float sed_m = vtm[0] * rx[0];
+    float sed_n = kNumber ? vtn[0] * nx[0] : 0.0f;
+    const float sed_m0 = sed_m;
+    float rx0 = 0.0f;
+    for (int k = 0; k < nz; ++k) {
+      const int i = k * st, up = i + st;
+      const float odzq = odz[i];
+      const float up_m = k + 1 < nz ? vtm[up] * rx[up] : 0.0f;
+      const float div_m = up_m - sed_m;
+      qsed[i] = qsed[i] + div_m * odzq * onstep * orho[i];
+      rx[i] = jmax(rx[i] + div_m * odzq * dt * onstep, R1);
+      if (k == 0) rx0 = rx[0];
+      sed_m = up_m;
+      if (kNumber) {
+        const float up_n = k + 1 < nz ? vtn[up] * nx[up] : 0.0f;
+        const float div_n = up_n - sed_n;
+        nsed[i] = nsed[i] + div_n * odzq * onstep * orho[i];
+        nx[i] = jmax(nx[i] + div_n * odzq * dt * onstep, R2);
+        sed_n = up_n;
+      }
+    }
+    sfc = sfc + (rx0 > F(1e-12 * 10.0) ? sed_m0 * dt * onstep : 0.0f);
+  }
+  return sfc;
+}
+
 struct Smap {
   int row[9];
 };
@@ -1219,30 +1266,30 @@ enum Sf {
   S_TTEN, S_QVTEN, S_QCTEN, S_QITEN, S_NITEN, S_QRTEN, S_NRTEN, S_QSTEN,
   S_QGTEN, S_RR, S_NR, S_RI, S_NI, S_RS, S_RG,
   S_VTR, S_VTNR, S_VTI, S_VTNI, S_VTS, S_VTG,
-  S_QSED_R, S_NSED_R, S_QSED_I, S_NSED_I, S_QSED_S, S_QSED_G,
-  S_DIV_RM, S_DIV_RN, S_DIV_IM, S_DIV_IN, S_DIV_S, S_DIV_G, N_SF
+  S_QSED_R, S_NSED_R, S_QSED_I, S_NSED_I, S_QSED_S, S_QSED_G, S_ODZ,
+  S_ORHO, N_SF
 };
 
 // the fields pass D reads and writes for one falling species
 struct SedSpecies {
-  int m, n, vm, vn, qsed, nsed, div_m, div_n, tm, tn;
+  int m, n, vm, vn, qsed, nsed, tm, tn;
   bool number, cfl_max;   // a number to fall too; steps from max(vm, vn)
 };
 
 __device__ __forceinline__ SedSpecies sed_species(int sp) {
   switch (sp) {
     case 0:   // rain
-      return {S_RR, S_NR, S_VTR, S_VTNR, S_QSED_R, S_NSED_R, S_DIV_RM,
-              S_DIV_RN, S_QRTEN, S_NRTEN, true, true};
+      return {S_RR, S_NR, S_VTR, S_VTNR, S_QSED_R, S_NSED_R, S_QRTEN,
+              S_NRTEN, true, true};
     case 1:   // ice
-      return {S_RI, S_NI, S_VTI, S_VTNI, S_QSED_I, S_NSED_I, S_DIV_IM,
-              S_DIV_IN, S_QITEN, S_NITEN, true, false};
+      return {S_RI, S_NI, S_VTI, S_VTNI, S_QSED_I, S_NSED_I, S_QITEN,
+              S_NITEN, true, false};
     case 2:   // snow
-      return {S_RS, 0, S_VTS, 0, S_QSED_S, 0, S_DIV_S, 0, S_QSTEN, 0, false,
-              false};
+      return {S_RS, S_RS, S_VTS, S_VTS, S_QSED_S, S_QSED_S, S_QSTEN, S_QSTEN,
+              false, false};
     default:  // graupel
-      return {S_RG, 0, S_VTG, 0, S_QSED_G, 0, S_DIV_G, 0, S_QGTEN, 0, false,
-              false};
+      return {S_RG, S_RG, S_VTG, S_VTG, S_QSED_G, S_QSED_G, S_QGTEN, S_QGTEN,
+              false, false};
   }
 }
 
@@ -1255,15 +1302,15 @@ __device__ __forceinline__ SedSpecies sed_species(int sp) {
 #ifndef K5_MIN_BLOCKS
 #define K5_MIN_BLOCKS 2               // resident active-pass blocks per SM
 #endif
-// the constants and three spare words
-constexpr int KC_PAD = (N_CONSTS + 3 + 3) / 4 * 4;
+// the constants and two spare words
+constexpr int KC_PAD = (N_CONSTS + 2 + 3) / 4 * 4;
 // a tile's shared memory: K5_MIN_BLOCKS blocks per SM where it fits (an
 // SM has 228 KB, 1 KB of it reserved per block), else one
 constexpr long K5_SMEM_TARGET = 228L * 1024 / K5_MIN_BLOCKS - 1024;
 constexpr long K5_SMEM_MAX = 232448;
 
 __host__ __device__ inline long active_smem(int cols, int nz) {
-  return 4L * (KC_PAD + 8L * cols + (N_SF + 1L) * cols * nz);
+  return 4L * (KC_PAD + 4L * cols + (N_SF + 1L) * cols * nz);
 }
 
 // columns per tile at nz levels (a power of two), 0 if one column's tile
@@ -1361,10 +1408,8 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
   float* K = k5_smem;
   int* slot = (int*)(K + KC_PAD - 1);        // the claimed list entry
   int* n_listed = (int*)(K + KC_PAD - 2);    // active cells of the tile
-  int* max_steps = (int*)(K + KC_PAD - 3);   // the tile's fall steps
-  float* ppt = K + KC_PAD;   // (4, C): rain, ice, snow, graupel at the
-  int* nstep = (int*)(ppt + 4 * cols);       // surface; their fall steps
-  float* S = ppt + 8 * cols;
+  float* ppt = K + KC_PAD;   // (4, C): rain, ice, snow, graupel
+  float* S = ppt + 4 * cols;
   const int cells = cols * nz;
   auto f = [&](int field) { return S + field * cells; };
   int* listed = (int*)(S + N_SF * cells);   // their cell indices
@@ -1484,6 +1529,8 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       const float v = f(S_RHOF)[i] * K[K_AVG] * K[K_CGG5] * K[K_OGG3]
                       * cpow(ilamg, K[K_BVG]);
       f(S_VTG)[i] = f(S_TEMP)[i] > T_0 ? jmax(v, f(S_VTR)[i]) : v;
+      f(S_ODZ)[i] = 1.0f / f(S_DZ)[i];
+      f(S_ORHO)[i] = 1.0f / f(S_RHO)[i];
     }
     __syncthreads();
     for (int c = tid; c < cn; c += nth) {
@@ -1497,82 +1544,26 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
     __syncthreads();
     K5_CLOCK_MARK(3);
 
-    // (D) explicit flux-form sedimentation of rain, ice, snow and graupel,
-    // each column over its own step count (mp_thompson.f90:2657-2780;
-    // _sediment). Within a step a level's new value reads only the old
-    // values of itself and the level above, so a step runs one thread per
-    // (species, level, column): the flux divergences first, then, after a
-    // barrier, the updates; each species adds only into its own
-    // tendencies. First the step counts, one thread per (species, column).
-    if (tid == 0) *max_steps = 1;
-    __syncthreads();
+    // (D) sedimentation of rain, ice, snow and graupel, one thread per
+    // (species, column): each species' fall adds only into its own
+    // tendencies
     for (int j = tid; j < 4 * cols; j += nth) {
       const int sp = j / cols, c = j - sp * cols;
       if (c >= cn) continue;
       const SedSpecies e = sed_species(sp);
-      int steps = 1;
+      float *m = f(e.m) + c, *n = f(e.n) + c, *qs = f(e.qsed) + c,
+            *ns = f(e.nsed) + c;
+      const float *vm = f(e.vm) + c, *vn = f(e.vn) + c, *dz = f(S_DZ) + c,
+                  *odz = f(S_ODZ) + c, *orho = f(S_ORHO) + c;
+      ppt[j] = e.number ? sediment<true>(m, n, vm, vn, dz, odz, orho, qs, ns,
+                                         nz, cols, dt, e.cfl_max)
+                        : sediment<false>(m, n, vm, vn, dz, odz, orho, qs,
+                                          ns, nz, cols, dt, e.cfl_max);
       for (int k = 0; k < nz; ++k) {
         const int i = k * cols + c;
-        f(e.qsed)[i] = 0.0f;
-        if (e.number) f(e.nsed)[i] = 0.0f;
-        const float v = e.cfl_max ? jmax(f(e.vm)[i], f(e.vn)[i]) : f(e.vm)[i];
-        const int per_k =
-            v > F(1e-3) ? (int)truncf(dt * v / f(S_DZ)[i]) + 1 : 0;
-        steps = max(steps, per_k);
+        f(e.tm)[i] = f(e.tm)[i] + f(e.qsed)[i];
+        if (e.number) f(e.tn)[i] = f(e.tn)[i] + f(e.nsed)[i];
       }
-      nstep[j] = steps;
-      ppt[j] = 0.0f;
-      atomicMax(max_steps, steps);
-    }
-    __syncthreads();
-    const int tile_steps = *max_steps;
-    for (int step = 0; step < tile_steps; ++step) {
-      for (int j = tid; j < 4 * cells; j += nth) {
-        const int sp = j / cells, i = j - sp * cells;
-        const int k = i / cols, c = i - k * cols;
-        if (c >= cn || step >= nstep[sp * cols + c]) continue;
-        const SedSpecies e = sed_species(sp);
-        const int up = i + cols;
-        const float up_m = k + 1 < nz ? f(e.vm)[up] * f(e.m)[up] : 0.0f;
-        f(e.div_m)[i] = up_m - f(e.vm)[i] * f(e.m)[i];
-        if (e.number) {
-          const float up_n = k + 1 < nz ? f(e.vn)[up] * f(e.n)[up] : 0.0f;
-          f(e.div_n)[i] = up_n - f(e.vn)[i] * f(e.n)[i];
-        }
-      }
-      __syncthreads();
-      for (int j = tid; j < 4 * cells; j += nth) {
-        const int sp = j / cells, i = j - sp * cells;
-        const int k = i / cols, c = i - k * cols;
-        const int steps = nstep[sp * cols + c];
-        if (c >= cn || step >= steps) continue;
-        const SedSpecies e = sed_species(sp);
-        const float onstep = 1.0f / (float)steps;
-        const float odzq = 1.0f / f(S_DZ)[i];
-        const float orho = 1.0f / f(S_RHO)[i];
-        const float sed_m0 = f(e.vm)[i] * f(e.m)[i];   // read at k = 0
-        const float div_m = f(e.div_m)[i];
-        f(e.qsed)[i] = f(e.qsed)[i] + div_m * odzq * onstep * orho;
-        f(e.m)[i] = jmax(f(e.m)[i] + div_m * odzq * dt * onstep, R1);
-        if (k == 0) {
-          float& sfc = ppt[sp * cols + c];
-          sfc = sfc + (f(e.m)[i] > F(1e-12 * 10.0) ? sed_m0 * dt * onstep
-                                                   : 0.0f);
-        }
-        if (e.number) {
-          const float div_n = f(e.div_n)[i];
-          f(e.nsed)[i] = f(e.nsed)[i] + div_n * odzq * onstep * orho;
-          f(e.n)[i] = jmax(f(e.n)[i] + div_n * odzq * dt * onstep, R2);
-        }
-      }
-      __syncthreads();
-    }
-    for (int j = tid; j < 4 * cells; j += nth) {
-      const int sp = j / cells, i = j - sp * cells;
-      if (i % cols >= cn) continue;
-      const SedSpecies e = sed_species(sp);
-      f(e.tm)[i] = f(e.tm)[i] + f(e.qsed)[i];
-      if (e.number) f(e.tn)[i] = f(e.tn)[i] + f(e.nsed)[i];
     }
     __syncthreads();
     K5_CLOCK_MARK(4);
@@ -1619,7 +1610,7 @@ extern "C" int icar_mp_thompson_phase_clocks(unsigned long long* host) {
 // the deepest column K5 takes: one column's tile fills a block's shared
 // memory
 extern "C" int icar_mp_thompson_max_nz() {
-  return (int)((K5_SMEM_MAX / 4 - KC_PAD - 8) / (N_SF + 1));
+  return (int)((K5_SMEM_MAX / 4 - KC_PAD - 4) / (N_SF + 1));
 }
 
 // columns per tile at nz levels (0: nz is too deep)

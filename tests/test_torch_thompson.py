@@ -344,7 +344,6 @@ static dim3_ blockIdx, threadIdx, blockDim;
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
 inline int atomicAdd(int* a, int v) { int old = *a; *a += v; return old; }
-inline int atomicMax(int* a, int v) { int old = *a; *a = max(old, v); return old; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
                    cudaErrorInvalidConfiguration = 9 };
