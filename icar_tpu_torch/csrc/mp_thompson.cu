@@ -1294,7 +1294,7 @@ __device__ __forceinline__ SedSpecies sed_species(int sp) {
 }
 
 #ifndef K5_THREADS
-#define K5_THREADS 128                // 4 species x 32 columns in pass D
+#define K5_THREADS 320                // the active pass's block
 #endif
 #ifndef K5_TILE_MAX
 #define K5_TILE_MAX 32                // columns of a tile, one warp's width
@@ -1322,9 +1322,13 @@ inline int tile_columns(int nz) {
 }
 
 // Classify pass: one block per tile of C consecutive columns, one thread
-// per cell (x fastest). The block votes; an active tile is appended to the
+// per cell (x fastest), each thread loading K5_BATCH cells before it
+// computes on them. The block votes; an active tile is appended to the
 // list, an inert tile is finished here.
-__global__ void __launch_bounds__(K5_THREADS)
+constexpr int K5_CLASSIFY_THREADS = 128;
+constexpr int K5_BATCH = 4;
+
+__global__ void __launch_bounds__(K5_CLASSIFY_THREADS)
 mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
                             const float* __restrict__ exner_g,
                             const float* __restrict__ p_g,
@@ -1338,15 +1342,27 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
   const long col0 = (long)blockIdx.x * cols;
   const int cn = (int)min((long)cols, ncol - col0);
   const int cells = cols * nz;
+  const int step = K5_BATCH * blockDim.x;
+  // the stack index of the batch's u-th cell from i0, -1 past the tile
+  auto cell = [&](int i0, int u) -> long {
+    const int i = i0 + u * blockDim.x;
+    const int k = i / cols, c = i - k * cols;
+    return i < cells && c < cn ? (long)k * ncol + col0 + c : -1;
+  };
   int act = 0;
 #ifdef THOMPSON_NO_SKIP
   act = 1;
 #else
-  for (int i = threadIdx.x; i < cells && !act; i += blockDim.x) {
-    const int k = i / cols, c = i - k * cols;
-    if (c < cn)
-      act = cell_active(load_level(q, sm, exner_g, p_g,
-                                   (long)k * ncol + col0 + c, plane));
+  for (int i0 = threadIdx.x; i0 < cells; i0 += step) {
+    Level in[K5_BATCH] = {};
+    bool ok[K5_BATCH];
+    for (int u = 0; u < K5_BATCH; ++u) {
+      const long g = cell(i0, u);
+      ok[u] = g >= 0;
+      if (ok[u]) in[u] = load_level(q, sm, exner_g, p_g, g, plane);
+    }
+    for (int u = 0; u < K5_BATCH; ++u)
+      if (ok[u] && cell_active(in[u])) act = 1;
   }
 #endif
   if (__syncthreads_or(act)) {
@@ -1355,14 +1371,19 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
   }
   const float odt = 1.0f / dt;
   const Tend zero{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int k = i / cols, c = i - k * cols;
-    if (c >= cn) continue;
-    const long g = (long)k * ncol + col0 + c;
+  for (int i0 = threadIdx.x; i0 < cells; i0 += step) {
+    Level in[K5_BATCH] = {};
+    long g[K5_BATCH];
+    for (int u = 0; u < K5_BATCH; ++u) {
+      g[u] = cell(i0, u);
+      if (g[u] >= 0) in[u] = load_level(q, sm, exner_g, p_g, g[u], plane);
+    }
     // the melt/freeze branches and the number diagnostics that read ocp,
     // lvap and rho are not taken on an inert cell
-    final_level(kc, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
-                zero, 1.0f, 1.0f, 1.0f, dt, odt);
+    for (int u = 0; u < K5_BATCH; ++u)
+      if (g[u] >= 0)
+        final_level(kc, q, sm, g[u], plane, in[u], zero, 1.0f, 1.0f, 1.0f,
+                    dt, odt);
   }
   for (int c = threadIdx.x; c < cn; c += blockDim.x) {
     const long col = col0 + c;
@@ -1663,7 +1684,8 @@ extern "C" int icar_mp_thompson(float* stack, const int* smap,
   if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_THREADS, 0, st>>>(
+  mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_CLASSIFY_THREADS, 0,
+                                st>>>(
       stack, sm, exner, p, consts, rain, snow, graupel, nz, ncol, cols, dt,
       counts, tiles);
   err = cudaGetLastError();
