@@ -1326,7 +1326,9 @@ inline int tile_columns(int nz) {
 // computes on them. The block votes; an active tile is appended to the
 // list, an inert tile is finished here.
 constexpr int K5_CLASSIFY_THREADS = 128;
-constexpr int K5_BATCH = 4;
+#ifndef K5_BATCH
+#define K5_BATCH 4
+#endif
 
 __global__ void __launch_bounds__(K5_CLASSIFY_THREADS)
 mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
@@ -1356,11 +1358,13 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
   for (int i0 = threadIdx.x; i0 < cells; i0 += step) {
     Level in[K5_BATCH] = {};
     bool ok[K5_BATCH];
+#pragma unroll
     for (int u = 0; u < K5_BATCH; ++u) {
       const long g = cell(i0, u);
       ok[u] = g >= 0;
       if (ok[u]) in[u] = load_level(q, sm, exner_g, p_g, g, plane);
     }
+#pragma unroll
     for (int u = 0; u < K5_BATCH; ++u)
       if (ok[u] && cell_active(in[u])) act = 1;
   }
@@ -1374,12 +1378,14 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
   for (int i0 = threadIdx.x; i0 < cells; i0 += step) {
     Level in[K5_BATCH] = {};
     long g[K5_BATCH];
+#pragma unroll
     for (int u = 0; u < K5_BATCH; ++u) {
       g[u] = cell(i0, u);
       if (g[u] >= 0) in[u] = load_level(q, sm, exner_g, p_g, g[u], plane);
     }
     // the melt/freeze branches and the number diagnostics that read ocp,
     // lvap and rho are not taken on an inert cell
+#pragma unroll
     for (int u = 0; u < K5_BATCH; ++u)
       if (g[u] >= 0)
         final_level(kc, q, sm, g[u], plane, in[u], zero, 1.0f, 1.0f, 1.0f,

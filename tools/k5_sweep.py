@@ -4,7 +4,8 @@ each other on the Thompson ridge's states, in turns, and hold each to the
 package's own build bit for bit. Needs one NVIDIA GPU and nvcc.
 
     python tools/k5_sweep.py [--variant NAME=-DFLAG,-DFLAG ...]
-                             [--source NAME=PATH ...] [--ref NAME=PATH ...]
+                             [--source NAME=PATH[:-DFLAG,...] ...]
+                             [--ref NAME=PATH ...]
                              [--reps 7] [--turns 2]
 
 Each variant is the package's source built with extra defines; ``--source``
@@ -60,7 +61,8 @@ def main():
                     help="NAME=-DFLAG[,-DFLAG...]: the package's source "
                          "with these defines")
     ap.add_argument("--source", action="append", default=[],
-                    help="NAME=PATH: another source with the same C entry")
+                    help="NAME=PATH[:-DFLAG,...]: another source with "
+                         "the same C entry")
     ap.add_argument("--ref", action="append", default=[],
                     help="NAME=PATH: a source with the first K5's C entry")
     ap.add_argument("--reps", type=int, default=7)
@@ -81,8 +83,10 @@ def main():
         name, flags = spec.split("=", 1)
         builds.append((name, src, [f for f in flags.split(",") if f], False))
     for spec in args.source:
-        name, path = spec.split("=", 1)
-        builds.append((name, path, [], False))
+        name, rest = spec.split("=", 1)
+        path, _, flags = rest.partition(":")
+        builds.append((name, path, [f for f in flags.split(",") if f],
+                       False))
     for spec in args.ref:
         name, path = spec.split("=", 1)
         builds.append((name, path, [], True))
