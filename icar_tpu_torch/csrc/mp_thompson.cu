@@ -1243,15 +1243,20 @@ __device__ __forceinline__ bool cell_active(const Level& in) {
 }
 
 // what core_level leaves on a cell where cell_active fails: no process
-// runs there, so every tendency is zero, each species sits at its floor
-// with no fall speed (the snow speed is filled from above before it is
-// read), and the thermodynamics are those of the entry state
-__device__ void inert_core(const float* K, const Level& in, Core& O) {
+// runs there, so every tendency is zero and each species sits at its
+// floor with no fall speed; the graupel intercept is n0_inert (that of
+// graupel_n0_exp without rain or graupel, whatever the temperature); rho,
+// ocp, lvap and temp are those of the entry state. The fall-speed factor
+// rhof is read only where graupel falls, so it is not formed.
+__device__ void inert_core(const Level& in, float n0_inert, Core& O) {
   const float temp = in.th * in.exner;
-  const Thermo h = thermo(K, temp, in.p, jmax(in.qv, F(1e-10)));
-  O.rho = h.rho; O.ocp = h.ocp; O.lvap = h.lvap; O.temp = temp;
-  O.rhof = h.rhof;
-  O.n0exp = graupel_n0_exp(R1, temp, 0.0f, false);
+  const float qv = jmax(in.qv, F(1e-10));
+  O.rho = air_density(in.p, temp, qv);
+  O.ocp = 1.0f / (CP2 * (1.0f + F(0.887) * qv));
+  O.lvap = LVAP0 + F(2106.0 - 4218.0) * (temp - F(273.15));
+  O.temp = temp;
+  O.rhof = 0.0f;
+  O.n0exp = n0_inert;
   O.rr = R1; O.nr = R2; O.ri = R1; O.ni = R2; O.rs = R1; O.rg = R1;
   O.vtr = 0.0f; O.vtnr = 0.0f; O.vti = 0.0f; O.vtni = 0.0f; O.vts = 0.0f;
   O.tten = 0.0f; O.qvten = 0.0f; O.qcten = 0.0f; O.qiten = 0.0f;
@@ -1326,9 +1331,7 @@ inline int tile_columns(int nz) {
 // computes on them. The block votes; an active tile is appended to the
 // list, an inert tile is finished here.
 constexpr int K5_CLASSIFY_THREADS = 128;
-#ifndef K5_BATCH
-#define K5_BATCH 4
-#endif
+constexpr int K5_BATCH = 2;
 
 __global__ void __launch_bounds__(K5_CLASSIFY_THREADS)
 mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
@@ -1399,22 +1402,6 @@ mp_thompson_classify_kernel(float* __restrict__ q, Smap sm,
   }
 }
 
-#ifdef K5_PHASE_CLOCKS
-// the active pass's time per phase, summed over tiles (thread 0's clock
-// after each barrier): a measurement build only
-__device__ unsigned long long k5_clocks[8];
-#define K5_CLOCK_START() long long k5_t = clock64()
-#define K5_CLOCK_MARK(n)                                                   \
-  do {                                                                     \
-    const long long now = clock64();                                       \
-    if (tid == 0) atomicAdd(&k5_clocks[n], (unsigned long long)(now - k5_t)); \
-    k5_t = now;                                                            \
-  } while (0)
-#else
-#define K5_CLOCK_START()
-#define K5_CLOCK_MARK(n)
-#endif
-
 // Active pass: as many blocks as the card holds at once; each claims the
 // listed tiles one by one (counts[1]) until the list is done. A tile's C
 // columns x nz levels keep their intermediates in shared memory; the
@@ -1444,38 +1431,21 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
   const float odt = 1.0f / dt;
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < N_CONSTS; i += nth) K[i] = kc[i];
+  const float n0_inert = graupel_n0_exp(R1, 0.0f, 0.0f, false);
   for (;;) {
     if (tid == 0) *slot = atomicAdd(counts + 1, 1);
     __syncthreads();
     const int t = *slot;
     if (t >= n_active) return;
-    K5_CLOCK_START();
     const long col0 = (long)tiles[t] * cols;
     const int cn = (int)min((long)cols, ncol - col0);
 
-    // (A) the prep graupel intercept of each cell, then its running minimum
-    // from the model top down, one thread per column
+    // (A) one thread per cell: a cell where the activity predicate fails
+    // takes what the core would leave there (inert_core); the others are
+    // listed, with their prep graupel intercept. Then the intercept's
+    // running minimum from the model top down, one thread per column.
     float* n0 = f(S_N0);
-    for (int i = tid; i < cells; i += nth) {
-      const int k = i / cols, c = i - k * cols;
-      if (c >= cn) continue;
-      Prep P;
-      prep_level<false>(K, load_level(q, sm, exner_g, p_g,
-                                      (long)k * ncol + col0 + c, plane),
-                        0.0f, P);
-      n0[i] = P.n0exp;
-    }
-    __syncthreads();
-    K5_CLOCK_MARK(0);
-    for (int c = tid; c < cn; c += nth)
-      for (int k = nz - 2; k >= 0; --k)
-        n0[k * cols + c] = jmin(n0[k * cols + c], n0[(k + 1) * cols + c]);
-    __syncthreads();
-    K5_CLOCK_MARK(1);
-
-    // (B) prep, bins, table values and core of each cell: a cell where the
-    // activity predicate fails takes what the core would leave there
-    // (inert_core); the others are listed and computed densely
+    float* n0min = f(S_QSED_R);   // free until pass D
     auto keep = [&](int i, const Core& O, float dz) {
       f(S_DZ)[i] = dz;
       f(S_RHO)[i] = O.rho; f(S_OCP)[i] = O.ocp; f(S_LVAP)[i] = O.lvap;
@@ -1496,25 +1466,40 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       const int k = i / cols, c = i - k * cols;
       if (c >= cn) continue;
       const long g = (long)k * ncol + col0 + c;
-#ifndef THOMPSON_NO_SKIP
       const Level in = load_level(q, sm, exner_g, p_g, g, plane);
+#ifndef THOMPSON_NO_SKIP
       if (!cell_active(in)) {
         Core O;
-        inert_core(K, in, O);
+        inert_core(in, n0_inert, O);
         keep(i, O, dz_g[g]);
         continue;
       }
 #endif
+      Prep P;
+      prep_level<false>(K, in, 0.0f, P);
+      n0[i] = P.n0exp;
       listed[atomicAdd(n_listed, 1)] = i;
     }
     __syncthreads();
+    for (int c = tid; c < cn; c += nth) {
+      float m = 0.0f;
+      for (int k = nz - 1; k >= 0; --k) {
+        const int i = k * cols + c;
+        m = k == nz - 1 ? n0[i] : jmin(n0[i], m);
+        n0min[i] = m;
+      }
+    }
+    __syncthreads();
+
+    // (B) prep, bins, table values and core of each listed cell
     const int n_cells = *n_listed;
     for (int j = tid; j < n_cells; j += nth) {
       const int i = listed[j];
       const int k = i / cols, c = i - k * cols;
       const long g = (long)k * ncol + col0 + c;
       Prep P;
-      prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane), n0[i], P);
+      prep_level<true>(K, load_level(q, sm, exner_g, p_g, g, plane),
+                       n0min[i], P);
       Tables T;
       lookup(K, P, tp, T);
       Core O;
@@ -1522,7 +1507,6 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       keep(i, O, dz_g[g]);
     }
     __syncthreads();
-    K5_CLOCK_MARK(2);
 
     // (C) top-down, one thread per column: fill each velocity from the level
     // above where the species is absent; snow above freezing falls at
@@ -1569,7 +1553,6 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       }
     }
     __syncthreads();
-    K5_CLOCK_MARK(3);
 
     // (D) sedimentation of rain, ice, snow and graupel, one thread per
     // (species, column): each species' fall adds only into its own
@@ -1593,7 +1576,6 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       }
     }
     __syncthreads();
-    K5_CLOCK_MARK(4);
 
     // the surface accumulators, in the JAX order
     for (int c = tid; c < cn; c += nth) {
@@ -1617,22 +1599,10 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
                   d, f(S_OCP)[i], f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
     }
     __syncthreads();   // the next tile reuses the shared memory
-    K5_CLOCK_MARK(5);
   }
 }
 
 }  // namespace
-
-#ifdef K5_PHASE_CLOCKS
-// copy the phase clocks to host[8] and zero them
-extern "C" int icar_mp_thompson_phase_clocks(unsigned long long* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, k5_clocks, sizeof(k5_clocks));
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(k5_clocks, zero, sizeof(k5_clocks));
-  return (int)err;
-}
-#endif
 
 // the deepest column K5 takes: one column's tile fills a block's shared
 // memory

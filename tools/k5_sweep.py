@@ -16,10 +16,8 @@ together. The 500x500x20 Thompson ridge of chip_smoke.py is built; on its
 initial state and on the state after two 1200 s intervals, each build's
 K5 call is timed (median of --reps CUDA-event timings of the whole call on
 a fresh copy of the state), builds in turn, the order reversed every other
-turn. Prints each build's ptxas figures; for a build with
--DK5_PHASE_CLOCKS, its active pass's clock cycles per tile in each phase;
-one JSON line per (state, build, turn); then the card's name and power
-limit.
+turn. Prints each build's ptxas figures, one JSON line per (state, build,
+turn), then the card's name and power limit.
 """
 
 import argparse
@@ -170,25 +168,6 @@ def main():
                              for a, b in zip(got, want))
             if not libs[name][1] and name == "package":
                 active = int(counts[0])
-        for name, (lib, old) in libs.items():
-            if old or not hasattr(lib, "icar_mp_thompson_phase_clocks"):
-                continue
-            clocks = (ctypes.c_ulonglong * 8)()
-            lib.icar_mp_thompson_phase_clocks(clocks)      # zero them
-            reset()
-            call(name)
-            torch.cuda.synchronize()
-            n = int(counts[0])
-            if lib.icar_mp_thompson_phase_clocks(clocks) != 0:
-                raise RuntimeError(f"{name}: reading the phase clocks")
-            print(json.dumps({
-                "state": label, "build": name, "active_tiles": n,
-                "phase_cycles_per_tile": dict(zip(
-                    ("A prep intercept", "A running minimum",
-                     "B prep+lookup+core", "C fills", "D sedimentation",
-                     "E surface sums+final update"),
-                    (c / max(n, 1) for c in list(clocks)[:6])))}),
-                  flush=True)
         order = list(libs)
         for turn in range(args.turns):
             for name in (order if turn % 2 == 0 else order[::-1]):
