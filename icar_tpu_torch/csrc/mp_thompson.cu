@@ -38,7 +38,7 @@
 // the update), the top-down fill of the terminal velocities (where the rain
 // velocity feeds snow's and graupel's), and the four sedimentation loops,
 // whose step count is per column. Two launches:
-// - the classify pass, one warp per tile of C consecutive columns (x
+// - the classify pass, one block per tile of C consecutive columns (x
 //   fastest, so each level's loads coalesce), tests the TPU kernel's
 //   activity predicate on every cell (thompson_kernel.py:136-150) and votes.
 //   An inert tile -- no hydrometeor above R1, no water supersaturation, ice
@@ -47,23 +47,23 @@
 //   computes on it, bit for bit (theta goes through th*exner/exner as the
 //   full path forms it; the TPU's branch keeps theta). An active tile is
 //   appended to a device list through an atomic counter;
-// - the active pass, one block per listed tile (launched over every tile;
-//   a block past the count returns), keeps the tile's per-cell
-//   intermediates (N_SF floats a cell) in dynamic shared memory and runs
-//   the scheme in phases separated by barriers: (A) the prep intercept, one
-//   thread per cell, then its running minimum, one per column; (B) prep,
-//   bins, table values and core, one thread per active cell from a dense
-//   list (a cell that fails the predicate takes the core's result, all
-//   tendencies zero, without computing it); (C) the top-down fills and the
-//   second running minimum, one per column, with graupel's fall speed one
-//   per cell; (D) the four sedimentation loops, one thread per (species,
-//   column), since each species adds only into its own tendencies; the
-//   surface sums,
-//   one per column; (E) melt/freeze and the final update, one per cell,
-//   re-reading the entry state (the stack is written only there, so the
-//   update is in place). C is 32 where two tiles fit an SM's shared memory and halves
-//   with depth, so any nz whose one-column tile fits is taken. Every loop is
-//   block-stride, so the source also runs one thread per block on a CPU.
+// - the active pass, as many blocks as the card holds at once, each
+//   claiming listed tiles in turn, keeps a tile's per-cell intermediates
+//   (N_SF floats a cell) in dynamic shared memory and runs the scheme in
+//   phases separated by barriers: (A) one thread per cell: a cell that fails
+//   the predicate takes the core's result (every tendency zero) without
+//   computing it, the others are listed with their prep graupel intercept,
+//   whose running minimum follows, one thread per column; (B) prep, bins,
+//   table values and core, one thread per listed cell; (C) the top-down
+//   fills and the second running minimum, one thread per column, with
+//   graupel's fall speed one per cell; (D) the four sedimentation loops,
+//   one thread per (species, column), since each species adds only into its
+//   own tendencies; the surface sums, one per column; (E) melt/freeze and
+//   the final update, one per cell, re-reading the entry state (the stack
+//   is written only there, so the update is in place).
+// C is 32 where two tiles fit an SM's shared memory and halves with depth,
+// so any nz whose one-column tile fits is taken. Every loop is
+// block-stride, so the source also runs one thread per block on a CPU.
 // Each cell reads its big-table values directly (bf16, widened with
 // __bfloat162float) where the predicate that consumes them holds, and the
 // small float32 tables directly: the values the TPU's one-hot contractions
@@ -1595,8 +1595,9 @@ mp_thompson_active_kernel(float* __restrict__ q, Smap sm,
       const Tend d{f(S_TTEN)[i], f(S_QVTEN)[i], f(S_QCTEN)[i], f(S_QITEN)[i],
                    f(S_NITEN)[i], f(S_QRTEN)[i], f(S_NRTEN)[i], f(S_QSTEN)[i],
                    f(S_QGTEN)[i]};
-      final_level(K, q, sm, g, plane, load_level(q, sm, exner_g, p_g, g, plane),
-                  d, f(S_OCP)[i], f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
+      final_level(K, q, sm, g, plane,
+                  load_level(q, sm, exner_g, p_g, g, plane), d, f(S_OCP)[i],
+                  f(S_LVAP)[i], f(S_RHO)[i], dt, odt);
     }
     __syncthreads();   // the next tile reuses the shared memory
   }
@@ -1657,7 +1658,8 @@ extern "C" int icar_mp_thompson(float* stack, const int* smap,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, mp_thompson_active_kernel, K5_THREADS, (size_t)smem);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_CLASSIFY_THREADS, 0,

@@ -393,8 +393,8 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 """
 _REPLACE = (
     ("extern __shared__ float k5_smem[];", "static float k5_smem[1 << 16];"),
-    ("mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_CLASSIFY_THREADS, 0,\n"
-     "                                st>>>(",
+    ("mp_thompson_classify_kernel<<<(unsigned)ntiles, K5_CLASSIFY_THREADS, "
+     "0,\n                                st>>>(",
      "BLOCKS_LAUNCH(ntiles, mp_thompson_classify_kernel, "),
     ("mp_thompson_active_kernel<<<grid, K5_THREADS, smem, st>>>(",
      "BLOCKS_LAUNCH(grid, mp_thompson_active_kernel, "),
