@@ -1298,15 +1298,14 @@ __device__ __forceinline__ SedSpecies sed_species(int sp) {
   }
 }
 
-#ifndef K5_THREADS
-#define K5_THREADS 320                // the active pass's block
-#endif
-#ifndef K5_TILE_MAX
-#define K5_TILE_MAX 32                // columns of a tile, one warp's width
-#endif
-#ifndef K5_MIN_BLOCKS
-#define K5_MIN_BLOCKS 2               // resident active-pass blocks per SM
-#endif
+// The active pass's block: 320 threads, two blocks per SM. Its core is
+// held by one cell's latency, so more resident threads help until the
+// register cap (102 at 640 threads per SM) makes them spill; 32-column
+// tiles, since narrower ones repeat the serial per-column phases more
+// often (PERF.md section 6 has the measured alternatives).
+constexpr int K5_THREADS = 320;
+constexpr int K5_MIN_BLOCKS = 2;
+constexpr int K5_TILE_MAX = 32;
 // the constants and two spare words
 constexpr int KC_PAD = (N_CONSTS + 2 + 3) / 4 * 4;
 // a tile's shared memory: K5_MIN_BLOCKS blocks per SM where it fits (an
