@@ -27,6 +27,19 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    80 levels; K5's line in the table adds its time on the initial state,
    the share of column tiles it found active on each ridge state, and its
    registers, spills and shared memory from the build log.
+8. runs the three ridge paths sharded over meshes whose shards all sit on
+   this card (parallel/mesh.py; a device may repeat in a mesh): the upwind
+   ridge on 2x2, the MPDATA ridge on 4x1, the Thompson ridge on 2x2, two
+   intervals each, and checks that each drive took the unsharded drive's
+   substep count, gave its digest exactly and launched each kernel of its
+   path once per shard and substep. Before that, each per-shard wrapper
+   (parallel/shard_kernels.py) was held to the unsharded kernel on the
+   state of phases 1, 4 and 7 at max_abs_err 0.0 and timed: K1 and K2 on
+   2x2, K3 and K4 on 4x1 and 2x2, K4 (9 species) and K5 on 4x1 and 2x2;
+   the per-shard K4 on the 4x1 mesh (the counterpart of the TPU's
+   advect_mpdata_padded) also against its plain version on every block.
+   With more than one card it also drives the Thompson ridge with one
+   shard per card.
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -70,6 +83,12 @@ THOMPSON_SMALL = (20, 96, 128)
 THOMPSON_DTS = (30.0, 90.0, 150.0)
 # and deeper than K2-K4 take, on a column count no tile size divides
 THOMPSON_DEEP = (80, 47, 101)
+
+# the sharded drives of phase 8: (label, case, mesh shape), every shard on
+# cuda:0; and the meshes each per-shard wrapper is held on
+SHARD_DRIVES = (("upwind", RIDGE, (2, 2)), ("MPDATA", MPDATA_RIDGE, (4, 1)),
+                ("Thompson", THOMPSON_RIDGE, (2, 2)))
+SHARD_CHECK_MESHES = ((4, 1), (2, 2))
 
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
@@ -249,12 +268,14 @@ def kernel_entry(name, replaces, err, ms, pms, work, launches=None):
 SOURCE = {"advect_upwind": "advect_upwind.cu", "mp_simple": "mp_simple.cu",
           "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu",
           "advect_mpdata_9species": "mpdata.cu",
+          "advect_mpdata_padded": "mpdata.cu",
           "mp_thompson": "mp_thompson.cu"}
 REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
             "mp_simple": "icar_tpu/ops/pallas_kernels.py:679",
             "mp_simple_rho": "icar_tpu/ops/pallas_kernels.py:591",
             "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783",
             "advect_mpdata_9species": "icar_tpu/ops/pallas_kernels.py:783",
+            "advect_mpdata_padded": "icar_tpu/ops/pallas_kernels.py:1078",
             "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107"}
 
 
@@ -336,6 +357,28 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain):
     return results
 
 
+def random_mpdata_case(dev):
+    """A random stack of MPDATA_SMALL on ``dev`` with winds of both signs
+    on both axes and metrics near one: (q, u, v, w, geometry namespace,
+    floors)."""
+    import torch
+    r = np.random.default_rng(17)
+    S, nz, ny, nx = MPDATA_SMALL
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    q = f(r.uniform(0.1, 1.0, (S, nz, ny, nx)))
+    u, v = f(r.uniform(-6, 6, (nz, ny, nx + 1))), f(r.uniform(
+        -6, 6, (nz, ny + 1, nx)))
+    w, dz = f(r.uniform(-1, 1, (nz, ny, nx))), f(r.uniform(
+        200, 400, (nz, ny, nx)))
+    ju, jv = f(r.uniform(0.8, 1.2, (nz, ny, nx + 1))), f(r.uniform(
+        0.8, 1.2, (nz, ny + 1, nx)))
+    jw, jaco = f(r.uniform(0.8, 1.2, (nz, ny, nx))), f(r.uniform(
+        0.8, 1.2, (nz, ny, nx)))
+    geom = SimpleNamespace(dx=1000.0, jacobian_u=ju, jacobian_v=jv,
+                           jacobian_w=jw, advection_dz=dz, jacobian=jaco)
+    return q, u, v, w, geom, f([-np.inf, 0.0, 0.0, 0.0, 0.5])
+
+
 def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
     """K4 (at the path's order 2 with FCT, and at other orders on a smaller
     random stack) and K3 (with the state's density) against their plain
@@ -372,29 +415,15 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
         f"{K4_ATOL}); kernel {ms4:.4f} ms, plain {pms4:.4f} ms")
 
     # --- K4 at the other orders on a random stack
-    r = np.random.default_rng(17)
-    S, nz, ny, nx = MPDATA_SMALL
-    dev = stack.device
-    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
-    q = f(r.uniform(0.1, 1.0, (S, nz, ny, nx)))
-    u, v = f(r.uniform(-6, 6, (nz, ny, nx + 1))), f(r.uniform(
-        -6, 6, (nz, ny + 1, nx)))
-    w, dz = f(r.uniform(-1, 1, (nz, ny, nx))), f(r.uniform(
-        200, 400, (nz, ny, nx)))
-    ju, jv = f(r.uniform(0.8, 1.2, (nz, ny, nx + 1))), f(r.uniform(
-        0.8, 1.2, (nz, ny + 1, nx)))
-    jw, jaco = f(r.uniform(0.8, 1.2, (nz, ny, nx))), f(r.uniform(
-        0.8, 1.2, (nz, ny, nx)))
-    small_floors = f([-np.inf, 0.0, 0.0, 0.0, 0.5])
-    small = kernels.prepare_advect_winds(u, v, w, SimpleNamespace(
-        dx=1000.0, jacobian_u=ju, jacobian_v=jv, jacobian_w=jw,
-        advection_dz=dz, jacobian=jaco))
+    q, u, v, w, rg, small_floors = random_mpdata_case(stack.device)
+    small = kernels.prepare_advect_winds(u, v, w, rg)
     for o, fc in MPDATA_VARIANTS:
         got = kernels.advect_mpdata(q, small, np.float32(20.0), o, fc,
                                     small_floors, True)
         torch.cuda.synchronize()
         want = mpdata_plain.advect_mpdata(
-            q, u, v, w, np.float32(20.0), 1000.0, ju, jv, jw, jaco, dz,
+            q, u, v, w, np.float32(20.0), 1000.0, rg.jacobian_u,
+            rg.jacobian_v, rg.jacobian_w, rg.jacobian, rg.advection_dz,
             order=o, use_fct=fc, floors=small_floors, near_end=True)
         err4 = max(err4, assert_close(
             got, want, K4_RTOL, K4_ATOL,
@@ -669,6 +698,294 @@ def check_thompson_kernel(model, kernels, step, tp, cases, initial):
     return [entry]
 
 
+def one_card_mesh(shape):
+    """A mesh of ``shape`` whose shards all run on cuda:0."""
+    from icar_tpu_torch.parallel.mesh import Mesh
+    return Mesh(["cuda:0"] * (shape[0] * shape[1]), shape)
+
+
+def shard_blocks(model, shape, halo, kernels, step):
+    """``model``'s state cut into the blocks of a one-card mesh of
+    ``shape`` with ``halo``: the layout, and as lists of blocks the
+    geometry, the stack of advected species, the advection winds, the
+    floors and the fields the microphysics reads."""
+    import torch
+    from icar_tpu_torch.parallel.mesh import Layout, scatter_geometry
+    s = model.state
+    layout = Layout(one_card_mesh(shape), model.geom.ny, model.geom.nx,
+                    halo)
+    geoms = scatter_geometry(model.geom, layout)
+    b = SimpleNamespace(layout=layout, geoms=geoms, **{
+        k: layout.scatter(s[k]) for k in (
+            "u", "v", "w", "pressure", "exner", "density", "precipitation",
+            "snowfall", "graupel") if k in s})
+    b.stack = layout.scatter(torch.stack([s[k] for k in model.advect_names]))
+    b.winds = [kernels.prepare_advect_winds(u, v, w, g)
+               for u, v, w, g in zip(b.u, b.v, b.w, geoms)]
+    b.floors = [torch.as_tensor(step.limit_floors(model.advect_names),
+                                device=sh.device) for sh in layout.shards]
+    return b
+
+
+def shard_err(layout, blocks, want, what):
+    """The largest difference between the owned cells of ``blocks`` and
+    the unsharded kernel's ``want``: 0.0, or AssertionError unless every
+    bit agrees."""
+    import torch
+    got = layout.gather(blocks)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        d = (got - want).abs()
+        raise AssertionError(f"{what}: {int((got != want).sum())} cells "
+                             f"differ from the unsharded kernel (max "
+                             f"{float(d.max()):.3e})")
+    return float((got - want).abs().max())
+
+
+def shard_time(label, run, works, setup=None):
+    """CUDA-event milliseconds of one per-shard wrapper call (median of 7)
+    and the bound of the blocks' summed work ``works`` [(bytes, ops)];
+    logged."""
+    ms = cuda_ms(run, setup=setup)
+    bms, by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+    log(f"  {label}: {ms:.4f} ms per call ({len(works)} launches); bound "
+        f"{bms:.4f} ms ({by}), kernel at {100 * bms / ms:.1f}% of it")
+    return ms, bms, by
+
+
+def check_shard_upwind(model, kernels, step, sk, mp_plain):
+    """K1 and K2 per shard on a 2x2 mesh against the unsharded kernels on
+    the upwind ridge's state: max_abs_err must be 0.0."""
+    import torch
+    s, g = model.state, model.geom_t
+    names = model.advect_names
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
+    b = shard_blocks(model, (2, 2), sk.UPWIND_HALO, kernels, step)
+    L = b.layout
+
+    want = kernels.advect_upwind(stack, kernels.prepare_advect_winds(
+        s["u"], s["v"], s["w"], g), dt, floors, True)
+    out = [torch.empty_like(q) for q in b.stack]
+
+    def run1():
+        sk.advect_upwind_sharded(L, b.stack, b.winds, dt, b.floors, True,
+                                 out)
+    run1()
+    torch.cuda.synchronize()
+    err = shard_err(L, out, want, "advect_upwind_sharded 2x2")
+    log(f"shard K1 advect_upwind_sharded 2x2: max_abs_err {err} against "
+        f"the unsharded kernel")
+    shard_time("advect_upwind_sharded 2x2", run1,
+               [advect_work(*q.shape) for q in b.stack])
+
+    idx = [names.index(k) for k in step.MP_SPECIES]
+    c2r, c2s = mp_plain.formation_rates(dt)
+    whole = stack.clone()
+    rain = torch.zeros_like(s["precipitation"])
+    snow = torch.zeros_like(rain)
+    kernels.mp_simple(*(whole[i] for i in idx), s["pressure"], s["exner"],
+                      g.dz_interface, rain, snow, dt, c2r, c2s)
+    work = [torch.empty_like(q) for q in b.stack]
+    rb = [torch.empty_like(x) for x in b.precipitation]
+    sb = [torch.empty_like(x) for x in b.precipitation]
+    dz = [gg.dz_interface for gg in b.geoms]
+
+    def reset():
+        for w, q in zip(work, b.stack):
+            w.copy_(q)
+        for x in rb + sb:
+            x.zero_()
+
+    def run2():
+        sk.mp_simple_sharded(*([w[i] for w in work] for i in idx),
+                             b.pressure, b.exner, dz, rb, sb, dt, c2r, c2s)
+    reset()
+    run2()
+    torch.cuda.synchronize()
+    err = max(shard_err(L, work, whole, "mp_simple_sharded 2x2: stack"),
+              shard_err(L, rb, rain, "mp_simple_sharded 2x2: rain"),
+              shard_err(L, sb, snow, "mp_simple_sharded 2x2: snow"))
+    log(f"shard K2 mp_simple_sharded 2x2: max_abs_err {err} against the "
+        f"unsharded kernel")
+    shard_time("mp_simple_sharded 2x2", run2, [
+        sb04_work(mp_plain, *(q[i] for i in idx), p, ex, d, dt, False)
+        for q, p, ex, d in zip(b.stack, b.pressure, b.exner, dz)],
+        setup=reset)
+
+
+def check_shard_mpdata_path(model, kernels, step, sk, mp_plain, tp,
+                            mpdata_plain, entry=False):
+    """K4 and the path's microphysics (K3 on the MPDATA ridge, K5 on the
+    Thompson ridge) per shard on each of SHARD_CHECK_MESHES against the
+    unsharded kernels on ``model``'s state: max_abs_err must be 0.0. With
+    ``entry``, the per-shard K4 of the 4x1 mesh is also held to its plain
+    version on every block, and its kernel-table entry is returned."""
+    import torch
+    s, g = model.state, model.geom_t
+    names = model.advect_names
+    adv = model.options.adv
+    order, fct = adv.mpdata_order, adv.flux_corrected_transport
+    thompson = model.options.physics.microphysics == MP_THOMPSON
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
+    want4 = kernels.advect_mpdata(stack, kernels.prepare_advect_winds(
+        s["u"], s["v"], s["w"], g), dt, order, fct, floors, True)
+    acc_names = ("precipitation", "snowfall") + (("graupel",) if thompson
+                                                  else ())
+    whole = stack.clone()
+    acc = [s[k].clone() for k in acc_names]
+    if thompson:
+        smap = tp.stack_smap(names)
+        params = step.thompson_params(model.options)
+        kernels.mp_thompson_stack(whole, smap, s["exner"], s["pressure"],
+                                  g.dz_mass, dt, *acc, params)
+    else:
+        idx = [names.index(k) for k in step.MP_SPECIES]
+        c2r, c2s = mp_plain.formation_rates(dt)
+        kernels.mp_simple_rho(*(whole[i] for i in idx), s["pressure"],
+                              s["exner"], s["density"], g.dz_interface,
+                              *acc, dt, c2r, c2s)
+    mp_name = "thompson_stack_sharded" if thompson else "mp_simple_sharded"
+    result = None
+    for shape in SHARD_CHECK_MESHES:
+        b = shard_blocks(model, shape, sk.mpdata_halo(order, fct), kernels,
+                         step)
+        L = b.layout
+        tag = f"{shape[0]}x{shape[1]}, {len(names)} species"
+        out = [torch.empty_like(q) for q in b.stack]
+
+        def run4():
+            sk.advect_mpdata_sharded(L, b.stack, b.winds, dt, order, fct,
+                                     b.floors, True, out)
+        run4()
+        torch.cuda.synchronize()
+        err = shard_err(L, out, want4, f"advect_mpdata_sharded {tag}")
+        log(f"shard K4 advect_mpdata_sharded {tag}: max_abs_err {err} "
+            f"against the unsharded kernel")
+        works = [advect_work(*q.shape, order, fct) for q in b.stack]
+        ms, bms, by = shard_time(f"advect_mpdata_sharded {tag}", run4, works)
+        # the stack's halo exchange, once per substep: each halo cell read
+        # once and written once
+        halo = sum(q[0, 0].numel() for q in b.stack) - stack[0, 0].numel()
+        xms = cuda_ms(lambda: L.exchange(b.stack))
+        xbms, _ = bound(2 * 4 * halo * stack.shape[0] * stack.shape[1], 0)
+        log(f"  halo exchange {tag} (halo {L.halo}): {xms:.4f} ms per "
+            f"substep; bound {xbms:.4f} ms (bytes)")
+        if entry and shape == (4, 1):
+            def run_plain():
+                return [mpdata_plain.advect_mpdata(
+                    q, u, v, w, dt, gg.dx, gg.jacobian_u, gg.jacobian_v,
+                    gg.jacobian_w, gg.jacobian, gg.advection_dz, order=order,
+                    use_fct=fct, floors=f, near_end=True)
+                    for q, u, v, w, gg, f in zip(b.stack, b.u, b.v, b.w,
+                                                 b.geoms, b.floors)]
+            perr = max(assert_close(o, p, K4_RTOL, K4_ATOL,
+                                    f"advect_mpdata_sharded {tag}, block "
+                                    f"{i}, vs plain")
+                       for i, (o, p) in enumerate(zip(out, run_plain())))
+            pms = cuda_ms(run_plain)
+            log(f"advect_mpdata_padded (per-shard K4, {tag}): max_abs_err "
+                f"{perr:.3e} against its plain version (rtol {K4_RTOL}, "
+                f"atol {K4_ATOL}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            err = max(err, shard_random_mpdata(kernels, sk, stack.device))
+            result = {"name": "advect_mpdata_padded", "route": "cuda",
+                      "source": "icar_tpu_torch/csrc/mpdata.cu",
+                      "replaces": REPLACES["advect_mpdata_padded"],
+                      "launches": None, "max_abs_err": perr, "ms": ms,
+                      "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": None, "mesh": "4x1 on one card",
+                      "max_abs_err_vs_unsharded": err}
+
+        work = [torch.empty_like(q) for q in b.stack]
+        accb = [[torch.empty_like(x) for x in getattr(b, k)]
+                for k in acc_names]
+
+        def reset():
+            for w, q in zip(work, b.stack):
+                w.copy_(q)
+            for dst, k in zip(accb, acc_names):
+                for x, x0 in zip(dst, getattr(b, k)):
+                    x.copy_(x0)
+
+        if thompson:
+            dzm = [gg.dz_mass for gg in b.geoms]
+
+            def run_mp():
+                sk.thompson_stack_sharded(work, smap, b.exner, b.pressure,
+                                          dzm, dt, *accb, params)
+            mp_works = lambda: [thompson_work(tp, q, smap, ex, p, d, dt,
+                                              params)
+                                for q, ex, p, d in zip(b.stack, b.exner,
+                                                       b.pressure, dzm)]
+        else:
+            dzi = [gg.dz_interface for gg in b.geoms]
+
+            def run_mp():
+                sk.mp_simple_sharded(*([w[i] for w in work] for i in idx),
+                                     b.pressure, b.exner, dzi, *accb, dt,
+                                     c2r, c2s, rho=b.density)
+            mp_works = lambda: [sb04_work(mp_plain, *(q[i] for i in idx), p,
+                                          ex, d, dt, True)
+                                for q, p, ex, d in zip(b.stack, b.pressure,
+                                                       b.exner, dzi)]
+        reset()
+        run_mp()
+        torch.cuda.synchronize()
+        err = max([shard_err(L, work, whole, f"{mp_name} {tag}: stack")]
+                  + [shard_err(L, x, a, f"{mp_name} {tag}: {k}")
+                     for x, a, k in zip(accb, acc, acc_names)])
+        log(f"shard {'K5' if thompson else 'K3'} {mp_name} {tag}: "
+            f"max_abs_err {err} against the unsharded kernel")
+        shard_time(f"{mp_name} {tag}", run_mp, mp_works(), setup=reset)
+    return result
+
+
+def shard_random_mpdata(kernels, sk, dev):
+    """The per-shard K4 on the random stack of ``random_mpdata_case``
+    (flow across every shard boundary) at orders 1-4, FCT on and off, on
+    4x1 and 2x2 meshes with the halo ``sk.mpdata_halo`` gives, against the
+    unsharded K4: max_abs_err must be 0.0."""
+    import torch
+    from icar_tpu_torch.parallel.mesh import Layout
+    q, u, v, w, rg, floors = random_mpdata_case(dev)
+    winds = kernels.prepare_advect_winds(u, v, w, rg)
+    _, _, ny, nx = q.shape
+    keys = ("jacobian_u", "jacobian_v", "jacobian_w", "jacobian",
+            "advection_dz")
+    err = 0.0
+    for shape in SHARD_CHECK_MESHES:
+        for order in (1, 2, 3, 4):
+            for fct in (True, False):
+                L = Layout(one_card_mesh(shape), ny, nx,
+                           sk.mpdata_halo(order, fct))
+                geoms = [SimpleNamespace(dx=rg.dx, **dict(zip(keys, blk)))
+                         for blk in zip(*(L.scatter(getattr(rg, k))
+                                          for k in keys))]
+                wb = [kernels.prepare_advect_winds(ub, vb, wwb, gb)
+                      for ub, vb, wwb, gb in zip(L.scatter(u), L.scatter(v),
+                                                 L.scatter(w), geoms)]
+                qb = L.scatter(q)
+                out = [torch.empty_like(x) for x in qb]
+                sk.advect_mpdata_sharded(L, qb, wb, np.float32(20.0), order,
+                                         fct, [floors] * len(qb), True, out)
+                want = kernels.advect_mpdata(q, winds, np.float32(20.0),
+                                             order, fct, floors, True)
+                torch.cuda.synchronize()
+                err = max(err, shard_err(
+                    L, out, want, f"advect_mpdata_sharded {shape[0]}x"
+                    f"{shape[1]}, order {order}, fct {fct}, random stack"))
+    log(f"shard K4 advect_mpdata_sharded on the {MPDATA_SMALL} random "
+        f"stack, orders 1-4, FCT on and off, 4x1 and 2x2: max_abs_err {err} "
+        f"against the unsharded kernel")
+    return err
+
+
 def golden_mismatches(fields, ref):
     """Hold ``fields`` (name -> array) against the golden arrays ``ref``.
     Returns (report lines, names of fields out of tolerance)."""
@@ -718,14 +1035,15 @@ DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
 
 
 def drive(model, kernels, label, path, interval, intervals, smi,
-          fields=DRIVE_FIELDS):
+          fields=DRIVE_FIELDS, shards=1):
     """Advance ``model`` over ``intervals`` intervals with the launch
     counts set to 0 just before; check that ``fields`` are finite, that
     there is cloud and precipitation, and that each kernel of ``path``
-    launched once per substep and the others not at all; log the rate and
-    the final state's digest. Returns the launch counts."""
+    launched once per substep and shard (``shards``) and the others not at
+    all; log the rate over the natural grid points and the final state's
+    digest. Returns (launch counts, digest, substeps)."""
     import torch
-    from icar_tpu_torch.core.state import state_digest
+    from icar_tpu_torch.core.state import ACCUMULATORS, state_digest
     torch.cuda.synchronize()
     kernels.reset_launches()
     steps = 0
@@ -737,16 +1055,16 @@ def drive(model, kernels, label, path, interval, intervals, smi,
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     for name, n in launches.items():
-        want = steps if name in path else 0
+        want = steps * shards if name in path else 0
         if n != want:
             raise AssertionError(f"{name}: {n} launches for {steps} "
                                  f"substeps on the {label} path, expected "
                                  f"{want}")
     for f in fields:
-        if not torch.isfinite(model.state[f]).all():
+        if not torch.isfinite(model.global_field(f)).all():
             raise AssertionError(f"{label} path: non-finite {f}")
-    qc_max = float(model.state["cloud_water"].max())
-    pr_max = float(model.state["precipitation"].max())
+    qc_max = float(model.global_field("cloud_water").max())
+    pr_max = float(model.global_field("precipitation").max())
     if not (qc_max > 0 and pr_max > 0):
         raise AssertionError(f"{label} path: no cloud ({qc_max}) or no "
                              f"precipitation ({pr_max})")
@@ -755,8 +1073,39 @@ def drive(model, kernels, label, path, interval, intervals, smi,
     log(f"{label} path 500x500x20: {steps} substeps in {seconds:.3f} s = "
         f"{rate / 1e6:.1f}M gp*steps/s on {smi}; qc max {qc_max:.3e}, "
         f"precip max {pr_max:.3f} mm; launches {launches}")
-    log(f"digest {label}: " + json.dumps(state_digest(
-        model.state, list(model.advect_names) + ["u", "v", "w"])))
+    names = list(model.advect_names) + ["u", "v", "w"]
+    held = model.state if model.mesh is None else model.blocks[0]
+    digest = state_digest({k: model.global_field(k) for k in names + [
+        a for a in ACCUMULATORS if a in held]}, names)
+    log(f"digest {label}: " + json.dumps(digest))
+    return launches, digest, steps
+
+
+def sharded_drive(label, case, mesh, path, reference, kernels, smi,
+                  ideal_ridge_model):
+    """Drive ``case`` sharded over ``mesh`` (RIDGE_INTERVALS intervals)
+    and hold it to the unsharded drive's (digest, substeps)
+    ``reference``: every digest sum equal, the same substep count. Returns
+    the launch counts."""
+    from icar_tpu_torch.core.step import thompson_params
+    from icar_tpu_torch.physics.mp_thompson import device_tables
+    model = ideal_ridge_model(**case, device="cuda")
+    model.attach_mesh(mesh)
+    if case.get("mp") == MP_THOMPSON:
+        # the lookup tables go to each card as set-up, before the timed run
+        for dev in set(mesh.devices):
+            device_tables(thompson_params(model.options), dev)
+    my, mx = mesh.shape
+    launches, digest, steps = drive(
+        model, kernels, f"{label} sharded {my}x{mx}", path, RIDGE_INTERVAL,
+        RIDGE_INTERVALS, smi, fields=tuple(model.advect_names) + (
+            "precipitation", "u", "v", "w"), shards=mesh.size)
+    if (digest, steps) != reference:
+        raise AssertionError(f"{label} sharded {my}x{mx}: {steps} substeps "
+                             f"and digest {digest}; unsharded: "
+                             f"{reference[1]} substeps, {reference[0]}")
+    log(f"{label} sharded {my}x{mx}: {steps} substeps and every digest sum "
+        f"equal to the unsharded drive's")
     return launches
 
 
@@ -774,6 +1123,8 @@ def main():
     from icar_tpu_torch.ops import advection as adv_plain
     from icar_tpu_torch.ops import kernels
     from icar_tpu_torch.ops import mpdata as mpdata_plain
+    from icar_tpu_torch.parallel import shard_kernels as sk
+    from icar_tpu_torch.parallel.mesh import make_mesh
     from icar_tpu_torch.physics import mp_simple as mp_plain
     from icar_tpu_torch.physics import mp_thompson as thompson_plain
     from icar_tpu_torch.physics import thompson_cases
@@ -793,6 +1144,7 @@ def main():
     log(f"setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
     table = check_kernels(warm, kernels, step, adv_plain, mp_plain)
+    check_shard_upwind(warm, kernels, step, sk, mp_plain)
     del warm
 
     # 2. the golden trajectory on the card
@@ -800,9 +1152,11 @@ def main():
 
     # 3. the upwind ridge at full width, counting kernel launches
     model = ideal_ridge_model(**RIDGE, device="cuda")
-    launches = drive(model, kernels, "upwind", ("advect_upwind",
-                                                "mp_simple"),
-                     RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+    paths = {"upwind": ("advect_upwind", "mp_simple"),
+             "MPDATA": ("mp_simple_rho", "advect_mpdata"),
+             "Thompson": ("mp_thompson", "advect_mpdata")}
+    launches, *upwind_ref = drive(model, kernels, "upwind", paths["upwind"],
+                                  RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
     del model
 
     # 4. K4 and K3 against their plain versions on a real MPDATA state
@@ -814,13 +1168,15 @@ def main():
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
     table += check_mpdata_kernels(warm, kernels, step, mpdata_plain,
                                   mp_plain)
+    padded = check_shard_mpdata_path(warm, kernels, step, sk, mp_plain,
+                                     thompson_plain, mpdata_plain, entry=True)
     del warm
 
     # 5. the MPDATA ridge at full width, counting kernel launches
     model = ideal_ridge_model(**MPDATA_RIDGE, device="cuda")
-    mpdata_launches = drive(model, kernels, "MPDATA",
-                            ("mp_simple_rho", "advect_mpdata"),
-                            RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+    mpdata_launches, *mpdata_ref = drive(model, kernels, "MPDATA",
+                                         paths["MPDATA"], RIDGE_INTERVAL,
+                                         RIDGE_INTERVALS, smi)
     del model
 
     # 6. the Thompson ridge at full width, counting kernel launches; its
@@ -832,8 +1188,8 @@ def main():
     # the drive, whose launch counts start at 0
     k5_initial = k5_on_state(model, kernels, step, thompson_plain,
                              thompson_cases, "ridge's initial state")
-    thompson_launches = drive(
-        model, kernels, "Thompson", ("mp_thompson", "advect_mpdata"),
+    thompson_launches, *thompson_ref = drive(
+        model, kernels, "Thompson", paths["Thompson"],
         RIDGE_INTERVAL, RIDGE_INTERVALS, smi,
         fields=tuple(model.advect_names) + ("precipitation", "snowfall",
                                             "graupel", "u", "v", "w"))
@@ -843,8 +1199,30 @@ def main():
     table += check_mpdata_thompson(model, kernels, step, mpdata_plain)
     table += check_thompson_kernel(model, kernels, step, thompson_plain,
                                    thompson_cases, k5_initial)
+    check_shard_mpdata_path(model, kernels, step, sk, mp_plain,
+                            thompson_plain, mpdata_plain)
     del model
-    for entry in table:
+
+    # 8. the three ridge paths sharded over one card, each held to its
+    # unsharded drive: the same substeps and digest, each kernel of the
+    # path launched once per shard and substep
+    refs = {"upwind": tuple(upwind_ref), "MPDATA": tuple(mpdata_ref),
+            "Thompson": tuple(thompson_ref)}
+    sharded = {}
+    for label, case, shape in SHARD_DRIVES:
+        sharded[label] = sharded_drive(label, case, one_card_mesh(shape),
+                                       paths[label], refs[label], kernels,
+                                       smi, ideal_ridge_model)
+    if torch.cuda.device_count() > 1:
+        mesh = make_mesh(THOMPSON_RIDGE["nx"], THOMPSON_RIDGE["ny"])
+        sharded_drive("Thompson", THOMPSON_RIDGE, mesh, paths["Thompson"],
+                      refs["Thompson"], kernels, smi, ideal_ridge_model)
+    else:
+        log("Thompson ridge with one shard per card: not run (1 CUDA device "
+            "visible)")
+    padded["launches"] = sharded["MPDATA"]["advect_mpdata"]
+    table.append(padded)
+    for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
             entry["launches"] = thompson_launches[name]

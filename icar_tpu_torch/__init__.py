@@ -3,9 +3,10 @@
 The JAX package ``icar_tpu`` stays the reference; this package runs the
 same model on torch tensors and replaces each Pallas TPU kernel with a
 CUDA C++ kernel written for ``sm_90a`` (``icar_tpu_torch/csrc``). Ported so
-far: the ideal-ridge main path (SB04 microphysics + donor-cell upwind
-advection, wind=0). Everything else raises ``NotImplementedError`` naming
-its ROADMAP slice.
+far: the ideal ridge (wind=0) with SB04 microphysics and upwind or MPDATA
+advection, or Thompson microphysics and MPDATA advection, on one device or
+sharded over a device mesh (``parallel/``). Everything else raises
+``NotImplementedError`` naming its ROADMAP slice.
 
 Importing the package imports torch and numpy only: no jax, no
 ``icar_tpu``, and no kernel build (kernels build at their first launch).

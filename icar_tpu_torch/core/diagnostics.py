@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..ops import pointwise as pw
 
 
 # float32 constants as the JAX package's compiled step holds them: XLA
@@ -24,7 +25,7 @@ _ROVCP = float(np.float32(C.ROVCP))
 def exner_function(pressure):
     """(p/p0)^(Rd/cp) (atm_utilities.f90 exner_function), float32."""
     x = (pressure * _INV_P0).to(torch.float64)
-    return (x ** _ROVCP).to(pressure.dtype)
+    return pw.pow(x, _ROVCP).to(pressure.dtype)
 
 
 def interface_from_mass(f):
@@ -39,7 +40,20 @@ def compute_iq(q, p_i):
     atm_utilities.f90:66-99), the top layer bounded by a 500 hPa cap."""
     p_above = torch.cat([p_i[1:], torch.full_like(p_i[:1], 50000.0)], dim=0)
     dp = torch.clamp(p_i - p_above, min=0.0)
-    return torch.sum(q * dp, dim=0) / C.GRAVITY
+    return level_sum(q * dp) / C.GRAVITY
+
+
+def level_sum(x):
+    """``x`` summed over its first axis by a pairwise tree fixed by that
+    axis's length, each level of it one elementwise add, so that a
+    column's sum has the same bits whatever the other axes' sizes: a
+    block of a sharded domain sums as the whole domain does (torch.sum's
+    order on the CPU depends on a column's place in its vectorised loop)."""
+    while x.shape[0] > 1:
+        n = x.shape[0] // 2 * 2
+        pairs = x[0:n:2] + x[1:n:2]
+        x = torch.cat([pairs, x[n:]]) if n < x.shape[0] else pairs
+    return x[0]
 
 
 def compute_ivt(qv, u_mass, v_mass, p_i):
@@ -129,8 +143,8 @@ def diagnostic_update(state, geom, full: bool = True, needs=None):
     if "u_10m" in s and "roughness_z0" in s:
         z0 = s["roughness_z0"]
         zlev1 = geom.z[0] - geom.terrain
-        currw = C.KARMAN / torch.log(zlev1 / z0)
-        lastw = torch.log(10.0 / z0) / C.KARMAN
+        currw = C.KARMAN / pw.log(zlev1 / z0)
+        lastw = pw.log(10.0 / z0) / C.KARMAN
         u10 = u_mass[0] * currw * lastw
         v10 = v_mass[0] * currw * lastw
         ust = torch.sqrt(u_mass[0] ** 2 + v_mass[0] ** 2) * currw
@@ -141,32 +155,48 @@ def diagnostic_update(state, geom, full: bool = True, needs=None):
     return s
 
 
-def compute_dt(u, v, w, dz_levels, dx, cfl_reduction,
-               cfl_strictness: int = 3):
+def cfl_maxima(u, v, w, dz_levels, dx):
+    """The wind maxima the CFL criterion reads, as a (4,) float32 tensor:
+    the largest 3-D Courant sum max(|u| faces)/dx + max(|v| faces)/dx +
+    max(|w| layer faces)/dz, and max|u|, max|v|, max|w|. The maxima of
+    several blocks of one domain reduce by their elementwise maximum to
+    the domain's."""
+    au, av, aw = torch.abs(u), torch.abs(v), torch.abs(w)
+    ufac = torch.maximum(au[:, :, :-1], au[:, :, 1:]) / dx
+    vfac = torch.maximum(av[:, :-1, :], av[:, 1:, :]) / dx
+    aw_below = torch.cat([aw[:1], aw[:-1]], dim=0)
+    wfac = torch.maximum(aw, aw_below) / dz_levels[:, None, None]
+    return torch.stack([torch.max(ufac + vfac + wfac), torch.max(au),
+                        torch.max(av), torch.max(aw)])
+
+
+def dt_from_maxima(m, cfl_reduction, cfl_strictness: int = 3):
     """Maximum stable dt from the CFL criterion with the reference's five
-    strictness modes (compute_dt, time_step.f90:217-330). Returns a 0-d
-    float32 tensor on the winds' device."""
+    strictness modes (compute_dt, time_step.f90:217-330), given the
+    ``cfl_maxima`` of the domain. Returns a 0-d float32 tensor on their
+    device."""
     sqrt3 = 3.0 ** 0.5 * 1.001
     three_d_cfl = 0.577350269
 
-    au, av, aw = torch.abs(u), torch.abs(v), torch.abs(w)
+    max3d, mu, mv, mw = m[0], m[1], m[2], m[3]
     if cfl_strictness == 1:
-        max1d = torch.maximum(torch.max(au),
-                              torch.maximum(torch.max(av), torch.max(aw)))
-        maxwind = max1d * sqrt3
+        maxwind = torch.maximum(mu, torch.maximum(mv, mw)) * sqrt3
     elif cfl_strictness == 5:
-        maxwind = torch.max(au) + torch.max(av) + torch.max(aw)
+        maxwind = mu + mv + mw
     else:
-        ufac = torch.maximum(au[:, :, :-1], au[:, :, 1:]) / dx
-        vfac = torch.maximum(av[:, :-1, :], av[:, 1:, :]) / dx
-        aw_below = torch.cat([aw[:1], aw[:-1]], dim=0)
-        wfac = torch.maximum(aw, aw_below) / dz_levels[:, None, None]
-        maxwind = torch.max(ufac + vfac + wfac)
+        maxwind = max3d
         if cfl_strictness == 2:
-            max1d = torch.maximum(torch.max(au), torch.maximum(
-                torch.max(av), torch.max(aw)))
+            max1d = torch.maximum(mu, torch.maximum(mv, mw))
             maxwind = torch.maximum(maxwind * three_d_cfl, max1d)
         elif cfl_strictness == 4:
             maxwind = maxwind * sqrt3
 
     return cfl_reduction / maxwind
+
+
+def compute_dt(u, v, w, dz_levels, dx, cfl_reduction,
+               cfl_strictness: int = 3):
+    """Maximum stable dt from the CFL criterion (``dt_from_maxima`` of
+    ``cfl_maxima``). Returns a 0-d float32 tensor on the winds' device."""
+    return dt_from_maxima(cfl_maxima(u, v, w, dz_levels, dx), cfl_reduction,
+                          cfl_strictness)

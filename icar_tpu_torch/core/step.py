@@ -19,12 +19,17 @@ density, or Thompson (K5) on its nine species with the mass-level
 thickness -- and MPDATA (K4) advects the stack. Time is carried in float32
 as the JAX loop carries it, so the substep lengths and the clamp's timing
 match. On CPU tensors the kernels' plain versions run.
+
+The loop runs on a list of blocks (``run_interval_sharded``): the whole
+domain is one block, and a model sharded over a device mesh holds one per
+shard (``parallel/mesh.py``), each with its halo, exchanged after every
+substep; the kernels run per block through ``parallel/shard_kernels.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +39,10 @@ from ..ops import kernels
 from ..physics import mp_thompson
 from ..physics.mp_simple import formation_rates
 from ..physics.thompson_tables import ThompsonParams
-from .diagnostics import compute_dt, diagnostic_update
+from ..parallel import shard_kernels as sk
+from ..parallel.mesh import Layout, single
+from .diagnostics import (cfl_maxima, compute_dt, diagnostic_update,
+                          dt_from_maxima)
 
 # fields clamped to >= 0 near the end of an interval (enforce_limits,
 # domain_obj.f90:2228)
@@ -74,16 +82,6 @@ def _check_species(mp: int, mpdata: bool, adv_names):
             f"{tuple(adv_names)} is not a configuration it runs")
 
 
-def boundary_mask(ny: int, nx: int, device) -> torch.Tensor:
-    """1 on the lateral domain boundary ring, 0 inside."""
-    m = torch.zeros((ny, nx), dtype=torch.float32, device=device)
-    m[0, :] = 1.0
-    m[-1, :] = 1.0
-    m[:, 0] = 1.0
-    m[:, -1] = 1.0
-    return m
-
-
 def limit_floors(adv_names: Sequence[str]) -> np.ndarray:
     """Per-species near-end floor: 0 for limited fields, -inf otherwise."""
     return np.asarray([0.0 if k in LIMITED_FIELDS else -np.inf
@@ -95,7 +93,22 @@ def quantized_dt(u, v, w, dz_levels, dx, cfl_reduction,
     """The CFL dt capped at MAX_DT and quantized to 1/64 s (exact in f32),
     so the substep count does not depend on reduction order
     (icar_tpu/core/step.py quantized_dt). Returned on the host."""
-    dt = compute_dt(u, v, w, dz_levels, dx, cfl_reduction, cfl_strictness)
+    return _quantize(compute_dt(u, v, w, dz_levels, dx, cfl_reduction,
+                                cfl_strictness))
+
+
+def sharded_dt(states, geoms, cfl_reduction, cfl_strictness) -> np.float32:
+    """``quantized_dt`` of a domain held as blocks: each block's
+    ``cfl_maxima``, reduced on the host by their maximum (the domain's
+    maxima, whatever the blocks' overlap), then the same dt and
+    quantization in float32 as on one device."""
+    m = torch.stack([cfl_maxima(s["u"], s["v"], s["w"], g.dz_levels,
+                                g.dx).cpu() for s, g in zip(states, geoms)])
+    return _quantize(dt_from_maxima(torch.amax(m, dim=0), cfl_reduction,
+                                    cfl_strictness))
+
+
+def _quantize(dt) -> np.float32:
     dt = torch.clamp(dt, max=C.MAX_DT)
     dt = torch.clamp(torch.floor(dt * 64.0) / 64.0, min=1.0 / 64.0)
     return np.float32(dt.item())
@@ -112,38 +125,75 @@ def path_kernels(options) -> Tuple[str, ...]:
     return ("mp_simple", "advect_upwind")
 
 
+def path_halo(options) -> int:
+    """The halo a block of the interval loop needs for ``options``: what
+    the path's advection kernel reads (the microphysics reads none)."""
+    if options.physics.advection == C.ADV_MPDATA:
+        return sk.mpdata_halo(options.adv.mpdata_order,
+                              options.adv.flux_corrected_transport)
+    return sk.UPWIND_HALO
+
+
 def run_interval(state: Dict[str, torch.Tensor], geom, options,
                  adv_names: Sequence[str], seconds: float,
                  dqdt: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Integrate ``state`` over one interval of ``seconds``; returns the new
     state and the number of substeps. ``geom`` holds torch tensors;
-    ``dqdt`` maps advected species to boundary forcing tendencies."""
+    ``dqdt`` maps advected species to boundary forcing tendencies. The
+    whole domain is one block (``run_interval_sharded`` on a one-shard
+    layout)."""
+    layout = single(state["pressure"].device, geom.ny, geom.nx)
+    (state,), n = run_interval_sharded(layout, [state], [geom], options,
+                                       adv_names, seconds, [dqdt or {}])
+    return state, n
+
+
+def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
+                         geoms, options, adv_names: Sequence[str],
+                         seconds: float, dqdts=None
+                         ) -> Tuple[List[Dict[str, torch.Tensor]], int]:
+    """``run_interval`` on a domain held as blocks (``mesh.Layout``):
+    ``states``, ``geoms`` and ``dqdts`` hold one block each, with a halo of
+    at least ``path_halo(options)`` on every inner side (the counterpart of
+    icar_tpu/core/step.py ``fast_step_sharded`` and of the general loop's
+    per-shard dispatch). Returns the new blocks and the substep count.
+
+    Every block runs the unsharded loop's work in its order, through the
+    per-shard wrappers of ``parallel/shard_kernels.py``; the dt is
+    reduced over the blocks on the host, so the substep count is the
+    unsharded one. After each substep the stack's halo is exchanged, so
+    at the start of every substep every cell of every block, halo
+    included, holds the unsharded value, and the column-local and
+    elementwise work gives each cell the unsharded bits. The boundary
+    ring is taken from global positions. Derived fields that the
+    epilogue writes only on a block's interior (w_real, the 10 m winds)
+    are exact at owned cells, not at a block's inner edge."""
     adv_names = tuple(adv_names)
     mp = options.physics.microphysics
     mpdata = options.physics.advection == C.ADV_MPDATA
     _check_species(mp, mpdata, adv_names)
     thompson = mp == C.MP_THOMPSON
-    dqdt = dqdt or {}
-    device = state["pressure"].device
+    dqdts = dqdts or [{} for _ in states]
     adv = options.adv
 
-    state = diagnostic_update(state, geom, full=False)
-    dt_static = quantized_dt(state["u"], state["v"], state["w"],
-                             geom.dz_levels, geom.dx,
-                             options.run.cfl_reduction_factor,
-                             options.run.cfl_strictness)
+    states = [diagnostic_update(s, g, full=False)
+              for s, g in zip(states, geoms)]
+    dt_static = sharded_dt(states, geoms, options.run.cfl_reduction_factor,
+                           options.run.cfl_strictness)
 
-    stack = torch.stack([state[k] for k in adv_names])
-    spare = torch.empty_like(stack)
-    pressure = state["pressure"].contiguous()
-    exner = state["exner"].contiguous()
+    stacks = [torch.stack([s[k] for k in adv_names]) for s in states]
+    spares = [torch.empty_like(q) for q in stacks]
+    pressure = [s["pressure"].contiguous() for s in states]
+    exner = [s["exner"].contiguous() for s in states]
     # SB04 takes the interface thickness, Thompson the mass-level one
     # (icar_tpu/core/step.py:996)
-    dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
-    winds = kernels.prepare_advect_winds(state["u"], state["v"], state["w"],
-                                         geom)
-    floors = torch.as_tensor(limit_floors(adv_names), device=device)
+    dz_mp = [(g.dz_mass if thompson else g.dz_interface).contiguous()
+             for g in geoms]
+    winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+             for s, g in zip(states, geoms)]
+    floors = [torch.as_tensor(limit_floors(adv_names), device=q.device)
+              for q in stacks]
     if thompson:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
@@ -151,24 +201,23 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
         species = [adv_names.index(k) for k in MP_SPECIES]
 
     tend = None
-    if any(k in dqdt for k in adv_names):
-        tend = torch.stack([dqdt[k] if k in dqdt
-                            else torch.zeros_like(state[k])
-                            for k in adv_names])
-        bmask = boundary_mask(geom.ny, geom.nx, device)
-        floor_b = floors[:, None, None, None]
-        no_floor = torch.full_like(floor_b, -np.inf)
+    if any(k in d for d in dqdts for k in adv_names):
+        tend = [torch.stack([d[k] if k in d else torch.zeros_like(s[k])
+                             for k in adv_names])
+                for s, d in zip(states, dqdts)]
+        bmask = layout.boundary_masks()
+        floor_b = [f[:, None, None, None] for f in floors]
+        no_floor = [torch.full_like(f, -np.inf) for f in floor_b]
 
     if mpdata:
         # the general loop accumulates in the state, substep by substep
-        rain = state["precipitation"].clone()
-        snow = state["snowfall"].clone()
+        rain = [s["precipitation"].clone() for s in states]
+        snow = [s["snowfall"].clone() for s in states]
         if thompson:
-            graupel = state["graupel"].clone()
+            graupel = [s["graupel"].clone() for s in states]
     else:
-        rain = torch.zeros((geom.ny, geom.nx), dtype=torch.float32,
-                           device=device)
-        snow = torch.zeros_like(rain)
+        rain = [torch.zeros_like(s["precipitation"]) for s in states]
+        snow = [torch.zeros_like(r) for r in rain]
     t = np.float32(0.0)
     end_time = np.float32(seconds)
     n = 0
@@ -178,45 +227,55 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
         # the near-end clamp folds into advection unless forcing follows
         clamp = near_end and tend is None
         if mpdata:
-            th = stack[smap[0] if thompson else species[0]]
-            state["potential_temperature"] = th
-            state = diagnostic_update(state, geom, needs=SUBSTEP_NEEDS)
+            th = smap[0] if thompson else species[0]
+            states = [diagnostic_update({**s, "potential_temperature": q[th]},
+                                        g, needs=SUBSTEP_NEEDS)
+                      for s, q, g in zip(states, stacks, geoms)]
             if thompson:
-                kernels.mp_thompson_stack(stack, smap, exner, pressure,
+                sk.thompson_stack_sharded(stacks, smap, exner, pressure,
                                           dz_mp, dt, rain, snow, graupel,
                                           tparams)
             else:
                 c2r, c2s = formation_rates(dt)
-                kernels.mp_simple_rho(*(stack[i] for i in species),
-                                      pressure, exner, state["density"],
-                                      dz_mp, rain, snow, dt, c2r, c2s)
-            kernels.advect_mpdata(stack, winds, dt, adv.mpdata_order,
-                                  adv.flux_corrected_transport, floors,
-                                  clamp, out=spare)
+                sk.mp_simple_sharded(
+                    *([q[i] for q in stacks] for i in species), pressure,
+                    exner, dz_mp, rain, snow, dt, c2r, c2s,
+                    rho=[s["density"] for s in states])
+            sk.advect_mpdata_sharded(layout, stacks, winds, dt,
+                                     adv.mpdata_order,
+                                     adv.flux_corrected_transport, floors,
+                                     clamp, spares)
         else:
             c2r, c2s = formation_rates(dt)
-            kernels.mp_simple(*(stack[i] for i in species), pressure, exner,
-                              dz_mp, rain, snow, dt, c2r, c2s)
-            kernels.advect_upwind(stack, winds, dt, floors, clamp, out=spare)
-        stack, spare = spare, stack
+            sk.mp_simple_sharded(*([q[i] for q in stacks] for i in species),
+                                 pressure, exner, dz_mp, rain, snow, dt, c2r,
+                                 c2s)
+            sk.advect_upwind_sharded(layout, stacks, winds, dt, floors, clamp,
+                                     spares)
+        stacks, spares = spares, stacks
         if tend is not None:
             # boundary-ring relaxation of the advected species (apply_
             # forcing, domain_obj.f90:2400-2428), then the near-end clamp
-            stack = torch.maximum(stack + tend * (float(dt) * bmask),
-                                  floor_b if near_end else no_floor)
+            stacks = [torch.maximum(q + te * (float(dt) * m),
+                                    fb if near_end else nf)
+                      for q, te, m, fb, nf in zip(stacks, tend, bmask,
+                                                  floor_b, no_floor)]
+        layout.exchange(stacks)
         t = np.float32(t + dt)
         n += 1
 
-    state = dict(state)
-    for i, k in enumerate(adv_names):
-        state[k] = stack[i]
-    if mpdata:
-        state["precipitation"] = rain
-        state["snowfall"] = snow
-        if thompson:
-            state["graupel"] = graupel
-    else:
-        state["precipitation"] = state["precipitation"] + rain
-        state["snowfall"] = state["snowfall"] + snow
-    state = diagnostic_update(state, geom, full=True)
-    return state, n
+    out = []
+    for b, (s, q, g) in enumerate(zip(states, stacks, geoms)):
+        s = dict(s)
+        for i, k in enumerate(adv_names):
+            s[k] = q[i]
+        if mpdata:
+            s["precipitation"] = rain[b]
+            s["snowfall"] = snow[b]
+            if thompson:
+                s["graupel"] = graupel[b]
+        else:
+            s["precipitation"] = s["precipitation"] + rain[b]
+            s["snowfall"] = s["snowfall"] + snow[b]
+        out.append(diagnostic_update(s, g, full=True))
+    return out, n

@@ -7,12 +7,13 @@ ideal ridge with balance-only winds and no other physics, with SB04
 microphysics and upwind or MPDATA advection (any order, with or without
 FCT), or with Thompson microphysics (mp=1) and MPDATA advection. Any other
 option raises ``NotImplementedError`` naming the ROADMAP slice that ports
-it.
+it. ``attach_mesh`` shards a model over a device mesh
+(``parallel/mesh.py``); its state then lives in one block per shard.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -22,11 +23,13 @@ from ..config import Options
 from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
 from ..core.state import advected_names, create_state
-from ..core.step import path_kernels, run_interval
+from ..core.step import (path_halo, path_kernels, run_interval,
+                         run_interval_sharded)
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
 from ..ops import kernels
 from ..ops import wind as wind_ops
+from ..parallel.mesh import Layout, Mesh, scatter_geometry
 
 
 def _unported(options: Options):
@@ -93,6 +96,36 @@ class ICARModel:
         self.model_time = 0.0          # seconds since run start
         self._dqdt: Dict[str, torch.Tensor] = {}
         self._last_n = 0
+        # with a mesh: the layout, and the state, geometry and forcing
+        # tendencies as one block per shard (``self.state`` is then None)
+        self.mesh: Optional[Mesh] = None
+        self.layout: Optional[Layout] = None
+        self.blocks: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._geom_blocks = None
+        self._dqdt_blocks = None
+
+    def attach_mesh(self, mesh: Mesh):
+        """Shard the model over ``mesh`` (icar_tpu/models/icar.py
+        attach_mesh): every field, the geometry and the forcing
+        tendencies move into one block per shard (``parallel.mesh.Layout``,
+        with the halo the model's path reads), each on its device; later
+        ``advance`` calls run ``run_interval_sharded``. Raises ValueError
+        for a mesh on another device type than the model's, or one that
+        leaves a shard without a natural row or column."""
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
+                             f"devices for a model on {self.device}")
+        if mesh.device_type == "cuda":
+            kernels.check_levels(path_kernels(self.options),
+                                 int(self.options.domain.nz))
+        state = self._global_state()
+        layout = Layout(mesh, self.geom.ny, self.geom.nx,
+                        path_halo(self.options))
+        self.mesh, self.layout = mesh, layout
+        self._geom_blocks = scatter_geometry(self.geom, layout)
+        self.state = None
+        self._install(state)
+        self._dqdt_blocks = self._scatter_dict(self._dqdt)
 
     def compute_winds(self, u, v, rotate: bool = False):
         """Balanced (u, v, w) for the winds (u, v) (update_winds,
@@ -107,28 +140,27 @@ class ICARModel:
         """Install the wind solution for (u, v) into the state."""
         u, v, w = self.compute_winds(self._tensor(u), self._tensor(v),
                                      rotate=rotate)
-        self.state = {**self.state, "u": u, "v": v, "w": w}
+        self._install({**self._global_state(), "u": u, "v": v, "w": w})
 
     def set_initial_conditions(self, case: IdealCase, rotate: bool = True,
                                winds: bool = True):
         """Install an ideal case as the initial state (get_initial_conditions
         + first update_winds, init.f90:85-112)."""
-        s = dict(self.state)
+        s = self._global_state()
         s["potential_temperature"] = self._tensor(case.theta)
         s["pressure"] = self._tensor(case.pressure)
         s["water_vapor"] = self._tensor(case.qv)
         s["u"] = self._tensor(case.u)
         s["v"] = self._tensor(case.v)
-        self.state = diagnostic_update(s, self.geom_t)
+        s = diagnostic_update(s, self.geom_t)
         if winds:
             u, v, w = self.compute_winds(self._tensor(case.u),
                                          self._tensor(case.v), rotate=rotate)
         else:
             u, v = self._tensor(case.u), self._tensor(case.v)
             w = torch.zeros_like(s["potential_temperature"])
-        s = dict(self.state)
         s["u"], s["v"], s["w"] = u, v, w
-        self.state = diagnostic_update(s, self.geom_t)
+        self._install(diagnostic_update(s, self.geom_t))
 
     def set_forcing_tendencies(self, dqdt: Dict[str, np.ndarray]):
         """Install dqdt fields for the next intervals (update_delta_fields,
@@ -140,13 +172,21 @@ class ICARModel:
                 f"forcing tendencies for {other} are not ported yet: "
                 "Slice E (file-driven runs) in ROADMAP.md")
         self._dqdt = {k: self._tensor(v) for k, v in dqdt.items()}
+        if self.mesh is not None:
+            self._dqdt_blocks = self._scatter_dict(self._dqdt)
 
     def advance(self, seconds: float):
         """Integrate the state forward by ``seconds`` (one forcing/output
-        interval; step, time_step.f90:440-551)."""
-        self.state, self._last_n = run_interval(
-            self.state, self.geom_t, self.options, self.advect_names,
-            seconds, self._dqdt)
+        interval; step, time_step.f90:440-551). Returns the state (None
+        with a mesh: the blocks are in ``self.blocks``)."""
+        if self.mesh is None:
+            self.state, self._last_n = run_interval(
+                self.state, self.geom_t, self.options, self.advect_names,
+                seconds, self._dqdt)
+        else:
+            self.blocks, self._last_n = run_interval_sharded(
+                self.layout, self.blocks, self._geom_blocks, self.options,
+                self.advect_names, seconds, self._dqdt_blocks)
         self.model_time += float(seconds)
         return self.state
 
@@ -154,9 +194,38 @@ class ICARModel:
     def last_n_substeps(self) -> int:
         return self._last_n
 
+    def global_field(self, name: str) -> torch.Tensor:
+        """A field of the whole domain as one tensor: the state's own, or
+        with a mesh the owned cells of every block gathered on the first
+        shard's device."""
+        if self.mesh is None:
+            return self.state[name]
+        return self.layout.gather([b[name] for b in self.blocks])
+
     def field(self, name: str) -> np.ndarray:
         """A field as a numpy array."""
-        return self.state[name].detach().cpu().numpy()
+        return self.global_field(name).detach().cpu().numpy()
+
+    def _global_state(self) -> Dict[str, torch.Tensor]:
+        """The whole state as one dict on the model's device."""
+        if self.mesh is None:
+            return dict(self.state)
+        return {k: self.global_field(k).to(self.device)
+                for k in self.blocks[0]}
+
+    def _install(self, state: Dict[str, torch.Tensor]):
+        """Make ``state`` (the whole domain) the model's state: with a
+        mesh, scattered into the blocks."""
+        if self.mesh is None:
+            self.state = state
+        else:
+            self.blocks = self._scatter_dict(state)
+
+    def _scatter_dict(self, fields: Dict[str, torch.Tensor]):
+        """{name: field} of the whole domain as one such dict per block."""
+        per_field = {k: self.layout.scatter(v) for k, v in fields.items()}
+        return [{k: v[i] for k, v in per_field.items()}
+                for i in range(len(self.layout.shards))]
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)

@@ -1,0 +1,64 @@
+"""Transcendental functions whose result for a cell does not depend on
+where the cell lies in its tensor: ``exp``, ``log``, ``log10``, ``pow``.
+
+On the CPU, torch computes an elementwise function of a contiguous tensor
+with its vectorised version (SLEEF) in steps of two vector widths, and the
+elements left over at the end of each loop -- how many depends on the
+tensor's size and on how the work is split over threads -- with the scalar
+libm function. The two differ by an ulp now and then, so a block of a
+sharded domain, whose tensors have other sizes, would not compute a cell
+as the whole domain does. Here a CPU operand is flattened, padded to a
+multiple of ``_ALIGN`` elements and cut into pieces of at most torch's
+grain (each runs as one loop on one thread), so every element takes the
+vectorised version. A CUDA tensor computes every element alike and goes
+straight to torch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# a multiple of twice the widest vector (AVX-512: 16 floats) that divides
+# torch's grain of 32768 elements, below which a loop is not split
+_ALIGN = 64
+_PIECE = 32768
+
+
+def _position_free(fn, *args):
+    """``fn(*args)`` for an elementwise ``fn`` of tensors and numbers."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    if tensors[0].device.type != "cpu":
+        return fn(*args)
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    n = math.prod(shape)
+    pad = -n % _ALIGN
+
+    def flat(a):
+        if not torch.is_tensor(a):
+            return a
+        f = a.expand(shape).reshape(-1)
+        return torch.cat([f, f.new_ones(pad)]) if pad else f.contiguous()
+    flats = [flat(a) for a in args]
+    pieces = [fn(*(f[i:i + _PIECE] if torch.is_tensor(f) else f
+                   for f in flats))
+              for i in range(0, n + pad, _PIECE)]
+    return torch.cat(pieces)[:n].reshape(shape)
+
+
+def exp(x):
+    return _position_free(torch.exp, x)
+
+
+def log(x):
+    return _position_free(torch.log, x)
+
+
+def log10(x):
+    return _position_free(torch.log10, x)
+
+
+def pow(x, e):  # noqa: A001 (torch.pow's name)
+    """``x ** e``; either may be a number."""
+    return _position_free(torch.pow, x, e)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import pointwise as pw
+
 # module parameters (mp_simple.f90:63-96)
 LH_VAPOR = 2.26e6
 DLHVDT = 2400.0
@@ -48,7 +50,7 @@ def sat_mr(temperature, pressure):
     cold = temperature < FREEZING
     a = torch.where(cold, 21.8745584, 17.2693882).to(temperature.dtype)
     b = torch.where(cold, 7.66, 35.86).to(temperature.dtype)
-    e_s = 610.78 * torch.exp(a * (temperature - 273.16) / (temperature - b))
+    e_s = 610.78 * pw.exp(a * (temperature - 273.16) / (temperature - b))
     e_s = torch.where(pressure - e_s <= 0, pressure * 0.99999, e_s)
     return 0.6219907 * e_s / (pressure - e_s)
 

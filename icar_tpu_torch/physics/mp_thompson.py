@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import pointwise as pw
 from . import thompson_tables as tt
 from .thompson_tables import (AM_I, AM_R, ATO, AV_R, BM_G, BM_I, BM_R,
                               BV_I, C_CUBE, CP2, D0C, D0G, D0R, D0S, EPS,
@@ -85,7 +86,7 @@ def _pow(x, e):
         return x * (x * x)
     if e == -1.0:
         return 1.0 / x
-    return torch.pow(x, e)
+    return pw.pow(x, e)
 
 
 def _ipow(x, n: int):
@@ -165,19 +166,19 @@ def _field_ab(tc, n):
     b = (SB[0] + SB[1] * tc + SB[2] * n + SB[3] * tc * n
          + SB[4] * tc * tc + SB[5] * n * n + SB[6] * tc * tc * n
          + SB[7] * tc * n * n + SB[8] * tc ** 3 + SB[9] * n ** 3)
-    return 10.0 ** loga, b
+    return pw.pow(10.0, loga), b
 
 
 def _field_moment(tc, n, smo2):
     a, b = _field_ab(tc, float(n))
-    return a * smo2 ** b
+    return a * pw.pow(smo2, b)
 
 
 def _mantissa_idx(r, lo_exp, ntb):
     """Decimal table index: value m*10^e maps to int(m) + 9*(e - lo_exp)
     (the reference's mantissa search, 0-based)."""
-    n = torch.floor(torch.log10(_max(r, 1e-30)))
-    mant = r / 10.0 ** n
+    n = torch.floor(pw.log10(_max(r, 1e-30)))
+    mant = r / pw.pow(10.0, n)
     idx = (torch.trunc(mant).to(torch.int32)
            + 9 * (n.to(torch.int32) - lo_exp) - 1)
     return torch.clamp(idx, 0, ntb - 1)
@@ -263,7 +264,7 @@ def _snow_moments(rs, temp, c):
     smo2 = smob                                     # bm_s == 2
     loga0 = SA[0] + SA[1] * tc0 + SA[4] * tc0 ** 2 + SA[8] * tc0 ** 3
     b0 = SB[0] + SB[1] * tc0 + SB[4] * tc0 ** 2 + SB[8] * tc0 ** 3
-    smo0 = 10.0 ** loga0 * smo2 ** b0
+    smo0 = pw.pow(10.0, loga0) * pw.pow(smo2, b0)
     smo1 = _field_moment(tc0, 1.0, smo2)
     smoc = _field_moment(tc0, float(c.cse[0]), smo2)
     smod = _field_moment(tc0, float(c.cse[13]), smo2)
@@ -276,12 +277,12 @@ def _graupel_intercept(rg, temp, mvd_r, has_rain, c):
     """Mixing-ratio-dependent graupel intercept with the top-down running
     minimum (mp_thompson.f90:1455-1489)."""
     xslw1 = _where((temp < 270.65) & has_rain & (mvd_r > 100e-6),
-                   4.01 + torch.log10(mvd_r), 0.01)
-    ygra1 = 4.31 + torch.log10(_max(5e-5, rg))
+                   4.01 + pw.log10(mvd_r), 0.01)
+    ygra1 = 4.31 + pw.log10(_max(5e-5, rg))
     zans1 = 3.1 + _rd(100., 300. * xslw1 * ygra1
                       / (_rd(10., xslw1) + 1. + 0.25 * ygra1)
                       + 30. + 10. * ygra1)
-    N0_exp = _clip(10.0 ** zans1, GONV_MIN, GONV_MAX)
+    N0_exp = _clip(pw.pow(10.0, zans1), GONV_MIN, GONV_MAX)
     N0_exp = _cummin_rev(N0_exp)
     lam_exp = _pow(N0_exp * c.am_g * c.cgg[0] / rg, c.oge1)
     lamg = lam_exp * (c.cgg[2] * c.ogg2 * c.ogg1) ** c.obmg
@@ -489,13 +490,13 @@ def _small_indices(P, c):
                          _mantissa_idx(ni, c.nii3, NTB_I1), zero)
     # collision-efficiency bins (rain/cloud, snow/cloud)
     idx_efr = torch.clamp(
-        _dc(NBR * torch.log(_dc(P["mvd_r"], tt.D0R)),
+        _dc(NBR * pw.log(_dc(P["mvd_r"], tt.D0R)),
             np.log(float(c.Dr[-1] / c.Dr[0]))).to(torch.int32),
         0, NBR - 1)
     idx_efc = torch.clamp((P["mvd_c"] * 1e6).to(torch.int32) - 1, 0,
                           NBC - 1)
     idx_efs = torch.clamp(
-        _dc(NBS * torch.log(_dc(_max(P["xDs"], D0S), tt.D0S)),
+        _dc(NBS * pw.log(_dc(_max(P["xDs"], D0S), tt.D0S)),
             np.log(float(c.Ds[-1] / c.Ds[0]))).to(torch.int32), 0, NBS - 1)
     return dict(idx_tc=idx_tc, idx_c=idx_c, idx_i=idx_i, idx_i1=idx_i1,
                 idx_efr=idx_efr, idx_efc=idx_efc, idx_efs=idx_efs)
@@ -584,7 +585,7 @@ def _core_block(P, idx_i, G, DT, c, pp):
         P["N0_r"], P["zero"], P["qv1d"])
 
     # ---- warm-rain processes (mp_thompson.f90:1496-1545) ---------------
-    Ef_rr = 2.0 - torch.exp(_min(2300.0 * (mvd_r - 1600.0e-6), 50.0))
+    Ef_rr = 2.0 - pw.exp(_min(2300.0 * (mvd_r - 1600.0e-6), 50.0))
     pnr_rcr = _where(L_qr & (mvd_r > D0R), Ef_rr * 4. * nr * rr, 0.0)
 
     xDc, mvd_c, Dc_g = P["xDc"], P["mvd_c"], P["Dc_g"]
@@ -631,7 +632,7 @@ def _core_block(P, idx_i, G, DT, c, pp):
     stoke_g = mvd_c * mvd_c * vtg_c * RHO_W / (9. * visco * xDg)
     Ef_gw = torch.where(stoke_g >= 0.4,
                         _where(stoke_g <= 10.0,
-                               0.55 * torch.log10(2.51 * stoke_g), 0.77),
+                               0.55 * pw.log10(2.51 * stoke_g), 0.77),
                         zero)
     gcw_on = (L_qc & (mvd_c > D0C) & (rg >= tt.r_g[0]) & (xDg > D0G))
     prg_gcw = _where(gcw_on, rhof * c.t1_qg_qc * Ef_gw * rc * N0_g
@@ -705,7 +706,7 @@ def _core_block(P, idx_i, G, DT, c, pp):
 
     # ice nucleation: Cooper (1986)
     nuc_on = cold & ((ssati >= 0.25) | ((ssatw > EPS) & (temp < 261.15)))
-    xnc = _min(250e3, pp.TNO * torch.exp(ATO * (T_0 - temp)))
+    xnc = _min(250e3, pp.TNO * pw.exp(ATO * (T_0 - temp)))
     xni_c = ni + (pni_rfz + pni_wfz) * DT
     pni_inu = torch.where(nuc_on, _max(0.0, xnc - xni_c) * odts, zero)
     pri_inu = torch.where(nuc_on, torch.minimum(rate_max_i,
@@ -824,7 +825,7 @@ def _core_block(P, idx_i, G, DT, c, pp):
     pnr_sml = torch.where(warm & L_qs,
                           torch.minimum(smo0 * odts,
                                         smo0 / _max(rs, R1) * prr_sml
-                                        * 10.0 ** (-0.75 * tempc)), zero)
+                                        * pw.pow(10.0, -0.75 * tempc)), zero)
     pnr_sml = torch.where((tempc > 3.5) | (rs < 0.005e-3), zero, pnr_sml)
 
     sde_w = pp.C_cubes * t1_subl * diffu * ssati * rvs \
@@ -840,7 +841,7 @@ def _core_block(P, idx_i, G, DT, c, pp):
     pnr_gml = torch.where(warm & L_qg,
                           N0_g * c.cgg[1] * _pow(ilamg, c.cge[1])
                           / _max(rg, R1) * prr_gml
-                          * 10.0 ** (-1.5 * tempc), zero)
+                          * pw.pow(10.0, -1.5 * tempc), zero)
     pnr_gml = torch.where((tempc > 7.5) | (rg < 0.005e-3), zero, pnr_gml)
     prg_gde = torch.where(warm & L_qg & (ssati < 0.0),
                           torch.maximum(-rg * odts, gde_raw), prg_gde)
@@ -1013,8 +1014,8 @@ def _core_block(P, idx_i, G, DT, c, pp):
     cond_on = (ssatw > EPS) | ((ssatw < -EPS) & L_qc)
     clap = (qv - qvs) / (1. + lvt2 * qvs)
     for _ in range(3):
-        fcd = qvs * torch.exp(lvt2 * clap) - qv + clap
-        dfcd = qvs * lvt2 * torch.exp(lvt2 * clap) + 1.
+        fcd = qvs * pw.exp(lvt2 * clap) - qv + clap
+        dfcd = qvs * lvt2 * pw.exp(lvt2 * clap) + 1.
         clap = clap - fcd / dfcd
     xrc = rc + clap
     prw_vcd = torch.where(cond_on,
