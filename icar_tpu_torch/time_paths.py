@@ -1,7 +1,7 @@
 """Throughput of the three ridge paths on the card, measured repeatedly.
 
     python -m icar_tpu_torch.time_paths [--repeat 5] [--intervals 2]
-        [--paths upwind,mpdata,thompson] [--mesh 2x2]
+        [--paths upwind,mpdata,thompson] [--mesh 2x2 | --mesh cards]
 
 For each path (bench.py's ridge at 500x500x20: SB04 + upwind, SB04 +
 MPDATA, Thompson + MPDATA) it builds a fresh model, advances one 1200 s
@@ -9,8 +9,11 @@ interval to warm up, then times ``--repeat`` runs of ``--intervals``
 intervals each, host clock around work that ends in
 ``torch.cuda.synchronize()``, and prints one JSON line: for each path the
 grid-point substeps per second of every run over the natural grid, their
-median, and the card's name. With ``--mesh MYxMX`` the model is sharded
-over that many shards, all on cuda:0. The same measurement as
+median and the float64 digest of the final state (``state_digest``), and
+the card's name. With ``--mesh MYxMX`` the model is sharded over that many
+shards, all on cuda:0; with ``--mesh cards``, one shard per visible card
+(``make_mesh``). A sharded and an unsharded run of the same options end
+in the same digest. The same measurement as
 ``chip_smoke.py``'s drives, repeated, so that two checkouts can be compared
 in one call on one card (run it from each checkout in turns).
 """
@@ -35,11 +38,15 @@ INTERVAL = 1200.0
 
 
 def time_path(case, repeat, intervals, mesh=None):
-    """gp*steps/s of each of ``repeat`` runs of ``intervals`` intervals."""
+    """(gp*steps/s of each of ``repeat`` runs of ``intervals`` intervals,
+    the final state's digest). ``mesh``: None, "cards" or "MYxMX"."""
+    from .core.state import ACCUMULATORS, state_digest
+    from .parallel.mesh import Mesh, make_mesh
     model = ideal_ridge_model(**RIDGE, **case, device="cuda")
-    if mesh is not None:
-        from .parallel.mesh import Mesh
-        my, mx = mesh
+    if mesh == "cards":
+        model.attach_mesh(make_mesh(RIDGE["nx"], RIDGE["ny"]))
+    elif mesh is not None:
+        my, mx = (int(n) for n in mesh.split("x"))
         model.attach_mesh(Mesh(["cuda:0"] * (my * mx), (my, mx)))
     model.advance(INTERVAL)
     gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
@@ -53,7 +60,12 @@ def time_path(case, repeat, intervals, mesh=None):
             steps += model.last_n_substeps
         torch.cuda.synchronize()
         rates.append(gp * steps / (time.perf_counter() - t0))
-    return rates
+    names = list(model.advect_names) + ["u", "v", "w"]
+    held = model.state if model.mesh is None else model.blocks[0]
+    digest = state_digest({k: model.global_field(k).to("cuda:0")
+                           for k in names + [a for a in ACCUMULATORS
+                                             if a in held]}, names)
+    return rates, digest
 
 
 def main(argv=None):
@@ -61,17 +73,18 @@ def main(argv=None):
     ap.add_argument("--repeat", type=int, default=5)
     ap.add_argument("--intervals", type=int, default=2)
     ap.add_argument("--paths", default="upwind,mpdata,thompson")
-    ap.add_argument("--mesh", default=None, help="MYxMX, e.g. 2x2")
+    ap.add_argument("--mesh", default=None,
+                    help="MYxMX (shards on cuda:0, e.g. 2x2) or cards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_paths: no CUDA device")
-    mesh = (tuple(int(n) for n in args.mesh.split("x")) if args.mesh
-            else None)
-    out = {"device": torch.cuda.get_device_name(0), "mesh": args.mesh}
+    out = {"device": torch.cuda.get_device_name(0),
+           "cards": torch.cuda.device_count(), "mesh": args.mesh}
     for name in args.paths.split(","):
-        rates = time_path(PATHS[name], args.repeat, args.intervals, mesh)
+        rates, digest = time_path(PATHS[name], args.repeat, args.intervals,
+                                  args.mesh)
         out[name] = {"gp_steps_per_s": rates,
-                     "median": statistics.median(rates)}
+                     "median": statistics.median(rates), "digest": digest}
     print(json.dumps(out), flush=True)
 
 
