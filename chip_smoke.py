@@ -62,32 +62,21 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# the bench.py ridge case at full width (bench.py:47-51)
-RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
-             u_speed=10.0, rh=0.95, flat_z_height=-5)
-RIDGE_INTERVAL = 1200.0
-RIDGE_INTERVALS = 2
-# the same ridge with MPDATA advection (icar_tpu_torch.constants.ADV_MPDATA;
-# the defaults mpdata_order=2, flux_corrected_transport=True)
-ADV_MPDATA = 2
-MPDATA_RIDGE = dict(RIDGE, adv=ADV_MPDATA)
+# The ridge cases (bench.py's ridge at 500x500x20 with each path's options)
+# are the port's own: icar_tpu_torch.models.icar RIDGE and RIDGE_PATHS,
+# driven over two 1200 s intervals by icar_tpu_torch.time_paths.run_timed.
 # K4 at the other orders, on a random stack of this shape
 MPDATA_SMALL = (5, 20, 96, 128)
 MPDATA_VARIANTS = ((2, False), (3, True), (4, True))
-# the same MPDATA ridge with Thompson microphysics
-# (icar_tpu_torch.constants.MP_THOMPSON): bench.py --config mpdata_thompson
-MP_THOMPSON = 1
-THOMPSON_RIDGE = dict(MPDATA_RIDGE, mp=MP_THOMPSON)
 # K5 on random mixed-regime stacks of this shape at these dt
 THOMPSON_SMALL = (20, 96, 128)
 THOMPSON_DTS = (30.0, 90.0, 150.0)
 # and deeper than K2-K4 take, on a column count no tile size divides
 THOMPSON_DEEP = (80, 47, 101)
 
-# the sharded drives of phase 8: (label, case, mesh shape), every shard on
+# the sharded drives of phase 8: (path, mesh shape), every shard on
 # cuda:0; and the meshes each per-shard wrapper is held on
-SHARD_DRIVES = (("upwind", RIDGE, (2, 2)), ("MPDATA", MPDATA_RIDGE, (4, 1)),
-                ("Thompson", THOMPSON_RIDGE, (2, 2)))
+SHARD_DRIVES = (("upwind", (2, 2)), ("MPDATA", (4, 1)), ("Thompson", (2, 2)))
 SHARD_CHECK_MESHES = ((4, 1), (2, 2))
 
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
@@ -824,11 +813,12 @@ def check_shard_mpdata_path(model, kernels, step, sk, mp_plain, tp,
     ``entry``, the per-shard K4 of the 4x1 mesh is also held to its plain
     version on every block, and its kernel-table entry is returned."""
     import torch
+    from icar_tpu_torch import constants as C
     s, g = model.state, model.geom_t
     names = model.advect_names
     adv = model.options.adv
     order, fct = adv.mpdata_order, adv.flux_corrected_transport
-    thompson = model.options.physics.microphysics == MP_THOMPSON
+    thompson = model.options.physics.microphysics == C.MP_THOMPSON
     stack = torch.stack([s[k] for k in names])
     dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
                            model.options.run.cfl_reduction_factor,
@@ -1034,25 +1024,18 @@ DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
                 "rain_mass", "snow_mass", "precipitation", "u", "v", "w")
 
 
-def drive(model, kernels, label, path, interval, intervals, smi,
-          fields=DRIVE_FIELDS, shards=1):
-    """Advance ``model`` over ``intervals`` intervals with the launch
-    counts set to 0 just before; check that ``fields`` are finite, that
-    there is cloud and precipitation, and that each kernel of ``path``
-    launched once per substep and shard (``shards``) and the others not at
-    all; log the rate over the natural grid points and the final state's
-    digest. Returns (launch counts, digest, substeps)."""
+def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
+          shards=1):
+    """Advance ``model`` over two 1200 s intervals (``run_timed``) with the
+    launch counts set to 0 just before; check that ``fields`` are finite,
+    that there is cloud and precipitation, and that each kernel of
+    ``path`` launched once per substep and shard (``shards``) and the
+    others not at all; log the rate over the natural grid points and the
+    final state's digest. Returns (launch counts, digest, substeps)."""
     import torch
-    from icar_tpu_torch.core.state import ACCUMULATORS, state_digest
-    torch.cuda.synchronize()
+    from icar_tpu_torch.time_paths import run_timed
     kernels.reset_launches()
-    steps = 0
-    t0 = time.perf_counter()
-    for _ in range(intervals):
-        model.advance(interval)
-        steps += model.last_n_substeps
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    steps, seconds = run_timed(model)
     launches = dict(kernels.LAUNCHES)
     for name, n in launches.items():
         want = steps * shards if name in path else 0
@@ -1068,38 +1051,35 @@ def drive(model, kernels, label, path, interval, intervals, smi,
     if not (qc_max > 0 and pr_max > 0):
         raise AssertionError(f"{label} path: no cloud ({qc_max}) or no "
                              f"precipitation ({pr_max})")
-    gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
-    rate = gp * steps / seconds
-    log(f"{label} path 500x500x20: {steps} substeps in {seconds:.3f} s = "
-        f"{rate / 1e6:.1f}M gp*steps/s on {smi}; qc max {qc_max:.3e}, "
-        f"precip max {pr_max:.3f} mm; launches {launches}")
-    names = list(model.advect_names) + ["u", "v", "w"]
-    held = model.state if model.mesh is None else model.blocks[0]
-    digest = state_digest({k: model.global_field(k) for k in names + [
-        a for a in ACCUMULATORS if a in held]}, names)
+    d = model.options.domain
+    rate = d.nx * d.ny * d.nz * steps / seconds
+    log(f"{label} path {d.nx}x{d.ny}x{d.nz}: {steps} substeps in "
+        f"{seconds:.3f} s = {rate / 1e6:.1f}M gp*steps/s on {smi}; qc max "
+        f"{qc_max:.3e}, precip max {pr_max:.3f} mm; launches {launches}")
+    digest = model.digest()
     log(f"digest {label}: " + json.dumps(digest))
     return launches, digest, steps
 
 
-def sharded_drive(label, case, mesh, path, reference, kernels, smi,
-                  ideal_ridge_model):
-    """Drive ``case`` sharded over ``mesh`` (RIDGE_INTERVALS intervals)
-    and hold it to the unsharded drive's (digest, substeps)
-    ``reference``: every digest sum equal, the same substep count. Returns
-    the launch counts."""
+def sharded_drive(label, case, mesh, path, reference, kernels, smi):
+    """Drive the ridge ``case`` sharded over ``mesh`` and hold it to the
+    unsharded drive's (digest, substeps) ``reference``: every digest sum
+    equal, the same substep count. Returns the launch counts."""
+    from icar_tpu_torch import constants as C
     from icar_tpu_torch.core.step import thompson_params
+    from icar_tpu_torch.models.icar import ideal_ridge_model
     from icar_tpu_torch.physics.mp_thompson import device_tables
     model = ideal_ridge_model(**case, device="cuda")
     model.attach_mesh(mesh)
-    if case.get("mp") == MP_THOMPSON:
+    if case.get("mp") == C.MP_THOMPSON:
         # the lookup tables go to each card as set-up, before the timed run
         for dev in set(mesh.devices):
             device_tables(thompson_params(model.options), dev)
     my, mx = mesh.shape
     launches, digest, steps = drive(
-        model, kernels, f"{label} sharded {my}x{mx}", path, RIDGE_INTERVAL,
-        RIDGE_INTERVALS, smi, fields=tuple(model.advect_names) + (
-            "precipitation", "u", "v", "w"), shards=mesh.size)
+        model, kernels, f"{label} sharded {my}x{mx}", path, smi,
+        fields=tuple(model.advect_names) + ("precipitation", "u", "v", "w"),
+        shards=mesh.size)
     if (digest, steps) != reference:
         raise AssertionError(f"{label} sharded {my}x{mx}: {steps} substeps "
                              f"and digest {digest}; unsharded: "
@@ -1119,7 +1099,8 @@ def main():
         # the script alone, without the repository around it
         raise SystemExit(f"chip_smoke.py: {e}; run it from the root of a "
                          f"checkout of the repository") from e
-    from icar_tpu_torch.models.icar import ideal_ridge_model
+    from icar_tpu_torch.models.icar import (RIDGE, RIDGE_PATHS,
+                                            ideal_ridge_model)
     from icar_tpu_torch.ops import advection as adv_plain
     from icar_tpu_torch.ops import kernels
     from icar_tpu_torch.ops import mpdata as mpdata_plain
@@ -1128,6 +1109,8 @@ def main():
     from icar_tpu_torch.physics import mp_simple as mp_plain
     from icar_tpu_torch.physics import mp_thompson as thompson_plain
     from icar_tpu_torch.physics import thompson_cases
+    from icar_tpu_torch.time_paths import INTERVAL
+    cases = {label: dict(RIDGE, **opts) for label, opts in RIDGE_PATHS.items()}
 
     # 0. build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -1138,8 +1121,8 @@ def main():
 
     # 1. K1 and K2 against their plain versions on a real 500x500x20 state
     t0 = time.perf_counter()
-    warm = ideal_ridge_model(**RIDGE, device="cuda")
-    warm.advance(RIDGE_INTERVAL)
+    warm = ideal_ridge_model(**cases["upwind"], device="cuda")
+    warm.advance(INTERVAL)
     torch.cuda.synchronize()
     log(f"setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
@@ -1151,18 +1134,18 @@ def main():
     check_golden(ideal_ridge_model)
 
     # 3. the upwind ridge at full width, counting kernel launches
-    model = ideal_ridge_model(**RIDGE, device="cuda")
+    model = ideal_ridge_model(**cases["upwind"], device="cuda")
     paths = {"upwind": ("advect_upwind", "mp_simple"),
              "MPDATA": ("mp_simple_rho", "advect_mpdata"),
              "Thompson": ("mp_thompson", "advect_mpdata")}
     launches, *upwind_ref = drive(model, kernels, "upwind", paths["upwind"],
-                                  RIDGE_INTERVAL, RIDGE_INTERVALS, smi)
+                                  smi)
     del model
 
     # 4. K4 and K3 against their plain versions on a real MPDATA state
     t0 = time.perf_counter()
-    warm = ideal_ridge_model(**MPDATA_RIDGE, device="cuda")
-    warm.advance(RIDGE_INTERVAL)
+    warm = ideal_ridge_model(**cases["MPDATA"], device="cuda")
+    warm.advance(INTERVAL)
     torch.cuda.synchronize()
     log(f"MPDATA setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
@@ -1173,15 +1156,14 @@ def main():
     del warm
 
     # 5. the MPDATA ridge at full width, counting kernel launches
-    model = ideal_ridge_model(**MPDATA_RIDGE, device="cuda")
+    model = ideal_ridge_model(**cases["MPDATA"], device="cuda")
     mpdata_launches, *mpdata_ref = drive(model, kernels, "MPDATA",
-                                         paths["MPDATA"], RIDGE_INTERVAL,
-                                         RIDGE_INTERVALS, smi)
+                                         paths["MPDATA"], smi)
     del model
 
     # 6. the Thompson ridge at full width, counting kernel launches; its
     # lookup tables are built and uploaded as set-up, before the timed run
-    model = ideal_ridge_model(**THOMPSON_RIDGE, device="cuda")
+    model = ideal_ridge_model(**cases["Thompson"], device="cuda")
     thompson_plain.device_tables(step.thompson_params(model.options),
                                  model.state["pressure"].device)
     # K5 on the fresh initial state (clear air: every tile inert), before
@@ -1189,8 +1171,7 @@ def main():
     k5_initial = k5_on_state(model, kernels, step, thompson_plain,
                              thompson_cases, "ridge's initial state")
     thompson_launches, *thompson_ref = drive(
-        model, kernels, "Thompson", paths["Thompson"],
-        RIDGE_INTERVAL, RIDGE_INTERVALS, smi,
+        model, kernels, "Thompson", paths["Thompson"], smi,
         fields=tuple(model.advect_names) + ("precipitation", "snowfall",
                                             "graupel", "u", "v", "w"))
 
@@ -1209,14 +1190,14 @@ def main():
     refs = {"upwind": tuple(upwind_ref), "MPDATA": tuple(mpdata_ref),
             "Thompson": tuple(thompson_ref)}
     sharded = {}
-    for label, case, shape in SHARD_DRIVES:
-        sharded[label] = sharded_drive(label, case, one_card_mesh(shape),
-                                       paths[label], refs[label], kernels,
-                                       smi, ideal_ridge_model)
+    for label, shape in SHARD_DRIVES:
+        sharded[label] = sharded_drive(label, cases[label],
+                                       one_card_mesh(shape), paths[label],
+                                       refs[label], kernels, smi)
     if torch.cuda.device_count() > 1:
-        mesh = make_mesh(THOMPSON_RIDGE["nx"], THOMPSON_RIDGE["ny"])
-        sharded_drive("Thompson", THOMPSON_RIDGE, mesh, paths["Thompson"],
-                      refs["Thompson"], kernels, smi, ideal_ridge_model)
+        mesh = make_mesh(RIDGE["nx"], RIDGE["ny"])
+        sharded_drive("Thompson", cases["Thompson"], mesh, paths["Thompson"],
+                      refs["Thompson"], kernels, smi)
     else:
         log("Thompson ridge with one shard per card: not run (1 CUDA device "
             "visible)")

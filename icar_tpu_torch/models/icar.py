@@ -22,7 +22,8 @@ from .. import constants as C
 from ..config import Options
 from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
-from ..core.state import advected_names, create_state
+from ..core.state import (ACCUMULATORS, advected_names, create_state,
+                          state_digest)
 from ..core.step import (path_halo, path_kernels, run_interval,
                          run_interval_sharded)
 from ..forcing.ideal import IdealCase
@@ -206,6 +207,15 @@ class ICARModel:
         """A field as a numpy array."""
         return self.global_field(name).detach().cpu().numpy()
 
+    def digest(self) -> Dict[str, List[float]]:
+        """``state_digest`` of the whole domain: the advected fields, u, v,
+        w and the accumulators the state holds. Equal for a sharded and an
+        unsharded run that agree bit for bit."""
+        names = list(self.advect_names) + ["u", "v", "w"]
+        held = self.state if self.mesh is None else self.blocks[0]
+        return state_digest({k: self.global_field(k) for k in names + [
+            a for a in ACCUMULATORS if a in held]}, names)
+
     def _global_state(self) -> Dict[str, torch.Tensor]:
         """The whole state as one dict on the model's device."""
         if self.mesh is None:
@@ -231,6 +241,15 @@ class ICARModel:
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
                                else a, dtype=torch.float32,
                                device=self.device)
+
+
+# bench.py's ridge case at full width (bench.py:47-51), and the options of
+# the three ported paths on it: SB04 + upwind, SB04 + MPDATA (order 2 with
+# FCT) and Thompson + MPDATA (bench.py --config mpdata_thompson)
+RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
+             u_speed=10.0, rh=0.95, flat_z_height=-5)
+RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
+               "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON)}
 
 
 def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,

@@ -27,11 +27,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import constants as C
-from .models.icar import ideal_ridge_model
+from .models.icar import RIDGE as FULL_RIDGE, ideal_ridge_model
 
-# bench.py's ridge case apart from its size (chip_smoke.py RIDGE)
-RIDGE = dict(dx=1000.0, hill_height=1000.0, u_speed=10.0, rh=0.95,
-             flat_z_height=-5)
+# bench.py's ridge case apart from its size
+RIDGE = {k: v for k, v in FULL_RIDGE.items() if k not in ("nx", "ny", "nz")}
 ADVECTION = {"upwind": C.ADV_UPWIND, "mpdata": C.ADV_MPDATA}
 MICROPHYSICS = {"simple": C.MP_SIMPLE, "thompson": C.MP_THOMPSON}
 

@@ -1,21 +1,19 @@
 """Throughput of the three ridge paths on the card, measured repeatedly.
 
-    python -m icar_tpu_torch.time_paths [--repeat 5] [--intervals 2]
-        [--paths upwind,mpdata,thompson] [--mesh 2x2 | --mesh cards]
+    python -m icar_tpu_torch.time_paths [--repeat 5] [--mesh cards]
 
-For each path (bench.py's ridge at 500x500x20: SB04 + upwind, SB04 +
-MPDATA, Thompson + MPDATA) it builds a fresh model, advances one 1200 s
-interval to warm up, then times ``--repeat`` runs of ``--intervals``
-intervals each, host clock around work that ends in
-``torch.cuda.synchronize()``, and prints one JSON line: for each path the
-grid-point substeps per second of every run over the natural grid, their
-median and the float64 digest of the final state (``state_digest``), and
-the card's name. With ``--mesh MYxMX`` the model is sharded over that many
-shards, all on cuda:0; with ``--mesh cards``, one shard per visible card
-(``make_mesh``). A sharded and an unsharded run of the same options end
-in the same digest. The same measurement as
-``chip_smoke.py``'s drives, repeated, so that two checkouts can be compared
-in one call on one card (run it from each checkout in turns).
+For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
+(``models.icar.RIDGE``: SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA)
+it builds a fresh model, advances one 1200 s interval to warm up, then
+times ``--repeat`` runs of two intervals each (``run_timed``) and prints
+one JSON line: for each path the grid-point substeps per second of every
+run over the natural grid, their median and the final state's float64
+digest (``ICARModel.digest``), and the card's name. With ``--mesh cards``
+the model is sharded with one shard per visible card (``make_mesh``); its
+digest equals the unsharded run's. ``chip_smoke.py`` drives the same cases
+through the same ``run_timed``; this module repeats the measurement so
+that two checkouts can be compared in one call on one card (run it from
+each checkout in turns).
 """
 
 from __future__ import annotations
@@ -27,62 +25,54 @@ import time
 
 import torch
 
-from . import constants as C
-from .models.icar import ideal_ridge_model
+from .models.icar import RIDGE, RIDGE_PATHS, ideal_ridge_model
 
-RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
-             u_speed=10.0, rh=0.95, flat_z_height=-5)
-PATHS = {"upwind": dict(), "mpdata": dict(adv=C.ADV_MPDATA),
-         "thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON)}
 INTERVAL = 1200.0
+INTERVALS = 2
 
 
-def time_path(case, repeat, intervals, mesh=None):
-    """(gp*steps/s of each of ``repeat`` runs of ``intervals`` intervals,
-    the final state's digest). ``mesh``: None, "cards" or "MYxMX"."""
-    from .core.state import ACCUMULATORS, state_digest
-    from .parallel.mesh import Mesh, make_mesh
+def run_timed(model, intervals=INTERVALS, interval=INTERVAL):
+    """Advance ``model`` over ``intervals`` intervals of ``interval``
+    seconds, host clock between two ``torch.cuda.synchronize()``: (the
+    substeps taken, the seconds)."""
+    torch.cuda.synchronize()
+    steps = 0
+    t0 = time.perf_counter()
+    for _ in range(intervals):
+        model.advance(interval)
+        steps += model.last_n_substeps
+    torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0
+
+
+def time_path(case, repeat, cards=False):
+    """(gp*steps/s of each of ``repeat`` runs of INTERVALS intervals, the
+    final state's digest); with ``cards``, one shard per visible card."""
+    from .parallel.mesh import make_mesh
     model = ideal_ridge_model(**RIDGE, **case, device="cuda")
-    if mesh == "cards":
+    if cards:
         model.attach_mesh(make_mesh(RIDGE["nx"], RIDGE["ny"]))
-    elif mesh is not None:
-        my, mx = (int(n) for n in mesh.split("x"))
-        model.attach_mesh(Mesh(["cuda:0"] * (my * mx), (my, mx)))
     model.advance(INTERVAL)
     gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
     rates = []
     for _ in range(repeat):
-        torch.cuda.synchronize()
-        steps = 0
-        t0 = time.perf_counter()
-        for _ in range(intervals):
-            model.advance(INTERVAL)
-            steps += model.last_n_substeps
-        torch.cuda.synchronize()
-        rates.append(gp * steps / (time.perf_counter() - t0))
-    names = list(model.advect_names) + ["u", "v", "w"]
-    held = model.state if model.mesh is None else model.blocks[0]
-    digest = state_digest({k: model.global_field(k).to("cuda:0")
-                           for k in names + [a for a in ACCUMULATORS
-                                             if a in held]}, names)
-    return rates, digest
+        steps, seconds = run_timed(model)
+        rates.append(gp * steps / seconds)
+    return rates, model.digest()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeat", type=int, default=5)
-    ap.add_argument("--intervals", type=int, default=2)
-    ap.add_argument("--paths", default="upwind,mpdata,thompson")
-    ap.add_argument("--mesh", default=None,
-                    help="MYxMX (shards on cuda:0, e.g. 2x2) or cards")
+    ap.add_argument("--mesh", choices=["cards"], default=None,
+                    help="cards: one shard per visible card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_paths: no CUDA device")
     out = {"device": torch.cuda.get_device_name(0),
            "cards": torch.cuda.device_count(), "mesh": args.mesh}
-    for name in args.paths.split(","):
-        rates, digest = time_path(PATHS[name], args.repeat, args.intervals,
-                                  args.mesh)
+    for name, case in RIDGE_PATHS.items():
+        rates, digest = time_path(case, args.repeat, args.mesh == "cards")
         out[name] = {"gp_steps_per_s": rates,
                      "median": statistics.median(rates), "digest": digest}
     print(json.dumps(out), flush=True)

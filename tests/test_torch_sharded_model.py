@@ -3,11 +3,12 @@ run_interval_sharded) on CPU devices.
 
 (a) Each ridge path -- SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA --
 sharded on a 2x2 and a 4x1 mesh against the same model unsharded: the same
-substep count and every field of the state bit for bit, over two intervals
-with a v flow across the shard boundaries and boundary forcing. (b) The
-port's sharded model against the JAX package's sharded model (4 of the 8
-virtual CPU devices), one case per path, at the JAX package's tolerance
-between its sharded and single-device models (tests/test_parallel.py
+substep count, every field of the state bit for bit and the same
+ICARModel.digest, over two intervals with a v flow across the shard
+boundaries and boundary forcing. (b) The port's sharded model against the
+JAX package's sharded model (4 of the 8 virtual CPU devices), one case per
+path, at the JAX package's tolerance between its sharded and single-device
+models (tests/test_parallel.py
 test_sharded_step_matches_single_device: rtol 2e-5, atol 1e-6,
 precipitation atol 1e-5). The cases keep off SB04's saturation revert edge,
 where the two packages part by design (PERF.md; tests/test_torch_model.py).
@@ -85,6 +86,7 @@ def test_sharded_model_is_bit_exact(path, my, mx):
     for k in sorted(one.state):
         np.testing.assert_array_equal(sharded.field(k), one.field(k),
                                       err_msg=k)
+    assert sharded.digest() == one.digest()
 
 
 def test_state_set_after_attach_mesh_is_scattered():
