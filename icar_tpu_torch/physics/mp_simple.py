@@ -44,6 +44,21 @@ def formation_rates(dt):
     return float(c2r), float(c2s)
 
 
+def _div(a, b):
+    """``a / b`` rounded as one IEEE division, as the kernel divides, where
+    one operand is a Python number. torch divides a tensor by a number on
+    the card as a product with the number's reciprocal, and a number by a
+    tensor on either device as the tensor's reciprocal times the number:
+    each an ulp off now and then, enough to change a cell's count of
+    saturation sweeps. The JAX package's results lie nearer this rounding
+    (tests/test_torch_mp_simple.py). The number becomes a tensor of the
+    other operand's dtype and device first."""
+    t = a if torch.is_tensor(a) else b
+    as_t = lambda v: v if torch.is_tensor(v) else torch.tensor(
+        v, dtype=t.dtype, device=t.device)
+    return as_t(a) / as_t(b)
+
+
 def sat_mr(temperature, pressure):
     """Saturated mixing ratio [kg/kg] over liquid above 0C, over ice below
     (sat_mr, mp_simple.f90:146-182; Lowe & Ficke 1974)."""
@@ -60,7 +75,8 @@ def saturation_sweeps(pressure, temperature, qv, qc):
     mp_simple.f90:198-280): each cell iterates until its own vapour change
     is below MAXERR, at most N_SAT_ITERS times. Returns (temperature, qv,
     qc, qvsat, niter), niter the sweeps each cell took."""
-    vapor2temp = (LH_VAPOR + (373.15 - temperature) * DLHVDT) / HEAT_CAPACITY
+    vapor2temp = _div(LH_VAPOR + (373.15 - temperature) * DLHVDT,
+                      HEAT_CAPACITY)
     t = temperature
     qvsat = torch.zeros_like(qv)
     lastqv = qv + 2 * MAXERR
@@ -135,7 +151,11 @@ def phase_change(temperature, q1, qmax, q2, lheat, change_rate):
     delta = torch.clamp(delta, min=0.0)
     q1n = torch.clamp(q1 - delta, min=0.0)
     q2n = q2 + delta
-    tn = temperature + delta * (lheat / HEAT_CAPACITY)
+    # a number (melting) is divided in double, as the JAX package's Python
+    # scalars are
+    heat = (_div(lheat, HEAT_CAPACITY) if torch.is_tensor(lheat)
+            else lheat / HEAT_CAPACITY)
+    tn = temperature + delta * heat
     return tn, q1n, q2n
 
 
@@ -212,10 +232,10 @@ def _sediment_species(q, qv, temperature, pressure, rho, dz, dt,
 
     Returns (q, qv, temperature, accumulated surface precipitation)."""
     dt = float(dt)
-    cfl = torch.ceil(torch.amax(dt / dz * fall_rate, dim=0))       # (ny, nx)
+    cfl = torch.ceil(torch.amax(_div(dt, dz) * fall_rate, dim=0))  # (ny, nx)
     n_max = int(torch.max(cfl))
-    fall_dist = dt * fall_rate / cfl                               # [m]
-    evap_rate = evap_rate_base / (2.0 * cfl)
+    fall_dist = _div(dt * fall_rate, cfl)                          # [m]
+    evap_rate = _div(evap_rate_base, 2.0 * cfl)
 
     precip = torch.zeros(q.shape[1:], dtype=q.dtype, device=q.device)
     for s in range(n_max):

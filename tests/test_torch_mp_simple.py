@@ -228,3 +228,81 @@ def test_saturation_sweeps_count_each_cells_iterations():
                                       torch.tensor(qv), torch.tensor(qc))
     assert int(niter.max()) == tmp.N_SAT_ITERS == int(niter[4, 2, 3])
     assert int(niter.min()) >= 1
+
+
+def _operator_division(a, b):
+    """The plain version's divisions before ``_div``: torch's own operator,
+    as it rounds them on the CPU (a number over a tensor as the tensor's
+    reciprocal times the number)."""
+    return a / b
+
+
+def _card_division(a, b):
+    """The same divisions as torch rounds them on the card: a tensor over a
+    number as a product with the number's float32 reciprocal, a number over
+    a tensor as the tensor's reciprocal times the number."""
+    if torch.is_tensor(a) and not torch.is_tensor(b):
+        return a * (torch.tensor(1.0, dtype=a.dtype)
+                    / torch.tensor(b, dtype=a.dtype))
+    if torch.is_tensor(b) and not torch.is_tensor(a):
+        return b.reciprocal() * a
+    return a / b
+
+
+def _values_off(got, want):
+    """How many output values differ in their bits."""
+    return sum(int((np.asarray(g).view(np.int32)
+                    != np.asarray(w).view(np.int32)).sum())
+               for g, w in zip(got, want))
+
+
+def test_div_rounds_as_the_jax_package_divides():
+    """``_div`` gives the JAX package's bits for a number over an array (the
+    CFL count, fall distance, evaporation rate) and for an array over a
+    number (vapor2temp, latent heating), where torch's operator and the
+    card's rounding do not."""
+    r = np.random.default_rng(0)
+    dz = r.uniform(40.0, 300.0, 50000).astype(np.float32)
+    heat = r.uniform(2e6, 3e6, 50000).astype(np.float32)
+    dt = float(np.float32(1200.0 / 23))
+    for a, b, want in ((dt, torch.tensor(dz), dt / jnp.asarray(dz)),
+                       (torch.tensor(heat), tmp.HEAT_CAPACITY,
+                        jnp.asarray(heat) / tmp.HEAT_CAPACITY)):
+        want = np.asarray(want)
+        assert _values_off([tmp._div(a, b).numpy()], [want]) == 0
+        assert _values_off([_card_division(a, b).numpy()], [want]) > 0
+    assert _values_off([(dt / torch.tensor(dz)).numpy()],
+                       [np.asarray(dt / jnp.asarray(dz))]) > 0
+
+
+@pytest.mark.parametrize("seed,regime", CASES)
+def test_plain_divisions_are_nearer_the_jax_package(seed, regime,
+                                                    monkeypatch):
+    """The whole scheme with ``_div`` against the same scheme with the
+    divisions torch rounds otherwise (on the CPU, and as on the card): on
+    the same seeded columns fewer of its output values differ from the JAX
+    package's jnp path, and fewer from its Pallas kernel in interpret
+    mode."""
+    *args, dz = _columns(seed, regime)
+    dt = np.float32(40.0)
+    c2r, c2s = tmp.formation_rates(dt)
+    jargs = [jnp.asarray(a) for a in args]
+    want_jnp = jmp.mp_simple(*jargs, dt, jnp.asarray(dz), use_pallas=False)
+    prev = pk.force_interpret(True)
+    try:
+        want_pallas = pk.mp_simple_tpu(*jargs, dt, jnp.asarray(dz),
+                                       np.float32(c2r), np.float32(c2s))
+    finally:
+        pk.force_interpret(prev)
+
+    def off(division):
+        monkeypatch.setattr(tmp, "_div", division)
+        got = [g.numpy() for g in tmp.mp_simple(
+            *[torch.tensor(a) for a in args], dt, torch.tensor(dz),
+            c2r, c2s)]
+        return _values_off(got, want_jnp), _values_off(got, want_pallas)
+
+    near = off(tmp._div)
+    for division in (_operator_division, _card_division):
+        far = off(division)
+        assert near[0] < far[0] and near[1] < far[1], (division, near, far)
