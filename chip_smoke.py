@@ -5,7 +5,11 @@
 
 Builds the CUDA kernels from icar_tpu_torch/csrc, then:
 1. checks K1 (upwind) and K2 (SB04) against their plain PyTorch versions on
-   the card at the ridge's 500x500x20 shapes;
+   the card at the ridge's 500x500x20 shapes (K2 on its initial state and
+   after one interval, and on seeded columns of 96 levels, K3 too); K2's
+   and K3's lines in the table add the share of column tiles that ran each
+   fall loop, the time on the initial state, the tile width and the
+   registers, stack and shared memory from the build log;
 2. runs the pinned golden ridge case (tests/golden/ideal_ridge_100.npz);
 3. drives the upwind ridge -- ideal_ridge_model(...).advance() at
    500x500x20 -- and checks that it went through K1 and K2 once per
@@ -71,8 +75,11 @@ MPDATA_VARIANTS = ((2, False), (3, True), (4, True))
 # K5 on random mixed-regime stacks of this shape at these dt
 THOMPSON_SMALL = (20, 96, 128)
 THOMPSON_DTS = (30.0, 90.0, 150.0)
-# and deeper than K2-K4 take, on a column count no tile size divides
+# and deeper than K4 takes, on a column count no tile size divides
 THOMPSON_DEEP = (80, 47, 101)
+# K2 and K3 on seeded columns (physics/mp_simple_cases.py) deeper than
+# K4's 64 levels: 8-column tiles, the last one ragged
+SB04_DEEP = (96, 50, 81)
 
 # the sharded drives of phase 8: (path, mesh shape), every shard on
 # cuda:0; and the meshes each per-shard wrapper is held on
@@ -268,10 +275,12 @@ REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
             "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107"}
 
 
-def check_kernels(model, kernels, step, adv_plain, mp_plain):
-    """K1 and K2 against their plain versions on the model's state."""
+def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
+                  deep_err):
+    """K1 and K2 against their plain versions on the model's state;
+    ``initial`` is K2's sb04_on_state result on the ridge's initial
+    state, ``deep_err`` its max abs err at SB04_DEEP levels."""
     import torch
-    from icar_tpu_torch import constants as C
     s = model.state
     g = model.geom_t
     names = model.advect_names
@@ -301,49 +310,141 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain):
     results.append(kernel_entry("advect_upwind", REPLACES["advect_upwind"],
                                 err1, ms1, pms1, advect_work(*stack.shape)))
 
-    # --- K2 on copies (it updates in place)
+    # --- K2 after one interval; its entry adds the initial state's figures
+    err2, ms2, pms2, shares, work2 = sb04_on_state(model, kernels, step,
+                                                   mp_plain, False)
+    results.append(sb04_entry("mp_simple", kernels, model,
+                              max(err2, initial[0], deep_err), ms2, pms2,
+                              work2, shares, initial))
+    return results
+
+
+def sb04_on_state(model, kernels, step, mp_plain, rho_operand,
+                  label="ridge state after one interval"):
+    """K2 (or K3 with the state's density, ``rho_operand``) against its
+    plain version on ``model``'s state at the path's dt, on copies (it
+    updates in place), both timed; then the share of column tiles that ran
+    each fall loop (kernels.mp_simple_fall_tiles). Returns (max abs err,
+    kernel ms, plain ms, {"rain": share, "snow": share}, work)."""
+    import torch
+    from icar_tpu_torch import constants as C
+    s, g = model.state, model.geom_t
+    names = model.advect_names
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
     idx = [names.index(k) for k in step.MP_SPECIES]
     p, ex, dz = s["pressure"], s["exner"], g.dz_interface
+    rho = s["density"] if rho_operand else None
     c2r, c2s = mp_plain.formation_rates(dt)
+    name, tag = (("mp_simple_rho", "K3") if rho_operand
+                 else ("mp_simple", "K2"))
     work = torch.empty_like(stack)
-    rain = torch.zeros_like(s["precipitation"])
-    snow = torch.zeros_like(rain)
+    acc0 = (s["precipitation"], s["snowfall"])
+    acc = [torch.empty_like(a) for a in acc0]
 
     def reset():
         work.copy_(stack)
-        rain.zero_()
-        snow.zero_()
+        for a, a0 in zip(acc, acc0):
+            a.copy_(a0)
 
-    def run_k2():
-        kernels.mp_simple(*(work[i] for i in idx), p, ex, dz, rain, snow,
-                          dt, c2r, c2s)
+    def run_k():
+        if rho_operand:
+            kernels.mp_simple_rho(*(work[i] for i in idx), p, ex, rho, dz,
+                                  *acc, dt, c2r, c2s)
+        else:
+            kernels.mp_simple(*(work[i] for i in idx), p, ex, dz, *acc, dt,
+                              c2r, c2s)
 
-    def run_p2():
+    def run_p():
         th = stack[idx[0]]
-        rho = p / (C.RD * (th * ex))
-        return mp_plain.mp_simple(p, th, ex, rho,
-                                  *(stack[i] for i in idx[1:]),
-                                  torch.zeros_like(rain),
-                                  torch.zeros_like(rain), dt, dz, c2r, c2s)
+        r = rho if rho_operand else p / (C.RD * (th * ex))
+        return mp_plain.mp_simple(p, th, ex, r, *(stack[i] for i in idx[1:]),
+                                  *acc0, dt, dz, c2r, c2s)
 
     reset()
-    run_k2()
+    run_k()
     torch.cuda.synchronize()
-    want = run_p2()
-    err2 = 0.0
-    for name, got, ref in zip(
+    want = run_p()
+    err = 0.0
+    for field, got, ref in zip(
             ("theta", "qv", "qc", "qr", "qs", "rain", "snow"),
-            [work[i] for i in idx] + [rain, snow], want):
-        err2 = max(err2, assert_close(got, ref, K2_RTOL, K2_ATOL,
-                                      f"mp_simple kernel vs plain: {name}"))
-    ms2, pms2 = cuda_ms(run_k2, setup=reset), cuda_ms(run_p2)
-    log(f"K2 mp_simple: max_abs_err {err2:.3e} (rtol {K2_RTOL}, atol "
-        f"{K2_ATOL}); kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
-    results.append(kernel_entry(
-        "mp_simple", REPLACES["mp_simple"], err2, ms2, pms2,
-        sb04_work(mp_plain, *(stack[i] for i in idx), p, ex, dz, dt,
-                  False)))
-    return results
+            [work[i] for i in idx] + acc, want):
+        err = max(err, assert_close(got, ref, K2_RTOL, K2_ATOL,
+                                    f"{name} kernel vs plain ({label}): "
+                                    f"{field}"))
+    ms, pms = cuda_ms(run_k, setup=reset), cuda_ms(run_p)
+    reset()
+    n_r, n_s, n = kernels.mp_simple_fall_tiles(
+        *(work[i] for i in idx), p, ex, dz, *acc, dt, c2r, c2s, rho=rho)
+    shares = {"rain": n_r / n, "snow": n_s / n}
+    log(f"{tag} {name} on the {label}: max_abs_err {err:.3e} (rtol "
+        f"{K2_RTOL}, atol {K2_ATOL}); fall loops ran in {n_r} (rain) and "
+        f"{n_s} (snow) of {n} tiles ({100 * shares['rain']:.2f}%, "
+        f"{100 * shares['snow']:.2f}%); kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms")
+    return err, ms, pms, shares, sb04_work(
+        mp_plain, *(stack[i] for i in idx), p, ex, dz, dt, rho_operand)
+
+
+def check_sb04_deep(kernels, mp_plain, dev):
+    """K2 and K3 against their plain version on seeded columns of
+    SB04_DEEP (deeper than K4's 64 levels, narrower tiles, a
+    ragged last tile); returns (K2's max abs err, K3's)."""
+    import torch
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.physics.mp_simple_cases import ridge_columns
+    nz, ny, nx = SB04_DEEP
+    dt = np.float32(1200.0 / 23)
+    c2r, c2s = mp_plain.formation_rates(dt)
+    p, th, ex, rho, qv, qc, qr, qs, rain, snow, dz = (
+        torch.tensor(a, device=dev) for a in ridge_columns(8, nz, ny, nx))
+    cols = kernels.library().icar_mp_simple_tile_columns(nz)
+    errs = []
+    for name in ("mp_simple", "mp_simple_rho"):
+        r = rho if name == "mp_simple_rho" else p / (C.RD * (th * ex))
+        want = mp_plain.mp_simple(p, th, ex, r, qv, qc, qr, qs, rain, snow,
+                                  dt, dz, c2r, c2s)
+        got = [t.clone() for t in (th, qv, qc, qr, qs, rain, snow)]
+        if name == "mp_simple":
+            kernels.mp_simple(*got[:5], p, ex, dz, *got[5:], dt, c2r, c2s)
+        else:
+            kernels.mp_simple_rho(*got[:5], p, ex, rho, dz, *got[5:], dt,
+                                  c2r, c2s)
+        torch.cuda.synchronize()
+        errs.append(max(assert_close(
+            g, w, K2_RTOL, K2_ATOL, f"{name} kernel vs plain (seeded "
+            f"columns {SB04_DEEP}, {cols}-column tiles): {field}")
+            for field, g, w in zip(("theta", "qv", "qc", "qr", "qs", "rain",
+                                    "snow"), got, want)))
+    log(f"K2/K3 at {nz} levels: max_abs_err {errs[0]:.3e} / {errs[1]:.3e}")
+    return errs
+
+
+def sb04_entry(name, kernels, model, err, ms, pms, work, shares,
+               initial=None):
+    """The kernel-table entry of K2 or K3 with its fall-tile shares, tile,
+    shared memory and ptxas figures; ``initial`` is K2's sb04_on_state
+    result on the ridge's initial state."""
+    lib = kernels.library()
+    nz = model.state["pressure"].shape[0]
+    entry = kernel_entry(name, REPLACES[name], err, ms, pms, work)
+    entry["fall_tile_share"] = {"after_one_interval": shares}
+    if initial is not None:
+        entry.update(ms_initial_state=initial[1],
+                     plain_ms_initial_state=initial[2],
+                     bound_ms_initial_state=bound(*initial[4])[0])
+        entry["fall_tile_share"]["initial_state"] = initial[3]
+    figures = ptxas_figures(kernels.BUILD_INFO["log"], "mp_simple")
+    variant = "ILb1E" if name == "mp_simple_rho" else "ILb0E"
+    entry.update(tile_columns=lib.icar_mp_simple_tile_columns(nz),
+                 dynamic_smem_bytes=lib.icar_mp_simple_smem_bytes(nz),
+                 ptxas={k: v for k, v in figures.items() if variant in k})
+    log(f"  {name} build: {json.dumps(entry['ptxas'])}; "
+        f"{entry['dynamic_smem_bytes']} B of dynamic shared memory per "
+        f"{entry['tile_columns']}-column tile")
+    return entry
 
 
 def random_mpdata_case(dev):
@@ -368,10 +469,12 @@ def random_mpdata_case(dev):
     return q, u, v, w, geom, f([-np.inf, 0.0, 0.0, 0.0, 0.5])
 
 
-def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
+def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain,
+                         deep_err):
     """K4 (at the path's order 2 with FCT, and at other orders on a smaller
     random stack) and K3 (with the state's density) against their plain
-    versions on the MPDATA model's state."""
+    versions on the MPDATA model's state; ``deep_err`` is K3's max abs err
+    at SB04_DEEP levels."""
     import torch
     s = model.state
     g = model.geom_t
@@ -422,47 +525,11 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain):
         "advect_mpdata", REPLACES["advect_mpdata"], err4, ms4, pms4,
         advect_work(*stack.shape, order, fct)))
 
-    # --- K3 on copies (it updates in place), with the state's density
-    idx = [names.index(k) for k in step.MP_SPECIES]
-    p, ex, rho, dzm = s["pressure"], s["exner"], s["density"], g.dz_interface
-    c2r, c2s = mp_plain.formation_rates(dt)
-    work = torch.empty_like(stack)
-    rain = torch.empty_like(s["precipitation"])
-    snow = torch.empty_like(rain)
-
-    def reset():
-        work.copy_(stack)
-        rain.copy_(s["precipitation"])
-        snow.copy_(s["snowfall"])
-
-    def run_k3():
-        kernels.mp_simple_rho(*(work[i] for i in idx), p, ex, rho, dzm, rain,
-                              snow, dt, c2r, c2s)
-
-    def run_p3():
-        return mp_plain.mp_simple(p, stack[idx[0]], ex, rho,
-                                  *(stack[i] for i in idx[1:]),
-                                  s["precipitation"], s["snowfall"], dt, dzm,
-                                  c2r, c2s)
-
-    reset()
-    run_k3()
-    torch.cuda.synchronize()
-    want = run_p3()
-    err3 = 0.0
-    for name, got, ref in zip(
-            ("theta", "qv", "qc", "qr", "qs", "rain", "snow"),
-            [work[i] for i in idx] + [rain, snow], want):
-        err3 = max(err3, assert_close(got, ref, K2_RTOL, K2_ATOL,
-                                      f"mp_simple_rho kernel vs plain: "
-                                      f"{name}"))
-    ms3, pms3 = cuda_ms(run_k3, setup=reset), cuda_ms(run_p3)
-    log(f"K3 mp_simple_rho: max_abs_err {err3:.3e} (rtol {K2_RTOL}, atol "
-        f"{K2_ATOL}); kernel {ms3:.4f} ms, plain {pms3:.4f} ms")
-    results.append(kernel_entry(
-        "mp_simple_rho", REPLACES["mp_simple_rho"], err3, ms3, pms3,
-        sb04_work(mp_plain, *(stack[i] for i in idx), p, ex, dzm, dt,
-                  True)))
+    # --- K3 with the state's density
+    err3, ms3, pms3, shares, work3 = sb04_on_state(model, kernels, step,
+                                                   mp_plain, True)
+    results.append(sb04_entry("mp_simple_rho", kernels, model,
+                              max(err3, deep_err), ms3, pms3, work3, shares))
     return results
 
 
@@ -572,7 +639,8 @@ def ptxas_figures(log_text, marker):
             continue
         if name is None or marker not in name:
             continue
-        short = re.search(marker + r"_[a-z]+_kernel", name)
+        short = re.search(marker + r"(?:_[a-z]+)?_kernel(?:ILb[01]E)?",
+                          name)
         fig = out.setdefault(short.group(0) if short else name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1119,14 +1187,20 @@ def main():
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO['path']})")
     log(kernels.BUILD_INFO["log"].strip())
 
-    # 1. K1 and K2 against their plain versions on a real 500x500x20 state
+    # 1. K1 and K2 against their plain versions on a real 500x500x20 state;
+    # K2 first on the initial state (no cloud or rain: every tile should
+    # skip the fall loops), then at SB04_DEEP levels
     t0 = time.perf_counter()
     warm = ideal_ridge_model(**cases["upwind"], device="cuda")
+    k2_initial = sb04_on_state(warm, kernels, step, mp_plain, False,
+                               "ridge's initial state")
     warm.advance(INTERVAL)
     torch.cuda.synchronize()
     log(f"setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
-    table = check_kernels(warm, kernels, step, adv_plain, mp_plain)
+    deep_errs = check_sb04_deep(kernels, mp_plain, warm.state["u"].device)
+    table = check_kernels(warm, kernels, step, adv_plain, mp_plain,
+                          k2_initial, deep_errs[0])
     check_shard_upwind(warm, kernels, step, sk, mp_plain)
     del warm
 
@@ -1150,7 +1224,7 @@ def main():
     log(f"MPDATA setup + first interval at 500x500x20: "
         f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
     table += check_mpdata_kernels(warm, kernels, step, mpdata_plain,
-                                  mp_plain)
+                                  mp_plain, deep_errs[1])
     padded = check_shard_mpdata_path(warm, kernels, step, sk, mp_plain,
                                      thompson_plain, mpdata_plain, entry=True)
     del warm

@@ -43,12 +43,12 @@ HEADERS = ("upwind.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the most levels each kernel takes: the MAX_NZ of csrc/mp_simple.cu (K2,
-# K3) and csrc/mpdata.cu (K4), and for K5 the deepest column whose
-# one-column tile fits a block's shared memory (icar_mp_thompson_max_nz);
+# the most levels each kernel takes: the MAX_NZ of csrc/mpdata.cu (K4),
+# and for K2/K3 and K5 the deepest column whose one-column tile fits a
+# block's shared memory (icar_mp_simple_max_nz, icar_mp_thompson_max_nz);
 # K1 has no limit. Kept here so that a model can be refused before the
 # library is built; the CPU tests hold these to the sources.
-MAX_NZ = {"advect_upwind": None, "mp_simple": 64, "mp_simple_rho": 64,
+MAX_NZ = {"advect_upwind": None, "mp_simple": 5810, "mp_simple_rho": 5810,
           "advect_mpdata": 64, "mp_thompson": 1565}
 
 # calls that launched a kernel since the last reset (K4's and K5's calls
@@ -160,6 +160,13 @@ def library() -> ctypes.CDLL:
         lib.icar_mpdata_div.restype = I
         lib.icar_mp_simple_max_nz.argtypes = []
         lib.icar_mp_simple_max_nz.restype = I
+        lib.icar_mp_simple_tile_columns.argtypes = [I]
+        lib.icar_mp_simple_tile_columns.restype = I
+        lib.icar_mp_simple_smem_bytes.argtypes = [I]
+        lib.icar_mp_simple_smem_bytes.restype = L
+        lib.icar_mp_simple_fall_tiles.argtypes = [P] * 12 + [I, L, F, F, F,
+                                                              P]
+        lib.icar_mp_simple_fall_tiles.restype = I
         lib.icar_mp_thompson.argtypes = [P] * 18 + [I, L, F, P]
         lib.icar_mp_thompson.restype = I
         lib.icar_mp_thompson_max_nz.argtypes = []
@@ -316,15 +323,33 @@ def _mp_plain(theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain, snow,
         dst.copy_(src)
 
 
+def mp_simple_fall_tiles(theta, qv, qc, qr, qs, pressure, exner, dz, rain,
+                         snow, dt, cloud2rain, cloud2snow, rho=None):
+    """``mp_simple`` (``rho`` None) or ``mp_simple_rho`` on CUDA tensors,
+    counting the column tiles that ran each fall loop: returns (tiles that
+    ran the rain loop, the snow loop, all tiles). A measurement, not a
+    step of any path: its launch is not counted in ``LAUNCHES``."""
+    counts = torch.zeros(2, dtype=torch.int32, device=theta.device)
+    _mp_kernel("mp_simple" if rho is None else "mp_simple_rho", theta, qv,
+               qc, qr, qs, pressure, exner, rho, dz, rain, snow, dt,
+               cloud2rain, cloud2snow, counts)
+    nz, ny, nx = theta.shape
+    cols = library().icar_mp_simple_tile_columns(nz)
+    rain_tiles, snow_tiles = counts.tolist()
+    return rain_tiles, snow_tiles, -(-(ny * nx) // cols)
+
+
 def _mp_kernel(name, theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
-               snow, dt, cloud2rain, cloud2snow):
-    """Launch K2 (``rho`` None) or K3 on CUDA tensors."""
+               snow, dt, cloud2rain, cloud2snow, fall_tiles=None):
+    """Launch K2 (``rho`` None) or K3 on CUDA tensors; with ``fall_tiles``
+    (two int32 zeros on the card) count the tiles that ran each fall loop
+    there instead of counting the launch."""
     nz, ny, nx = theta.shape
     if theta.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {theta.device}")
     dev = theta.device
     lib = library()
-    if nz > lib.icar_mp_simple_max_nz():
+    if lib.icar_mp_simple_tile_columns(nz) == 0:
         raise ValueError(f"{name}: nz={nz} exceeds the kernel's "
                          f"maximum {lib.icar_mp_simple_max_nz()}")
     fields = [("theta", theta), ("qv", qv), ("qc", qc), ("qr", qr),
@@ -341,6 +366,12 @@ def _mp_kernel(name, theta, qv, qc, qr, qs, pressure, exner, rho, dz, rain,
                qs.data_ptr(), pressure.data_ptr(), exner.data_ptr())
     rest = (rain.data_ptr(), snow.data_ptr(), nz, ny * nx, float(dt),
             float(cloud2rain), float(cloud2snow), stream)
+    if fall_tiles is not None:
+        err = lib.icar_mp_simple_fall_tiles(
+            *species, None if rho is None else rho.data_ptr(), dz.data_ptr(),
+            *rest[:2], fall_tiles.data_ptr(), *rest[2:])
+        _raise_on(err, name)
+        return
     if rho is None:
         err = lib.icar_mp_simple(*species, dz.data_ptr(), *rest)
     else:

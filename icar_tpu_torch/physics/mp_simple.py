@@ -6,7 +6,8 @@ conversion of cloud to rain/snow, explicit sedimentation at fixed fall
 speeds with CFL substepping, and evaporation/sublimation of falling
 precipitation. Every branch is a masked ``torch.where`` over the whole
 (z, y, x) grid, in the JAX package's operation order. The CUDA kernel
-(``csrc/mp_simple.cu``) runs the same scheme one column per thread.
+(``csrc/mp_simple.cu``) runs the same scheme on tiles of columns, the cells
+spread over a block's threads.
 """
 
 from __future__ import annotations

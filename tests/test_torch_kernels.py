@@ -191,6 +191,58 @@ def test_mp_rho_kernel_matches_plain(ridge_state):
                                    rtol=1e-5, atol=1e-8, err_msg=name)
 
 
+def _mp_kernel_matches_plain(state, dt, rho_operand):
+    """K2 (or K3 with the state's density) on ``state`` (a list in the order
+    of mp_simple_cases.FIELDS) against the plain version, K2's
+    tolerance."""
+    p, th, ex, rho, qv, qc, qr, qs, rain, snow, dz = (
+        torch.tensor(a, device="cuda") for a in state)
+    c2r, c2s = mp_plain.formation_rates(dt)
+    if not rho_operand:
+        rho = p / (C.RD * (th * ex))
+    want = mp_plain.mp_simple(p, th, ex, rho, qv, qc, qr, qs, rain, snow, dt,
+                              dz, c2r, c2s)
+    work = [t.clone() for t in (th, qv, qc, qr, qs, rain, snow)]
+    kernels.reset_launches()
+    if rho_operand:
+        kernels.mp_simple_rho(*work[:5], p, ex, rho, dz, *work[5:], dt, c2r,
+                              c2s)
+    else:
+        kernels.mp_simple(*work[:5], p, ex, dz, *work[5:], dt, c2r, c2s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mp_simple_rho" if rho_operand
+                            else "mp_simple"] == 1
+    for name, got, ref in zip(NAMES + ("rain", "snow"), work, want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rho_operand", [False, True])
+def test_mp_kernel_at_max_nz(cuda, rho_operand):
+    """K2 and K3 take more levels than K4 since their tiled redesign: at 96
+    levels (8-column tiles, a ragged last tile) and at their own limit
+    (one-column tiles that fill a block's shared memory) they match the
+    plain version; one level more raises, and a card model on the MPDATA
+    path is still refused for K4."""
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    from icar_tpu_torch.physics.mp_simple_cases import ridge_columns
+    _mp_kernel_matches_plain(ridge_columns(5, 96, 3, 9), np.float32(40.0),
+                             rho_operand)
+    nz = kernels.library().icar_mp_simple_max_nz()
+    assert nz == kernels.MAX_NZ["mp_simple"] > 64
+    assert kernels.library().icar_mp_simple_tile_columns(nz) == 1
+    _mp_kernel_matches_plain(ridge_columns(5, nz, 1, 3, depth=12000.0),
+                             np.float32(1.0), rho_operand)
+    big = [torch.tensor(a, device=cuda)
+           for a in ridge_columns(5, nz + 1, 1, 2, depth=12000.0)]
+    with pytest.raises(ValueError, match="exceeds"):
+        kernels.mp_simple(big[1], *big[4:8], big[0], big[2], big[10],
+                          *big[8:10], 1.0, 0.9, 0.99)
+    with pytest.raises(ValueError, match="advect_mpdata"):
+        ideal_ridge_model(nx=20, ny=8, nz=65, adv=C.ADV_MPDATA, device=cuda)
+
+
 @pytest.mark.gpu
 def test_mpdata_path_launches_each_kernel_per_substep(cuda):
     from icar_tpu_torch.models.icar import ideal_ridge_model

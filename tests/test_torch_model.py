@@ -153,39 +153,71 @@ def test_device_is_required():
                   np.zeros((8, 20)))
 
 
+# each path and the kernel of it that takes the fewest levels
+# (kernels.MAX_NZ: 64 for K4, the most a one-column tile of K2/K3 holds)
 PATHS = [(C.MP_SIMPLE, C.ADV_UPWIND, "mp_simple"),
-         (C.MP_SIMPLE, C.ADV_MPDATA, "mp_simple_rho"),
+         (C.MP_SIMPLE, C.ADV_MPDATA, "advect_mpdata"),
          (C.MP_THOMPSON, C.ADV_MPDATA, "advect_mpdata")]
 
 
 @pytest.mark.parametrize("mp,adv,kernel", PATHS)
 def test_card_model_deeper_than_its_kernels_is_refused(mp, adv, kernel):
-    """On the card, nz = 65 is refused at construction with a ValueError
-    naming the first kernel of the path that takes only 64 levels (K5
-    alone would take it), before the no-card check; on the CPU the same
-    model builds."""
-    with pytest.raises(ValueError, match=f"nz=65 exceeds the 64 levels "
-                                         f"kernel {kernel} takes"):
-        ideal_ridge_model(nx=20, ny=8, nz=65, mp=mp, adv=adv, device="cuda")
+    """On the card, one level more than the path's shallowest kernel takes
+    is refused at construction with a ValueError naming that kernel,
+    before the no-card check and before any state is built; on the CPU a
+    model deeper than 64 levels builds."""
+    from icar_tpu_torch.ops import kernels
+    top = kernels.MAX_NZ[kernel]
+    with pytest.raises(ValueError, match=f"nz={top + 1} exceeds the {top} "
+                                         f"levels kernel {kernel} takes"):
+        ideal_ridge_model(nx=20, ny=8, nz=top + 1, mp=mp, adv=adv,
+                          device="cuda")
     m = ideal_ridge_model(nx=20, ny=8, nz=65, mp=mp, adv=adv, device="cpu")
     assert m.state["pressure"].shape == (65, 8, 20)
 
 
 @pytest.mark.parametrize("mp,adv,kernel", PATHS)
 def test_card_model_at_64_levels_passes_the_level_check(mp, adv, kernel):
-    """nz = 64 passes every kernel's limit on each path; without a card
-    the model then stops at the no-card check."""
+    """nz = 64, and the limit of the path's shallowest kernel, pass every
+    kernel's limit on each path, one level more raises naming that kernel;
+    without a card the model then stops at the no-card check."""
     from icar_tpu_torch.core.step import path_kernels
     from icar_tpu_torch.ops import kernels
     m = ideal_ridge_model(nx=20, ny=8, nz=64, mp=mp, adv=adv, device="cpu")
     path = path_kernels(m.options)
     assert kernel in path
+    top = kernels.MAX_NZ[kernel]
+    assert top == min(kernels.MAX_NZ[k] for k in path
+                      if kernels.MAX_NZ[k] is not None)
     kernels.check_levels(path, 64)
+    kernels.check_levels(path, top)
     with pytest.raises(ValueError, match=kernel):
-        kernels.check_levels(path, 65)
+        kernels.check_levels(path, top + 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ideal_ridge_model(nx=20, ny=8, nz=64, mp=mp, adv=adv)
+
+
+@pytest.mark.parametrize("mp,adv,kernel", PATHS)
+def test_card_model_at_80_levels_needs_the_upwind_path(mp, adv, kernel):
+    """K2 takes more than 64 levels since its tiled redesign: a card-path
+    upwind model at nz = 80 passes the level check (without a card it then
+    stops at the no-card check), and the MPDATA paths still refuse it,
+    naming K4."""
+    from icar_tpu_torch.core.step import path_kernels
+    from icar_tpu_torch.ops import kernels
+    m = ideal_ridge_model(nx=20, ny=8, nz=80, mp=mp, adv=adv, device="cpu")
+    path = path_kernels(m.options)
+    if adv == C.ADV_UPWIND:
+        kernels.check_levels(path, 80)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                ideal_ridge_model(nx=20, ny=8, nz=80, mp=mp, adv=adv)
+    else:
+        with pytest.raises(ValueError, match="nz=80 exceeds the 64 levels "
+                                             "kernel advect_mpdata takes"):
+            ideal_ridge_model(nx=20, ny=8, nz=80, mp=mp, adv=adv,
+                              device="cuda")
 
 
 # ---------------------------------------------------------------------------

@@ -614,23 +614,28 @@ def test_kernel_source_at_80_levels_on_a_ragged_tile_grid(cpu_builds, ny,
                      0.015, "kernel source, nz 80")
 
 
-def test_kernel_level_limits_follow_the_sources(cpu_builds):
+def test_kernel_level_limits_follow_the_sources(cpu_builds, tmp_path):
     """ops/kernels.MAX_NZ, which a model on the card is checked against
     before it is built, equals each source's limit: the MAX_NZ of
-    mp_simple.cu (K2, K3) and mpdata.cu (K4) read from the text, and K5's
-    from its CPU build, where the tile shrinks with depth down to one
-    column and stops there."""
+    mpdata.cu (K4) read from the text, and K2/K3's and K5's from their CPU
+    builds, where the tile shrinks with depth down to one column and stops
+    there."""
     import re
     from icar_tpu_torch.ops import kernels
+    from tests.test_torch_mp_simple_kernel import build_cpu_kernel
     csrc = os.path.join(REPO, "icar_tpu_torch", "csrc")
-    for src, names in (("mp_simple.cu", ("mp_simple", "mp_simple_rho")),
-                       ("mpdata.cu", ("advect_mpdata",))):
-        text = open(os.path.join(csrc, src)).read()
-        limits = re.findall(r"^(?:#define MAX_NZ|constexpr int MAX_NZ =)"
-                            r"\s+(\d+)", text, re.M)
-        assert len(limits) == 1, src
-        for name in names:
-            assert kernels.MAX_NZ[name] == int(limits[0]), name
+    text = open(os.path.join(csrc, "mpdata.cu")).read()
+    limits = re.findall(r"^(?:#define MAX_NZ|constexpr int MAX_NZ =)"
+                        r"\s+(\d+)", text, re.M)
+    assert len(limits) == 1
+    assert kernels.MAX_NZ["advect_mpdata"] == int(limits[0])
+    k2 = build_cpu_kernel(tmp_path)
+    top = k2.icar_mp_simple_max_nz()
+    assert kernels.MAX_NZ["mp_simple"] == kernels.MAX_NZ["mp_simple_rho"] \
+        == top > 64
+    assert k2.icar_mp_simple_tile_columns(20) == 32
+    assert k2.icar_mp_simple_tile_columns(top) == 1
+    assert k2.icar_mp_simple_tile_columns(top + 1) == 0
     so = cpu_builds["skip"]
     top = so.icar_mp_thompson_max_nz()
     assert kernels.MAX_NZ["mp_thompson"] == top

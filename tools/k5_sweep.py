@@ -31,7 +31,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402  (the ridge configuration, timing, ptxas)
+import chip_smoke  # noqa: E402  (timing, ptxas figures)
 
 
 def build_all(builds, kernels, out_dir):
@@ -71,9 +71,11 @@ def main():
     import numpy as np
     import torch
     from icar_tpu_torch.core import step
-    from icar_tpu_torch.models.icar import ideal_ridge_model
+    from icar_tpu_torch.models.icar import (RIDGE, RIDGE_PATHS,
+                                            ideal_ridge_model)
     from icar_tpu_torch.ops import kernels
     from icar_tpu_torch.physics import mp_thompson as tp
+    from icar_tpu_torch.time_paths import INTERVAL, INTERVALS
 
     src = os.path.join(ROOT, "icar_tpu_torch", "csrc", "mp_thompson.cu")
     builds = [("package", src, [], False)]
@@ -108,13 +110,14 @@ def main():
                                                        "mp_thompson")}),
                   flush=True)
 
-    model = ideal_ridge_model(**chip_smoke.THOMPSON_RIDGE, device="cuda")
+    model = ideal_ridge_model(**RIDGE, **RIDGE_PATHS["Thompson"],
+                              device="cuda")
     params = step.thompson_params(model.options)
     dev = model.state["pressure"].device
     tabs = tp.device_tables(params, dev)
     states = [("initial", {k: v.clone() for k, v in model.state.items()})]
-    for _ in range(chip_smoke.RIDGE_INTERVALS):
-        model.advance(chip_smoke.RIDGE_INTERVAL)
+    for _ in range(INTERVALS):
+        model.advance(INTERVAL)
     states.append(("after two intervals", model.state))
 
     g = model.geom_t
