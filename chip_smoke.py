@@ -77,8 +77,8 @@ THOMPSON_SMALL = (20, 96, 128)
 THOMPSON_DTS = (30.0, 90.0, 150.0)
 # and deeper than K4 takes, on a column count no tile size divides
 THOMPSON_DEEP = (80, 47, 101)
-# K2 and K3 on seeded columns (physics/mp_simple_cases.py) deeper than
-# K4's 64 levels: 8-column tiles, the last one ragged
+# K2 and K3 on seeded columns (ridge_columns) deeper than K4's 64 levels:
+# 8-column tiles, the last one ragged
 SB04_DEEP = (96, 50, 81)
 
 # the sharded drives of phase 8: (path, mesh shape), every shard on
@@ -388,13 +388,59 @@ def sb04_on_state(model, kernels, step, mp_plain, rho_operand,
         mp_plain, *(stack[i] for i in idx), p, ex, dz, dt, rho_operand)
 
 
+def ridge_columns(seed, nz=20, ny=5, nx=40, wet=None, t_sfc=288.0,
+                  depth=None):
+    """Seeded SB04 columns like the ridge's after some cloud has formed,
+    made with numpy so that the same inputs reach the plain version, the
+    kernel on the card and its source built for the CPU (the tests import
+    this): float32 arrays (p, theta, exner, rho, qv, qc, qr, qs, rain,
+    snow, dz), the fields (z, y, x) and the accumulators (y, x). Layers
+    41-50 m thick at the ground, thickening upward to six times that (so
+    rain takes 11-13 substeps of 1200/23 s, snow 2), about 2.3 km at 20
+    levels; with ``depth`` the layers are scaled to that total depth [m]. ``wet`` (ny*nx,) bool marks the columns
+    that may hold cloud, rain and snow (by default three columns in five);
+    the others are subsaturated and free of every hydrometeor. ``t_sfc`` is
+    the ground's temperature (lapse rate 6.5 K/km)."""
+    r = np.random.default_rng(seed)
+    shape = (nz, ny, nx)
+    if wet is None:
+        wet = np.arange(ny * nx) % 5 < 3
+    wet = np.asarray(wet).reshape(1, ny, nx)
+    dz = r.uniform(41.0, 50.0, (1, ny, nx)) * (
+        1.0 + 2.4 / nz * np.arange(nz))[:, None, None] ** 1.5
+    if depth is not None:
+        dz = dz * (depth / dz.sum(axis=0, keepdims=True))
+    z = np.cumsum(dz, axis=0) - 0.5 * dz
+    p = 100000.0 * np.exp(-z / 8000.0)
+    t = t_sfc - 0.0065 * z + r.uniform(-1.5, 1.5, shape)
+    es = 610.78 * np.exp(17.27 * (t - 273.16) / (t - 35.86))
+    qvs = 0.622 * es / (p - es)
+    rh = np.where(wet, r.choice([0.8, 0.95, 1.0, 1.02, 1.1], size=shape),
+                  r.uniform(0.4, 0.9, shape))
+    qv = qvs * rh
+
+    def hydro(frac, top):
+        return np.where(wet & (r.uniform(size=shape) < frac),
+                        r.uniform(0, top, shape), 0.0)
+
+    qc = hydro(0.5, 1e-3)
+    qr = hydro(0.4, 5e-4) * (r.uniform(size=(1, ny, nx)) < 0.7)
+    qs = hydro(0.4, 3e-4) * (t < 275.0)
+    exner = (p / 100000.0) ** 0.2857
+    theta = t / exner
+    rho = p / (287.058 * t)
+    rain = r.uniform(0, 3, shape[1:])
+    snow = r.uniform(0, 1, shape[1:])
+    return [np.ascontiguousarray(a, np.float32) for a in
+            (p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz)]
+
+
 def check_sb04_deep(kernels, mp_plain, dev):
     """K2 and K3 against their plain version on seeded columns of
     SB04_DEEP (deeper than K4's 64 levels, narrower tiles, a
     ragged last tile); returns (K2's max abs err, K3's)."""
     import torch
     from icar_tpu_torch import constants as C
-    from icar_tpu_torch.physics.mp_simple_cases import ridge_columns
     nz, ny, nx = SB04_DEEP
     dt = np.float32(1200.0 / 23)
     c2r, c2s = mp_plain.formation_rates(dt)

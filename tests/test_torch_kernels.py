@@ -193,7 +193,7 @@ def test_mp_rho_kernel_matches_plain(ridge_state):
 
 def _mp_kernel_matches_plain(state, dt, rho_operand):
     """K2 (or K3 with the state's density) on ``state`` (a list in the order
-    of mp_simple_cases.FIELDS) against the plain version, K2's
+    of chip_smoke.ridge_columns) against the plain version, K2's
     tolerance."""
     p, th, ex, rho, qv, qc, qr, qs, rain, snow, dz = (
         torch.tensor(a, device="cuda") for a in state)
@@ -226,7 +226,7 @@ def test_mp_kernel_at_max_nz(cuda, rho_operand):
     plain version; one level more raises, and a card model on the MPDATA
     path is still refused for K4."""
     from icar_tpu_torch.models.icar import ideal_ridge_model
-    from icar_tpu_torch.physics.mp_simple_cases import ridge_columns
+    from chip_smoke import ridge_columns
     _mp_kernel_matches_plain(ridge_columns(5, 96, 3, 9), np.float32(40.0),
                              rho_operand)
     nz = kernels.library().icar_mp_simple_max_nz()

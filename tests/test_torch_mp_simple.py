@@ -11,6 +11,7 @@ supersaturated cells, subsaturated cells with cloud, cells that trip the
 dry layers.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -258,21 +259,24 @@ def _values_off(got, want):
 
 def test_div_rounds_as_the_jax_package_divides():
     """``_div`` gives the JAX package's bits for a number over an array (the
-    CFL count, fall distance, evaporation rate) and for an array over a
-    number (vapor2temp, latent heating), where torch's operator and the
-    card's rounding do not."""
+    CFL count, fall distance, evaporation rate), run op by op or under jit,
+    and for an array over a number (vapor2temp, latent heating) run op by
+    op, where the card's rounding does not, nor torch's operator on the CPU
+    for a number over an array. (Under jit XLA folds an array over a
+    constant into a product with its float32 reciprocal, as torch does on
+    the card; the kernel divides.)"""
     r = np.random.default_rng(0)
     dz = r.uniform(40.0, 300.0, 50000).astype(np.float32)
     heat = r.uniform(2e6, 3e6, 50000).astype(np.float32)
     dt = float(np.float32(1200.0 / 23))
-    for a, b, want in ((dt, torch.tensor(dz), dt / jnp.asarray(dz)),
+    over_dz = np.asarray(dt / jnp.asarray(dz))
+    assert np.array_equal(over_dz, np.asarray(jax.jit(lambda a: dt / a)(dz)))
+    for a, b, want in ((dt, torch.tensor(dz), over_dz),
                        (torch.tensor(heat), tmp.HEAT_CAPACITY,
-                        jnp.asarray(heat) / tmp.HEAT_CAPACITY)):
-        want = np.asarray(want)
+                        np.asarray(jnp.asarray(heat) / tmp.HEAT_CAPACITY))):
         assert _values_off([tmp._div(a, b).numpy()], [want]) == 0
         assert _values_off([_card_division(a, b).numpy()], [want]) > 0
-    assert _values_off([(dt / torch.tensor(dz)).numpy()],
-                       [np.asarray(dt / jnp.asarray(dz))]) > 0
+    assert _values_off([(dt / torch.tensor(dz)).numpy()], [over_dz]) > 0
 
 
 @pytest.mark.parametrize("seed,regime", CASES)

@@ -23,10 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K2_ATOL, K2_RTOL
+from chip_smoke import K2_ATOL, K2_RTOL, ridge_columns
 from icar_tpu_torch import constants as C
 from icar_tpu_torch.physics import mp_simple as mp_plain
-from icar_tpu_torch.physics.mp_simple_cases import ridge_columns
 from tests.test_torch_thompson import _STUB_RUNTIME
 
 torch.set_num_threads(1)

@@ -8,11 +8,10 @@ package's own build bit for bit. Needs one NVIDIA GPU and nvcc.
                              [--reps 7] [--turns 2]
 
 Each variant is the package's source built with extra defines (for
-example -DMP_SIMPLE_TILE_MAX=64, -DMP_SIMPLE_THREADS=320 or
--DMP_SIMPLE_NO_SKIP); ``--source`` adds another source with the
-same C entries icar_mp_simple and icar_mp_simple_rho (an earlier K2/K3 or
-an edited copy kept in _archive/, say). Every build is one nvcc process
-(the package's flags), all started together. The
+example -DMP_SIMPLE_NO_SKIP); ``--source`` adds another source with the
+same C entries icar_mp_simple and icar_mp_simple_rho (an earlier K2/K3
+taken from git, or an edited copy). Every build is one nvcc process (the
+package's flags), all started together. The
 500x500x20 upwind ridge (models.icar RIDGE) is built; K2 is timed on its
 initial state and after one 1200 s interval, K3 on the MPDATA ridge after
 one interval: each build's call, median of --reps CUDA-event timings on a
