@@ -205,6 +205,23 @@ def assert_close(got, want, rtol, atol, what):
     return float(d.max())
 
 
+def upwind_oracle(q, winds, dt, floors, near_end):
+    """K1's arithmetic in plain PyTorch, bit for bit: the plain update
+    (ops/advection.py advect3d_upwind) from the kernel's own scaled winds,
+    (u*J_u/dx)*dt and so on (``winds``: kernels.AdvectWinds), then the
+    clamp to ``floors`` with ``near_end``. The kernel is held to it at
+    max_abs_err 0.0 (the plain advect_upwind scales as u*(dt/dx)*J_u)."""
+    import torch
+    from icar_tpu_torch.ops import advection as adv_plain
+    dt = float(np.float32(dt))
+    scaled = adv_plain.CourantWinds(winds.uj * dt, winds.vj * dt,
+                                    winds.wj * dt)
+    out = adv_plain.advect3d_upwind(q, scaled, winds.dz, winds.jaco)
+    if near_end:
+        out = torch.maximum(out, floors[:, None, None, None])
+    return out
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by) of work that moves ``nbytes`` and does
     ``ops`` float32 operations."""

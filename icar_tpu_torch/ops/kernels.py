@@ -35,7 +35,7 @@ from . import mpdata as mpdata_plain
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("advect_upwind.cu", "mp_simple.cu", "mpdata.cu",
-           "mp_thompson.cu")
+           "mp_thompson.cu", "upwind_floor.cu")
 HEADERS = ("upwind.cuh",)
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain version step by step (the ridge trajectory branches on one-ulp
@@ -145,6 +145,10 @@ def library() -> ctypes.CDLL:
         lib.icar_advect_upwind.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                            I, F, I, P]
         lib.icar_advect_upwind.restype = I
+        lib.icar_advect_upwind_config.argtypes = [I, P]
+        lib.icar_advect_upwind_config.restype = I
+        lib.icar_advect_upwind_floor.argtypes = [P] * 7 + [I, I, I, I, P]
+        lib.icar_advect_upwind_floor.restype = I
         lib.icar_mp_simple.argtypes = [P, P, P, P, P, P, P, P, P, P, I, L,
                                        F, F, F, P]
         lib.icar_mp_simple.restype = I
@@ -276,6 +280,44 @@ def advect_upwind(q, winds: AdvectWinds, dt, floors, near_end: bool,
         int(bool(near_end)), stream)
     _raise_on(err, "advect_upwind")
     LAUNCHES["advect_upwind"] += 1
+    return out
+
+
+UPWIND_CONFIG_KEYS = ("tile_x", "tile_y", "threads", "group", "smem_bytes",
+                      "blocks_per_sm")
+
+
+def upwind_config(S: int) -> dict:
+    """K1's launch for a stack of ``S`` species on the current card: its
+    tile (columns along x and y), threads per block, the species a block
+    marches together, dynamic shared memory and resident blocks per
+    multiprocessor."""
+    cfg = (ctypes.c_int * len(UPWIND_CONFIG_KEYS))()
+    _raise_on(library().icar_advect_upwind_config(int(S), cfg),
+              "advect_upwind config")
+    return dict(zip(UPWIND_CONFIG_KEYS, list(cfg)))
+
+
+def advect_upwind_floor(q, winds: AdvectWinds, out):
+    """The copy-floor probe on CUDA tensors (``csrc/upwind_floor.cu``): K1's
+    bytes moved with no stencil, ``out`` = ``q``. A measurement, not a step
+    of any path: its launch is not counted in ``LAUNCHES``."""
+    S, nz, ny, nx = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"advect_upwind_floor: unsupported device "
+                         f"{q.device}")
+    for name, t in (("q", q), ("out", out)):
+        _check(t, name, (S, nz, ny, nx), q.device)
+    _check(winds.uj, "uj", (nz, ny, nx - 1), q.device)
+    _check(winds.vj, "vj", (nz, ny - 1, nx), q.device)
+    for name in ("wj", "dz", "jaco"):
+        _check(getattr(winds, name), name, (nz, ny, nx), q.device)
+    err = library().icar_advect_upwind_floor(
+        q.data_ptr(), out.data_ptr(), winds.uj.data_ptr(),
+        winds.vj.data_ptr(), winds.wj.data_ptr(), winds.dz.data_ptr(),
+        winds.jaco.data_ptr(), S, nz, ny, nx,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "advect_upwind_floor")
     return out
 
 

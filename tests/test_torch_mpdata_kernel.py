@@ -14,6 +14,7 @@ u*(dt/dx)*J_u, so the two differ by a few float32 ulp.
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from types import SimpleNamespace
@@ -64,6 +65,16 @@ template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F,
+                                                                 int, int) {
+  *n = 1;
+  return cudaSuccess;
+}
+inline unsigned long __cvta_generic_to_shared(const void*) { return 0; }
+// K1's kernel (upwind.cuh) with one thread per block: that thread takes
+// every column of the tile
+#define UPWIND_THREADS 1
 // one thread per block for the upwind and corrective passes (they have
 // barriers); every thread in turn for the elementwise division
 #define PASS_LAUNCH(...)                                          \\
@@ -87,8 +98,8 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 #define UPWIND_LAUNCH(...)                                        \\
   do {                                                            \\
     blockDim.x = 1; threadIdx.x = 0;                              \\
-    for (unsigned by_ = 0; by_ < tiles.y; ++by_)                  \\
-      for (unsigned bx_ = 0; bx_ < tiles.x; ++bx_) {              \\
+    for (unsigned by_ = 0; by_ < grid.y; ++by_)                   \\
+      for (unsigned bx_ = 0; bx_ < grid.x; ++bx_) {               \\
         blockIdx.x = bx_; blockIdx.y = by_;                       \\
         upwind_tile_kernel(__VA_ARGS__);                          \\
       }                                                           \\
@@ -100,8 +111,34 @@ _REPLACE = (
     ("div_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(",
      "DIV_LAUNCH("),
     ("mpdata_pass_kernel<<<tiles, THREADS, smem, st>>>(", "PASS_LAUNCH("),
-    ("upwind_tile_kernel<<<tiles, THREADS, 0, st>>>(", "UPWIND_LAUNCH("),
 )
+# upwind.cuh (K1's kernel, also K4's upwind pass) for g++: the launch
+# becomes a loop over the blocks, the dynamic shared memory a static array
+# and each cp.async a plain copy (commit and wait have nothing to do)
+_UPWIND_REPLACE = (
+    ("upwind_tile_kernel<<<grid, UP_THREADS, smem, st>>>(", "UPWIND_LAUNCH("),
+    ("extern __shared__ float upwind_smem[];",
+     "static float upwind_smem[1 << 16];"),
+)
+_UPWIND_ASYNC = (
+    (r'asm volatile\("cp\.async\.ca\.shared\.global .*?\);',
+     "*dst = *src;"),
+    (r'asm volatile\("cp\.async\.commit_group.*?\);', ""),
+    (r'asm volatile\("cp\.async\.wait_group.*?\);', ""),
+)
+
+
+def write_upwind_header(d):
+    """csrc/upwind.cuh prepared for g++, into the directory ``d``."""
+    src = open(os.path.join(REPO, "icar_tpu_torch", "csrc",
+                            "upwind.cuh")).read()
+    for old, new in _UPWIND_REPLACE:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    for pattern, new in _UPWIND_ASYNC:
+        src, n = re.subn(pattern, new, src, flags=re.S)
+        assert n == 1, pattern
+    (d / "upwind.cuh").write_text(src)
 
 
 def _build(d, src, name, defines=()):
@@ -128,9 +165,9 @@ def cpu_source(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernel source for the CPU")
     d = tmp_path_factory.mktemp("k4cpu")
     (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
-    csrc = os.path.join(REPO, "icar_tpu_torch", "csrc")
-    shutil.copy(os.path.join(csrc, "upwind.cuh"), d / "upwind.cuh")
-    src = open(os.path.join(csrc, "mpdata.cu")).read()
+    write_upwind_header(d)
+    src = open(os.path.join(REPO, "icar_tpu_torch", "csrc",
+                            "mpdata.cu")).read()
     for old, new in _REPLACE:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
@@ -171,7 +208,7 @@ def _case(seed, S, nz, ny, nx, zero_window=None):
              jaco_u=f(r.uniform(0.8, 1.2, (nz, ny, nx + 1))),
              jaco_v=f(r.uniform(0.8, 1.2, (nz, ny + 1, nx))),
              jaco_w=f(r.uniform(0.8, 1.2, (nz, ny, nx))),
-             floors=f([-np.inf, 0.0, 0.0, 0.5][:S]))
+             floors=f(np.resize([-np.inf, 0.0, 0.0, 0.5], S)))
     d["winds"] = kernels.prepare_advect_winds(d["u"], d["v"], d["w"],
                                               SimpleNamespace(
         dx=1000.0, jacobian_u=d["jaco_u"], jacobian_v=d["jaco_v"],

@@ -1,15 +1,17 @@
 """The CUDA source of kernel K1 (icar_tpu_torch/csrc/advect_upwind.cu, whose
 tiled kernel in upwind.cuh is also K4's upwind pass), compiled for the CPU
 with g++ against the stub CUDA headers of test_torch_mpdata_kernel and run
-one thread per block, against the plain version
-(icar_tpu_torch/ops/advection.py).
+one thread per block (that thread takes every column of a tile; cp.async
+becomes a plain copy).
 
-The near-end clamp on and off, planes whose sizes are not multiples of the
-kernel's 32 x 8 tile, nz = 2, and species that are +0 over a whole tile
-window (the skip, which must keep the bits of a build without it).
-Tolerance K1_RTOL/K1_ATOL of chip_smoke.py (rtol 5e-6, atol 1e-7): the
-kernel scales the winds as (u*J_u/dx)*dt, the plain version as
-u*(dt/dx)*J_u.
+Held two ways: to the plain version (icar_tpu_torch/ops/advection.py) at
+K1_RTOL/K1_ATOL of chip_smoke.py (rtol 5e-6, atol 1e-7: the kernel scales
+the winds as (u*J_u/dx)*dt, the plain version as u*(dt/dx)*J_u), and to
+the kernel-order oracle (chip_smoke.upwind_oracle: the plain update from
+the kernel's own scaled winds) at max_abs_err 0.0. The near-end clamp on
+and off, planes whose sizes are not multiples of a tile, nz = 2, 96
+levels, 9 species (two groups of the block's species), species that are
++0 over whole tiles, and other tiles and group sizes (build defines).
 """
 
 import ctypes
@@ -21,13 +23,26 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import upwind_oracle
 from icar_tpu_torch.ops import advection as adv_plain
-from test_torch_mpdata_kernel import SHAPES, _STUB_RUNTIME, _case
+from test_torch_mpdata_kernel import (SHAPES, _STUB_RUNTIME, _case,
+                                      write_upwind_header)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
-_LAUNCH = ("upwind_tile_kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(",
-           "UPWIND_LAUNCH(")
+# (S, nz, ny, nx, zero window of species 1) beyond SHAPES: 9 species; 96
+# levels; a plane that no tile the sweep tries (32 or 64 columns by 4, 8
+# or 16 rows) divides; a species so small (tiny: scaled by 1e-25) that
+# its divisions leave the branch-free division's range
+ORACLE_SHAPES = dict(SHAPES, species9=(9, 6, 23, 41, None),
+                     levels96=(4, 96, 13, 37, None),
+                     ragged=(5, 7, 37, 99, (slice(17, 34), slice(33, 66))),
+                     tiny=(4, 5, 19, 37, None))
+# other tiles and group sizes, as tools/k1_sweep.py builds them
+VARIANTS = {"32x16": ["-DUPWIND_TX=32", "-DUPWIND_TY=16"],
+            "64x4": ["-DUPWIND_TX=64", "-DUPWIND_TY=4"],
+            "32x8 group 3": ["-DUPWIND_TY=8", "-DUPWIND_GROUP=3"],
+            "group 9": ["-DUPWIND_GROUP=9"]}
 
 
 def _build(d, name, defines=()):
@@ -41,23 +56,28 @@ def _build(d, name, defines=()):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.icar_advect_upwind.argtypes = [P] * 8 + [I, I, I, I, F, I, P]
     so.icar_advect_upwind.restype = I
+    so.icar_advect_upwind_config.argtypes = [I, P]
+    so.icar_advect_upwind_config.restype = I
     return so
 
 
 @pytest.fixture(scope="module")
-def cpu_k1(tmp_path_factory):
-    """advect_upwind.cu (with upwind.cuh) built by g++ against the stub
-    runtime, with and without the skip of +0 tiles."""
+def k1_dir(tmp_path_factory):
+    """advect_upwind.cu and upwind.cuh prepared for g++ against the stub
+    runtime."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
     d = tmp_path_factory.mktemp("k1cpu")
     (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
-    csrc = os.path.join(REPO, "icar_tpu_torch", "csrc")
-    shutil.copy(os.path.join(csrc, "upwind.cuh"), d / "upwind.cuh")
-    src = open(os.path.join(csrc, "advect_upwind.cu")).read()
-    assert src.count(_LAUNCH[0]) == 1
-    (d / "k1.cpp").write_text(src.replace(*_LAUNCH))
-    return _build(d, "k1"), _build(d, "k1noskip", ["-DADVECT_NO_SKIP"])
+    write_upwind_header(d)
+    shutil.copy(os.path.join(REPO, "icar_tpu_torch", "csrc",
+                             "advect_upwind.cu"), d / "k1.cpp")
+    return d
+
+
+@pytest.fixture(scope="module")
+def cpu_k1(k1_dir):
+    return _build(k1_dir, "k1")
 
 
 def _run(so, d, dt, near_end):
@@ -73,13 +93,19 @@ def _run(so, d, dt, near_end):
     return out
 
 
+def _oracle_err(got, d, dt, near_end):
+    want = upwind_oracle(d["q"], d["winds"], dt, d["floors"], near_end)
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max())
+
+
 @pytest.mark.parametrize("near_end", [False, True])
 @pytest.mark.parametrize("shape", ["tiles", "nz2", "small"])
 def test_k1_source_matches_plain(cpu_k1, shape, near_end):
     S, nz, ny, nx, zw = SHAPES[shape]
     d = _case(21, S, nz, ny, nx, zw)
     dt = np.float32(20.0)
-    got = _run(cpu_k1[0], d, dt, near_end)
+    got = _run(cpu_k1, d, dt, near_end)
     want = adv_plain.advect_upwind(
         d["q"], d["u"], d["v"], d["w"], dt, 1000.0, d["jaco_u"],
         d["jaco_v"], d["jaco_w"], d["jaco"], d["dz"], floors=d["floors"],
@@ -89,14 +115,43 @@ def test_k1_source_matches_plain(cpu_k1, shape, near_end):
 
 
 @pytest.mark.parametrize("near_end", [False, True])
-def test_k1_skip_keeps_the_bits(cpu_k1, near_end):
-    """A species that is +0 over a tile's window is only stored: the same
-    bits as a build without the skip, max(0, floor) or 0 there."""
-    S, nz, ny, nx, zw = SHAPES["tiles"]
-    d = _case(22, S, nz, ny, nx, zw)
+@pytest.mark.parametrize("shape", sorted(ORACLE_SHAPES))
+def test_k1_source_equals_kernel_order_oracle(cpu_k1, shape, near_end):
+    """Every cell, species and level gives the oracle's value exactly; a
+    species +0 everywhere gives max(0, floor) or 0."""
+    S, nz, ny, nx, zw = ORACLE_SHAPES[shape]
+    d = _case(23, S, nz, ny, nx, zw)
+    if shape == "tiny":
+        d["q"][3] *= 1e-25
     dt = np.float32(20.0)
-    on = _run(cpu_k1[0], d, dt, near_end)
-    off = _run(cpu_k1[1], d, dt, near_end)
-    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    got = _run(cpu_k1, d, dt, near_end)
+    assert _oracle_err(got, d, dt, near_end) == 0.0
     floor = float(d["floors"][2]) if near_end else 0.0
-    assert torch.equal(on[2], torch.full_like(on[2], max(0.0, floor)))
+    assert torch.equal(got[2], torch.full_like(got[2], max(0.0, floor)))
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_k1_other_tiles_equal_oracle(k1_dir, variant):
+    """Other tiles and group sizes keep every bit: the oracle's values on
+    the ragged plane and on 9 species."""
+    so = _build(k1_dir, "k1_" + variant.replace(" ", "_"), VARIANTS[variant])
+    for seed, shape in ((24, "ragged"), (25, "species9")):
+        S, nz, ny, nx, zw = ORACLE_SHAPES[shape]
+        d = _case(seed, S, nz, ny, nx, zw)
+        got = _run(so, d, np.float32(30.0), True)
+        assert _oracle_err(got, d, np.float32(30.0), True) == 0.0
+
+
+def test_k1_config_reports_the_launch(cpu_k1):
+    """icar_advect_upwind_config: the tile, the threads (one per block in
+    this build), the species group (5 and 4 for 9 species, as even as
+    they go) and the shared memory of three q levels of the group and two
+    face levels."""
+    cfg = (ctypes.c_int * 6)()
+    for S, group in ((1, 1), (5, 5), (9, 5), (11, 4)):
+        assert cpu_k1.icar_advect_upwind_config(S, cfg) == 0
+        tx, ty, threads, g, smem, _ = list(cfg)
+        assert (tx, ty, threads, g) == (128, 2, 1, group)
+        planes = 3 * g * (ty + 2) * (tx + 2) + 2 * (ty * (tx + 1)
+                                                     + (ty + 1) * tx)
+        assert smem == 4 * planes
