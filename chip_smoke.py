@@ -6,10 +6,14 @@
 Builds the CUDA kernels from icar_tpu_torch/csrc, then:
 1. checks K1 (upwind) and K2 (SB04) against their plain PyTorch versions on
    the card at the ridge's 500x500x20 shapes (K2 on its initial state and
-   after one interval, and on seeded columns of 96 levels, K3 too); K2's
-   and K3's lines in the table add the share of column tiles that ran each
-   fall loop, the time on the initial state, the tile width and the
-   registers, stack and shared memory from the build log;
+   after one interval, and on seeded columns of 96 levels, K3 too); K1
+   also bit for bit against its kernel-order oracle (upwind_oracle) there
+   and on a random stack of K1_DEEP (96 levels, 9 species); K1's line in
+   the table adds the copy floor (the same bytes moved with no stencil,
+   csrc/upwind_floor.cu), its launch (tile, blocks per SM, waves) and its
+   registers, spills and shared memory from the build log; K2's and K3's
+   lines add the share of column tiles that ran each fall loop, the time
+   on the initial state, the tile width and their build figures;
 2. runs the pinned golden ridge case (tests/golden/ideal_ridge_100.npz);
 3. drives the upwind ridge -- ideal_ridge_model(...).advance() at
    500x500x20 -- and checks that it went through K1 and K2 once per
@@ -113,8 +117,12 @@ ENSEMBLE_MEAN = {"potential_temperature": 1e-2, "water_vapor": 6e-6,
                  "snow_mass": 2e-9, "precipitation": 1e-2}
 
 # K1 against its plain version: a few float32 ulp (op order differs by
-# design, see csrc/advect_upwind.cu), the tolerance of tests/test_pallas.py
+# design, see csrc/advect_upwind.cu), the tolerance of tests/test_pallas.py;
+# against the kernel-order oracle (upwind_oracle) every bit
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
+# K1 also on a random stack deeper than K4 takes, of more species than a
+# block marches together, on a plane no tile divides
+K1_DEEP = (9, 96, 47, 101)
 # K2 and K3 against their plain version (same op order, no FMA contraction)
 K2_RTOL, K2_ATOL = 1e-5, 1e-8
 # K4 against its plain version: the winds are scaled in another order, as
@@ -310,7 +318,8 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
     out = torch.empty_like(stack)
     results = []
 
-    # --- K1
+    # --- K1: every bit of the kernel-order oracle, and within K1_RTOL of
+    # the plain version, here and on a random stack of K1_DEEP
     run_k1 = lambda: kernels.advect_upwind(stack, winds, dt, floors, True,
                                            out=out)
     run_p1 = lambda: adv_plain.advect_upwind(
@@ -321,11 +330,23 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
     torch.cuda.synchronize()
     err1 = assert_close(out, run_p1(), K1_RTOL, K1_ATOL,
                         "advect_upwind kernel vs plain")
+    oerr = oracle_err(out, upwind_oracle(stack, winds, dt, floors, True),
+                      "advect_upwind kernel vs kernel-order oracle (ridge "
+                      "state)")
+    deep_err1, deep_oerr = check_k1_deep(kernels, adv_plain, stack.device)
     ms1, pms1 = cuda_ms(run_k1), cuda_ms(run_p1)
-    log(f"K1 advect_upwind: max_abs_err {err1:.3e} (rtol {K1_RTOL}, atol "
-        f"{K1_ATOL}); kernel {ms1:.4f} ms, plain {pms1:.4f} ms")
-    results.append(kernel_entry("advect_upwind", REPLACES["advect_upwind"],
-                                err1, ms1, pms1, advect_work(*stack.shape)))
+    copy = torch.empty_like(stack)
+    fms = cuda_ms(lambda: kernels.advect_upwind_floor(stack, winds, copy))
+    log(f"K1 advect_upwind: max_abs_err {max(oerr, deep_oerr)} against the "
+        f"kernel-order oracle, {max(err1, deep_err1):.3e} against the plain "
+        f"version (rtol {K1_RTOL}, atol {K1_ATOL}); kernel {ms1:.4f} ms, "
+        f"plain {pms1:.4f} ms, copy floor {fms:.4f} ms")
+    entry = kernel_entry("advect_upwind", REPLACES["advect_upwind"],
+                         max(oerr, deep_oerr), ms1, pms1,
+                         advect_work(*stack.shape))
+    entry.update(max_abs_err_vs_plain_jnp_order=max(err1, deep_err1),
+                 copy_floor_ms=fms)
+    results.append(upwind_entry(entry, kernels, stack.shape))
 
     # --- K2 after one interval; its entry adds the initial state's figures
     err2, ms2, pms2, shares, work2 = sb04_on_state(model, kernels, step,
@@ -334,6 +355,62 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
                               max(err2, initial[0], deep_err), ms2, pms2,
                               work2, shares, initial))
     return results
+
+
+def oracle_err(got, want, what):
+    """The largest difference between ``got`` and the kernel-order oracle
+    ``want``: 0.0, or AssertionError."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = float((got - want).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"{what}: max_abs_err {err}, expected 0.0")
+    log(f"  {what}: max_abs_err 0.0")
+    return err
+
+
+def check_k1_deep(kernels, adv_plain, dev):
+    """K1 on a random stack of K1_DEEP, clamped and not, against the
+    kernel-order oracle (every bit) and the plain version (K1_RTOL):
+    returns (max abs err against the plain version, against the
+    oracle)."""
+    import torch
+    q, u, v, w, rg, floors = random_mpdata_case(dev, K1_DEEP, seed=19)
+    winds = kernels.prepare_advect_winds(u, v, w, rg)
+    dt = np.float32(20.0)
+    err = oerr = 0.0
+    for near_end in (False, True):
+        got = kernels.advect_upwind(q, winds, dt, floors, near_end)
+        torch.cuda.synchronize()
+        what = (f"advect_upwind kernel ({K1_DEEP} random stack, near_end "
+                f"{near_end})")
+        err = max(err, assert_close(
+            got, adv_plain.advect_upwind(
+                q, u, v, w, dt, rg.dx, rg.jacobian_u, rg.jacobian_v,
+                rg.jacobian_w, rg.jacobian, rg.advection_dz, floors=floors,
+                near_end=near_end), K1_RTOL, K1_ATOL, what + " vs plain"))
+        oerr = max(oerr, oracle_err(
+            got, upwind_oracle(q, winds, dt, floors, near_end),
+            what + " vs kernel-order oracle"))
+    return err, oerr
+
+
+def upwind_entry(entry, kernels, shape):
+    """K1's kernel-table entry with its launch: tile, threads, species
+    group, shared memory, blocks per SM and the waves of blocks this
+    shape takes on this card, and its ptxas figures."""
+    import torch
+    S, _, ny, nx = shape
+    cfg = kernels.upwind_config(S)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-nx // cfg["tile_x"]) * -(-ny // cfg["tile_y"])
+    figures = ptxas_figures(kernels.BUILD_INFO["log"], "upwind")
+    entry.update(launch=dict(cfg, waves=tiles / (cfg["blocks_per_sm"] * sms)),
+                 ptxas={k: v for k, v in figures.items() if "tile" in k})
+    log(f"  advect_upwind build: {json.dumps(entry['ptxas'])}; launch "
+        f"{json.dumps(entry['launch'])}")
+    return entry
 
 
 def sb04_on_state(model, kernels, step, mp_plain, rho_operand,
@@ -510,13 +587,13 @@ def sb04_entry(name, kernels, model, err, ms, pms, work, shares,
     return entry
 
 
-def random_mpdata_case(dev):
-    """A random stack of MPDATA_SMALL on ``dev`` with winds of both signs
-    on both axes and metrics near one: (q, u, v, w, geometry namespace,
-    floors)."""
+def random_mpdata_case(dev, shape=MPDATA_SMALL, seed=17):
+    """A random stack of ``shape`` (S, nz, ny, nx) on ``dev`` with winds of
+    both signs on both axes and metrics near one: (q, u, v, w, geometry
+    namespace, floors)."""
     import torch
-    r = np.random.default_rng(17)
-    S, nz, ny, nx = MPDATA_SMALL
+    r = np.random.default_rng(seed)
+    S, nz, ny, nx = shape
     f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     q = f(r.uniform(0.1, 1.0, (S, nz, ny, nx)))
     u, v = f(r.uniform(-6, 6, (nz, ny, nx + 1))), f(r.uniform(
@@ -529,7 +606,7 @@ def random_mpdata_case(dev):
         0.8, 1.2, (nz, ny, nx)))
     geom = SimpleNamespace(dx=1000.0, jacobian_u=ju, jacobian_v=jv,
                            jacobian_w=jw, advection_dz=dz, jacobian=jaco)
-    return q, u, v, w, geom, f([-np.inf, 0.0, 0.0, 0.0, 0.5])
+    return q, u, v, w, geom, f(np.resize([-np.inf, 0.0, 0.0, 0.0, 0.5], S))
 
 
 def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain,

@@ -418,3 +418,25 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mp_simple_rho(t, t, t, t, t, t, t, t, t, t[0], t[0], 1.0,
                               0.9, 0.9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near_end", [False, True])
+def test_advect_kernel_equals_kernel_order_oracle(ridge_state, near_end):
+    """K1 gives every bit of the plain update formed from its own scaled
+    winds (chip_smoke.upwind_oracle), on the ridge's state and on a random
+    stack of 9 species and 96 levels."""
+    from chip_smoke import random_mpdata_case, upwind_oracle
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in m.advect_names])
+    floors = torch.as_tensor(limit_floors(m.advect_names), device=s["u"].device)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    cases = [(stack, winds, floors)]
+    q, u, v, w, rg, fl = random_mpdata_case(s["u"].device, (9, 96, 23, 41))
+    cases.append((q, kernels.prepare_advect_winds(u, v, w, rg), fl))
+    for q, wd, fl in cases:
+        got = kernels.advect_upwind(q, wd, np.float32(37.25), fl, near_end)
+        want = upwind_oracle(q, wd, np.float32(37.25), fl, near_end)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) == 0.0
