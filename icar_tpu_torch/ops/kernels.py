@@ -270,6 +270,8 @@ def advect_upwind(q, winds: AdvectWinds, dt, floors, near_end: bool,
     if out is None:
         out = torch.empty_like(q)
     _check(out, "out", (S, nz, ny, nx), dev)
+    if S == 0:
+        return out   # an empty stack: nothing to launch
     if out.data_ptr() == q.data_ptr():
         raise ValueError("advect_upwind: out must not alias q")
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -440,3 +440,17 @@ def test_advect_kernel_equals_kernel_order_oracle(ridge_state, near_end):
         want = upwind_oracle(q, wd, np.float32(37.25), fl, near_end)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_advect_kernel_on_an_empty_stack_launches_nothing(cuda):
+    """K1 on a stack of no species returns an empty result and counts no
+    launch."""
+    from chip_smoke import random_mpdata_case
+    q, u, v, w, rg, fl = random_mpdata_case(cuda, (2, 4, 9, 13))
+    winds = kernels.prepare_advect_winds(u, v, w, rg)
+    before = kernels.LAUNCHES["advect_upwind"]
+    got = kernels.advect_upwind(q[:0], winds, np.float32(20.0), fl[:0], True)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 4, 9, 13)
+    assert kernels.LAUNCHES["advect_upwind"] == before

@@ -10,8 +10,9 @@ the winds as (u*J_u/dx)*dt, the plain version as u*(dt/dx)*J_u), and to
 the kernel-order oracle (chip_smoke.upwind_oracle: the plain update from
 the kernel's own scaled winds) at max_abs_err 0.0. The near-end clamp on
 and off, planes whose sizes are not multiples of a tile, nz = 2, 96
-levels, 9 species (two groups of the block's species), species that are
-+0 over whole tiles, and other tiles and group sizes (build defines).
+levels, 3, 9 and 11 species (one group smaller than the block's, then
+two and three groups), species that are +0 over whole tiles, and an empty
+stack.
 """
 
 import ctypes
@@ -30,26 +31,24 @@ from test_torch_mpdata_kernel import (SHAPES, _STUB_RUNTIME, _case,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
-# (S, nz, ny, nx, zero window of species 1) beyond SHAPES: 9 species; 96
-# levels; a plane that no tile the sweep tries (32 or 64 columns by 4, 8
-# or 16 rows) divides; a species so small (tiny: scaled by 1e-25) that
-# its divisions leave the branch-free division's range
-ORACLE_SHAPES = dict(SHAPES, species9=(9, 6, 23, 41, None),
+# (S, nz, ny, nx, zero window of species 1) beyond SHAPES: 3, 9 and 11
+# species (groups of 3; 5 and 4; 4, 4 and 3); 96 levels; a plane that no
+# tile of 2 or 4 rows by 32, 64 or 128 columns divides; a species so small
+# (tiny: scaled by 1e-25) that its divisions leave the branch-free
+# division's range
+ORACLE_SHAPES = dict(SHAPES, species3=(3, 5, 11, 29, None),
+                     species9=(9, 6, 23, 41, None),
+                     species11=(11, 4, 9, 27, None),
                      levels96=(4, 96, 13, 37, None),
                      ragged=(5, 7, 37, 99, (slice(17, 34), slice(33, 66))),
                      tiny=(4, 5, 19, 37, None))
-# other tiles and group sizes, as tools/k1_sweep.py builds them
-VARIANTS = {"32x16": ["-DUPWIND_TX=32", "-DUPWIND_TY=16"],
-            "64x4": ["-DUPWIND_TX=64", "-DUPWIND_TY=4"],
-            "32x8 group 3": ["-DUPWIND_TY=8", "-DUPWIND_GROUP=3"],
-            "group 9": ["-DUPWIND_GROUP=9"]}
 
 
-def _build(d, name, defines=()):
+def _build(d, name):
     lib = d / f"lib{name}.so"
     subprocess.run([shutil.which("g++"), "-std=c++17", "-O1",
                     "-ffp-contract=off", "-fno-fast-math", "-fPIC",
-                    "-shared", f"-I{d}", *defines, "-o", str(lib),
+                    "-shared", f"-I{d}", "-o", str(lib),
                     str(d / "k1.cpp")],
                    check=True, capture_output=True, timeout=300)
     so = ctypes.CDLL(str(lib))
@@ -130,16 +129,15 @@ def test_k1_source_equals_kernel_order_oracle(cpu_k1, shape, near_end):
     assert torch.equal(got[2], torch.full_like(got[2], max(0.0, floor)))
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_k1_other_tiles_equal_oracle(k1_dir, variant):
-    """Other tiles and group sizes keep every bit: the oracle's values on
-    the ragged plane and on 9 species."""
-    so = _build(k1_dir, "k1_" + variant.replace(" ", "_"), VARIANTS[variant])
-    for seed, shape in ((24, "ragged"), (25, "species9")):
-        S, nz, ny, nx, zw = ORACLE_SHAPES[shape]
-        d = _case(seed, S, nz, ny, nx, zw)
-        got = _run(so, d, np.float32(30.0), True)
-        assert _oracle_err(got, d, np.float32(30.0), True) == 0.0
+def test_k1_empty_stack_launches_nothing(cpu_k1):
+    """A stack of no species returns success without a launch; its launch
+    shape has a group of 0."""
+    d = _case(26, 3, 4, 9, 13)
+    d["q"], d["floors"] = d["q"][:0], d["floors"][:0]
+    assert _run(cpu_k1, d, np.float32(20.0), True).numel() == 0
+    cfg = (ctypes.c_int * 6)()
+    assert cpu_k1.icar_advect_upwind_config(0, cfg) == 0
+    assert cfg[3] == 0
 
 
 def test_k1_config_reports_the_launch(cpu_k1):

@@ -4,16 +4,15 @@ tiled kernel in upwind.cuh, also K4's upwind pass) against each other on
 the ridge's states, in turns, beside the copy floor, and hold each build
 to the first (the package's) bit for bit. Needs one NVIDIA GPU and nvcc.
 
-    python tools/k1_sweep.py [--variant NAME=-DFLAG,-DFLAG ...]
-                             [--source NAME=PATH[:-DFLAG,...] ...]
+    python tools/k1_sweep.py [--source NAME=PATH[:-DFLAG,...] ...]
                              [--reps 7] [--turns 2] [--no-package]
 
-Each variant is the package's source built with extra defines (for
-example -DUPWIND_TY=8,-DUPWIND_GROUP=3); ``--source`` adds another
-advect_upwind.cu (its upwind.cuh beside it) with the same C entry
-icar_advect_upwind, such as the parent commit's taken from git into
-_archive/; with ``--no-package`` only the sources are timed, held to the
-first of them. Every build is one nvcc process (the package's flags), all
+``--source`` adds another advect_upwind.cu (its upwind.cuh beside it)
+with the same C entry icar_advect_upwind: the parent commit's taken from
+git into _archive/, or an edited copy of the package's (the tile, the
+species group and the blocks per SM are constants at the top of
+upwind.cuh); with ``--no-package`` only the sources are timed, held to
+the first of them. Every build is one nvcc process (the package's flags), all
 started together. The 500x500x20 ridges (models.icar RIDGE) are advanced
 one 1200 s interval each: the upwind ridge (K1 on its 5 species, clamped
 as at an interval's end), the MPDATA ridge and the Thompson ridge (K4's
@@ -47,9 +46,6 @@ FLOOR = "copy floor"
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=-DFLAG[,-DFLAG...]: the package's source "
-                         "with these defines")
     ap.add_argument("--source", action="append", default=[],
                     help="NAME=PATH[:-DFLAG,...]: another advect_upwind.cu "
                          "with the same C entry")
@@ -70,9 +66,6 @@ def main():
 
     src = os.path.join(ROOT, "icar_tpu_torch", "csrc", "advect_upwind.cu")
     builds = [("package", src, [])] if args.package else []
-    for spec in args.variant:
-        name, flags = spec.split("=", 1)
-        builds.append((name, src, [f for f in flags.split(",") if f]))
     for spec in args.source:
         name, rest = spec.split("=", 1)
         path, _, flags = rest.partition(":")
