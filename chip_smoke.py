@@ -48,6 +48,20 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    advect_mpdata_padded) also against its plain version on every block.
    With more than one card it also drives the Thompson ridge with one
    shard per card.
+9. builds the full-physics ridge (bench.py --config fullphys: Thompson with
+   upwind advection, wind=2, simple radiation, Noah with simple water, the
+   simple PBL and Tiedtke convection) at 500x500x20 and advances one
+   interval; on that state holds K1 on its 9 species to its kernel-order
+   oracle (every bit) and its plain version, and K5 to its plain version
+   (with its share of active tiles); then drives two intervals of a fresh
+   model and checks that it went through K5 and K1 once per substep and
+   through K2, K3 and K4 not at all, with convective rain; times each
+   stage of one more interval with CUDA events (diagnostics, radiation,
+   surface, PBL, convection, restack, K5, K1); and runs the small
+   full-physics case of tests/test_torch_fullphys.py for one interval on
+   the CPU and on the card, holding the card to the CPU (the same
+   substeps, each field within FULLPHYS_BOUNDS). K1's and K5's lines in
+   the table add these figures under "fullphys".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -90,6 +104,17 @@ SB04_DEEP = (96, 50, 81)
 SHARD_DRIVES = (("upwind", (2, 2)), ("MPDATA", (4, 1)), ("Thompson", (2, 2)))
 SHARD_CHECK_MESHES = ((4, 1), (2, 2))
 
+# the small full-physics case of tests/test_torch_fullphys.py (its strip of
+# open water in the first ten columns), one interval on the CPU and on the
+# card; bounds on max|card - CPU| / max|CPU| of each field: the advected
+# species, the cloud fraction (Xu-Randall's (1 - rh) at rh near 1), every
+# other field. The bounds the CPU test holds the port to against the JAX
+# package; the card differs from the CPU in its transcendental functions
+# and in K1's scaling of the winds (K1_RTOL).
+FULLPHYS_SMALL = dict(nx=30, ny=12, nz=10, dx=1000.0, hill_height=600.0,
+                      u_speed=9.0, rh=1.0)
+FULLPHYS_SMALL_INTERVAL = 600.0
+FULLPHYS_BOUNDS = {"species": 1e-4, "cloud_fraction": 3e-3, "other": 1e-3}
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
 GOLDEN_CASE = dict(nx=80, ny=16, nz=15, dx=1000.0, hill_height=900.0,
@@ -305,6 +330,40 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
     """K1 and K2 against their plain versions on the model's state;
     ``initial`` is K2's sb04_on_state result on the ridge's initial
     state, ``deep_err`` its max abs err at SB04_DEEP levels."""
+    results = []
+
+    # --- K1: every bit of the kernel-order oracle, and within K1_RTOL of
+    # the plain version, here and on a random stack of K1_DEEP
+    err1, oerr, ms1, pms1, shape, fms = k1_on_state(
+        model, kernels, step, adv_plain, "ridge state", floor=True)
+    deep_err1, deep_oerr = check_k1_deep(kernels, adv_plain,
+                                         model.state["u"].device)
+    log(f"K1 advect_upwind: max_abs_err {max(oerr, deep_oerr)} against the "
+        f"kernel-order oracle, {max(err1, deep_err1):.3e} against the plain "
+        f"version (rtol {K1_RTOL}, atol {K1_ATOL}); kernel {ms1:.4f} ms, "
+        f"plain {pms1:.4f} ms, copy floor {fms:.4f} ms")
+    entry = kernel_entry("advect_upwind", REPLACES["advect_upwind"],
+                         max(err1, deep_err1), ms1, pms1,
+                         advect_work(*shape))
+    entry.update(max_abs_err_vs_oracle=max(oerr, deep_oerr),
+                 copy_floor_ms=fms)
+    results.append(upwind_entry(entry, kernels, shape))
+
+    # --- K2 after one interval; its entry adds the initial state's figures
+    err2, ms2, pms2, shares, work2 = sb04_on_state(model, kernels, step,
+                                                   mp_plain, False)
+    results.append(sb04_entry("mp_simple", kernels, model,
+                              max(err2, initial[0], deep_err), ms2, pms2,
+                              work2, shares, initial))
+    return results
+
+
+def k1_on_state(model, kernels, step, adv_plain, label, floor=False):
+    """K1 on ``model``'s advected stack at the path's dt, clamped, against
+    the kernel-order oracle (every bit) and the plain version (K1_RTOL),
+    both timed: (max abs err against the plain version, against the
+    oracle, kernel ms, plain ms, the stack's shape, the copy floor's ms
+    with ``floor`` or None)."""
     import torch
     s = model.state
     g = model.geom_t
@@ -316,10 +375,6 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
     floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
     winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
     out = torch.empty_like(stack)
-    results = []
-
-    # --- K1: every bit of the kernel-order oracle, and within K1_RTOL of
-    # the plain version, here and on a random stack of K1_DEEP
     run_k1 = lambda: kernels.advect_upwind(stack, winds, dt, floors, True,
                                            out=out)
     run_p1 = lambda: adv_plain.advect_upwind(
@@ -328,33 +383,19 @@ def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
         near_end=True)
     run_k1()
     torch.cuda.synchronize()
-    err1 = assert_close(out, run_p1(), K1_RTOL, K1_ATOL,
-                        "advect_upwind kernel vs plain")
+    err = assert_close(out, run_p1(), K1_RTOL, K1_ATOL,
+                       f"advect_upwind kernel vs plain ({label}, "
+                       f"{len(names)} species)")
     oerr = oracle_err(out, upwind_oracle(stack, winds, dt, floors, True),
-                      "advect_upwind kernel vs kernel-order oracle (ridge "
-                      "state)")
-    deep_err1, deep_oerr = check_k1_deep(kernels, adv_plain, stack.device)
-    ms1, pms1 = cuda_ms(run_k1), cuda_ms(run_p1)
-    copy = torch.empty_like(stack)
-    fms = cuda_ms(lambda: kernels.advect_upwind_floor(stack, winds, copy))
-    log(f"K1 advect_upwind: max_abs_err {max(oerr, deep_oerr)} against the "
-        f"kernel-order oracle, {max(err1, deep_err1):.3e} against the plain "
-        f"version (rtol {K1_RTOL}, atol {K1_ATOL}); kernel {ms1:.4f} ms, "
-        f"plain {pms1:.4f} ms, copy floor {fms:.4f} ms")
-    entry = kernel_entry("advect_upwind", REPLACES["advect_upwind"],
-                         max(err1, deep_err1), ms1, pms1,
-                         advect_work(*stack.shape))
-    entry.update(max_abs_err_vs_oracle=max(oerr, deep_oerr),
-                 copy_floor_ms=fms)
-    results.append(upwind_entry(entry, kernels, stack.shape))
-
-    # --- K2 after one interval; its entry adds the initial state's figures
-    err2, ms2, pms2, shares, work2 = sb04_on_state(model, kernels, step,
-                                                   mp_plain, False)
-    results.append(sb04_entry("mp_simple", kernels, model,
-                              max(err2, initial[0], deep_err), ms2, pms2,
-                              work2, shares, initial))
-    return results
+                      f"advect_upwind kernel vs kernel-order oracle "
+                      f"({label}, {len(names)} species)")
+    ms, pms = cuda_ms(run_k1), cuda_ms(run_p1)
+    fms = None
+    if floor:
+        copy = torch.empty_like(stack)
+        fms = cuda_ms(lambda: kernels.advect_upwind_floor(stack, winds,
+                                                          copy))
+    return err, oerr, ms, pms, tuple(stack.shape), fms
 
 
 def oracle_err(got, want, what):
@@ -1297,7 +1338,118 @@ def sharded_drive(label, case, mesh, path, reference, kernels, smi):
     return launches
 
 
+def fullphys_small(ideal_ridge_model, fullphys, device):
+    """The small full-physics case with its water strip, one interval on
+    ``device``."""
+    m = ideal_ridge_model(**FULLPHYS_SMALL, **fullphys, device=device)
+    land = m.state["land_mask"].clone()
+    land[:, :10] = 2.0
+    m.state = {**m.state, "land_mask": land}
+    m.advance(FULLPHYS_SMALL_INTERVAL)
+    return m
+
+
+def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
+    """The small full-physics case on the CPU (the plain versions) and on
+    the card (the kernels): the same substeps, every field finite and
+    within FULLPHYS_BOUNDS of the CPU's (largest difference over the CPU
+    field's largest magnitude), convective rain on both; logs the largest
+    ratio of each bound's group."""
+    cpu = fullphys_small(ideal_ridge_model, fullphys, "cpu")
+    card = fullphys_small(ideal_ridge_model, fullphys, "cuda")
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"small fullphys case: {card.last_n_substeps} "
+                             f"substeps on the card, {cpu.last_n_substeps} "
+                             f"on the CPU")
+    worst = {}
+    for k in cpu.state:
+        want, got = cpu.field(k).astype(np.float64), card.field(k)
+        if not np.isfinite(got).all():
+            raise AssertionError(f"small fullphys case on the card: "
+                                 f"non-finite {k}")
+        group = ("species" if k in cpu.advect_names else
+                 "cloud_fraction" if k == "cloud_fraction" else "other")
+        d = float(np.abs(got - want).max())
+        ratio = d / max(float(np.abs(want).max()), 1e-30) if d else 0.0
+        if ratio > FULLPHYS_BOUNDS[group]:
+            raise AssertionError(f"small fullphys case: {k} differs by "
+                                 f"{ratio:.3e} of its largest value between "
+                                 f"the card and the CPU (bound "
+                                 f"{FULLPHYS_BOUNDS[group]})")
+        if ratio >= worst.get(group, (0.0, ""))[0]:
+            worst[group] = (ratio, k)
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        if not m.field("convective_precipitation").max() > 0:
+            raise AssertionError(f"small fullphys case on the {where}: no "
+                                 f"convective rain")
+    log(f"small fullphys case {FULLPHYS_SMALL['nx']}x{FULLPHYS_SMALL['ny']}x"
+        f"{FULLPHYS_SMALL['nz']}, {FULLPHYS_SMALL_INTERVAL:.0f} s: "
+        f"{card.last_n_substeps} substeps on the card and the CPU; largest "
+        f"|card - CPU| / max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {FULLPHYS_BOUNDS[g]})"
+            for g, (r, k) in worst.items()))
+
+
+def check_fullphys(ideal_ridge_model, case, fullphys, kernels, step,
+                   adv_plain, tp, cases, smi):
+    """Phase 9: K1 and K5 on the full-physics ridge's state after one
+    interval, the drive of two intervals with its launch counts, the
+    stages of one more interval, and the small case on the CPU and the
+    card. Returns the figures K1's and K5's table entries add."""
+    import torch
+    from icar_tpu_torch.time_paths import INTERVAL, stage_ms
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**case, device="cuda")
+    tp.device_tables(step.thompson_params(warm.options),
+                     warm.state["pressure"].device)
+    warm.advance(INTERVAL)
+    torch.cuda.synchronize()
+    log(f"fullphys setup + first interval at 500x500x20: "
+        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
+    label = "fullphys state after one interval"
+    err1, oerr1, ms1, pms1, shape, _ = k1_on_state(warm, kernels, step,
+                                                   adv_plain, label)
+    work1 = advect_work(*shape)
+    log(f"K1 advect_upwind on the {label}: max_abs_err {oerr1} against the "
+        f"kernel-order oracle, {err1:.3e} against the plain version; kernel "
+        f"{ms1:.4f} ms, plain {pms1:.4f} ms, bound {bound(*work1)[0]:.4f} ms")
+    err5, ms5, pms5, share, work5 = k5_on_state(warm, kernels, step, tp,
+                                                cases, label)
+    del warm
+
+    model = ideal_ridge_model(**case, device="cuda")
+    path = step.path_kernels(model.options)
+    launches, *_ = drive(
+        model, kernels, "fullphys", path, smi,
+        fields=tuple(model.advect_names) + (
+            "precipitation", "convective_precipitation", "sensible_heat",
+            "latent_heat", "skin_temperature", "soil_temperature", "u", "v",
+            "w"))
+    if not float(model.global_field("convective_precipitation").max()) > 0:
+        raise AssertionError("fullphys path: no convective rain")
+    stages = stage_ms(model)
+    total = sum(stages["stages_ms"].values())
+    log(f"fullphys stages of one more interval ({stages['substeps']} "
+        f"substeps, wall {stages['wall_ms']:.1f} ms, the stages' events "
+        f"{total:.1f} ms), CUDA-event ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages["stages_ms"].items(),
+                                              key=lambda kv: -kv[1])))
+    check_fullphys_cpu_card(ideal_ridge_model, fullphys)
+    b1, by1 = bound(*work1)
+    b5, by5 = bound(*work5)
+    return {
+        "advect_upwind": {
+            "launches": launches["advect_upwind"], "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0]},
+        "mp_thompson": {
+            "launches": launches["mp_thompson"], "max_abs_err": err5,
+            "ms": ms5, "plain_ms": pms5, "bound_ms": b5, "bound_by": by5,
+            "active_tile_share": share}}
+
+
 def main():
+    t_start = time.perf_counter()
     smi = device_info()
     sys.path.insert(0, ROOT)
     import torch
@@ -1417,6 +1569,13 @@ def main():
             "visible)")
     padded["launches"] = sharded["MPDATA"]["advect_mpdata"]
     table.append(padded)
+
+    # 9. the full-physics ridge: K1 and K5 on its state, two intervals
+    # counting kernel launches, its stages, and the small case on the CPU
+    # and the card
+    fullphys = check_fullphys(ideal_ridge_model, cases["fullphys"],
+                              RIDGE_PATHS["fullphys"], kernels, step,
+                              adv_plain, thompson_plain, thompson_cases, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -1427,6 +1586,9 @@ def main():
             entry["launches"] = mpdata_launches[name]
         else:
             entry["launches"] = launches[name]
+        if name in ("advect_upwind", "mp_thompson"):
+            entry["fullphys"] = fullphys[name]
+    log(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": table}))
     print(smi)

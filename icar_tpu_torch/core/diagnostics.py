@@ -63,19 +63,26 @@ def compute_ivt(qv, u_mass, v_mass, p_i):
     return compute_iq(qv * speed, p_i)
 
 
-# the partial refreshes the substep loop may ask for (``needs``)
-PARTIAL_FIELDS = frozenset(("density",))
+# the partial refreshes the substep loop may ask for (``needs``): what the
+# ported physics reads that changes within an interval (density and
+# temperature follow theta; with forcing, the pressure-derived fields and
+# the mass-level winds follow their forcing; icar_tpu/core/step.py
+# _substep_needs)
+PARTIAL_FIELDS = frozenset(("density", "temperature", "exner",
+                            "pressure_interface", "surface_pressure",
+                            "uv_mass"))
 
 
-def diagnostic_update(state, geom, full: bool = True, needs=None):
+def diagnostic_update(state, geom, full: bool = True, needs=None,
+                      with_w_real: bool = False):
     """Refresh derived fields (diagnostic_update, time_step.f90:49-198).
 
     ``full=False`` computes only the fields physics consumes; ``full=True``
-    adds the output diagnostics (integrated moisture, 10 m winds, w_real).
-    ``needs``, a subset of ``PARTIAL_FIELDS``, refreshes only those fields
-    from the state's exner (the general loop's per-substep refresh: density
-    is the one derived field the ported physics reads that changes within
-    an interval). ``geom`` holds torch tensors
+    adds the output diagnostics (integrated moisture, 10 m winds, w_real),
+    and ``with_w_real`` adds w_real alone to a partial update (the
+    convection reads it). ``needs``, a subset of ``PARTIAL_FIELDS``,
+    refreshes only those fields, the others taken from the state (the
+    general loop's per-substep refresh). ``geom`` holds torch tensors
     (``convert.geometry_to_torch``). Returns a new dict."""
     s = dict(state)
     if needs is not None:
@@ -83,11 +90,8 @@ def diagnostic_update(state, geom, full: bool = True, needs=None):
         if unknown:
             raise NotImplementedError(
                 f"partial refresh of {sorted(unknown)} is not ported yet: "
-                "Slice C (full physics column) in ROADMAP.md")
-        if "density" in needs:
-            temperature = s["potential_temperature"] * s["exner"]
-            s["density"] = s["pressure"] / (C.RD * temperature)
-        return s
+                "Slice F (RRTMG) in ROADMAP.md")
+        return _refresh(s, needs)
     p = s["pressure"]
     theta = s["potential_temperature"]
     u, v, w = s["u"], s["v"], s["w"]
@@ -107,19 +111,14 @@ def diagnostic_update(state, geom, full: bool = True, needs=None):
     if "surface_pressure" in s:
         s["surface_pressure"] = p_i[0]
 
-    if not full:
+    if not full and not with_w_real:
         return s
 
     if "w_real" in s:
-        uw = u[:, 1:-1, 1:-1] * geom.dzdx[:, 1:-1, 1:-1]
-        vw = v[:, 1:-1, 1:-1] * geom.dzdy[:, 1:-1, 1:-1]
-        w_below = torch.cat([torch.zeros_like(w[:1]), w[:-1]], dim=0)
-        wr = ((uw[:, :, :-1] + uw[:, :, 1:]) * 0.5
-              + (vw[:, :-1, :] + vw[:, 1:, :]) * 0.5
-              + geom.jacobian[:, 1:-1, 1:-1]
-              * (w_below[:, 1:-1, 1:-1] + w[:, 1:-1, 1:-1]) * 0.5)
-        s["w_real"] = s["w_real"].clone()
-        s["w_real"][:, 1:-1, 1:-1] = wr
+        s["w_real"] = w_real(s["w_real"], u, v, w, geom)
+
+    if not full:
+        return s
 
     # integrated moisture diagnostics
     if "ivt" in s:
@@ -153,6 +152,43 @@ def diagnostic_update(state, geom, full: bool = True, needs=None):
             s[name] = s[name].clone()
             s[name][1:-1, 1:-1] = val[1:-1, 1:-1]
     return s
+
+
+def _refresh(s, needs):
+    """The fields of ``needs`` from the state's pressure, theta and winds,
+    the others read from the state, in the JAX package's order."""
+    p = s["pressure"]
+    if "exner" in needs:
+        s["exner"] = exner_function(p)
+    if "pressure_interface" in needs:
+        s["pressure_interface"] = interface_from_mass(p)
+    temperature = s["potential_temperature"] * s["exner"]
+    if "temperature" in needs:
+        s["temperature"] = temperature
+    if "density" in needs:
+        s["density"] = p / (C.RD * temperature)
+    if "uv_mass" in needs:
+        u, v = s["u"], s["v"]
+        s["u_mass"] = (u[:, :, :-1] + u[:, :, 1:]) * 0.5
+        s["v_mass"] = (v[:, :-1, :] + v[:, 1:, :]) * 0.5
+    if "surface_pressure" in needs and "surface_pressure" in s:
+        s["surface_pressure"] = s["pressure_interface"][0]
+    return s
+
+
+def w_real(old, u, v, w, geom):
+    """The real vertical velocity at the interior cells (time_step.f90:
+    163-194); the domain's edge keeps ``old``."""
+    uw = u[:, 1:-1, 1:-1] * geom.dzdx[:, 1:-1, 1:-1]
+    vw = v[:, 1:-1, 1:-1] * geom.dzdy[:, 1:-1, 1:-1]
+    w_below = torch.cat([torch.zeros_like(w[:1]), w[:-1]], dim=0)
+    wr = ((uw[:, :, :-1] + uw[:, :, 1:]) * 0.5
+          + (vw[:, :-1, :] + vw[:, 1:, :]) * 0.5
+          + geom.jacobian[:, 1:-1, 1:-1]
+          * (w_below[:, 1:-1, 1:-1] + w[:, 1:-1, 1:-1]) * 0.5)
+    out = old.clone()
+    out[:, 1:-1, 1:-1] = wr
+    return out
 
 
 def cfl_maxima(u, v, w, dz_levels, dx):

@@ -1,0 +1,204 @@
+"""The column physics of one substep of the general loop: radiation, the
+land and water surface, the surface fluxes, the boundary layer and
+convection, in the operator order of icar_tpu/core/step.py
+``physics_step`` (:241-803): ra_simple, the throttled surface (simple
+water, then Noah), apply_fluxes, pbl_simple, Tiedtke. The microphysics and
+the advection that follow run on the species stack (``core/step.py``).
+
+Each stage takes the state dict ``s`` (the advected species as rows of
+the stack, or tensors that replaced them) and returns a new dict with the
+fields it replaced. ``dt`` is the substep's length as a 0-d float32 tensor
+on the state's device. None of these schemes has a TPU kernel: they are
+plain PyTorch on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..ops.pointwise import inv
+from ..physics import cu_tiedtke, lsm_noah, pbl_simple, ra_simple, surface
+from ..physics.noah_params import load_tables
+
+class Statics:
+    """What the column physics reads besides the state, made once per
+    interval on the state's device: the lowest layer's height above the
+    ground (z_atm), the interface thickness, heights and terrain, the solar
+    geometry's longitude and sin/cos of the latitude (numpy float32 as the
+    JAX package forms them), and the Noah tables
+    (``noah_params.load_tables``)."""
+
+    def __init__(self, geom):
+        self.noah_tables = load_tables()
+        self.dz = geom.dz_interface
+        self.z = geom.z
+        self.terrain = geom.terrain
+        self.z_atm = geom.z[0] - geom.terrain
+        self.lon = geom.lon
+        lat = geom.lat.cpu().numpy()
+        dev = geom.z.device
+        self.sin_lat = torch.as_tensor(np.sin(lat * (np.pi / 180.0)),
+                                       device=dev)
+        self.cos_lat = torch.as_tensor(np.cos(lat * (np.pi / 180.0)),
+                                       device=dev)
+
+
+def radiation(s, g: Statics, doy, year_length, dt):
+    """ra_simple (time_step.f90:488): theta, shortwave, longwave and cloud
+    fraction. ``doy`` and ``year_length`` are 0-d float32 tensors."""
+    s = dict(s)
+    theta, sw, lw, cc = ra_simple.ra_simple(
+        s["potential_temperature"], s["exner"], s["water_vapor"],
+        s["cloud_water"], s["snow_mass"], s["rain_mass"], s["pressure"],
+        g.lon, g.sin_lat, g.cos_lat, doy, year_length, dt)
+    s["potential_temperature"] = theta
+    s["shortwave"] = sw
+    s["longwave"] = lw
+    s["cloud_fraction"] = cc
+    return s
+
+
+def surface_fluxes(s, g: Statics, options, lsm_dt):
+    """The surface stage (lsm, time_step.f90:491; icar_tpu/core/step.py
+    :365-680 for water=1 and lsm=4): simple open-water fluxes on water
+    cells, Noah on land cells over ``lsm_dt`` (the time since its last
+    call, a 0-d float32 tensor), then the 2 m diagnostics."""
+    phys = options.physics
+    s = dict(s)
+    u0, v0 = s["u_mass"][0], s["v_mass"][0]
+    wind = torch.sqrt(u0 * u0 + v0 * v0)
+    sh = s["sensible_heat"]
+    lh = s["latent_heat"]
+    z0 = s["roughness_z0"]
+    tskin = s["skin_temperature"]
+    t1 = s["temperature"][0]
+    qv_surf = s["water_vapor"][0]
+    if phys.watersurface == C.WATER_SIMPLE:
+        water = s["land_mask"] == 2.0        # kLC_WATER
+        sh, lh, z0, tskin, qv_surf = surface.water_simple(
+            s["sst"], s["surface_pressure"], wind, s["ustar"],
+            s["water_vapor"][0], t1, g.z_atm, water, sh, lh, z0, tskin)
+    if phys.landsurface == C.LSM_NOAH:
+        lnz = torch.log((g.z_atm + z0) / z0)
+        base = (75 * C.KARMAN ** 2 * torch.sqrt((g.z_atm + z0) / z0)) \
+            / (lnz * lnz)
+        chs = surface.exchange_coefficient(wind, tskin, t1, g.z_atm,
+                                           (C.KARMAN / lnz) ** 2, base)
+        chs = chs * torch.clamp(wind, min=1.0)
+        land = s["land_mask"] == 1.0
+        precip_delta = torch.clamp(s["precipitation"] - s["rainbl"],
+                                   min=0.0)
+        p_i = s["pressure_interface"]
+        nout = lsm_noah.noah_driver(
+            g.noah_tables, g.dz[0], s["water_vapor"][0], p_i[0], p_i[1],
+            t1, s["exner"][0], s["surface_pressure"], tskin, chs,
+            s["longwave"], s["shortwave"], s["albedo"], s["emissivity"],
+            precip_delta, lsm_dt, s["veg_type"].to(torch.int32),
+            s["soil_type"].to(torch.int32), s["vegetation_fraction"],
+            s["snow_albedo_max"], s["soil_deep_temperature"], land,
+            s["canopy_water"], s["soil_temperature"],
+            s["soil_water_content"], s["soil_liquid_water"], s["swe"],
+            s["snow_height"], s["snow_cover"], s["snow_time"], z0)
+        sh = torch.where(land, nout["hfx"], sh)
+        lh = torch.where(land, nout["lh"], lh)
+        z0 = torch.where(land, nout["roughness"], z0)
+        tskin = torch.where(land, nout["skin_temperature"], tskin)
+        qv_surf = torch.where(land, nout["qsfc"], qv_surf)
+        for name, key in (
+                ("canopy_water", "canopy_water"),
+                ("soil_temperature", "soil_temperature"),
+                ("soil_water_content", "soil_water_content"),
+                ("soil_liquid_water", "soil_liquid_water"),
+                ("snow_height", "snow_height"),
+                ("snow_cover", "snow_cover"),
+                ("albedo", "albedo"),
+                ("emissivity", "emissivity"),
+                ("snow_time", "snotime"),
+                ("ground_heat_flux", "ground_heat_flux")):
+            s[name] = nout[key]
+        s["swe"] = torch.clamp(nout["swe"], max=options.lsm.max_swe)
+        s["runoff_surface"] = s["runoff_surface"] + nout["runoff_surface"]
+        s["runoff_subsurface"] = (s["runoff_subsurface"]
+                                  + nout["runoff_subsurface"])
+        # a copy: the microphysics adds to the accumulator in place
+        s["rainbl"] = s["precipitation"].clone()
+    lnz2 = torch.log((2.0 + z0) / z0)
+    ex2 = (C.KARMAN / lnz2) ** 2 * wind
+    t2, q2 = surface.surface_diagnostics(
+        sh, lh * inv(C.LH_VAPORIZATION), tskin, qv_surf, ex2, ex2,
+        s["surface_pressure"])
+    s["sensible_heat"] = sh
+    s["latent_heat"] = lh
+    s["roughness_z0"] = z0
+    s["skin_temperature"] = tskin
+    if "temperature_2m" in s:
+        s["temperature_2m"] = t2
+        s["humidity_2m"] = q2
+    return s
+
+
+def apply_fluxes(s, g: Statics, options, dt):
+    """The surface fluxes into the lowest layers, every substep
+    (apply_fluxes, lsm_driver.f90:1549-1552)."""
+    s = dict(s)
+    s["potential_temperature"], s["water_vapor"] = surface.apply_fluxes(
+        s["potential_temperature"], s["water_vapor"], s["density"], g.dz,
+        s["exner"], s["sensible_heat"], s["latent_heat"], dt,
+        sh_feedback_fraction=options.lsm.sh_feedback_fraction,
+        lh_feedback_fraction=options.lsm.lh_feedback_fraction)
+    return s
+
+
+def boundary_layer(s, g: Statics, dt):
+    """pbl_simple (pbl, time_step.f90:494), less mixing over open water."""
+    s = dict(s)
+    water = (s["land_mask"] == 2.0) if "land_mask" in s else None
+    th, qv, qc, qi, qr, qs = pbl_simple.pbl_simple(
+        s["potential_temperature"], s["water_vapor"], s["cloud_water"],
+        s["cloud_ice"], s["rain_mass"], s["snow_mass"], s["u_mass"],
+        s["v_mass"], s["exner"], s["density"], g.z, g.dz, g.terrain, dt,
+        water)
+    s["potential_temperature"] = th
+    s["water_vapor"] = qv
+    s["cloud_water"] = qc
+    s["cloud_ice"] = qi
+    s["rain_mass"] = qr
+    s["snow_mass"] = qs
+    return s
+
+
+def convection(s, g: Statics, options, dt):
+    """Tiedtke (convect, time_step.f90:497; cu_driver.f90): the interface
+    w with a zero bottom, the interface pressures with the model top
+    reflected, the tendency fractions' blend, and the convective rain
+    added to both accumulators (before the microphysics adds its own)."""
+    s = dict(s)
+    w_if = torch.cat([torch.zeros_like(s["w_real"][:1]), s["w_real"]], 0)
+    p_if = torch.cat([s["pressure_interface"],
+                      2.0 * s["pressure"][-1:]
+                      - s["pressure_interface"][-1:]], 0)
+    th_c, qv_c, qc_c, qi_c, rain_c = cu_tiedtke.tiedtke(
+        s["u_mass"], s["v_mass"], w_if, s["temperature"], s["water_vapor"],
+        s["cloud_water"], s["cloud_ice"], s["exner"], s["density"],
+        s["tend_qv_adv"], s["tend_qv_pbl"], s["pressure"], p_if, g.dz,
+        s["latent_heat"] * inv(C.LH_VAPORIZATION), s["sensible_heat"],
+        s["land_mask"], dt)
+    cu = options.cu
+    if cu.tendency_fraction > 0:
+        th0, qv0 = s["potential_temperature"], s["water_vapor"]
+        if cu.tend_th_fraction > 0:
+            s["potential_temperature"] = th0 + (th_c - th0) \
+                * cu.tend_th_fraction
+        if cu.tend_qv_fraction > 0:
+            s["water_vapor"] = qv0 + (qv_c - qv0) * cu.tend_qv_fraction
+        if cu.tend_qc_fraction > 0:
+            s["cloud_water"] = s["cloud_water"] \
+                + (qc_c - s["cloud_water"]) * cu.tend_qc_fraction
+        if cu.tend_qi_fraction > 0:
+            s["cloud_ice"] = s["cloud_ice"] \
+                + (qi_c - s["cloud_ice"]) * cu.tend_qi_fraction
+    s["precipitation"] = s["precipitation"] + rain_c
+    s["convective_precipitation"] = s["convective_precipitation"] + rain_c
+    return s

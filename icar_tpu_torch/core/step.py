@@ -1,7 +1,7 @@
-"""One forcing interval of the ridge configurations: microphysics then
-upwind or MPDATA advection, substep by substep (icar_tpu/core/step.py,
-which runs the upwind case as ``fast_step`` on the TPU and the MPDATA case
-as its general loop ``step``).
+"""One forcing interval: microphysics then upwind or MPDATA advection,
+substep by substep, with or without column physics before them
+(icar_tpu/core/step.py, which runs the SB04 + upwind case as ``fast_step``
+on the TPU and the others as its general loop ``step``).
 
 The substep loop runs on the host. Per interval: the partial diagnostics,
 one CFL dt quantized to 1/64 s (read to the host once), the advected
@@ -9,14 +9,14 @@ species stacked in their natural (S, nz, ny, nx) layout, and the
 loop-invariant advection winds. Per substep: the microphysics kernel
 updates the stack in place, the advection kernel writes into a second
 buffer (the two swap), and, when forcing tendencies are set, the boundary
-ring relaxes towards them before the near-end floor clamp. With upwind
-advection (the fast path, SB04 only) SB04 forms the density in its kernel
+ring relaxes towards them before the near-end floor clamp. SB04 with
+upwind advection is the fast path: SB04 forms the density in its kernel
 (K2) and the surface precipitation of the interval is added to the state
-at its end. With MPDATA (the general loop) the state's density is
-refreshed each substep, the microphysics accumulates precipitation in the
-state substep by substep -- SB04 (K3) on its five species with that
-density, or Thompson (K5) on its nine species with the mass-level
-thickness -- and MPDATA (K4) advects the stack. Time is carried in float32
+at its end. Otherwise (the general loop) the state's density is refreshed
+each substep and the microphysics accumulates precipitation in the state
+substep by substep -- SB04 (K3) on its five species with that density, or
+Thompson (K5) on its nine species with the mass-level thickness -- and
+MPDATA (K4) or upwind (K1) advects the stack. Time is carried in float32
 as the JAX loop carries it, so the substep lengths and the clamp's timing
 match. On CPU tensors the kernels' plain versions run.
 
@@ -24,10 +24,14 @@ The loop runs on a list of blocks (``run_interval_sharded``): the whole
 domain is one block, and a model sharded over a device mesh holds one per
 shard (``parallel/mesh.py``), each with its halo, exchanged after every
 substep; the kernels run per block through ``parallel/shard_kernels.py``.
+With column physics (radiation, the surface, the PBL, convection;
+``core/physics_step.py``) the interval runs ``run_interval_physics`` on
+one block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -36,11 +40,13 @@ import torch
 
 from .. import constants as C
 from ..ops import kernels
+from ..ops.pointwise import inv
 from ..physics import mp_thompson
 from ..physics.mp_simple import formation_rates
 from ..physics.thompson_tables import ThompsonParams
 from ..parallel import shard_kernels as sk
 from ..parallel.mesh import Layout, single
+from . import physics_step as ps
 from .diagnostics import (cfl_maxima, compute_dt, diagnostic_update,
                           dt_from_maxima)
 
@@ -51,11 +57,6 @@ LIMITED_FIELDS = (
     "graupel_mass", "cloud_number", "ice_number", "rain_number",
     "snow_number", "graupel_number",
 )
-
-# the derived fields the general loop refreshes every substep: SB04 reads
-# the density, which follows theta (icar_tpu/core/step.py _substep_needs
-# for this configuration)
-SUBSTEP_NEEDS = frozenset(("density",))
 
 # the species SB04 updates, in the kernel's argument order
 MP_SPECIES = ("potential_temperature", "water_vapor", "cloud_water",
@@ -74,7 +75,7 @@ def _check_species(mp: int, mpdata: bool, adv_names):
     advected species are a pair that the loop runs (which options are
     ported is ICARModel's decision, models/icar.py ``_unported``)."""
     want = {C.MP_SIMPLE: MP_SPECIES,
-            C.MP_THOMPSON: mp_thompson.SPECIES if mpdata else None}.get(mp)
+            C.MP_THOMPSON: mp_thompson.SPECIES}.get(mp)
     if want is None or sorted(adv_names) != sorted(want):
         raise ValueError(
             f"run_interval: microphysics={mp} with "
@@ -119,7 +120,7 @@ def path_kernels(options) -> Tuple[str, ...]:
     launches for ``options`` on the card."""
     mpdata = options.physics.advection == C.ADV_MPDATA
     if options.physics.microphysics == C.MP_THOMPSON:
-        return ("mp_thompson", "advect_mpdata")
+        return ("mp_thompson", "advect_mpdata" if mpdata else "advect_upwind")
     if mpdata:
         return ("mp_simple_rho", "advect_mpdata")
     return ("mp_simple", "advect_upwind")
@@ -134,15 +135,52 @@ def path_halo(options) -> int:
     return sk.UPWIND_HALO
 
 
+def column_physics(options) -> bool:
+    """Whether ``options`` run column physics (radiation, a surface
+    scheme, a boundary layer or convection) before the microphysics."""
+    ph = options.physics
+    return (ph.radiation != C.RA_NONE or ph.landsurface != C.LSM_NONE
+            or ph.watersurface != C.WATER_NONE
+            or ph.boundarylayer != C.PBL_NONE
+            or ph.convection != C.CU_NONE)
+
+
+def substep_needs(options) -> frozenset:
+    """The derived fields the general loop refreshes each substep: those a
+    configured scheme reads whose inputs change within the interval
+    (icar_tpu/core/step.py ``_substep_needs``, without RRTMG and YSU,
+    which the port does not run). They follow theta; the pressure-derived
+    fields and the mass-level winds would follow only a forcing of
+    pressure or the winds, which the port refuses (Slice E)."""
+    ph = options.physics
+    surface = (ph.landsurface != C.LSM_NONE
+               or ph.watersurface != C.WATER_NONE)
+    needs = set()
+    if (ph.microphysics != C.MP_NONE or ph.boundarylayer != C.PBL_NONE
+            or ph.convection != C.CU_NONE or surface
+            or options.run.advect_density):
+        needs.add("density")
+    if surface or ph.convection != C.CU_NONE:
+        needs.add("temperature")
+    return frozenset(needs)
+
+
 def run_interval(state: Dict[str, torch.Tensor], geom, options,
                  adv_names: Sequence[str], seconds: float,
-                 dqdt: Optional[Dict[str, torch.Tensor]] = None
+                 dqdt: Optional[Dict[str, torch.Tensor]] = None,
+                 time_aux: Optional[Dict[str, float]] = None, timer=None
                  ) -> Tuple[Dict[str, torch.Tensor], int]:
     """Integrate ``state`` over one interval of ``seconds``; returns the new
     state and the number of substeps. ``geom`` holds torch tensors;
-    ``dqdt`` maps advected species to boundary forcing tendencies. The
-    whole domain is one block (``run_interval_sharded`` on a one-shard
-    layout)."""
+    ``dqdt`` maps advected species to boundary forcing tendencies;
+    ``time_aux`` holds the interval's ``day_of_year0`` and
+    ``year_length`` (the radiation's solar geometry). With column physics
+    the interval runs ``run_interval_physics`` (``timer``: see there);
+    otherwise the whole domain is one block (``run_interval_sharded`` on a
+    one-shard layout)."""
+    if column_physics(options):
+        return run_interval_physics(state, geom, options, adv_names,
+                                    seconds, dqdt, time_aux, timer)
     layout = single(state["pressure"].device, geom.ny, geom.nx)
     (state,), n = run_interval_sharded(layout, [state], [geom], options,
                                        adv_names, seconds, [dqdt or {}])
@@ -209,8 +247,12 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         floor_b = [f[:, None, None, None] for f in floors]
         no_floor = [torch.full_like(f, -np.inf) for f in floor_b]
 
-    if mpdata:
-        # the general loop accumulates in the state, substep by substep
+    # the general loop (MPDATA, or Thompson) accumulates in the state,
+    # substep by substep; the upwind fast path adds the interval's sum
+    general = mpdata or thompson
+    if general:
+        # the density follows theta (K3 reads it)
+        needs = substep_needs(options)
         rain = [s["precipitation"].clone() for s in states]
         snow = [s["snowfall"].clone() for s in states]
         if thompson:
@@ -226,30 +268,26 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         near_end = bool((end_time - t) < dt * np.float32(2))
         # the near-end clamp folds into advection unless forcing follows
         clamp = near_end and tend is None
-        if mpdata:
+        if general:
             th = smap[0] if thompson else species[0]
             states = [diagnostic_update({**s, "potential_temperature": q[th]},
-                                        g, needs=SUBSTEP_NEEDS)
+                                        g, needs=needs)
                       for s, q, g in zip(states, stacks, geoms)]
-            if thompson:
-                sk.thompson_stack_sharded(stacks, smap, exner, pressure,
-                                          dz_mp, dt, rain, snow, graupel,
-                                          tparams)
-            else:
-                c2r, c2s = formation_rates(dt)
-                sk.mp_simple_sharded(
-                    *([q[i] for q in stacks] for i in species), pressure,
-                    exner, dz_mp, rain, snow, dt, c2r, c2s,
-                    rho=[s["density"] for s in states])
+        if thompson:
+            sk.thompson_stack_sharded(stacks, smap, exner, pressure, dz_mp,
+                                      dt, rain, snow, graupel, tparams)
+        else:
+            c2r, c2s = formation_rates(dt)
+            sk.mp_simple_sharded(
+                *([q[i] for q in stacks] for i in species), pressure, exner,
+                dz_mp, rain, snow, dt, c2r, c2s,
+                rho=[s["density"] for s in states] if mpdata else None)
+        if mpdata:
             sk.advect_mpdata_sharded(layout, stacks, winds, dt,
                                      adv.mpdata_order,
                                      adv.flux_corrected_transport, floors,
                                      clamp, spares)
         else:
-            c2r, c2s = formation_rates(dt)
-            sk.mp_simple_sharded(*([q[i] for q in stacks] for i in species),
-                                 pressure, exner, dz_mp, rain, snow, dt, c2r,
-                                 c2s)
             sk.advect_upwind_sharded(layout, stacks, winds, dt, floors, clamp,
                                      spares)
         stacks, spares = spares, stacks
@@ -269,7 +307,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         s = dict(s)
         for i, k in enumerate(adv_names):
             s[k] = q[i]
-        if mpdata:
+        if general:
             s["precipitation"] = rain[b]
             s["snowfall"] = snow[b]
             if thompson:
@@ -279,3 +317,150 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             s["snowfall"] = s["snowfall"] + snow[b]
         out.append(diagnostic_update(s, g, full=True))
     return out, n
+
+
+def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
+                         adv_names: Sequence[str], seconds: float,
+                         dqdt: Optional[Dict[str, torch.Tensor]] = None,
+                         time_aux: Optional[Dict[str, float]] = None,
+                         timer=None
+                         ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """One interval of the general loop with column physics, on one block
+    (icar_tpu/core/step.py ``step`` and ``physics_step`` :241-1232,
+    :1613-1814) for Thompson with upwind advection. Before the loop: the
+    partial diagnostics with w_real, one CFL dt, the species stack and the
+    advection winds. Per substep: the partial refresh (``substep_needs``),
+    then ``core/physics_step.py``'s stages -- radiation, the surface every
+    ``lsm.update_interval`` seconds of float32 model time (its counter
+    starts full, so the first substep runs it), the surface fluxes, the
+    boundary layer, convection --, then the rows of the stack a stage
+    replaced are written back, Thompson (K5) updates the stack and the
+    accumulators in place, and K1 advects it into the second buffer with
+    the near-end clamp folded in unless forcing follows; the water
+    vapour's advection tendency feeds the next substep's convection. The
+    ``time_aux`` of ``run_interval`` is required with the radiation. The
+    PBL's substep count is one host read per substep. ``timer(stage)``,
+    when given, returns a context manager around each stage's work
+    (``time_paths.StageTimer``: diagnostics, radiation, surface, pbl,
+    convection, restack, mp_thompson, advection)."""
+    stage = timer or (lambda name: contextlib.nullcontext())
+
+    adv_names = tuple(adv_names)
+    phys = options.physics
+    mp = phys.microphysics
+    mpdata = phys.advection == C.ADV_MPDATA
+    _check_species(mp, mpdata, adv_names)
+    if mp != C.MP_THOMPSON or mpdata:
+        raise ValueError("run_interval_physics: the column physics runs "
+                         "with Thompson and upwind advection only")
+    dqdt = dqdt or {}
+    dev = state["pressure"].device
+    needs = substep_needs(options)
+    convect = phys.convection == C.CU_TIEDTKE
+    surface = (phys.landsurface != C.LSM_NONE
+               or phys.watersurface != C.WATER_NONE)
+
+    with stage("diagnostics"):
+        s = diagnostic_update(state, geom, full=False, with_w_real=convect)
+    dt_static = quantized_dt(s["u"], s["v"], s["w"], geom.dz_levels,
+                             geom.dx, options.run.cfl_reduction_factor,
+                             options.run.cfl_strictness)
+    # the accumulators are updated in place below: own them
+    for k in ("precipitation", "snowfall", "graupel"):
+        s[k] = s[k].clone()
+    q = torch.stack([s[k] for k in adv_names])
+    spare = torch.empty_like(q)
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
+    floors = torch.as_tensor(limit_floors(adv_names), device=dev)
+    smap = mp_thompson.stack_smap(adv_names)
+    tparams = thompson_params(options)
+    dz_mass = geom.dz_mass.contiguous()
+    statics = ps.Statics(geom)
+    i_qv = adv_names.index("water_vapor")
+    tend = None
+    if any(k in dqdt for k in adv_names):
+        tend = torch.stack([dqdt[k] if k in dqdt else torch.zeros_like(q[0])
+                            for k in adv_names])
+        bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
+        floor_b = floors[:, None, None, None]
+    if phys.radiation == C.RA_SIMPLE:
+        if time_aux is None:
+            raise ValueError("run_interval_physics: the radiation needs "
+                             "time_aux (ICARModel._time_aux)")
+        day0 = np.float32(time_aux["day_of_year0"])
+        year_length = torch.full((), float(np.float32(
+            time_aux["year_length"])), device=dev)
+    lsm_int = float(options.lsm.update_interval)
+    # the throttle compares in float32, as the JAX loop does
+    lsm_due = np.float32(lsm_int - 1e-6)
+    lsm_elapsed = np.float32(lsm_int)
+
+    def scalar(x):
+        return torch.full((), float(x), device=dev)
+
+    t = np.float32(0.0)
+    end_time = np.float32(seconds)
+    n = 0
+    while t < end_time - np.float32(1e-3):
+        dt = min(dt_static, end_time - t)
+        near_end = bool((end_time - t) < dt * np.float32(2))
+        clamp = near_end and tend is None
+        dt_t = scalar(dt)
+        views = {k: q[i] for i, k in enumerate(adv_names)}
+        with stage("diagnostics"):
+            s = diagnostic_update({**s, **views}, geom, needs=needs)
+        if phys.radiation == C.RA_SIMPLE:
+            doy = day0 + t * np.float32(inv(86400.0))
+            with stage("radiation"):
+                s = ps.radiation(s, statics, scalar(doy), year_length, dt_t)
+        if surface:
+            with stage("surface"):
+                if lsm_int > 0:
+                    lsm_elapsed = np.float32(lsm_elapsed + dt)
+                    if lsm_elapsed >= lsm_due:
+                        s = ps.surface_fluxes(s, statics, options,
+                                              scalar(lsm_elapsed))
+                        lsm_elapsed = np.float32(0.0)
+                else:
+                    s = ps.surface_fluxes(s, statics, options, dt_t)
+                s = ps.apply_fluxes(s, statics, options, dt_t)
+        if phys.boundarylayer == C.PBL_SIMPLE:
+            with stage("pbl"):
+                qv_before_pbl = s["water_vapor"]
+                s = ps.boundary_layer(s, statics, dt_t)
+                if convect:
+                    s["tend_qv_pbl"] = (s["water_vapor"] - qv_before_pbl) \
+                        / dt_t
+        if convect:
+            with stage("convection"):
+                s = ps.convection(s, statics, options, dt_t)
+        with stage("restack"):
+            # write back the rows a stage replaced (icar_tpu/core/step.py
+            # _restack_dirty)
+            for i, k in enumerate(adv_names):
+                if s[k] is not views[k]:
+                    q[i].copy_(s[k])
+        with stage("mp_thompson"):
+            kernels.mp_thompson_stack(q, smap, s["exner"], s["pressure"],
+                                      dz_mass, dt, s["precipitation"],
+                                      s["snowfall"], s["graupel"], tparams)
+        with stage("advection"):
+            kernels.advect_upwind(q, winds, dt, floors, clamp, out=spare)
+            if "tend_qv_adv" in s:
+                # the moisture convergence the next substep's trigger reads
+                s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t
+        q, spare = spare, q
+        if tend is not None:
+            # boundary-ring relaxation, then the near-end clamp
+            q = torch.maximum(q + tend * (float(dt) * bmask),
+                              floor_b if near_end else
+                              torch.full_like(floor_b, -np.inf))
+            spare = torch.empty_like(q)
+        t = np.float32(t + dt)
+        n += 1
+
+    for i, k in enumerate(adv_names):
+        s[k] = q[i]
+    with stage("diagnostics"):
+        s = diagnostic_update(s, geom, full=True)
+    return s, n

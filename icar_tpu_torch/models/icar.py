@@ -3,12 +3,15 @@
 
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
-ideal ridge with balance-only winds and no other physics, with SB04
-microphysics and upwind or MPDATA advection (any order, with or without
-FCT), or with Thompson microphysics (mp=1) and MPDATA advection. Any other
-option raises ``NotImplementedError`` naming the ROADMAP slice that ports
-it. ``attach_mesh`` shards a model over a device mesh
-(``parallel/mesh.py``); its state then lives in one block per shard.
+ideal ridge with SB04 microphysics and upwind or MPDATA advection (any
+order, with or without FCT), or with Thompson microphysics (mp=1) and
+either advection; with Thompson and upwind also the full physics column of
+bench.py's fullphys: the mass-conserving winds (wind=2), simple radiation,
+Noah with simple water, the simple PBL and Tiedtke convection, in any
+subset. Any other option raises ``NotImplementedError`` naming the ROADMAP
+slice that ports it. ``attach_mesh`` shards a model over a device mesh
+(``parallel/mesh.py``); its state then lives in one block per shard (not
+yet with the column physics).
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
 from ..core.state import (ACCUMULATORS, advected_names, create_state,
                           state_digest)
-from ..core.step import (path_halo, path_kernels, run_interval,
-                         run_interval_sharded)
+from ..core.step import (column_physics, path_halo, path_kernels,
+                         run_interval, run_interval_sharded)
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
 from ..ops import kernels
@@ -34,35 +37,41 @@ from ..parallel.mesh import Layout, Mesh, scatter_geometry
 
 
 def _unported(options: Options):
-    """Why ``options`` leaves the ported slice, or None."""
+    """Why ``options`` leave the ported configurations, or None."""
     ph = options.physics
     mp_slice = ("Slice F (Thompson-aerosol, mp=5)"
                 if ph.microphysics == C.MP_THOMPSON_AER
                 else "Slice F (the other schemes)")
+    column = column_physics(options)
     checks = (
         (ph.microphysics in (C.MP_SIMPLE, C.MP_THOMPSON),
          f"microphysics={ph.microphysics}", mp_slice),
-        (ph.microphysics != C.MP_THOMPSON or ph.advection == C.ADV_MPDATA,
-         f"microphysics={ph.microphysics} with advection={ph.advection}",
-         "Slice B (Thompson + upwind)"),
         (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
          f"advection={ph.advection}", "Slice B (advection options)"),
-        (ph.windtype == C.WIND_NONE, f"wind={ph.windtype}",
-         "Slice C (wind=2/3) and Slice D (linear winds)"),
-        (ph.radiation == C.RA_NONE, f"radiation={ph.radiation}",
-         "Slice C (ra_simple) and Slice F (RRTMG)"),
-        (ph.boundarylayer == C.PBL_NONE, f"pbl={ph.boundarylayer}",
-         "Slice C (pbl_simple) and Slice F (YSU)"),
-        (ph.landsurface == C.LSM_NONE, f"lsm={ph.landsurface}",
-         "Slice C (Noah) and Slice F (Noah-MP)"),
-        (ph.watersurface == C.WATER_NONE, f"water={ph.watersurface}",
-         "Slice F (lake)"),
-        (ph.convection == C.CU_NONE, f"convection={ph.convection}",
-         "Slice C (Tiedtke) and Slice F (the other schemes)"),
+        (ph.windtype in (C.WIND_NONE, C.WIND_CONSERVE_MASS),
+         f"wind={ph.windtype}",
+         "Slice C (wind=3)" if ph.windtype == C.WIND_ITERATIVE
+         else "Slice D (linear winds)"),
+        (ph.radiation in (C.RA_NONE, C.RA_SIMPLE),
+         f"radiation={ph.radiation}", "Slice F (RRTMG)"),
+        (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE),
+         f"pbl={ph.boundarylayer}", "Slice F (YSU)"),
+        (ph.landsurface in (C.LSM_NONE, C.LSM_NOAH),
+         f"lsm={ph.landsurface}", "Slice F (Noah-MP and the others)"),
+        (ph.watersurface in (C.WATER_NONE, C.WATER_SIMPLE),
+         f"water={ph.watersurface}", "Slice F (lake)"),
+        (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
+         f"convection={ph.convection}", "Slice F (the other schemes)"),
+        (not column or ph.microphysics == C.MP_THOMPSON,
+         f"the column physics with microphysics={ph.microphysics}",
+         "Slice C (the column physics with SB04 or MPDATA)"),
+        (not column or ph.advection == C.ADV_UPWIND,
+         f"the column physics with advection={ph.advection}",
+         "Slice C (the column physics with SB04 or MPDATA)"),
         (not options.run.advect_density, "advect_density",
-         "Slice B (advection options)"),
+         "Slice B (density advection)"),
         (float(options.mp.update_interval) <= 0, "mp update_interval > 0",
-         "Slice C (update-interval throttles)"),
+         "Slice C (the microphysics throttle)"),
     )
     for ok, what, where in checks:
         if not ok:
@@ -113,6 +122,12 @@ class ICARModel:
         ``advance`` calls run ``run_interval_sharded``. Raises ValueError
         for a mesh on another device type than the model's, or one that
         leaves a shard without a natural row or column."""
+        if column_physics(self.options):
+            raise NotImplementedError(
+                "attach_mesh: a sharded model with column physics is not "
+                "ported yet: Slice G (sharded full physics; the PBL's "
+                "domain-wide substep count, the convection's w_real) in "
+                "ROADMAP.md")
         if mesh.device_type != self.device.type:
             raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
                              f"devices for a model on {self.device}")
@@ -161,7 +176,15 @@ class ICARModel:
             u, v = self._tensor(case.u), self._tensor(case.v)
             w = torch.zeros_like(s["potential_temperature"])
         s["u"], s["v"], s["w"] = u, v, w
-        self._install(diagnostic_update(s, self.geom_t))
+        s = diagnostic_update(s, self.geom_t)
+        # the surface of an idealised run (no forcing files): skin, sea,
+        # soil and deep-soil temperature start at the lowest level's air
+        # temperature
+        for name in ("skin_temperature", "sst", "soil_temperature",
+                     "soil_deep_temperature"):
+            if name in s and float(torch.max(torch.abs(s[name]))) == 0.0:
+                s[name] = s["temperature"][0].expand(s[name].shape).clone()
+        self._install(s)
 
     def set_forcing_tendencies(self, dqdt: Dict[str, np.ndarray]):
         """Install dqdt fields for the next intervals (update_delta_fields,
@@ -176,20 +199,33 @@ class ICARModel:
         if self.mesh is not None:
             self._dqdt_blocks = self._scatter_dict(self._dqdt)
 
-    def advance(self, seconds: float):
+    def advance(self, seconds: float, timer=None):
         """Integrate the state forward by ``seconds`` (one forcing/output
         interval; step, time_step.f90:440-551). Returns the state (None
-        with a mesh: the blocks are in ``self.blocks``)."""
+        with a mesh: the blocks are in ``self.blocks``). ``timer`` times
+        the column physics' stages (``core.step.run_interval_physics``)."""
         if self.mesh is None:
             self.state, self._last_n = run_interval(
                 self.state, self.geom_t, self.options, self.advect_names,
-                seconds, self._dqdt)
+                seconds, self._dqdt, self._time_aux(), timer)
         else:
             self.blocks, self._last_n = run_interval_sharded(
                 self.layout, self.blocks, self._geom_blocks, self.options,
                 self.advect_names, seconds, self._dqdt_blocks)
         self.model_time += float(seconds)
         return self.state
+
+    def _time_aux(self) -> Dict[str, np.float32]:
+        """The interval's solar-geometry scalars, in float32: the
+        fractional day of the year at its start (small, so float32 keeps
+        the hour angle to the second) and the year's length
+        (icar_tpu/models/icar.py _time_aux)."""
+        from ..utils.calendar import Time, TimeDelta
+        now = self.options.start_time() + TimeDelta(self.model_time)
+        year_start = Time.from_date(now.date()[0], 1, 1,
+                                    calendar=now.calendar)
+        return {"day_of_year0": np.float32(now.mjd - year_start.mjd),
+                "year_length": np.float32(now.year_length())}
 
     @property
     def last_n_substeps(self) -> int:
@@ -244,12 +280,21 @@ class ICARModel:
 
 
 # bench.py's ridge case at full width (bench.py:47-51), and the options of
-# the three ported paths on it: SB04 + upwind, SB04 + MPDATA (order 2 with
-# FCT) and Thompson + MPDATA (bench.py --config mpdata_thompson)
+# the ported paths on it: SB04 + upwind, SB04 + MPDATA (order 2 with FCT),
+# Thompson + MPDATA (bench.py --config mpdata_thompson) and the full
+# physics column (bench.py --config fullphys: Thompson with upwind
+# advection, wind=2, simple radiation, Noah with simple water, simple PBL
+# and Tiedtke convection)
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
+FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
+                rad=C.RA_SIMPLE, pbl=C.PBL_SIMPLE, lsm=C.LSM_NOAH,
+                water=C.WATER_SIMPLE, conv=C.CU_TIEDTKE)
 RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
-               "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON)}
+               "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON),
+               "fullphys": FULLPHYS}
+# the paths a mesh shards (the column physics is not sharded yet)
+SHARDED_PATHS = ("upwind", "MPDATA", "Thompson")
 
 
 def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # a multiple of twice the widest vector (AVX-512: 16 floats) that divides
@@ -62,3 +63,11 @@ def log10(x):
 def pow(x, e):  # noqa: A001 (torch.pow's name)
     """``x ** e``; either may be a number."""
     return _position_free(torch.pow, x, e)
+
+
+def inv(c) -> float:
+    """The float32 reciprocal of the number ``c``, for writing ``x / c`` as
+    ``x * inv(c)``: the JAX package's compiled step divides by a constant
+    so (XLA folds the division), and torch itself does so on the card but
+    not on the CPU, so the product gives one result on both devices."""
+    return float(np.float32(1.0) / np.float32(c))

@@ -2,7 +2,8 @@
 
 All fields are (z, y, x); u is x-staggered (nz, ny, nx+1), v is
 y-staggered (nz, ny+1, nx), w sits at the top interface of each layer
-(nz, ny, nx). Only the balance-only solver (wind=0) is ported.
+(nz, ny, nx). The balance-only solver (wind=0) and the mass-conserving
+acceleration (wind=2) are ported.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from .. import constants as C
 _WIND_SLICES = {
     C.WIND_LINEAR: "Slice D (linear-theory winds)",
     C.WIND_LINEAR_ITERATIVE: "Slice D (linear-theory winds)",
-    C.WIND_CONSERVE_MASS: "Slice C (wind=2/3)",
-    C.WIND_ITERATIVE: "Slice C (wind=2/3)",
+    C.WIND_ITERATIVE: "Slice C (wind=3)",
 }
 
 
@@ -70,11 +70,20 @@ def make_winds_grid_relative(u, v, sintheta, costheta):
     return u_new, v_new
 
 
+def mass_conservative_acceleration(u, v, u_accel, v_accel):
+    """Terrain-ratio wind acceleration (mass_conservative_acceleration,
+    wind.f90:500-510): divide by the level-compression ratio so that mass
+    flux through squeezed levels is conserved."""
+    return u / u_accel, v / v_accel
+
+
 def update_winds(u, v, geom, windtype: int):
-    """Wind solver dispatch (update_winds, wind.f90:289-369) for wind=0:
-    returns (u, v, w) with w balancing the horizontal divergence. ``geom``
-    holds torch tensors (``convert.geometry_to_torch``)."""
-    if windtype != C.WIND_NONE:
+    """Wind solver dispatch (update_winds, wind.f90:289-369) for wind=0 and
+    wind=2: returns (u, v, w) with w balancing the horizontal divergence.
+    ``geom`` holds torch tensors (``convert.geometry_to_torch``)."""
+    if windtype == C.WIND_CONSERVE_MASS:
+        u, v = mass_conservative_acceleration(u, v, geom.zr_u, geom.zr_v)
+    elif windtype != C.WIND_NONE:
         where = _WIND_SLICES.get(windtype, "ROADMAP.md")
         raise NotImplementedError(
             f"wind={windtype} is not ported yet: {where} in ROADMAP.md")

@@ -1,19 +1,21 @@
 """Where the device time of one forcing interval goes: the ideal ridge
-(SB04 with upwind or MPDATA advection, or Thompson with MPDATA) under
-torch.profiler.
+(SB04 with upwind or MPDATA advection, Thompson with MPDATA, or the full
+physics column) under torch.profiler.
 
     python -m icar_tpu_torch.profile_interval [--adv upwind|mpdata]
-        [--mp simple|thompson] [--nx 500] [--ny 500] [--nz 20]
-        [--interval 1200] [--device cuda]
+        [--mp simple|thompson] [--path NAME] [--nx 500] [--ny 500]
+        [--nz 20] [--interval 1200] [--device cuda]
 
-Builds the model (the bench's ridge, 500x500x20 by default), advances one
-interval to warm up (the kernel build and first launches), then profiles
-one more interval and prints each device activity (kernels, copies,
-memsets) with its total time and count, then one JSON line: the wall time
-of the profiled interval, the summed device time, the device's idle share
-(1 - device time / wall, on one stream) and the card's name. The wall time
-includes the profiler's own cost. With ``--device cpu`` there is no device
-time and the idle share is null.
+Builds the model (the bench's ridge, 500x500x20 by default; ``--path``
+takes a path of ``models.icar.RIDGE_PATHS`` -- upwind, MPDATA, Thompson,
+fullphys -- instead of --adv and --mp), advances one interval to warm up
+(the kernel build and first launches), then profiles one more interval
+and prints each device activity (kernels, copies, memsets) with its total
+time and count, then one JSON line: the wall time of the profiled
+interval, the summed device time, the device's idle share (1 - device
+time / wall, on one stream) and the card's name. The wall time includes
+the profiler's own cost. With ``--device cpu`` there is no device time
+and the idle share is null.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import constants as C
-from .models.icar import RIDGE as FULL_RIDGE, ideal_ridge_model
+from .models.icar import RIDGE as FULL_RIDGE, RIDGE_PATHS, ideal_ridge_model
 
 # bench.py's ridge case apart from its size
 RIDGE = {k: v for k, v in FULL_RIDGE.items() if k not in ("nx", "ny", "nz")}
@@ -51,6 +53,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--adv", choices=sorted(ADVECTION), default="mpdata")
     ap.add_argument("--mp", choices=sorted(MICROPHYSICS), default="simple")
+    ap.add_argument("--path", choices=sorted(RIDGE_PATHS), default=None,
+                    help="a path of RIDGE_PATHS instead of --adv and --mp")
     ap.add_argument("--nx", type=int, default=500)
     ap.add_argument("--ny", type=int, default=500)
     ap.add_argument("--nz", type=int, default=20)
@@ -58,9 +62,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    opts = (RIDGE_PATHS[args.path] if args.path else
+            dict(adv=ADVECTION[args.adv], mp=MICROPHYSICS[args.mp]))
     model = ideal_ridge_model(nx=args.nx, ny=args.ny, nz=args.nz, **RIDGE,
-                              adv=ADVECTION[args.adv],
-                              mp=MICROPHYSICS[args.mp], device=args.device)
+                              **opts, device=args.device)
     on_card = model.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     model.advance(args.interval)
@@ -79,7 +84,8 @@ def main(argv=None):
         print(f"{us / 1e3:10.3f} ms {100 * us / 1e3 / wall_ms:5.1f}% "
               f"{count:5d}x  {name}")
     print(json.dumps({
-        "adv": args.adv, "mp": args.mp, "shape": [args.nz, args.ny, args.nx],
+        "path": args.path, "adv": args.adv, "mp": args.mp,
+        "shape": [args.nz, args.ny, args.nx],
         "substeps": model.last_n_substeps, "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1 - device_ms / wall_ms if on_card else None,

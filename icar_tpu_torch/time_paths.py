@@ -1,31 +1,36 @@
-"""Throughput of the three ridge paths on the card, measured repeatedly.
+"""Throughput of the ridge paths on the card, measured repeatedly.
 
     python -m icar_tpu_torch.time_paths [--repeat 5] [--mesh cards]
 
 For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
-(``models.icar.RIDGE``: SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA)
-it builds a fresh model, advances one 1200 s interval to warm up, then
-times ``--repeat`` runs of two intervals each (``run_timed``) and prints
-one JSON line: for each path the grid-point substeps per second of every
-run over the natural grid, their median and the final state's float64
-digest (``ICARModel.digest``), and the card's name. With ``--mesh cards``
-the model is sharded with one shard per visible card (``make_mesh``); its
-digest equals the unsharded run's. ``chip_smoke.py`` drives the same cases
-through the same ``run_timed``; this module repeats the measurement so
-that two checkouts can be compared in one call on one card (run it from
-each checkout in turns).
+(``models.icar.RIDGE``: SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA,
+and the full physics column of bench.py --config fullphys) it builds a
+fresh model, advances one 1200 s interval to warm up, then times
+``--repeat`` runs of two intervals each (``run_timed``) and prints one
+JSON line: for each path the grid-point substeps per second of every run
+over the natural grid, their median and the final state's float64 digest
+(``ICARModel.digest``), and the card's name; for the full-physics path
+also the CUDA-event milliseconds of each stage of one more interval
+(``StageTimer``). With ``--mesh cards`` the model is sharded with one
+shard per visible card (``make_mesh``; the paths of ``SHARDED_PATHS``);
+its digest equals the unsharded run's. ``chip_smoke.py`` drives the same
+cases through the same ``run_timed``; this module repeats the measurement
+so that two checkouts can be compared in one call on one card (run it
+from each checkout in turns).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import time
 
 import torch
 
-from .models.icar import RIDGE, RIDGE_PATHS, ideal_ridge_model
+from .core.step import column_physics
+from .models.icar import RIDGE, RIDGE_PATHS, SHARDED_PATHS, ideal_ridge_model
 
 INTERVAL = 1200.0
 INTERVALS = 2
@@ -45,9 +50,48 @@ def run_timed(model, intervals=INTERVALS, interval=INTERVAL):
     return steps, time.perf_counter() - t0
 
 
+class StageTimer:
+    """CUDA-event milliseconds of the named stages of the column-physics
+    loop (``core.step.run_interval_physics``'s ``timer``): each call
+    ``timer(name)`` brackets a stage's work with two events on the current
+    stream; ``ms()`` synchronizes and sums them per stage."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events.setdefault(name, []).append((start, end))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.events.items()}
+
+
+def stage_ms(model, interval=INTERVAL):
+    """The CUDA-event milliseconds of each stage of one more interval of
+    ``model`` (a column-physics path), with the interval's wall and
+    substeps."""
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.advance(interval, timer=timer)
+    ms = timer.ms()
+    return {"stages_ms": ms, "wall_ms": 1e3 * (time.perf_counter() - t0),
+            "substeps": model.last_n_substeps}
+
+
 def time_path(case, repeat, cards=False):
     """(gp*steps/s of each of ``repeat`` runs of INTERVALS intervals, the
-    final state's digest); with ``cards``, one shard per visible card."""
+    final state's digest, the stage times of one more interval of a
+    column-physics path or None); with ``cards``, one shard per visible
+    card."""
     from .parallel.mesh import make_mesh
     model = ideal_ridge_model(**RIDGE, **case, device="cuda")
     if cards:
@@ -58,7 +102,9 @@ def time_path(case, repeat, cards=False):
     for _ in range(repeat):
         steps, seconds = run_timed(model)
         rates.append(gp * steps / seconds)
-    return rates, model.digest()
+    digest = model.digest()
+    stages = stage_ms(model) if column_physics(model.options) else None
+    return rates, digest, stages
 
 
 def main(argv=None):
@@ -69,12 +115,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_paths: no CUDA device")
+    paths = SHARDED_PATHS if args.mesh else list(RIDGE_PATHS)
     out = {"device": torch.cuda.get_device_name(0),
            "cards": torch.cuda.device_count(), "mesh": args.mesh}
-    for name, case in RIDGE_PATHS.items():
-        rates, digest = time_path(case, args.repeat, args.mesh == "cards")
+    for name in paths:
+        rates, digest, stages = time_path(RIDGE_PATHS[name], args.repeat,
+                                          args.mesh == "cards")
         out[name] = {"gp_steps_per_s": rates,
                      "median": statistics.median(rates), "digest": digest}
+        if stages is not None:
+            out[name]["one_interval"] = stages
     print(json.dumps(out), flush=True)
 
 

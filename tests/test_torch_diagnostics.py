@@ -70,7 +70,7 @@ def test_density_refresh_matches(ridge):
             np.testing.assert_array_equal(got[k].numpy(), s[k], err_msg=k)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiag.diagnostic_update(state_from_numpy(s, "cpu"), None,
-                                needs={"temperature"})
+                                needs={"temperature_interface"})
 
 
 def test_exner_matches_compiled_reference():

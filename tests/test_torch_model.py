@@ -107,7 +107,7 @@ def test_interval_matches_jax(forcing):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("microphysics", C.MP_THOMPSON), ("microphysics", C.MP_NONE),
+    ("microphysics", C.MP_MORRISON), ("microphysics", C.MP_NONE),
     ("advection", C.ADV_NONE), ("windtype", C.WIND_LINEAR),
     ("windtype", C.WIND_ITERATIVE), ("radiation", C.RA_SIMPLE),
     ("boundarylayer", C.PBL_SIMPLE), ("landsurface", C.LSM_NOAH),

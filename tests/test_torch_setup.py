@@ -33,6 +33,7 @@ COPIES = {
     "grid.py": (),
     "forcing/ideal.py": ("write_ideal_files",),
     "physics/thompson_tables.py": (),
+    "physics/noah_params.py": (),
 }
 
 

@@ -96,7 +96,7 @@ def test_thompson_ridge_takes_the_plain_versions_on_the_cpu():
 
 
 @pytest.mark.parametrize("mp,adv,match", [
-    (C.MP_THOMPSON, C.ADV_UPWIND, "Thompson \\+ upwind"),
+    (C.MP_THOMPSON, C.ADV_NONE, "Slice B \\(advection options\\)"),
     (C.MP_THOMPSON_AER, C.ADV_MPDATA, "Thompson-aerosol"),
 ])
 def test_unported_thompson_options_raise(mp, adv, match):
@@ -105,10 +105,10 @@ def test_unported_thompson_options_raise(mp, adv, match):
 
 
 @pytest.mark.parametrize("names,adv", [(slice(0, 5), C.ADV_MPDATA),
-                                       (slice(None), C.ADV_UPWIND)])
+                                       (slice(0, 5), C.ADV_UPWIND)])
 def test_run_interval_refuses_what_it_does_not_run(names, adv):
-    """The loop runs Thompson only on its nine species and with MPDATA;
-    anything else is refused before a substep."""
+    """The loop runs Thompson only on its nine species, with either
+    advection; anything else is refused before a substep."""
     from icar_tpu_torch.core.step import run_interval
     m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0,
                           mp=C.MP_THOMPSON, adv=C.ADV_MPDATA, device="cpu")

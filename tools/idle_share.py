@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The upwind ridge path's device idle share without the profiler. Needs
-one NVIDIA GPU.
+"""A ridge path's device idle share without the profiler. Needs one
+NVIDIA GPU.
 
-    python tools/idle_share.py [--repeat 3] [--root PATH]
+    python tools/idle_share.py [--repeat 3] [--root PATH] [--path NAME]
 
-Builds the 500x500x20 upwind ridge (models.icar RIDGE) of the package
-under --root (default: this checkout; give another checkout's root to
+Builds the 500x500x20 ridge (models.icar RIDGE) on the path --path of
+models.icar RIDGE_PATHS (default upwind; MPDATA, Thompson, fullphys) of
+the package under --root (default: this checkout; give another checkout's root to
 measure it with the same script), advances one 1200 s interval to warm up,
 then times --repeat runs of two intervals each with
 time_paths.run_timed, every kernel launch of the package's library
@@ -34,6 +35,8 @@ def main():
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose package is measured")
+    ap.add_argument("--path", default="upwind",
+                    help="a path of models.icar RIDGE_PATHS")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     sys.path.insert(1, ROOT)
@@ -42,12 +45,14 @@ def main():
     smi = chip_smoke.device_info()
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from icar_tpu_torch.models.icar import RIDGE, ideal_ridge_model
+    from icar_tpu_torch.models.icar import (RIDGE, RIDGE_PATHS,
+                                            ideal_ridge_model)
     from icar_tpu_torch.ops import kernels
     from icar_tpu_torch.profile_interval import device_times
     from icar_tpu_torch.time_paths import INTERVAL, run_timed
 
-    model = ideal_ridge_model(**RIDGE, device="cuda")
+    model = ideal_ridge_model(**RIDGE, **RIDGE_PATHS[args.path],
+                              device="cuda")
     model.advance(INTERVAL)
     torch.cuda.synchronize()
 
@@ -94,7 +99,7 @@ def main():
         run.update(kernel_share=kernel_ms / run["wall_ms"],
                    other_device_ms=other_ms,
                    idle_share=1 - (kernel_ms + other_ms) / run["wall_ms"],
-                   root=os.path.abspath(args.root))
+                   root=os.path.abspath(args.root), path=args.path)
         print(json.dumps(run), flush=True)
     print(smi)
 
