@@ -95,6 +95,14 @@ def test_port_starts_where_the_jax_model_starts(jax_fullphys):
         assert mt.state[k].min() > 280.0, k
 
 
+# Xu-Randall's cloud fraction (and the longwave, which scales with it) is
+# ill-conditioned where a column holds almost no condensate: it takes the
+# 0.25 power of (1 - rh) * qc, so a column sum of about 1e-12 kg/kg (which
+# the near-end clamp has not yet removed) against an exact 0 moves it
+# between ~0.2 and ~0.6. These two are held by the share of columns that
+# differ.
+ILL_CONDITIONED = ("cloud_fraction", "longwave")
+
 # the fields the first substep's surface call forms from nearly
 # cancelling terms (or that start there from nothing), held to an
 # absolute bound after one substep: the largest difference observed, then
@@ -134,20 +142,23 @@ def test_interval_matches(jax_fullphys):
     """One 600 s interval (b): the same 24 substeps, convective rain in
     both. Bounds on the largest difference over the largest magnitude:
     the advected species 1e-4 (observed at most 1.3e-5, cloud water),
-    the surface, soil, flux and tendency fields and the accumulators 1e-3
-    (observed at most 2.6e-4, convective precipitation), the cloud
-    fraction 3e-3 (observed 6.9e-4: Xu-Randall's (1 - rh) at rh near 1),
-    every other field 1e-3."""
+    every other field 1e-3 (observed at most 2.6e-4, convective
+    precipitation), except the cloud fraction and longwave
+    (ILL_CONDITIONED), which may pass 1e-3 in at most 5% of the columns
+    (observed in none; the cloud fraction's largest difference 6.9e-4)."""
     mj, initial = jax_fullphys
     mt = _port(initial)
     mj.advance(600.0)
     mt.advance(600.0)
     assert mt.last_n_substeps == mj.last_n_substeps == 24
     for k in mt.state:
-        want = np.asarray(mj.field(k))
-        bound = (1e-4 if k in mt.advect_names else
-                 3e-3 if k == "cloud_fraction" else 1e-3)
-        assert _worst(mt.field(k), want) <= bound, k
+        got, want = mt.field(k), np.asarray(mj.field(k))
+        if k in ILL_CONDITIONED:
+            rel = np.abs(got - want) / np.abs(want).max()
+            assert (rel > 1e-3).mean() <= 0.05, k
+        else:
+            bound = 1e-4 if k in mt.advect_names else 1e-3
+            assert _worst(got, want) <= bound, k
     for k in SURFACE:
         assert np.abs(np.asarray(mj.field(k))).max() > 0, k
     for m in (mt.field, mj.field):
@@ -155,6 +166,49 @@ def test_interval_matches(jax_fullphys):
         sh = np.asarray(m("sensible_heat"))
         assert sh.min() < 0 < sh.max()
         assert np.asarray(m("cloud_water")).max() > 0
+
+
+
+def test_short_interval_with_forcing_matches(jax_fullphys):
+    """An 80 s interval (four substeps, the near-end clamp after the
+    boundary relaxation, a shortened last substep) with seeded forcing
+    tendencies of theta and water vapour: JAX's step built with forcing
+    against ``run_interval``. The surface fields of ONE_SUBSTEP_ABS
+    (ground and sensible heat, canopy water, runoff) within their
+    absolute bounds; the cloud fraction and longwave beyond 1e-3 of their
+    largest values in at most 5% of the columns (observed 10 of 360,
+    2.8%: one ridge column with no condensate, ILL_CONDITIONED); every
+    other field within 3e-4 of its largest magnitude (observed at most
+    1.3e-4, the PBL's moisture tendency; rain number 1.0e-4, rain mass
+    8.1e-5)."""
+    mj, initial = jax_fullphys
+    r = np.random.default_rng(5)
+    shape = initial["potential_temperature"].shape
+    dqdt = {"potential_temperature":
+            r.uniform(-2e-4, 2e-4, shape).astype(np.float32),
+            "water_vapor": r.uniform(-1e-7, 1e-7, shape).astype(np.float32)}
+    step = make_step_fn(mj.options, mj.geom, mj.advect_names, True,
+                        fast_path=False)
+    want, _, n = step({k: jnp.array(v) for k, v in initial.items()},
+                      {k: jnp.asarray(v) for k, v in dqdt.items()},
+                      jnp.float32(0.0), jnp.float32(80.0), mj._time_aux(),
+                      mj.geom_args())
+    mt = _port(initial)
+    got, n_t = run_interval(mt.state, mt.geom_t, mt.options,
+                            mt.advect_names, 80.0,
+                            {k: torch.tensor(v) for k, v in dqdt.items()},
+                            time_aux=mt._time_aux())
+    assert n_t == int(n) == 4
+    for k in want:
+        g, w = got[k].numpy(), np.asarray(want[k])
+        if k in ("ground_heat_flux", "sensible_heat", "canopy_water",
+                 "runoff_surface"):
+            assert np.abs(g - w).max() <= ONE_SUBSTEP_ABS[k][1], k
+        elif k in ILL_CONDITIONED:
+            rel = np.abs(g - w) / np.abs(w).max()
+            assert (rel > 1e-3).mean() <= 0.05, k
+        else:
+            assert _worst(g, w) <= 3e-4, k
 
 
 @pytest.mark.parametrize("option,value,match", [
