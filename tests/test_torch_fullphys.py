@@ -283,3 +283,20 @@ def test_profile_interval_takes_the_fullphys_path(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["path"] == "fullphys" and out["substeps"] > 0
     assert out["device_idle_share"] is None
+
+
+def test_count_ops_runs_on_the_cpu(capsys, monkeypatch):
+    """tools/count_ops.py counts each column-physics stage's operations
+    on the CPU: one JSON line, Tiedtke by far the most."""
+    import json
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(os.path.join(root, "tools"))
+    import count_ops
+    monkeypatch.setattr(sys, "argv", ["count_ops.py", "--nz", "10"])
+    count_ops.main()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ops = out["ops_per_call"]
+    assert ops["convection (Tiedtke)"] == max(ops.values())
+    assert min(ops.values()) > 0 and out["interval_substeps"] > 0
