@@ -62,6 +62,21 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    the CPU and on the card, holding the card to the CPU (the same
    substeps, each field within FULLPHYS_BOUNDS). K1's and K5's lines in
    the table add these figures under "fullphys".
+10. builds the linear-theory ridge (bench.py --config linear: SB04 and
+   upwind on linear mountain-wave winds, the table of 5 speeds x 8
+   directions x 3 N^2 with a buffer of 48, built on the card at set-up
+   without the disk cache) at 500x500x20; builds its table once more
+   alone (timed, equal to the model's bit for bit) and holds two entries
+   (the highest speed, two directions) to the CPU's build of them
+   (LINEAR_TABLE_BOUND); solves the small case's winds (LINEAR_SMALL) on
+   the CPU and on the card with wind=1, 3, 5 and blocking, each within its
+   bound (LINEAR_SOLVERS); then drives two intervals of a fresh model with
+   a wind update before each (time_paths.run_timed, the updates timed
+   apart) and checks that it went through K1 and K2 once per substep and
+   through K3, K4 and K5 not at all and that u is off the balance-only
+   ridge's; and times the stages of one more wind update with CUDA events
+   (N^2, lookup, balance). K1's and K2's lines in the table add the
+   launches under "linear".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -120,6 +135,45 @@ FULLPHYS_SMALL_INTERVAL = 600.0
 FULLPHYS_BOUNDS = {"species": 1e-4, "other": 1e-3}
 FULLPHYS_ILL_CONDITIONED = ("cloud_fraction", "longwave")
 FULLPHYS_ILL_SHARE = 0.05
+# the small linear-theory case of tests/test_torch_linear_model.py (the
+# table of tests/test_linear_winds.py small_lt, vert_smooth 5), its winds
+# solved on the CPU and on the card by each solver; bound on max|card -
+# CPU| of u, v and w over the CPU's largest |u|: the FFTs (cuFFT against
+# MKL), log and atan2 round differently, which the box smoothing of N^2
+# amplifies (the port and the JAX package differ by 7e-7 of the largest
+# wind here on the CPU), and the iterative solver adds an ulp a correction
+# (101 of them)
+LINEAR_SMALL = dict(nx=48, ny=12, nz=10, dx=1000.0, hill_height=600.0,
+                    u_speed=10.0, rh=0.8)
+LINEAR_SOLVERS = (("wind=1", 1, False, 2e-5), ("wind=3", 3, False, 5e-5),
+                  ("wind=5", 5, False, 5e-5),
+                  ("wind=1 with blocking", 1, True, 5e-5))
+# the card's table against the CPU's build of two entries at full width
+# (the highest speed, two directions, the middle N^2): bound on max|card -
+# CPU| over the entry's largest value (the CPU tests hold the port's build
+# to the JAX package's within 1e-6 of the table's largest value)
+LINEAR_TABLE_BOUND = 1e-5
+LINEAR_TABLE_DIRECTIONS = (2, 5)
+
+
+def linear_small_options(o):
+    """The small table: buffer 10, 4 speeds x 8 directions x 3 N^2, the
+    vertical N^2 window 5."""
+    o.lt.buffer = 10
+    o.lt.n_dir_values, o.lt.n_spd_values, o.lt.n_nsq_values = 8, 4, 3
+    o.lt.variable_n = True
+    o.lt.vert_smooth = 5
+
+
+def linear_blocking_options(o):
+    """The small table with flow blocking, its Froude bounds raised so
+    that blocking acts on about half the small ridge (whose smoothed
+    Froude numbers run from 4.1 to 8.8)."""
+    linear_small_options(o)
+    o.block.block_flow = True
+    o.block.block_fr_max, o.block.block_fr_min = 6.0, 4.0
+
+
 # tools/make_golden.py CASE / INTERVAL / MIN_STEPS / FIELDS, copied because
 # that module imports jax
 GOLDEN_CASE = dict(nx=80, ny=16, nz=15, dx=1000.0, hill_height=900.0,
@@ -1280,16 +1334,19 @@ DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
 
 def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
           shards=1):
-    """Advance ``model`` over two 1200 s intervals (``run_timed``) with the
-    launch counts set to 0 just before; check that ``fields`` are finite,
-    that there is cloud and precipitation, and that each kernel of
-    ``path`` launched once per substep and shard (``shards``) and the
-    others not at all; log the rate over the natural grid points and the
-    final state's digest. Returns (launch counts, digest, substeps)."""
+    """Advance ``model`` over two 1200 s intervals (``run_timed``, which
+    solves the winds anew before each interval where they follow the
+    state) with the launch counts set to 0 just before; check that
+    ``fields`` are finite, that there is cloud and precipitation, and that
+    each kernel of ``path`` launched once per substep and shard
+    (``shards``) and the others not at all; log the rate over the natural
+    grid points (the wind updates' time apart) and the final state's
+    digest. Returns (launch counts, digest, substeps)."""
     import torch
     from icar_tpu_torch.time_paths import run_timed
     kernels.reset_launches()
-    steps, seconds = run_timed(model)
+    wind_ms = []
+    steps, seconds = run_timed(model, wind_ms=wind_ms)
     launches = dict(kernels.LAUNCHES)
     for name, n in launches.items():
         want = steps * shards if name in path else 0
@@ -1307,9 +1364,13 @@ def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
                              f"precipitation ({pr_max})")
     d = model.options.domain
     rate = d.nx * d.ny * d.nz * steps / seconds
+    winds = (f" (wind updates before the intervals apart: "
+             f"{', '.join(f'{ms:.3f}' for ms in wind_ms)} ms)"
+             if wind_ms else "")
     log(f"{label} path {d.nx}x{d.ny}x{d.nz}: {steps} substeps in "
-        f"{seconds:.3f} s = {rate / 1e6:.1f}M gp*steps/s on {smi}; qc max "
-        f"{qc_max:.3e}, precip max {pr_max:.3f} mm; launches {launches}")
+        f"{seconds:.3f} s = {rate / 1e6:.1f}M gp*steps/s on {smi}{winds}; "
+        f"qc max {qc_max:.3e}, precip max {pr_max:.3f} mm; launches "
+        f"{launches}")
     digest = model.digest()
     log(f"digest {label}: " + json.dumps(digest))
     return launches, digest, steps
@@ -1458,6 +1519,114 @@ def check_fullphys(ideal_ridge_model, case, fullphys, kernels, step,
             "active_tile_share": share}}
 
 
+def check_linear_table(model):
+    """The card's table: built alone once more from the model's terrain
+    and options (timed, and equal to the model's bit for bit), and two
+    entries of it against the CPU's build of them at full width. Returns
+    the build's seconds."""
+    import torch
+    from icar_tpu_torch.ops import linear_winds as lw
+    g, lt = model.geom, model.options.lt
+    dz = np.asarray(model.options.domain.dz_levels[:g.nz], np.float32)
+    terrain = np.asarray(g.terrain, np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lut = lw.build_lut(terrain, g.dx, dz, lt, "cuda")[:2]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nbytes = sum(a.numel() * a.element_size() for a in lut)
+    for a, b in zip(lut, model._lut):
+        if not torch.equal(a, b):
+            raise AssertionError("linear ridge: a second build of the table "
+                                 "differs from the model's")
+    del lut
+    E = lt.n_spd_values * lt.n_dir_values * lt.n_nsq_values
+    log(f"linear ridge table: {E} entries ({lt.n_spd_values} speeds x "
+        f"{lt.n_dir_values} directions x {lt.n_nsq_values} N^2, buffer "
+        f"{lt.buffer}), {nbytes / 1e9:.3f} GB float32, built on the card in "
+        f"{build_s:.3f} s (equal to the model's bit for bit)")
+    s, n = lt.n_spd_values - 1, lt.n_nsq_values // 2
+    entries = [(s * lt.n_dir_values + d) * lt.n_nsq_values + n
+               for d in LINEAR_TABLE_DIRECTIONS]
+    t0 = time.perf_counter()
+    (_, cu, cv), = lw.build_lut_chunks(terrain, g.dx, dz, lt, "cpu",
+                                       entries=entries)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, e in enumerate(entries):
+        for card, cpu in ((model._lut[0][e], cu[i]), (model._lut[1][e],
+                                                      cv[i])):
+            big = float(cpu.abs().max())
+            err = float((card.cpu() - cpu).abs().max()) / big
+            if not (big > 0.1 and err <= LINEAR_TABLE_BOUND):
+                raise AssertionError(f"linear ridge table entry {e}: card "
+                                     f"against CPU {err:.3e} of its largest "
+                                     f"value {big:.3f}")
+            worst = max(worst, err)
+    log(f"linear ridge table entries {entries} against the CPU's build "
+        f"({cpu_s:.1f} s): max|card - CPU| / max|CPU| {worst:.3e} (bound "
+        f"{LINEAR_TABLE_BOUND})")
+    return build_s
+
+
+def check_linear_small(ideal_ridge_model):
+    """The small case's winds by each solver of LINEAR_SOLVERS on the CPU
+    and on the card, within its bound times the CPU's largest |u|."""
+    report = []
+    for label, windtype, block, bound in LINEAR_SOLVERS:
+        cb = linear_blocking_options if block else linear_small_options
+        cpu, card = (ideal_ridge_model(**LINEAR_SMALL, windtype=windtype,
+                                       options_cb=cb, device=dev)
+                     for dev in ("cpu", "cuda"))
+        big = float(np.abs(cpu.field("u")).max())
+        err = max(float(np.abs(card.field(k) - cpu.field(k)).max())
+                  for k in "uvw") / big
+        if not err <= bound:
+            raise AssertionError(f"small linear case, {label}: card against "
+                                 f"CPU {err:.3e} of the largest wind")
+        report.append(f"{label} {err:.3e} ({bound})")
+    log("small linear case winds, max|card - CPU| / max|u| per solver "
+        "(bound): " + ", ".join(report))
+
+
+def check_linear(ideal_ridge_model, case, kernels, step, smi):
+    """Phase 10: the linear-theory ridge (bench.py --config linear) at
+    500x500x20: its table built on the card and held to the CPU's build,
+    the small case's wind solvers on the card against the CPU, two
+    intervals of a fresh model with a wind update before each (K1 and K2
+    once per substep, u off the balance-only ridge's), and the stages of
+    one more wind update. Returns the drive's launch counts."""
+    import torch
+    from icar_tpu_torch.ops import wind as wind_ops
+    from icar_tpu_torch.time_paths import wind_stage_ms
+    t0 = time.perf_counter()
+    model = ideal_ridge_model(**case, device="cuda")
+    torch.cuda.synchronize()
+    log(f"linear ridge setup at {case['nx']}x{case['ny']}x{case['nz']} (the "
+        f"table's build and the first wind solve included): "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_linear_table(model)
+    del model
+    check_linear_small(ideal_ridge_model)
+
+    model = ideal_ridge_model(**case, device="cuda")
+    path = step.path_kernels(model.options)
+    launches, *_ = drive(model, kernels, "linear", path, smi)
+    g = model.geom_t
+    u_balance = wind_ops.make_winds_grid_relative(
+        *model._case_winds, g.sintheta, g.costheta)[0]
+    du = float((model.global_field("u") - u_balance).abs().max())
+    if not du > 0.1:
+        raise AssertionError(f"linear ridge: u within {du} of the "
+                             f"balance-only ridge's")
+    one = wind_stage_ms(model)
+    log(f"linear ridge: u differs from the balance-only ridge's by up to "
+        f"{du:.3f} m/s; one more wind update {one['wall_ms']:.3f} ms of "
+        f"wall, CUDA-event ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in one["stages_ms"].items()))
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -1586,6 +1755,11 @@ def main():
     fullphys = check_fullphys(ideal_ridge_model, cases["fullphys"],
                               RIDGE_PATHS["fullphys"], kernels, step,
                               adv_plain, thompson_plain, thompson_cases, smi)
+    # 10. the linear-theory ridge: its table on the card against the CPU,
+    # the small case's wind solvers on the card against the CPU, two
+    # intervals with a wind update before each counting kernel launches
+    linear_launches = check_linear(ideal_ridge_model, cases["linear"],
+                                   kernels, step, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -1598,6 +1772,8 @@ def main():
             entry["launches"] = launches[name]
         if name in ("advect_upwind", "mp_thompson"):
             entry["fullphys"] = fullphys[name]
+        if name in ("advect_upwind", "mp_simple"):
+            entry["linear"] = {"launches": linear_launches[name]}
     log(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": table}))

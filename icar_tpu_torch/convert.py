@@ -3,8 +3,9 @@
 ``state_from_numpy`` takes a state as numpy arrays — for example a JAX
 model's ``{k: np.asarray(v) for k, v in model.state.items()}`` — and gives
 the port's state dict of float32 tensors; ``geometry_to_torch`` does the
-same for a ``grid.Geometry``. With these the tests run both packages from
-the same state.
+same for a ``grid.Geometry``, and ``linear_winds_from_numpy`` for a JAX
+model's linear-theory table pair and perturbation state. With these the
+tests run both packages from the same state and table.
 """
 
 from __future__ import annotations
@@ -35,3 +36,27 @@ def geometry_to_torch(geom: Geometry, device) -> Geometry:
         if isinstance(v, np.ndarray):
             kw[f.name] = torch.tensor(v, dtype=torch.float32, device=device)
     return dataclasses.replace(geom, **kw)
+
+
+def table_to_torch(a, device, dtype=torch.float32) -> torch.Tensor:
+    """A table as a tensor of ``dtype`` on ``device``: ``a`` is float32 or
+    bfloat16 (numpy has no bfloat16 of its own: the JAX package's arrays
+    come as ml_dtypes' type, whose bits are carried across unchanged);
+    float32 becomes bfloat16 rounded to nearest even."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.tensor(a, dtype=torch.float32)
+    return t.to(device=device, dtype=dtype)
+
+
+def linear_winds_from_numpy(lut_u, lut_v, pert_u, pert_v, device,
+                            dtype=torch.float32):
+    """A JAX model's linear-theory table pair (``model._lut`` as numpy) in
+    ``dtype`` and its perturbation state (``model.u_perturbation``,
+    ``model.v_perturbation``) in float32, as tensors on ``device``:
+    ((lut_u, lut_v), pert_u, pert_v)."""
+    return ((table_to_torch(lut_u, device, dtype),
+             table_to_torch(lut_v, device, dtype)),
+            table_to_torch(pert_u, device), table_to_torch(pert_v, device))

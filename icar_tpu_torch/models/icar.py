@@ -6,16 +6,20 @@ default; it never falls back to another. The ported configurations are the
 ideal ridge with SB04 microphysics and upwind or MPDATA advection (any
 order, with or without FCT), or with Thompson microphysics (mp=1) and
 either advection; with Thompson and upwind also the full physics column of
-bench.py's fullphys: the mass-conserving winds (wind=2), simple radiation,
-Noah with simple water, the simple PBL and Tiedtke convection, in any
-subset. Any other option raises ``NotImplementedError`` naming the ROADMAP
-slice that ports it. ``attach_mesh`` shards a model over a device mesh
-(``parallel/mesh.py``); its state then lives in one block per shard (not
-yet with the column physics).
+bench.py's fullphys: simple radiation, Noah with simple water, the simple
+PBL and Tiedtke convection, in any subset. Every wind solver runs with
+each: balance only, linear theory (wind=1, its table built on the model's
+device at the first wind solve), the mass-conserving winds (wind=2), the
+iterative solver (wind=3), linear then iterative (wind=5), and flow
+blocking. Any other option raises ``NotImplementedError`` naming the
+ROADMAP slice that ports it. ``attach_mesh`` shards a model over a device
+mesh (``parallel/mesh.py``); its state then lives in one block per shard
+(not yet with the column physics, linear theory or blocking).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -31,9 +35,15 @@ from ..core.step import (column_physics, path_halo, path_kernels,
                          run_interval, run_interval_sharded)
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
+from ..ops import blocking as blk
 from ..ops import kernels
+from ..ops import linear_winds as lw
+from ..ops import pointwise as pw
 from ..ops import wind as wind_ops
 from ..parallel.mesh import Layout, Mesh, scatter_geometry
+
+
+LINEAR_WINDS = (C.WIND_LINEAR, C.WIND_LINEAR_ITERATIVE)
 
 
 def _unported(options: Options):
@@ -48,10 +58,6 @@ def _unported(options: Options):
          f"microphysics={ph.microphysics}", mp_slice),
         (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
          f"advection={ph.advection}", "Slice B (advection options)"),
-        (ph.windtype in (C.WIND_NONE, C.WIND_CONSERVE_MASS),
-         f"wind={ph.windtype}",
-         "Slice C (wind=3)" if ph.windtype == C.WIND_ITERATIVE
-         else "Slice D (linear winds)"),
         (ph.radiation in (C.RA_NONE, C.RA_SIMPLE),
          f"radiation={ph.radiation}", "Slice F (RRTMG)"),
         (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE),
@@ -113,6 +119,24 @@ class ICARModel:
         self.blocks: Optional[List[Dict[str, torch.Tensor]]] = None
         self._geom_blocks = None
         self._dqdt_blocks = None
+        # the linear-theory table with its axis values and the
+        # perturbation it relaxes (setup_linwinds; the persistent
+        # hi_u/v_perturbation of linear_winds.f90:97-100), and the
+        # blocking table: each built at the first wind solve that needs it
+        self._lut = None
+        self._lut_values = None
+        self.u_perturbation: Optional[torch.Tensor] = None
+        self.v_perturbation: Optional[torch.Tensor] = None
+        self._blocking = None
+        # the initial case's winds, which update_winds solves anew
+        self._case_winds = None
+
+    @property
+    def winds_follow_state(self) -> bool:
+        """Whether a wind solve depends on the state (linear theory reads
+        its N^2), so that the winds are solved anew before each interval
+        (``update_winds``, as bench.py --config linear does)."""
+        return self.options.physics.windtype in LINEAR_WINDS
 
     def attach_mesh(self, mesh: Mesh):
         """Shard the model over ``mesh`` (icar_tpu/models/icar.py
@@ -128,6 +152,11 @@ class ICARModel:
                 "ported yet: Slice G (sharded full physics; the PBL's "
                 "domain-wide substep count, the convection's w_real) in "
                 "ROADMAP.md")
+        if self.winds_follow_state or self.options.block.block_flow:
+            raise NotImplementedError(
+                "attach_mesh: a sharded model with linear-theory winds or "
+                "flow blocking is not ported yet: Slice G (the per-shard "
+                "linear-theory and blocking tables) in ROADMAP.md")
         if mesh.device_type != self.device.type:
             raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
                              f"devices for a model on {self.device}")
@@ -143,20 +172,125 @@ class ICARModel:
         self._install(state)
         self._dqdt_blocks = self._scatter_dict(self._dqdt)
 
-    def compute_winds(self, u, v, rotate: bool = False):
-        """Balanced (u, v, w) for the winds (u, v) (update_winds,
-        wind.f90:289-369), rotated to the grid first when ``rotate``."""
+    def compute_winds(self, u, v, rotate: bool = False, timer=None):
+        """The configured wind solution (u, v, w) for the winds (u, v)
+        (update_winds, wind.f90:289-369), rotated to the grid first when
+        ``rotate``. Linear theory reads the present state's stability,
+        writes ``nsquared`` into the state when it holds it, and relaxes
+        the stored perturbation. ``timer(stage)`` brackets the stages
+        (nsquared, lookup, blocking, iterative, balance)."""
         g = self.geom_t
         if rotate:
             u, v = wind_ops.make_winds_grid_relative(u, v, g.sintheta,
                                                      g.costheta)
-        return wind_ops.update_winds(u, v, g, self.options.physics.windtype)
+        linear = None
+        if self.winds_follow_state:
+            def linear(u, v):
+                return self._apply_linear_perturbation(u, v, timer)
+        blocking = self._apply_blocking if self.options.block.block_flow \
+            else None
+        return wind_ops.update_winds(u, v, g, self.options.physics.windtype,
+                                     self.options.run.wind_iterations,
+                                     linear, blocking, timer)
 
-    def apply_winds(self, u, v, rotate: bool = True):
+    def apply_winds(self, u, v, rotate: bool = True, timer=None):
         """Install the wind solution for (u, v) into the state."""
         u, v, w = self.compute_winds(self._tensor(u), self._tensor(v),
-                                     rotate=rotate)
+                                     rotate=rotate, timer=timer)
         self._install({**self._global_state(), "u": u, "v": v, "w": w})
+
+    def update_winds(self, timer=None):
+        """Solve the winds anew from the initial case's winds on the
+        present state and install them: the wind update of each forcing
+        step (driver.f90:128-138), which bench.py --config linear runs
+        before every interval."""
+        self.apply_winds(*self._case_winds, rotate=True, timer=timer)
+
+    def _setup_linear_winds(self):
+        """Build (or read from the disk cache) the spatial linear-theory
+        table on the model's device (setup_linwinds /
+        initialize_spatial_winds, linear_winds.f90), after the budget
+        check of its size on one device."""
+        lt = self.options.lt
+        nz, ny, nx = self.geom.nz, self.geom.ny, self.geom.nx
+        lw.check_lut_budget(lt, nz, ny, nx, 1)
+        dz = np.asarray(self.options.domain.dz_levels[:nz], np.float32)
+        E = lt.n_spd_values * lt.n_dir_values * lt.n_nsq_values
+        dtype = (torch.bfloat16 if str(lt.lut_dtype) == "bfloat16"
+                 else torch.float32)
+        chunks = (lw.load_lut_chunks(lt.lut_filename, dz, lt)
+                  if lt.read_lut else None)
+        writer = None
+        if chunks is None:
+            chunks = lw.build_lut_chunks(
+                np.asarray(self.geom.terrain, np.float64), self.geom.dx, dz,
+                lt, self.device)
+            if lt.write_lut:
+                writer = lw.open_lut_writer(lt.lut_filename, E, nz, ny, nx,
+                                            dz, lt)
+        self._lut = lw.place_lut_chunks(chunks, E, nz, ny, nx, self.device,
+                                        dtype, writer)
+        if writer is not None:
+            writer[0].flush()
+            writer[1].flush()
+        self._lut_values = tuple(torch.as_tensor(a, device=self.device)
+                                 for a in lw.table_values(lt))
+        self.u_perturbation = torch.zeros((nz, ny, nx + 1),
+                                          device=self.device)
+        self.v_perturbation = torch.zeros((nz, ny + 1, nx),
+                                          device=self.device)
+
+    def _apply_linear_perturbation(self, u, v, timer=None):
+        """One application of the spatial linear wind field (linear_perturb
+        -> spatial_winds): the stability of the present state, then the
+        table's lookup."""
+        if self._lut is None:
+            self._setup_linear_winds()
+        stage = timer or (lambda name: contextlib.nullcontext())
+        lt = self.options.lt
+        s = self._global_state()
+        with stage("nsquared"):
+            hydro = torch.zeros_like(s["water_vapor"])
+            for k in ("cloud_water", "cloud_ice", "rain_mass", "snow_mass"):
+                if k in s:
+                    hydro = hydro + s[k]
+            nsq_log = lw.compute_nsquared(
+                s["potential_temperature"], s["exner"], self.geom_t.z,
+                s["water_vapor"], hydro, lt.vert_smooth, lt.variable_n,
+                lt.n_squared, lt.min_stability, lt.max_stability,
+                lt.smooth_nsq, lt.stability_window_size)
+            if "nsquared" in s:
+                self._install({**s, "nsquared": pw.exp(nsq_log)})
+        with stage("lookup"):
+            spd, dirv, nsqv = self._lut_values
+            u, v, self.u_perturbation, self.v_perturbation = \
+                lw.apply_spatial_winds(
+                    u, v, nsq_log, self.u_perturbation, self.v_perturbation,
+                    self._lut[0], self._lut[1], spd, dirv, nsqv,
+                    lt.vert_smooth, lt.linear_update_fraction,
+                    lt.linear_contribution)
+        return u, v
+
+    def _apply_blocking(self, u, v):
+        """Froude-number flow blocking (add_blocked_flow,
+        winds_blocking.f90:52-65; off by default, as the reference's
+        block_flow switch)."""
+        bo = self.options.block
+        if self._blocking is None:
+            dz = np.asarray(self.options.domain.dz_levels[:self.geom.nz],
+                            np.float32)
+            self._blocking = blk.init_blocking(
+                np.asarray(self.geom.terrain, np.float64), self.geom.dx, dz,
+                self.options.lt, bo, self.device)
+        froude = blk.update_froude(
+            self._global_state()["potential_temperature"], u, v,
+            self.geom_t.z, self._blocking.terrain_blocking,
+            max(1, int(round(bo.smooth_froude_distance / self.geom.dx))),
+            bo.n_smoothing_passes, bo.block_fr_max)
+        return blk.apply_blocking(
+            u, v, froude, self._blocking,
+            self.options.lt.stability_window_size,
+            bo.blocking_contribution, bo.block_fr_max, bo.block_fr_min)
 
     def set_initial_conditions(self, case: IdealCase, rotate: bool = True,
                                winds: bool = True):
@@ -169,9 +303,13 @@ class ICARModel:
         s["u"] = self._tensor(case.u)
         s["v"] = self._tensor(case.v)
         s = diagnostic_update(s, self.geom_t)
+        self._case_winds = (self._tensor(case.u), self._tensor(case.v))
         if winds:
-            u, v, w = self.compute_winds(self._tensor(case.u),
-                                         self._tensor(case.v), rotate=rotate)
+            # the wind solve reads the state (linear theory's stability)
+            # and may write to it (nsquared)
+            self._install(s)
+            u, v, w = self.compute_winds(*self._case_winds, rotate=rotate)
+            s = self._global_state()
         else:
             u, v = self._tensor(case.u), self._tensor(case.v)
             w = torch.zeros_like(s["potential_temperature"])
@@ -281,18 +419,33 @@ class ICARModel:
 
 # bench.py's ridge case at full width (bench.py:47-51), and the options of
 # the ported paths on it: SB04 + upwind, SB04 + MPDATA (order 2 with FCT),
-# Thompson + MPDATA (bench.py --config mpdata_thompson) and the full
-# physics column (bench.py --config fullphys: Thompson with upwind
-# advection, wind=2, simple radiation, Noah with simple water, simple PBL
-# and Tiedtke convection)
+# Thompson + MPDATA (bench.py --config mpdata_thompson), the full physics
+# column (bench.py --config fullphys: Thompson with upwind advection,
+# wind=2, simple radiation, Noah with simple water, simple PBL and Tiedtke
+# convection) and SB04 + upwind on linear-theory winds (bench.py --config
+# linear, whose winds are solved anew before each interval:
+# ICARModel.winds_follow_state)
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
                 rad=C.RA_SIMPLE, pbl=C.PBL_SIMPLE, lsm=C.LSM_NOAH,
                 water=C.WATER_SIMPLE, conv=C.CU_TIEDTKE)
+
+
+def linear_lut_options(o):
+    """bench.py --config linear's table (bench.py:62-73): 5 speeds x 8
+    directions x 3 N^2 (4.8 GB in float32 at 500x500x20) and a buffer of
+    48 cells (a 600x600 FFT grid), built at set-up without the disk
+    cache."""
+    o.lt.n_spd_values, o.lt.n_dir_values, o.lt.n_nsq_values = 5, 8, 3
+    o.lt.buffer = 48
+
+
 RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON),
-               "fullphys": FULLPHYS}
+               "fullphys": FULLPHYS,
+               "linear": dict(windtype=C.WIND_LINEAR,
+                              options_cb=linear_lut_options)}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson")
 

@@ -71,3 +71,55 @@ def inv(c) -> float:
     so (XLA folds the division), and torch itself does so on the card but
     not on the CPU, so the product gives one result on both devices."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def div(a, b):
+    """``a / b`` rounded as one IEEE division where one operand is a
+    Python number, as XLA and numpy divide: torch divides a tensor by a
+    number on the card as a product with the number's reciprocal, and a
+    number by a tensor on either device as the tensor's reciprocal times
+    the number. The number becomes a tensor of the other operand's dtype
+    and device first."""
+    t = a if torch.is_tensor(a) else b
+    as_t = lambda v: v if torch.is_tensor(v) else torch.tensor(
+        v, dtype=t.dtype, device=t.device)
+    return as_t(a) / as_t(b)
+
+
+# the block length of XLA's cumulative sums on the CPU
+_SCAN_BLOCK = 16
+
+
+def cumsum(x, dim: int):
+    """The cumulative sum of ``x`` along ``dim`` in the order of
+    ``jnp.cumsum`` on the JAX package's CPU backend: sequential within
+    blocks of 16, each block's total carried by the same scan of the
+    totals. torch.cumsum accumulates float32 in float64 on the CPU and
+    scans in another order on the card; this order is the same on both
+    devices, and equal to the JAX package's bit for bit."""
+    return _blocked_scan(x.movedim(dim, -1)).movedim(-1, dim)
+
+
+def _blocked_scan(x):
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _sequential_scan(x)
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    inner = _sequential_scan(blocks.reshape(*x.shape[:-1], nb,
+                                            _SCAN_BLOCK))
+    totals = _blocked_scan(inner[..., -1])
+    carry = torch.cat([torch.zeros_like(totals[..., :1]),
+                       totals[..., :-1]], dim=-1)
+    out = (inner + carry[..., None]).reshape(*x.shape[:-1], -1)
+    return out[..., :n]
+
+
+def _sequential_scan(x):
+    out = torch.empty_like(x)
+    acc = x[..., 0]
+    out[..., 0] = acc
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+        out[..., i] = acc
+    return out

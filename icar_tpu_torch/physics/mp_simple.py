@@ -45,19 +45,11 @@ def formation_rates(dt):
     return float(c2r), float(c2s)
 
 
-def _div(a, b):
-    """``a / b`` rounded as one IEEE division, as the kernel divides, where
-    one operand is a Python number. torch divides a tensor by a number on
-    the card as a product with the number's reciprocal, and a number by a
-    tensor on either device as the tensor's reciprocal times the number:
-    each an ulp off now and then, enough to change a cell's count of
-    saturation sweeps. The JAX package's results lie nearer this rounding
-    (tests/test_torch_mp_simple.py). The number becomes a tensor of the
-    other operand's dtype and device first."""
-    t = a if torch.is_tensor(a) else b
-    as_t = lambda v: v if torch.is_tensor(v) else torch.tensor(
-        v, dtype=t.dtype, device=t.device)
-    return as_t(a) / as_t(b)
+# ``a / b`` as one IEEE division where one operand is a Python number, as
+# the kernel divides: torch's own operator is an ulp off now and then,
+# enough to change a cell's count of saturation sweeps; the JAX package's
+# results lie nearer this rounding (tests/test_torch_mp_simple.py)
+_div = pw.div
 
 
 def sat_mr(temperature, pressure):

@@ -8,8 +8,10 @@ physics column) under torch.profiler.
 
 Builds the model (the bench's ridge, 500x500x20 by default; ``--path``
 takes a path of ``models.icar.RIDGE_PATHS`` -- upwind, MPDATA, Thompson,
-fullphys -- instead of --adv and --mp), advances one interval to warm up
-(the kernel build and first launches), then profiles one more interval
+fullphys, linear -- instead of --adv and --mp), advances one interval to
+warm up (the kernel build and first launches), then profiles one more
+interval (on the linear path each interval follows its wind update, as in
+bench.py)
 and prints each device activity (kernels, copies, memsets) with its total
 time and count, then one JSON line: the wall time of the profiled
 interval, the summed device time, the device's idle share (1 - device
@@ -68,6 +70,8 @@ def main(argv=None):
                               **opts, device=args.device)
     on_card = model.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if model.winds_follow_state:
+        model.update_winds()
     model.advance(args.interval)
     sync()
     activities = [ProfilerActivity.CPU]
@@ -75,6 +79,8 @@ def main(argv=None):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
+        if model.winds_follow_state:
+            model.update_winds()
         model.advance(args.interval)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3

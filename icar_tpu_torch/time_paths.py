@@ -4,14 +4,18 @@
 
 For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
 (``models.icar.RIDGE``: SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA,
-and the full physics column of bench.py --config fullphys) it builds a
-fresh model, advances one 1200 s interval to warm up, then times
-``--repeat`` runs of two intervals each (``run_timed``) and prints one
-JSON line: for each path the grid-point substeps per second of every run
-over the natural grid, their median and the final state's float64 digest
+the full physics column of bench.py --config fullphys, and SB04 + upwind
+on the linear-theory winds of bench.py --config linear) it builds a fresh
+model, advances one 1200 s interval to warm up, then times ``--repeat``
+runs of two intervals each (``run_timed``) and prints one JSON line: for
+each path the grid-point substeps per second of every run over the
+natural grid, their median and the final state's float64 digest
 (``ICARModel.digest``), and the card's name; for the full-physics path
 also the CUDA-event milliseconds of each stage of one more interval
-(``StageTimer``). With ``--mesh cards`` the model is sharded with one
+(``StageTimer``); for the linear path, whose winds are solved anew before
+each interval as bench.py does, the milliseconds of each of those updates
+(left out of the rate) and the stages of one more (N^2, lookup,
+balance). With ``--mesh cards`` the model is sharded with one
 shard per visible card (``make_mesh``; the paths of ``SHARDED_PATHS``);
 its digest equals the unsharded run's. ``chip_smoke.py`` drives the same
 cases through the same ``run_timed``; this module repeats the measurement
@@ -36,18 +40,32 @@ INTERVAL = 1200.0
 INTERVALS = 2
 
 
-def run_timed(model, intervals=INTERVALS, interval=INTERVAL):
+def run_timed(model, intervals=INTERVALS, interval=INTERVAL, wind_ms=None):
     """Advance ``model`` over ``intervals`` intervals of ``interval``
     seconds, host clock between two ``torch.cuda.synchronize()``: (the
-    substeps taken, the seconds)."""
+    substeps taken, the seconds). A model whose winds follow its state
+    (``ICARModel.winds_follow_state``: linear theory) solves them anew
+    before each interval (``ICARModel.update_winds``), as bench.py
+    --config linear does; each update is timed between two synchronizes
+    and left out of the seconds, its milliseconds appended to ``wind_ms``
+    when given."""
     torch.cuda.synchronize()
-    steps = 0
+    steps, wind_s = 0, 0.0
     t0 = time.perf_counter()
     for _ in range(intervals):
+        if model.winds_follow_state:
+            torch.cuda.synchronize()
+            tw = time.perf_counter()
+            model.update_winds()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - tw
+            wind_s += dt
+            if wind_ms is not None:
+                wind_ms.append(1e3 * dt)
         model.advance(interval)
         steps += model.last_n_substeps
     torch.cuda.synchronize()
-    return steps, time.perf_counter() - t0
+    return steps, time.perf_counter() - t0 - wind_s
 
 
 class StageTimer:
@@ -87,24 +105,38 @@ def stage_ms(model, interval=INTERVAL):
             "substeps": model.last_n_substeps}
 
 
+def wind_stage_ms(model):
+    """The CUDA-event milliseconds of each stage of one more wind update of
+    ``model`` (a path whose winds follow its state), with its wall."""
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.update_winds(timer=timer)
+    ms = timer.ms()
+    return {"stages_ms": ms, "wall_ms": 1e3 * (time.perf_counter() - t0)}
+
+
 def time_path(case, repeat, cards=False):
     """(gp*steps/s of each of ``repeat`` runs of INTERVALS intervals, the
     final state's digest, the stage times of one more interval of a
-    column-physics path or None); with ``cards``, one shard per visible
-    card."""
+    column-physics path or None, the milliseconds of each wind update and
+    the stages of one more for a path whose winds follow its state, or
+    None); with ``cards``, one shard per visible card."""
     from .parallel.mesh import make_mesh
     model = ideal_ridge_model(**RIDGE, **case, device="cuda")
     if cards:
         model.attach_mesh(make_mesh(RIDGE["nx"], RIDGE["ny"]))
-    model.advance(INTERVAL)
+    run_timed(model, intervals=1)
     gp = RIDGE["nx"] * RIDGE["ny"] * RIDGE["nz"]
-    rates = []
+    rates, wind_ms = [], []
     for _ in range(repeat):
-        steps, seconds = run_timed(model)
+        steps, seconds = run_timed(model, wind_ms=wind_ms)
         rates.append(gp * steps / seconds)
     digest = model.digest()
     stages = stage_ms(model) if column_physics(model.options) else None
-    return rates, digest, stages
+    winds = ({"update_ms": wind_ms, "one_update": wind_stage_ms(model)}
+             if model.winds_follow_state else None)
+    return rates, digest, stages, winds
 
 
 def main(argv=None):
@@ -119,12 +151,14 @@ def main(argv=None):
     out = {"device": torch.cuda.get_device_name(0),
            "cards": torch.cuda.device_count(), "mesh": args.mesh}
     for name in paths:
-        rates, digest, stages = time_path(RIDGE_PATHS[name], args.repeat,
-                                          args.mesh == "cards")
+        rates, digest, stages, winds = time_path(
+            RIDGE_PATHS[name], args.repeat, args.mesh == "cards")
         out[name] = {"gp_steps_per_s": rates,
                      "median": statistics.median(rates), "digest": digest}
         if stages is not None:
             out[name]["one_interval"] = stages
+        if winds is not None:
+            out[name]["wind_update"] = winds
     print(json.dumps(out), flush=True)
 
 

@@ -212,8 +212,8 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("windtype", C.WIND_ITERATIVE, "Slice C \\(wind=3\\)"),
-    ("windtype", C.WIND_LINEAR, "Slice D"),
+    ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
+    ("convection", C.CU_NSAS, "Slice F \\(the other schemes\\)"),
     ("boundarylayer", C.PBL_YSU, "Slice F \\(YSU\\)"),
     ("landsurface", C.LSM_NOAHMP, "Slice F \\(Noah-MP"),
     ("watersurface", C.WATER_LAKE, "Slice F \\(lake\\)"),

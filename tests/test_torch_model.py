@@ -108,8 +108,8 @@ def test_interval_matches_jax(forcing):
 
 @pytest.mark.parametrize("option,value", [
     ("microphysics", C.MP_MORRISON), ("microphysics", C.MP_NONE),
-    ("advection", C.ADV_NONE), ("windtype", C.WIND_LINEAR),
-    ("windtype", C.WIND_ITERATIVE), ("radiation", C.RA_SIMPLE),
+    ("advection", C.ADV_NONE), ("microphysics", C.MP_WSM6),
+    ("radiation", C.RA_RRTMG), ("radiation", C.RA_SIMPLE),
     ("boundarylayer", C.PBL_SIMPLE), ("landsurface", C.LSM_NOAH),
     ("watersurface", C.WATER_LAKE), ("convection", C.CU_TIEDTKE),
 ])

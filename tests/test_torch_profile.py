@@ -27,3 +27,20 @@ def test_profile_interval_thompson_on_cpu(capsys):
     assert times == {}
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["mp"] == "thompson" and out["substeps"] > 0
+
+
+def test_profile_interval_linear_path_on_cpu(capsys, monkeypatch):
+    """The linear path (bench.py's table) profiles a wind update with its
+    interval: the update runs before each of the two intervals."""
+    from icar_tpu_torch.models.icar import ICARModel
+    calls = []
+    update = ICARModel.update_winds
+    monkeypatch.setattr(ICARModel, "update_winds",
+                        lambda self, timer=None: calls.append(1) or
+                        update(self, timer))
+    times = profile_interval.main(["--path", "linear", "--nx", "24", "--ny",
+                                   "8", "--nz", "20", "--interval", "300",
+                                   "--device", "cpu"])
+    assert times == {} and len(calls) == 2
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["path"] == "linear" and out["substeps"] > 0

@@ -58,6 +58,50 @@ def test_copy_matches_original(rel):
     assert copy == want, f"icar_tpu_torch/{rel} drifted from icar_tpu/{rel}"
 
 
+# functions the port copies one by one out of JAX-package modules that
+# import jax: JAX module -> (port module, names); the JAX package's
+# ``jnp.`` becomes the port's ``np.`` (its spectrum and wavenumbers end in
+# numpy arrays where the JAX package's end in jnp arrays)
+FUNCTION_COPIES = {
+    "ops/linear_winds.py": ("ops/linear_winds.py", (
+        "add_buffer_topo", "fourier_terrain", "wavenumber_grids",
+        "lut_size_bytes", "check_lut_budget", "table_values", "_lut_params",
+        "_lut_sidecars", "open_lut_writer", "_load_lut_meta",
+        "load_lut_chunks", "save_lut")),
+    "ops/blocking.py": ("ops/blocking.py", (
+        "terrain_blocking_heights", "_find_max_downward_level")),
+}
+
+
+def _functions(source):
+    """Top-level function definitions of ``source`` (text) by name: (first
+    docstring line, AST dump without the docstring)."""
+    out = {}
+    for node in ast.parse(source).body:
+        if isinstance(node, ast.FunctionDef):
+            doc = ast.get_docstring(node)
+            if doc is not None:
+                node.body = node.body[1:]
+            out[node.name] = ((doc or "").split("\n")[0], ast.dump(node))
+    return out
+
+
+@pytest.mark.parametrize("orig,name", sorted(
+    (o, n) for o, (_, names) in FUNCTION_COPIES.items() for n in names))
+def test_function_copy_matches_original(orig, name):
+    """Each copied function's AST equals its original's (docstrings aside,
+    the sources read as text, not imported); its docstring's first line
+    names the source."""
+    rel, _ = FUNCTION_COPIES[orig]
+    src = open(os.path.join(REPO, "icar_tpu", orig)).read()
+    want = _functions(src.replace("jnp.", "np."))[name][1]
+    doc, got = _functions(open(os.path.join(REPO, "icar_tpu_torch",
+                                            rel)).read())[name]
+    assert doc.startswith(f"Copy of icar_tpu/{orig}"), doc
+    assert got == want, f"icar_tpu_torch/{rel} {name} drifted from " \
+                        f"icar_tpu/{orig}"
+
+
 def _options(pkg, **domain):
     o = pkg.Options()
     for k, v in domain.items():
