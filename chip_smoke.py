@@ -77,6 +77,24 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    ridge's; and times the stages of one more wind update with CUDA events
    (N^2, lookup, balance). K1's and K2's lines in the table add the
    launches under "linear".
+11. the file-driven run (python -m icar_tpu_torch options.nml): writes
+   write_ideal_files' forcing around the 500x500 domain (510x510x24, three
+   steps, in the format a machine without h5py writes: CDF-2) and an
+   options file (FILE_RUN_Z's 20 levels, SB04 + upwind, forcing and output
+   every 1800 s over an hour, a restart at each output), runs it through
+   core.driver.main in this process with the launch counts set to 0, and
+   checks that K3 and K1 launched once per substep (full-field forcing
+   takes the general loop) and no other kernel, that the output holds
+   three finite times 0, 1800 and 3600 s with a median u within
+   FILE_U_MEDIAN, and that a run resumed from the 1800 s checkpoint
+   writes a 3600 s checkpoint equal to the uninterrupted run's bit for
+   bit (its digest printed); logs the resumed driver's timers and rate,
+   one forcing step's read, regrid, wind solve and tendencies, and the
+   dt's read-back a substep; then runs the small case of
+   tests/test_torch_driver.py on the CPU and the card with SB04 + upwind
+   and with Thompson + upwind and the fullphys schemes, holding the card
+   to the CPU (the same substeps, FULLPHYS_BOUNDS). K1's and K3's lines
+   in the table add the launches under "file".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -154,6 +172,80 @@ LINEAR_SOLVERS = (("wind=1", 1, False, 2e-5), ("wind=3", 3, False, 5e-5),
 # to the JAX package's within 1e-6 of the table's largest value)
 LINEAR_TABLE_BOUND = 1e-5
 LINEAR_TABLE_DIRECTIONS = (2, 5)
+
+# phase 11, the file-driven run (python -m icar_tpu_torch options.nml): the
+# forcing of write_ideal_files around the bench ridge's 500x500 domain (a
+# 510x510x24 forcing grid, three steps, ~450 MB), the ridge's 20 levels,
+# SB04 + upwind (the configuration of tests/test_forcing_io.py's ideal_run
+# and of the reference's short run), one hour with forcing and output
+# every 1800 s and a restart at each output
+FILE_RUN = dict(nx=500, ny=500, nz_lo=24, dx=1000.0, hill_height=1000.0,
+                u_profile=10.0, nt=3)
+FILE_RUN_Z = dict(nz=20, dz_levels=[50.0, 75.0, 125.0, 200.0, 300.0, 400.0]
+                  + [500.0] * 14, flat_z_height=-5)
+# the small file-driven case of tests/test_torch_driver.py
+# (tests/test_forcing_io.py's ideal_run), run on the CPU and on the card
+# with each of FILE_PHYSICS and held by FULLPHYS_BOUNDS
+FILE_SMALL = dict(nx=48, ny=14, nz_lo=24, dx=1000.0, hill_height=400.0,
+                  u_profile=8.0, qv_val=0.004, nt=3)
+FILE_SMALL_Z = dict(nz=10, dz_levels=[50.0, 75.0, 125.0, 200.0, 300.0,
+                                      400.0] + [500.0] * 4, flat_z_height=-3)
+FILE_PHYSICS = (("SB04 + upwind", dict(mp=2, adv=1)),
+                ("Thompson + upwind, fullphys", dict(
+                    mp=1, adv=1, wind=2, rad=2, pbl=2, lsm=3, water=2,
+                    conv=1)))
+FILE_INTERVAL = 1800.0
+# the forcing's u is 10 m/s; the median of the run's u lies within these
+FILE_U_MEDIAN = (4.0, 16.0)
+
+
+def write_namelist(path, init, forcing, prefix, z, physics,
+                   restart_from=None):
+    """Write an options file for one hour of a file-driven run from the
+    files ``init`` and ``forcing``: ``z`` (FILE_RUN_Z or FILE_SMALL_Z) its
+    levels, ``physics`` its &physics settings, forcing and output every
+    FILE_INTERVAL, output and restarts named from ``prefix`` (a restart at
+    each output), resumed from the checkpoint ``restart_from`` when given.
+    Returns ``path``."""
+    phys = ", ".join(f"{k} = {v}" for k, v in physics.items())
+    dz = ", ".join(f"{d:.1f}" for d in z["dz_levels"])
+    text = f"""&model_version
+    version = "2.1",
+/
+&physics
+    {phys}
+/
+&parameters
+    start_date = "2020-12-01 00:00:00",
+    end_date = "2020-12-01 01:00:00",
+    inputinterval = {FILE_INTERVAL},
+    dx = 1000.0,
+    nz = {z["nz"]},
+    restart = {".true." if restart_from else ".false."},
+/
+&z_info
+    dz_levels = {dz},
+    flat_z_height = {z["flat_z_height"]},
+/
+&files_list
+    init_conditions_file = "{init}",
+    boundary_files = "{forcing}",
+/
+&output_list
+    outputinterval = {FILE_INTERVAL},
+    output_file = "{prefix}out_",
+    restart_file = "{prefix}rst_",
+    restartinterval = 1,
+/
+"""
+    if restart_from:
+        text += f"""&restart_info
+    restart_file = "{restart_from}",
+/
+"""
+    with open(path, "w") as f:
+        f.write(text)
+    return path
 
 
 def linear_small_options(o):
@@ -1415,25 +1507,18 @@ def fullphys_small(ideal_ridge_model, fullphys, device):
     return m
 
 
-def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
-    """The small full-physics case on the CPU (the plain versions) and on
-    the card (the kernels): the same substeps, every field finite and
-    within FULLPHYS_BOUNDS of the CPU's (largest difference over the CPU
-    field's largest magnitude; FULLPHYS_ILL_CONDITIONED beyond the bound
-    in at most FULLPHYS_ILL_SHARE of the columns), convective rain on
-    both; logs the largest ratio of each group."""
-    cpu = fullphys_small(ideal_ridge_model, fullphys, "cpu")
-    card = fullphys_small(ideal_ridge_model, fullphys, "cuda")
-    if card.last_n_substeps != cpu.last_n_substeps:
-        raise AssertionError(f"small fullphys case: {card.last_n_substeps} "
-                             f"substeps on the card, {cpu.last_n_substeps} "
-                             f"on the CPU")
+def hold_card_to_cpu(cpu, card, label):
+    """Hold the model ``card`` (run on the card) to ``cpu`` (the same run
+    on the CPU): every field finite and within FULLPHYS_BOUNDS of the
+    CPU's (largest difference over the CPU field's largest magnitude;
+    FULLPHYS_ILL_CONDITIONED beyond the bound in at most
+    FULLPHYS_ILL_SHARE of the columns). Returns the largest ratio of each
+    group: {group: (ratio, field, bound)}."""
     worst = {}
     for k in cpu.state:
         want, got = cpu.field(k).astype(np.float64), card.field(k)
         if not np.isfinite(got).all():
-            raise AssertionError(f"small fullphys case on the card: "
-                                 f"non-finite {k}")
+            raise AssertionError(f"{label} on the card: non-finite {k}")
         bound = FULLPHYS_BOUNDS["species" if k in cpu.advect_names
                                 else "other"]
         rel = np.abs(got - want) / max(float(np.abs(want).max()), 1e-30)
@@ -1441,8 +1526,8 @@ def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
         beyond = float((rel > bound).mean())
         ill = k in FULLPHYS_ILL_CONDITIONED
         if beyond > (FULLPHYS_ILL_SHARE if ill else 0.0):
-            raise AssertionError(f"small fullphys case: {k} differs by up "
-                                 f"to {ratio:.3e} of its largest value "
+            raise AssertionError(f"{label}: {k} differs by up to "
+                                 f"{ratio:.3e} of its largest value "
                                  f"between the card and the CPU, in "
                                  f"{100 * beyond:.1f}% of its cells beyond "
                                  f"{bound}")
@@ -1450,6 +1535,21 @@ def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
                  "species" if k in cpu.advect_names else "other")
         if ratio >= worst.get(group, (0.0, "", 0.0))[0]:
             worst[group] = (ratio, k, bound)
+    return worst
+
+
+def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
+    """The small full-physics case on the CPU (the plain versions) and on
+    the card (the kernels): the same substeps, every field held by
+    ``hold_card_to_cpu``, convective rain on both; logs the largest ratio
+    of each group."""
+    cpu = fullphys_small(ideal_ridge_model, fullphys, "cpu")
+    card = fullphys_small(ideal_ridge_model, fullphys, "cuda")
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"small fullphys case: {card.last_n_substeps} "
+                             f"substeps on the card, {cpu.last_n_substeps} "
+                             f"on the CPU")
+    worst = hold_card_to_cpu(cpu, card, "small fullphys case")
     for m, where in ((cpu, "CPU"), (card, "card")):
         if not m.field("convective_precipitation").max() > 0:
             raise AssertionError(f"small fullphys case on the {where}: no "
@@ -1627,6 +1727,196 @@ def check_linear(ideal_ridge_model, case, kernels, step, smi):
     return launches
 
 
+def file_driver(nml, device):
+    """A file-driven run of the options file ``nml`` on ``device``, through
+    the driver a user builds (core.driver.ICARDriver); returns it after
+    its run."""
+    from icar_tpu_torch.config import Options
+    from icar_tpu_torch.core.driver import ICARDriver
+    options = Options.from_namelist(nml)
+    options.validate()
+    d = ICARDriver(options, device=device)
+    d.run()
+    return d
+
+
+def restart_digest(path):
+    """The float64 digest (``state_digest``) of every field of a restart
+    file, and the fields themselves."""
+    import torch
+    from icar_tpu_torch.core.state import state_digest
+    from icar_tpu_torch.io.netcdf import NCFile
+    with NCFile(path) as f:
+        fields = {n: f.read(n) for n in f.variables()}
+    return state_digest({k: torch.as_tensor(v) for k, v in fields.items()},
+                        sorted(fields)), fields
+
+
+def host_ms(fn, reps=3):
+    """Median milliseconds of fn() on the host clock, each call ended by a
+    CUDA synchronize."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_file_run_small(tmp):
+    """The small file-driven case (FILE_SMALL) with each of FILE_PHYSICS
+    on the CPU and on the card: the same substeps an interval, the card
+    held to the CPU by ``hold_card_to_cpu``."""
+    from icar_tpu_torch.forcing.ideal import write_ideal_files
+    small = os.path.join(tmp, "small")
+    os.makedirs(small)
+    init, forcing = write_ideal_files(small, **FILE_SMALL)
+    for i, (label, physics) in enumerate(FILE_PHYSICS):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            prefix = os.path.join(small, f"p{i}_{device}_")
+            runs[device] = file_driver(write_namelist(
+                prefix + "options.nml", init, forcing, prefix, FILE_SMALL_Z,
+                physics), device)
+        cpu, card = runs["cpu"], runs["cuda"]
+        if card.substeps != cpu.substeps:
+            raise AssertionError(f"small file run, {label}: substeps "
+                                 f"{card.substeps} on the card, "
+                                 f"{cpu.substeps} on the CPU")
+        worst = hold_card_to_cpu(cpu.model, card.model,
+                                 f"small file run, {label}")
+        log(f"small file run {FILE_SMALL['nx']}x{FILE_SMALL['ny']}x"
+            f"{FILE_SMALL_Z['nz']}, {label}: substeps {card.substeps} on the "
+            f"card and the CPU; largest |card - CPU| / max|CPU| per group "
+            f"(bound): " + ", ".join(f"{g} {r:.3e} ({k}; {b})"
+                                     for g, (r, k, b) in worst.items()))
+
+
+def check_file_run(kernels, step, smi):
+    """Phase 11: the file-driven run at full width through the command
+    line's entry (``core.driver.main``, in this process) with the launch
+    counts set to 0 just before it: K3 and K1 once per substep, no other
+    kernel; its output (three times, finite, the median of u); a run
+    resumed from its 1800 s checkpoint, whose 3600 s checkpoint must equal
+    the uninterrupted run's bit for bit; the resumed driver's timers and
+    rate, one forcing step's read, regrid and tendencies, the wind solve
+    and the dt's read-back timed; then the small case on the CPU and the
+    card. Returns the drive's launch counts."""
+    import tempfile
+
+    import torch
+    from icar_tpu_torch.core import driver as drv
+    from icar_tpu_torch.forcing.ideal import write_ideal_files
+    from icar_tpu_torch.io import netcdf as nc
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init, forcing = write_ideal_files(tmp, **FILE_RUN)
+        log(f"file run: forcing {FILE_RUN['nx'] + 10}x{FILE_RUN['ny'] + 10}"
+            f"x{FILE_RUN['nz_lo']}, {FILE_RUN['nt']} steps, written in "
+            f"{time.perf_counter() - t0:.1f} s: {os.path.getsize(forcing)} "
+            f"bytes, format {nc.file_format(forcing)} (h5py "
+            f"{'present' if nc.h5py else 'absent'}: new files are "
+            f"{nc.write_format()})")
+        prefix = os.path.join(tmp, "run_")
+        nml = write_namelist(prefix + "options.nml", init, forcing, prefix,
+                             FILE_RUN_Z, dict(mp=2, adv=1))
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = drv.main([nml])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"file run: main returned {rc}")
+        from icar_tpu_torch.config import Options
+        options = Options.from_namelist(nml)
+        path = step.path_kernels(options, full_forcing=True)
+        steps = launches["advect_upwind"]
+        for name, n in launches.items():
+            want = steps if name in path else 0
+            if n != want or steps == 0:
+                raise AssertionError(f"file run: {name} launched {n} times "
+                                     f"for {steps} substeps, expected "
+                                     f"{want}")
+        out = prefix + "out_run.nc"
+        with nc.NCFile(out) as f:
+            times = f.read("model_time")
+            fields = {n: f.read(n) for n in f.variables()}
+            fmt = f.format
+        if list(times) != [0.0, 1800.0, 3600.0]:
+            raise AssertionError(f"file run output: model_time {times}")
+        for n, a in fields.items():
+            if a.shape[0] != 3 or not np.isfinite(a).all():
+                raise AssertionError(f"file run output: {n} of shape "
+                                     f"{a.shape}, or non-finite")
+        u_median = float(np.median(fields["u"][-1]))
+        if not FILE_U_MEDIAN[0] < u_median < FILE_U_MEDIAN[1]:
+            raise AssertionError(f"file run: median u {u_median} outside "
+                                 f"{FILE_U_MEDIAN}")
+        gp = FILE_RUN_Z["nz"] * FILE_RUN["ny"] * FILE_RUN["nx"]
+        log(f"file run {FILE_RUN['nx']}x{FILE_RUN['ny']}x{FILE_RUN_Z['nz']} "
+            f"(main, SB04 + upwind, 3600 s): {steps} substeps in {wall:.1f} "
+            f"s of wall (set-up, reads, output and restarts included); "
+            f"launches {launches}; output {os.path.getsize(out)} bytes, "
+            f"format {fmt}, {len(fields)} variables x 3 times; median u "
+            f"{u_median:.3f} m/s; restart "
+            f"{os.path.getsize(prefix + 'rst_00001800.nc')} bytes")
+
+        # resumed from the 1800 s checkpoint
+        rprefix = os.path.join(tmp, "resumed_")
+        resumed = file_driver(write_namelist(
+            rprefix + "options.nml", init, forcing, rprefix, FILE_RUN_Z,
+            dict(mp=2, adv=1), restart_from=prefix + "rst_00001800.nc"),
+            "cuda")
+        want, want_fields = restart_digest(prefix + "rst_00003600.nc")
+        got, got_fields = restart_digest(rprefix + "rst_00003600.nc")
+        for n in want_fields:
+            if not np.array_equal(got_fields[n], want_fields[n]):
+                raise AssertionError(f"file run resumed at 1800 s: {n} at "
+                                     f"3600 s differs from the "
+                                     f"uninterrupted run's")
+        if got != want:
+            raise AssertionError("file run resumed: digest differs")
+        log("digest file (3600 s): " + json.dumps(
+            {k: want[k] for k in DRIVE_FIELDS if k in want}))
+        sec = {k: resumed.timers[k].get_time()
+               for k in ("init", "input", "physics", "output")}
+        n_sub = resumed.substeps[0]
+        log(f"file run resumed at 1800 s: 3600 s checkpoint equal to the "
+            f"uninterrupted run's bit for bit ({len(want_fields)} fields); "
+            f"{n_sub} substeps, {gp * n_sub / sec['physics'] / 1e6:.1f}M "
+            f"gp*steps/s over the physics time on {smi}; driver timers s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
+
+        # one forcing step: the host read, then the regrid, wind solve and
+        # tendencies on the card; the wind solve alone; the dt read-back
+        m = resumed.model
+        t0 = time.perf_counter()
+        raw = resumed.forcing.read_step(2)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        tend_ms = host_ms(lambda: resumed.forcing_tendencies(raw))
+        target = resumed.regridder.to_model_grid(raw, m.geom_t)
+        regrid_ms = host_ms(lambda: resumed.regridder.to_model_grid(
+            raw, m.geom_t))
+        wind_ms = cuda_ms(lambda: m.compute_winds(target["u"], target["v"],
+                                                  rotate=True))
+        g, o = m.geom_t, m.options.run
+        dt_ms = host_ms(lambda: step.sharded_dt(
+            [m.state], [g], o.cfl_reduction_factor, o.cfl_strictness), 10)
+        log(f"file run forcing step: read {read_ms:.1f} ms (host), regrid "
+            f"{regrid_ms:.2f} ms, regrid + wind solve + tendencies "
+            f"{tend_ms:.2f} ms, wind solve alone {wind_ms:.3f} ms "
+            f"(CUDA events); dt with its read-back {dt_ms:.3f} ms a "
+            f"substep")
+        del resumed, m, target
+        check_file_run_small(tmp)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -1760,6 +2050,10 @@ def main():
     # intervals with a wind update before each counting kernel launches
     linear_launches = check_linear(ideal_ridge_model, cases["linear"],
                                    kernels, step, smi)
+    # 11. the file-driven run through the command line's entry at full
+    # width, counting kernel launches, resumed from its checkpoint, and the
+    # small case on the CPU and the card
+    file_launches = check_file_run(kernels, step, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -1774,6 +2068,8 @@ def main():
             entry["fullphys"] = fullphys[name]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
+        if name in ("advect_upwind", "mp_simple_rho"):
+            entry["file"] = {"launches": file_launches[name]}
     log(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": table}))

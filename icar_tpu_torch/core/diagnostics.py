@@ -82,7 +82,8 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
     and ``with_w_real`` adds w_real alone to a partial update (the
     convection reads it). ``needs``, a subset of ``PARTIAL_FIELDS``,
     refreshes only those fields, the others taken from the state (the
-    general loop's per-substep refresh). ``geom`` holds torch tensors
+    general loop's per-substep refresh), with w_real when
+    ``with_w_real``. ``geom`` holds torch tensors
     (``convert.geometry_to_torch``). Returns a new dict."""
     s = dict(state)
     if needs is not None:
@@ -91,7 +92,10 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
             raise NotImplementedError(
                 f"partial refresh of {sorted(unknown)} is not ported yet: "
                 "Slice F (RRTMG) in ROADMAP.md")
-        return _refresh(s, needs)
+        s = _refresh(s, needs)
+        if with_w_real and "w_real" in s:
+            s["w_real"] = w_real(s["w_real"], s["u"], s["v"], s["w"], geom)
+        return s
     p = s["pressure"]
     theta = s["potential_temperature"]
     u, v, w = s["u"], s["v"], s["w"]

@@ -45,6 +45,12 @@ def advected_names(options: Options) -> List[str]:
     return list(collect_requests(options).advect)
 
 
+def restart_names(options: Options) -> List[str]:
+    """The fields a restart file holds, sorted (the registry's restart
+    requests)."""
+    return sorted(collect_requests(options).restart)
+
+
 # the surface accumulators a state may hold
 ACCUMULATORS = ("precipitation", "snowfall", "graupel")
 

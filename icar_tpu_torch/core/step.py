@@ -20,6 +20,16 @@ MPDATA (K4) or upwind (K1) advects the stack. Time is carried in float32
 as the JAX loop carries it, so the substep lengths and the clamp's timing
 match. On CPU tensors the kernels' plain versions run.
 
+Forcing tendencies of fields other than the advected species (a
+file-driven run's u, v, w, pressure and 2-D fields; full-field forcing)
+take the general loop, SB04 + upwind included (K3 with the state's density,
+then K1), as the JAX step leaves its fast path for them. With forced
+winds the CFL dt is computed anew from them every substep (one read to the
+host a substep) and the advection's wind operands are prepared anew; with
+forced pressure the pressure-derived fields are refreshed every substep
+(``substep_needs``). After the advection u, v, w, pressure and the 2-D
+fields take ``tend * dt`` over the whole field (``apply_forcing``).
+
 The loop runs on a list of blocks (``run_interval_sharded``): the whole
 domain is one block, and a model sharded over a device mesh holds one per
 shard (``parallel/mesh.py``), each with its halo, exchanged after every
@@ -61,6 +71,42 @@ LIMITED_FIELDS = (
 # the species SB04 updates, in the kernel's argument order
 MP_SPECIES = ("potential_temperature", "water_vapor", "cloud_water",
               "rain_mass", "snow_mass")
+
+# fields whose forcing tendency is applied everywhere; the other 3-D fields,
+# the advected species among them, are forced at the lateral boundaries
+# only (apply_forcing, domain_obj.f90:2383-2448)
+FULL_FIELD_FORCED = ("u", "v", "w", "pressure")
+
+
+def full_field_forcing(dqdt, adv_names) -> bool:
+    """Whether the tendencies ``dqdt`` force a field outside the advected
+    species, which takes the JAX step off its fast path."""
+    return any(k not in adv_names for k in dqdt)
+
+
+def forcing_varies(dqdt) -> Tuple[bool, bool]:
+    """(pressure_varies, winds_vary): whether ``dqdt`` forces the
+    pressure, and any of the winds, so that they change within the
+    interval (icar_tpu/core/step.py step)."""
+    return "pressure" in dqdt, any(k in dqdt for k in ("u", "v", "w"))
+
+
+def apply_forcing(state, dqdt, dt, bmask, adv_names):
+    """Integrate the forcing tendencies of the fields outside the species
+    stack for ``dt`` seconds (icar_tpu/core/step.py apply_forcing): u, v,
+    w, pressure and every 2-D field over the whole field, any other 3-D
+    field on the boundary ring (``bmask``). The advected species, which
+    the stack carries, are left to the caller."""
+    s = dict(state)
+    dt = float(dt)
+    for name, tend in dqdt.items():
+        if name not in s or name in adv_names:
+            continue
+        if name in FULL_FIELD_FORCED or s[name].dim() == 2:
+            s[name] = s[name] + tend * dt
+        else:
+            s[name] = s[name] + tend * dt * bmask
+    return s
 
 
 def thompson_params(options) -> ThompsonParams:
@@ -115,14 +161,18 @@ def _quantize(dt) -> np.float32:
     return np.float32(dt.item())
 
 
-def path_kernels(options) -> Tuple[str, ...]:
+def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     """The kernels (names of ``kernels.LAUNCHES``) the interval loop
-    launches for ``options`` on the card."""
+    launches for ``options`` on the card; ``full_forcing``: under forcing
+    tendencies outside the advected species (``full_field_forcing``),
+    where SB04 + upwind runs the general loop's K3."""
     mpdata = options.physics.advection == C.ADV_MPDATA
     if options.physics.microphysics == C.MP_THOMPSON:
         return ("mp_thompson", "advect_mpdata" if mpdata else "advect_upwind")
     if mpdata:
         return ("mp_simple_rho", "advect_mpdata")
+    if full_forcing:
+        return ("mp_simple_rho", "advect_upwind")
     return ("mp_simple", "advect_upwind")
 
 
@@ -145,13 +195,15 @@ def column_physics(options) -> bool:
             or ph.convection != C.CU_NONE)
 
 
-def substep_needs(options) -> frozenset:
+def substep_needs(options, pressure_varies: bool = False,
+                  winds_vary: bool = False) -> frozenset:
     """The derived fields the general loop refreshes each substep: those a
     configured scheme reads whose inputs change within the interval
     (icar_tpu/core/step.py ``_substep_needs``, without RRTMG and YSU,
-    which the port does not run). They follow theta; the pressure-derived
-    fields and the mass-level winds would follow only a forcing of
-    pressure or the winds, which the port refuses (Slice E)."""
+    which the port does not run). Density and temperature follow theta;
+    the pressure-derived fields follow a forced pressure
+    (``pressure_varies``), the mass-level winds forced winds
+    (``winds_vary``)."""
     ph = options.physics
     surface = (ph.landsurface != C.LSM_NONE
                or ph.watersurface != C.WATER_NONE)
@@ -162,6 +214,15 @@ def substep_needs(options) -> frozenset:
         needs.add("density")
     if surface or ph.convection != C.CU_NONE:
         needs.add("temperature")
+    if pressure_varies:
+        needs.add("exner")
+        if (surface or ph.convection != C.CU_NONE
+                or ph.boundarylayer != C.PBL_NONE):
+            needs.add("pressure_interface")
+            needs.add("surface_pressure")
+    if winds_vary and (surface or ph.convection != C.CU_NONE
+                       or ph.boundarylayer != C.PBL_NONE):
+        needs.add("uv_mass")
     return frozenset(needs)
 
 
@@ -214,6 +275,14 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     thompson = mp == C.MP_THOMPSON
     dqdts = dqdts or [{} for _ in states]
     adv = options.adv
+    full = full_field_forcing(dqdts[0], adv_names)
+    if full and len(states) > 1:
+        raise NotImplementedError(
+            "forcing tendencies outside the advected species on a sharded "
+            "model are not ported yet: Slice G (sharded file-driven runs) "
+            "in ROADMAP.md")
+    pressure_varies, winds_vary = forcing_varies(dqdts[0]) if full \
+        else (False, False)
 
     states = [diagnostic_update(s, g, full=False)
               for s, g in zip(states, geoms)]
@@ -228,8 +297,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     # (icar_tpu/core/step.py:996)
     dz_mp = [(g.dz_mass if thompson else g.dz_interface).contiguous()
              for g in geoms]
-    winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
-             for s, g in zip(states, geoms)]
+    if not winds_vary:
+        winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+                 for s, g in zip(states, geoms)]
     floors = [torch.as_tensor(limit_floors(adv_names), device=q.device)
               for q in stacks]
     if thompson:
@@ -243,16 +313,19 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         tend = [torch.stack([d[k] if k in d else torch.zeros_like(s[k])
                              for k in adv_names])
                 for s, d in zip(states, dqdts)]
+    if tend is not None or full:
         bmask = layout.boundary_masks()
         floor_b = [f[:, None, None, None] for f in floors]
         no_floor = [torch.full_like(f, -np.inf) for f in floor_b]
 
-    # the general loop (MPDATA, or Thompson) accumulates in the state,
-    # substep by substep; the upwind fast path adds the interval's sum
-    general = mpdata or thompson
+    # the general loop (MPDATA, Thompson, or full-field forcing)
+    # accumulates in the state, substep by substep; the upwind fast path
+    # adds the interval's sum
+    general = mpdata or thompson or full
     if general:
-        # the density follows theta (K3 reads it)
-        needs = substep_needs(options)
+        # the density follows theta (K3 reads it), the pressure-derived
+        # fields a forced pressure
+        needs = substep_needs(options, pressure_varies, winds_vary)
         rain = [s["precipitation"].clone() for s in states]
         snow = [s["snowfall"].clone() for s in states]
         if thompson:
@@ -264,6 +337,14 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     end_time = np.float32(seconds)
     n = 0
     while t < end_time - np.float32(1e-3):
+        if winds_vary:
+            # the CFL dt of the forced winds, read to the host every
+            # substep, and their advection operands
+            dt_static = sharded_dt(states, geoms,
+                                   options.run.cfl_reduction_factor,
+                                   options.run.cfl_strictness)
+            winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+                     for s, g in zip(states, geoms)]
         dt = min(dt_static, end_time - t)
         near_end = bool((end_time - t) < dt * np.float32(2))
         # the near-end clamp folds into advection unless forcing follows
@@ -273,6 +354,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             states = [diagnostic_update({**s, "potential_temperature": q[th]},
                                         g, needs=needs)
                       for s, q, g in zip(states, stacks, geoms)]
+            if pressure_varies:
+                pressure = [s["pressure"].contiguous() for s in states]
+                exner = [s["exner"].contiguous() for s in states]
         if thompson:
             sk.thompson_stack_sharded(stacks, smap, exner, pressure, dz_mp,
                                       dt, rain, snow, graupel, tparams)
@@ -281,7 +365,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             sk.mp_simple_sharded(
                 *([q[i] for q in stacks] for i in species), pressure, exner,
                 dz_mp, rain, snow, dt, c2r, c2s,
-                rho=[s["density"] for s in states] if mpdata else None)
+                rho=[s["density"] for s in states] if general else None)
         if mpdata:
             sk.advect_mpdata_sharded(layout, stacks, winds, dt,
                                      adv.mpdata_order,
@@ -291,6 +375,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             sk.advect_upwind_sharded(layout, stacks, winds, dt, floors, clamp,
                                      spares)
         stacks, spares = spares, stacks
+        if full:
+            states = [apply_forcing(s, d, dt, m, adv_names)
+                      for s, d, m in zip(states, dqdts, bmask)]
         if tend is not None:
             # boundary-ring relaxation of the advected species (apply_
             # forcing, domain_obj.f90:2400-2428), then the near-end clamp
@@ -337,7 +424,11 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     replaced are written back, Thompson (K5) updates the stack and the
     accumulators in place, and K1 advects it into the second buffer with
     the near-end clamp folded in unless forcing follows; the water
-    vapour's advection tendency feeds the next substep's convection. The
+    vapour's advection tendency feeds the next substep's convection.
+    Under full-field forcing (``full_field_forcing``) forced winds give a
+    new dt and wind operands every substep, and w_real in the refresh, a
+    forced pressure its derived fields (``substep_needs``), and
+    ``apply_forcing`` follows the advection. The
     ``time_aux`` of ``run_interval`` is required with the radiation. The
     PBL's substep count is one host read per substep. ``timer(stage)``,
     when given, returns a context manager around each stage's work
@@ -355,7 +446,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                          "with Thompson and upwind advection only")
     dqdt = dqdt or {}
     dev = state["pressure"].device
-    needs = substep_needs(options)
+    full = full_field_forcing(dqdt, adv_names)
+    pressure_varies, winds_vary = forcing_varies(dqdt) if full \
+        else (False, False)
+    needs = substep_needs(options, pressure_varies, winds_vary)
     convect = phys.convection == C.CU_TIEDTKE
     surface = (phys.landsurface != C.LSM_NONE
                or phys.watersurface != C.WATER_NONE)
@@ -370,7 +464,8 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         s[k] = s[k].clone()
     q = torch.stack([s[k] for k in adv_names])
     spare = torch.empty_like(q)
-    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
+    if not winds_vary:
+        winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
     floors = torch.as_tensor(limit_floors(adv_names), device=dev)
     smap = mp_thompson.stack_smap(adv_names)
     tparams = thompson_params(options)
@@ -381,8 +476,9 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     if any(k in dqdt for k in adv_names):
         tend = torch.stack([dqdt[k] if k in dqdt else torch.zeros_like(q[0])
                             for k in adv_names])
-        bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
         floor_b = floors[:, None, None, None]
+    if tend is not None or full:
+        bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
     if phys.radiation == C.RA_SIMPLE:
         if time_aux is None:
             raise ValueError("run_interval_physics: the radiation needs "
@@ -402,13 +498,22 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     end_time = np.float32(seconds)
     n = 0
     while t < end_time - np.float32(1e-3):
+        if winds_vary:
+            # the CFL dt of the forced winds (one read to the host a
+            # substep) and their advection operands
+            dt_static = quantized_dt(s["u"], s["v"], s["w"], geom.dz_levels,
+                                     geom.dx, options.run.cfl_reduction_factor,
+                                     options.run.cfl_strictness)
+            winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"],
+                                                 geom)
         dt = min(dt_static, end_time - t)
         near_end = bool((end_time - t) < dt * np.float32(2))
         clamp = near_end and tend is None
         dt_t = scalar(dt)
         views = {k: q[i] for i, k in enumerate(adv_names)}
         with stage("diagnostics"):
-            s = diagnostic_update({**s, **views}, geom, needs=needs)
+            s = diagnostic_update({**s, **views}, geom, needs=needs,
+                                  with_w_real=convect and winds_vary)
         if phys.radiation == C.RA_SIMPLE:
             doy = day0 + t * np.float32(inv(86400.0))
             with stage("radiation"):
@@ -450,6 +555,8 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                 # the moisture convergence the next substep's trigger reads
                 s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t
         q, spare = spare, q
+        if full:
+            s = apply_forcing(s, dqdt, dt, bmask, adv_names)
         if tend is not None:
             # boundary-ring relaxation, then the near-end clamp
             q = torch.maximum(q + tend * (float(dt) * bmask),

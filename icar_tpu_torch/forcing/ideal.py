@@ -138,3 +138,70 @@ def make_ideal_case(geom, u_profile=10.0, v_profile=0.0, theta_profile="wk",
     return IdealCase(u=u, v=v, theta=theta.astype(np.float32),
                      pressure=pressure.astype(np.float32),
                      qv=qv.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# ideal NetCDF file generation (gen_ideal_test.py / genNetCDF equivalents)
+# ---------------------------------------------------------------------------
+
+
+def write_ideal_files(out_dir: str, nx=60, ny=16, nz_lo=30, dx=1000.0,
+                      hill_height=500.0, schaer=True, u_profile=10.0,
+                      qv_val=0.002, nt=4, dz_lo=500.0, buffer_cells=5,
+                      lat0=39.5, lon0=-105.0):
+    """Generate 'init.nc' (hi-res terrain/lat/lon) and 'forcing.nc'
+    (nt steps of u, v, theta, qv, p, z on a coarser/larger grid), the
+    TPU-native equivalent of helpers/genNetCDF Topography+Forcing driven by
+    tests/gen_ideal_test.py. Returns (init_path, forcing_path)."""
+    import os
+
+    from ..io.netcdf import NCFile
+
+    if schaer:
+        terrain = schaer_topography(nx, ny, hill_height, dx)
+    else:
+        terrain = hill_topography(nx, ny, hill_height)
+    lat, lon = ideal_latlon(nx, ny, dx, lat0, lon0)
+
+    init_path = os.path.join(out_dir, "init.nc")
+    with NCFile(init_path, "w") as f:
+        f.create_var("hgt_hi", ("y", "x"), terrain.astype(np.float32))
+        f.create_var("lat_hi", ("y", "x"), lat.astype(np.float32))
+        f.create_var("lon_hi", ("y", "x"), lon.astype(np.float32))
+        f.set_attrs({"TITLE": "icar_tpu ideal init", "DX": dx, "DY": dx})
+
+    # forcing grid: slightly larger than the hi-res domain (gen_ideal adds
+    # +10 cells), flat terrain, uniform dz
+    nx_lo, ny_lo = nx + 10, ny + 10
+    lat_f, lon_f = ideal_latlon(nx_lo, ny_lo, dx, lat0, lon0)
+    z_1d = (np.arange(nz_lo) + 0.5) * dz_lo
+    z = np.broadcast_to(z_1d[:, None, None], (nz_lo, ny_lo, nx_lo)).copy()
+    theta = weisman_klemp_theta(z)
+    p = pressure_from_sea_level(z)
+    u_prof = np.asarray(u_profile, np.float64)
+    if u_prof.ndim == 0:
+        u = np.full((nz_lo, ny_lo, nx_lo), float(u_prof))
+    else:
+        u = np.broadcast_to(u_prof[:nz_lo, None, None],
+                            (nz_lo, ny_lo, nx_lo)).copy()
+    v = np.zeros_like(u)
+    qv = np.full_like(u, qv_val)
+
+    def times(a):
+        return np.broadcast_to(a[None], (nt,) + a.shape).astype(np.float32)
+
+    forcing_path = os.path.join(out_dir, "forcing.nc")
+    with NCFile(forcing_path, "w") as f:
+        dims4 = ("time", "level", "y", "x")
+        f.create_var("u", dims4, times(u))
+        f.create_var("v", dims4, times(v))
+        f.create_var("theta", dims4, times(theta))
+        f.create_var("qv", dims4, times(qv))
+        f.create_var("p", dims4, times(p))
+        f.create_var("z", dims4, times(z))
+        f.create_var("lat", ("y", "x"), lat_f.astype(np.float32))
+        f.create_var("lon", ("y", "x"), lon_f.astype(np.float32))
+        f.create_var("hgt", ("y", "x"),
+                     np.zeros((ny_lo, nx_lo), np.float32))
+        f.set_attrs({"TITLE": "icar_tpu ideal forcing"})
+    return init_path, forcing_path

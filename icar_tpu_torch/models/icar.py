@@ -12,9 +12,14 @@ each: balance only, linear theory (wind=1, its table built on the model's
 device at the first wind solve), the mass-conserving winds (wind=2), the
 iterative solver (wind=3), linear then iterative (wind=5), and flow
 blocking. Any other option raises ``NotImplementedError`` naming the
-ROADMAP slice that ports it. ``attach_mesh`` shards a model over a device
-mesh (``parallel/mesh.py``); its state then lives in one block per shard
-(not yet with the column physics, linear theory or blocking).
+ROADMAP slice that ports it. Forcing tendencies (``set_forcing_tendencies``)
+relax the advected species on the boundary ring and change u, v, w,
+pressure and the 2-D fields everywhere (a file-driven run's,
+``core/driver.py``); a monthly rain fraction scales each interval's
+precipitation (``set_rain_fraction``). ``attach_mesh`` shards a model over
+a device mesh (``parallel/mesh.py``); its state then lives in one block
+per shard (not yet with the column physics, linear theory, blocking, a
+rain fraction or forcing outside the advected species).
 """
 
 from __future__ import annotations
@@ -130,6 +135,8 @@ class ICARModel:
         self._blocking = None
         # the initial case's winds, which update_winds solves anew
         self._case_winds = None
+        # the monthly precipitation bias-correction scale (12, ny, nx)
+        self._rain_frac_months: Optional[torch.Tensor] = None
 
     @property
     def winds_follow_state(self) -> bool:
@@ -157,6 +164,11 @@ class ICARModel:
                 "attach_mesh: a sharded model with linear-theory winds or "
                 "flow blocking is not ported yet: Slice G (the per-shard "
                 "linear-theory and blocking tables) in ROADMAP.md")
+        if self._rain_frac_months is not None:
+            raise NotImplementedError(
+                "attach_mesh: a sharded model with a rain fraction is not "
+                "ported yet: Slice G in ROADMAP.md")
+        self._refuse_sharded_forcing(self._dqdt)
         if mesh.device_type != self.device.type:
             raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
                              f"devices for a model on {self.device}")
@@ -326,22 +338,67 @@ class ICARModel:
 
     def set_forcing_tendencies(self, dqdt: Dict[str, np.ndarray]):
         """Install dqdt fields for the next intervals (update_delta_fields,
-        domain_obj.f90:2339-2372). Only advected species are ported: they
-        relax the domain's boundary ring."""
-        other = sorted(set(dqdt) - set(self.advect_names))
-        if other:
-            raise NotImplementedError(
-                f"forcing tendencies for {other} are not ported yet: "
-                "Slice E (file-driven runs) in ROADMAP.md")
+        domain_obj.f90:2339-2372): the advected species relax the
+        domain's boundary ring, u, v, w, pressure and the 2-D fields
+        change over the whole field (``core.step.apply_forcing``). Raises
+        ValueError for a field the state does not hold, and, on a sharded
+        model, NotImplementedError for fields outside the advected species
+        (Slice G)."""
+        unknown = sorted(set(dqdt) - set(self._held()))
+        if unknown:
+            raise ValueError(f"forcing tendencies for {unknown}, which the "
+                             "state does not hold")
+        if self.mesh is not None:
+            self._refuse_sharded_forcing(dqdt)
         self._dqdt = {k: self._tensor(v) for k, v in dqdt.items()}
         if self.mesh is not None:
             self._dqdt_blocks = self._scatter_dict(self._dqdt)
 
-    def advance(self, seconds: float, timer=None):
+    def _refuse_sharded_forcing(self, dqdt):
+        other = sorted(set(dqdt) - set(self.advect_names))
+        if other:
+            raise NotImplementedError(
+                f"forcing tendencies for {other} on a sharded model are not "
+                "ported yet: Slice G (sharded file-driven runs) in "
+                "ROADMAP.md")
+
+    def set_rain_fraction(self, monthly_scale: np.ndarray):
+        """Install the monthly precipitation bias-correction scale
+        (apply_rain_fraction, mp_driver.f90:350-397): ``monthly_scale`` is
+        (12, ny, nx); interior cells of each interval's precipitation
+        increment are multiplied by the current month's entry
+        (``advance(rain_frac_month=...)``), on the model's device."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "set_rain_fraction on a sharded model is not ported yet: "
+                "Slice G in ROADMAP.md")
+        ny, nx = self.geom.ny, self.geom.nx
+        frac = np.ones((monthly_scale.shape[0], ny, nx), np.float32)
+        fy = min(monthly_scale.shape[1], ny)
+        fx = min(monthly_scale.shape[2], nx)
+        frac[:, :fy, :fx] = monthly_scale[:, :fy, :fx]
+        # domain-boundary ring is never scaled (mp_driver.f90:361-396
+        # operates on its+1..ite-1 interior cells only)
+        frac[:, 0, :] = 1.0
+        frac[:, -1, :] = 1.0
+        frac[:, :, 0] = 1.0
+        frac[:, :, -1] = 1.0
+        self._rain_frac_months = self._tensor(frac)
+
+    def advance(self, seconds: float, rain_frac_month: Optional[int] = None,
+                timer=None):
         """Integrate the state forward by ``seconds`` (one forcing/output
         interval; step, time_step.f90:440-551). Returns the state (None
-        with a mesh: the blocks are in ``self.blocks``). ``timer`` times
-        the column physics' stages (``core.step.run_interval_physics``)."""
+        with a mesh: the blocks are in ``self.blocks``).
+        ``rain_frac_month`` selects the bias-correction scale
+        (``set_rain_fraction``) applied to this interval's precipitation
+        increment at its end. ``timer`` times the column physics' stages
+        (``core.step.run_interval_physics``)."""
+        if rain_frac_month is not None:
+            if self._rain_frac_months is None:
+                raise ValueError("advance: rain_frac_month needs a prior "
+                                 "set_rain_fraction")
+            precip0 = self.state["precipitation"]
         if self.mesh is None:
             self.state, self._last_n = run_interval(
                 self.state, self.geom_t, self.options, self.advect_names,
@@ -350,6 +407,10 @@ class ICARModel:
             self.blocks, self._last_n = run_interval_sharded(
                 self.layout, self.blocks, self._geom_blocks, self.options,
                 self.advect_names, seconds, self._dqdt_blocks)
+        if rain_frac_month is not None:
+            p = self.state["precipitation"]
+            self.state["precipitation"] = precip0 + (p - precip0) * \
+                self._rain_frac_months[rain_frac_month]
         self.model_time += float(seconds)
         return self.state
 
@@ -386,9 +447,8 @@ class ICARModel:
         w and the accumulators the state holds. Equal for a sharded and an
         unsharded run that agree bit for bit."""
         names = list(self.advect_names) + ["u", "v", "w"]
-        held = self.state if self.mesh is None else self.blocks[0]
         return state_digest({k: self.global_field(k) for k in names + [
-            a for a in ACCUMULATORS if a in held]}, names)
+            a for a in ACCUMULATORS if a in self._held()]}, names)
 
     def _global_state(self) -> Dict[str, torch.Tensor]:
         """The whole state as one dict on the model's device."""
@@ -396,6 +456,10 @@ class ICARModel:
             return dict(self.state)
         return {k: self.global_field(k).to(self.device)
                 for k in self.blocks[0]}
+
+    def _held(self) -> Dict[str, torch.Tensor]:
+        """The state's fields by name (with a mesh, the first block's)."""
+        return self.state if self.mesh is None else self.blocks[0]
 
     def _install(self, state: Dict[str, torch.Tensor]):
         """Make ``state`` (the whole domain) the model's state: with a

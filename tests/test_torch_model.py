@@ -132,9 +132,19 @@ def test_unported_run_options_raise(what):
 
 
 def test_wind_forcing_not_ported():
+    """Forcing tendencies outside the advected species (here u) are ported
+    on one device; on a sharded model they raise naming Slice G, whether
+    set after attach_mesh or before it."""
+    from icar_tpu_torch.parallel.mesh import make_mesh
+    u = {"u": np.zeros((12, 8, 21), np.float32)}
     m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        m.set_forcing_tendencies({"u": np.zeros((12, 8, 21), np.float32)})
+    m.set_forcing_tendencies(u)
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        m.attach_mesh(make_mesh(20, 8, devices=["cpu"] * 4))
+    m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0, device="cpu")
+    m.attach_mesh(make_mesh(20, 8, devices=["cpu"] * 4))
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        m.set_forcing_tendencies(u)
 
 
 def test_device_is_required():

@@ -31,7 +31,7 @@ COPIES = {
     "utils/model_tracking.py": (),
     "registry.py": (),
     "grid.py": (),
-    "forcing/ideal.py": ("write_ideal_files",),
+    "forcing/ideal.py": (),
     "physics/thompson_tables.py": (),
     "physics/noah_params.py": (),
 }
@@ -58,10 +58,11 @@ def test_copy_matches_original(rel):
     assert copy == want, f"icar_tpu_torch/{rel} drifted from icar_tpu/{rel}"
 
 
-# functions the port copies one by one out of JAX-package modules that
-# import jax: JAX module -> (port module, names); the JAX package's
-# ``jnp.`` becomes the port's ``np.`` (its spectrum and wavenumbers end in
-# numpy arrays where the JAX package's end in jnp arrays)
+# functions (and host classes) the port copies one by one out of
+# JAX-package modules that import jax: JAX module -> (port module, names);
+# the JAX package's ``jnp.`` becomes the port's ``np.`` (its spectrum and
+# wavenumbers end in numpy arrays where the JAX package's end in jnp
+# arrays)
 FUNCTION_COPIES = {
     "ops/linear_winds.py": ("ops/linear_winds.py", (
         "add_buffer_topo", "fourier_terrain", "wavenumber_grids",
@@ -70,15 +71,24 @@ FUNCTION_COPIES = {
         "load_lut_chunks", "save_lut")),
     "ops/blocking.py": ("ops/blocking.py", (
         "terrain_blocking_heights", "_find_max_downward_level")),
+    "forcing/interpolation.py": ("forcing/interpolation.py", (
+        "_is_regular", "_idw_lut", "_tri_weights", "_curvilinear_quad_lut",
+        "_quad_pass", "build_geo_lut", "build_vlut",
+        "standardize_longitudes")),
+    "forcing/boundary.py": ("forcing/boundary.py", (
+        "compute_mixing_ratio_from_rh", "compute_mixing_ratio_from_sh",
+        "ForcingData")),
+    "utils/diagnostics_debug.py": ("utils/diagnostics_debug.py", (
+        "Timer", "Timers")),
 }
 
 
 def _functions(source):
-    """Top-level function definitions of ``source`` (text) by name: (first
-    docstring line, AST dump without the docstring)."""
+    """Top-level function and class definitions of ``source`` (text) by
+    name: (first docstring line, AST dump without the docstring)."""
     out = {}
     for node in ast.parse(source).body:
-        if isinstance(node, ast.FunctionDef):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             doc = ast.get_docstring(node)
             if doc is not None:
                 node.body = node.body[1:]
@@ -89,7 +99,8 @@ def _functions(source):
 @pytest.mark.parametrize("orig,name", sorted(
     (o, n) for o, (_, names) in FUNCTION_COPIES.items() for n in names))
 def test_function_copy_matches_original(orig, name):
-    """Each copied function's AST equals its original's (docstrings aside,
+    """Each copied function's (or class's) AST equals its original's
+    (its own docstring aside,
     the sources read as text, not imported); its docstring's first line
     names the source."""
     rel, _ = FUNCTION_COPIES[orig]
