@@ -95,6 +95,24 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    and with Thompson + upwind and the fullphys schemes, holding the card
    to the CPU (the same substeps, FULLPHYS_BOUNDS). K1's and K3's lines
    in the table add the launches under "file".
+12. the general loop's options (GENERAL_PATHS): on the MPDATA_density
+   ridge's state after one interval, the density fold kernel
+   (csrc/density_fold.cu, kernels.density_winds) against its plain
+   version bit for bit, then K1 and K4 on the operands it weights by the
+   state's density, K1 against its kernel-order oracle on them (every
+   bit) and both against their plain versions with density, each timed
+   with and without the fold; then two intervals each of density
+   advection with upwind (K3, the fold and K1 once a substep) and with
+   MPDATA (K3, the fold and K4), SB04 + upwind with the microphysics every 60 s
+   (K1 once a substep, K3 as often as the host's counter predicts), the
+   full physics column with MPDATA (K5 and K4 on nine species) and with
+   SB04 without Tiedtke (K3 and K1), each with its digest; the
+   MPDATA_density ridge sharded 4x1 on this card against its unsharded
+   drive; the small cases of the two column-physics paths on the CPU and
+   the card (FULLPHYS_BOUNDS). The table adds advect_upwind_density and
+   advect_mpdata_density (fold and kernel; the kernel and the fold
+   alone) and density_fold, and the other kernels' launches under
+   "general".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -197,6 +215,15 @@ FILE_PHYSICS = (("SB04 + upwind", dict(mp=2, adv=1)),
 FILE_INTERVAL = 1800.0
 # the forcing's u is 10 m/s; the median of the run's u lies within these
 FILE_U_MEDIAN = (4.0, 16.0)
+
+# phase 12, the general loop's options on the bench ridge (models.icar
+# RIDGE_PATHS): density advection with either advection, SB04 + upwind
+# with the microphysics every 60 s, and the full physics column with MPDATA
+# or with SB04 (and without Tiedtke, which the options refuse with SB04);
+# the density ridge sharded on one card
+GENERAL_PATHS = ("upwind_density", "MPDATA_density", "upwind_mp_throttle",
+                 "fullphys_mpdata", "fullphys_sb04")
+GENERAL_SHARDED = ("MPDATA_density", (4, 1))
 
 
 def write_namelist(path, init, forcing, prefix, z, physics,
@@ -335,6 +362,9 @@ MPDATA_PSEUDO_OPS, MPDATA_FCT_OPS, MPDATA_CORRECTIVE_OPS = 141, 43, 50
 SB04_CELL_OPS, SB04_SWEEP_OPS, SB04_FALL_OPS = 15, 18, 16
 K5_CELL_OPS, K5_CFL_OPS, K5_SED_MASS_OPS, K5_SED_NUMBER_OPS = 1652, 3, 12, 22
 K5_SFC_OPS = 3
+# the density fold (ops/kernels.py density_winds) per cell: three face
+# means of an add and a multiply, four weightings
+FOLD_OPS = 10
 
 
 def log(*args):
@@ -466,14 +496,21 @@ SOURCE = {"advect_upwind": "advect_upwind.cu", "mp_simple": "mp_simple.cu",
           "mp_simple_rho": "mp_simple.cu", "advect_mpdata": "mpdata.cu",
           "advect_mpdata_9species": "mpdata.cu",
           "advect_mpdata_padded": "mpdata.cu",
-          "mp_thompson": "mp_thompson.cu"}
+          "mp_thompson": "mp_thompson.cu",
+          "advect_upwind_density": "advect_upwind.cu",
+          "advect_mpdata_density": "mpdata.cu",
+          "density_fold": "density_fold.cu"}
 REPLACES = {"advect_upwind": "icar_tpu/ops/pallas_kernels.py:167",
             "mp_simple": "icar_tpu/ops/pallas_kernels.py:679",
             "mp_simple_rho": "icar_tpu/ops/pallas_kernels.py:591",
             "advect_mpdata": "icar_tpu/ops/pallas_kernels.py:783",
             "advect_mpdata_9species": "icar_tpu/ops/pallas_kernels.py:783",
             "advect_mpdata_padded": "icar_tpu/ops/pallas_kernels.py:1078",
-            "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107"}
+            "mp_thompson": "icar_tpu/ops/thompson_kernel.py:107",
+            "advect_upwind_density": "icar_tpu/ops/pallas_kernels.py:167",
+            "advect_mpdata_density": "icar_tpu/ops/pallas_kernels.py:783",
+            # no TPU kernel: the JAX package weights the winds with jnp
+            "density_fold": "icar_tpu/ops/advection.py:38"}
 
 
 def check_kernels(model, kernels, step, adv_plain, mp_plain, initial,
@@ -1425,15 +1462,16 @@ DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
 
 
 def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
-          shards=1):
+          shards=1, due=None):
     """Advance ``model`` over two 1200 s intervals (``run_timed``, which
     solves the winds anew before each interval where they follow the
     state) with the launch counts set to 0 just before; check that
     ``fields`` are finite, that there is cloud and precipitation, and that
     each kernel of ``path`` launched once per substep and shard
-    (``shards``) and the others not at all; log the rate over the natural
-    grid points (the wind updates' time apart) and the final state's
-    digest. Returns (launch counts, digest, substeps)."""
+    (``shards``), or the count ``due`` gives it, and the others not at
+    all; log the rate over the natural grid points (the wind updates' time
+    apart) and the final state's digest. Returns (launch counts, digest,
+    substeps)."""
     import torch
     from icar_tpu_torch.time_paths import run_timed
     kernels.reset_launches()
@@ -1442,6 +1480,8 @@ def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
     launches = dict(kernels.LAUNCHES)
     for name, n in launches.items():
         want = steps * shards if name in path else 0
+        if due and name in due:
+            want = due[name]
         if n != want:
             raise AssertionError(f"{name}: {n} launches for {steps} "
                                  f"substeps on the {label} path, expected "
@@ -1496,24 +1536,36 @@ def sharded_drive(label, case, mesh, path, reference, kernels, smi):
     return launches
 
 
-def fullphys_small(ideal_ridge_model, fullphys, device):
+def fullphys_small(ideal_ridge_model, fullphys, device, nudge=False):
     """The small full-physics case with its water strip, one interval on
-    ``device``."""
+    ``device``; with ``nudge``, theta and water vapour start one ulp up or
+    down per cell (seeded), as the golden ensemble perturbs them."""
+    import torch
     m = ideal_ridge_model(**FULLPHYS_SMALL, **fullphys, device=device)
     land = m.state["land_mask"].clone()
     land[:, :10] = 2.0
     m.state = {**m.state, "land_mask": land}
+    if nudge:
+        r = np.random.default_rng(0)
+        for k in ("potential_temperature", "water_vapor"):
+            a = m.state[k]
+            up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
+                                 device=a.device)
+            m.state[k] = torch.nextafter(a, torch.where(
+                up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf)))
     m.advance(FULLPHYS_SMALL_INTERVAL)
     return m
 
 
-def hold_card_to_cpu(cpu, card, label):
+def hold_card_to_cpu(cpu, card, label, spread=None):
     """Hold the model ``card`` (run on the card) to ``cpu`` (the same run
     on the CPU): every field finite and within FULLPHYS_BOUNDS of the
     CPU's (largest difference over the CPU field's largest magnitude;
     FULLPHYS_ILL_CONDITIONED beyond the bound in at most
-    FULLPHYS_ILL_SHARE of the columns). Returns the largest ratio of each
-    group: {group: (ratio, field, bound)}."""
+    FULLPHYS_ILL_SHARE of the columns), or within twice ``spread`` of a
+    field (the same measure of the CPU run against one started a ulp
+    away) where that is larger. Returns the largest ratio of each group:
+    {group: (ratio, field, bound)}."""
     worst = {}
     for k in cpu.state:
         want, got = cpu.field(k).astype(np.float64), card.field(k)
@@ -1521,6 +1573,8 @@ def hold_card_to_cpu(cpu, card, label):
             raise AssertionError(f"{label} on the card: non-finite {k}")
         bound = FULLPHYS_BOUNDS["species" if k in cpu.advect_names
                                 else "other"]
+        if spread is not None:
+            bound = max(bound, 2 * spread[k])
         rel = np.abs(got - want) / max(float(np.abs(want).max()), 1e-30)
         ratio = float(rel.max())
         beyond = float((rel > bound).mean())
@@ -1538,23 +1592,43 @@ def hold_card_to_cpu(cpu, card, label):
     return worst
 
 
-def check_fullphys_cpu_card(ideal_ridge_model, fullphys):
-    """The small full-physics case on the CPU (the plain versions) and on
-    the card (the kernels): the same substeps, every field held by
-    ``hold_card_to_cpu``, convective rain on both; logs the largest ratio
-    of each group."""
+def check_fullphys_cpu_card(ideal_ridge_model, fullphys, label="fullphys",
+                            ulp_spread=False):
+    """The small full-physics case (of the schemes ``fullphys``) on the
+    CPU (the plain versions) and on the card (the kernels): the same
+    substeps, every field held by ``hold_card_to_cpu``, with
+    ``ulp_spread`` to the larger of its bound and twice the CPU run's own
+    spread under a one-ulp nudge of theta and water vapour (SB04's
+    saturation revert, ROADMAP section 3); convective rain on both where
+    Tiedtke runs; logs the largest ratio of each group."""
+    from icar_tpu_torch import constants as C
     cpu = fullphys_small(ideal_ridge_model, fullphys, "cpu")
     card = fullphys_small(ideal_ridge_model, fullphys, "cuda")
     if card.last_n_substeps != cpu.last_n_substeps:
-        raise AssertionError(f"small fullphys case: {card.last_n_substeps} "
+        raise AssertionError(f"small {label} case: {card.last_n_substeps} "
                              f"substeps on the card, {cpu.last_n_substeps} "
                              f"on the CPU")
-    worst = hold_card_to_cpu(cpu, card, "small fullphys case")
+    spread = None
+    if ulp_spread:
+        nudged = fullphys_small(ideal_ridge_model, fullphys, "cpu",
+                                nudge=True)
+        spread = {}
+        for k in cpu.state:
+            want = cpu.field(k).astype(np.float64)
+            spread[k] = float(np.abs(nudged.field(k) - want).max()
+                              / max(float(np.abs(want).max()), 1e-30))
+        wide = {k: round(v, 6) for k, v in spread.items()
+                if 2 * v > FULLPHYS_BOUNDS["species" if k in cpu.advect_names
+                                           else "other"]}
+        log(f"small {label} case: the CPU run's own one-ulp spread passes "
+            f"FULLPHYS_BOUNDS in {wide}")
+    worst = hold_card_to_cpu(cpu, card, f"small {label} case", spread)
     for m, where in ((cpu, "CPU"), (card, "card")):
-        if not m.field("convective_precipitation").max() > 0:
-            raise AssertionError(f"small fullphys case on the {where}: no "
+        if (fullphys.get("conv") == C.CU_TIEDTKE
+                and not m.field("convective_precipitation").max() > 0):
+            raise AssertionError(f"small {label} case on the {where}: no "
                                  f"convective rain")
-    log(f"small fullphys case {FULLPHYS_SMALL['nx']}x{FULLPHYS_SMALL['ny']}x"
+    log(f"small {label} case {FULLPHYS_SMALL['nx']}x{FULLPHYS_SMALL['ny']}x"
         f"{FULLPHYS_SMALL['nz']}, {FULLPHYS_SMALL_INTERVAL:.0f} s: "
         f"{card.last_n_substeps} substeps on the card and the CPU; largest "
         f"|card - CPU| / max|CPU| per group (bound): " + ", ".join(
@@ -1917,6 +1991,180 @@ def check_file_run(kernels, step, smi):
     return launches
 
 
+def fold_work(nz, ny, nx):
+    """Bytes and operations of the density fold: rho and the kernel's four
+    operands read, the four weighted ones written."""
+    n = nz * ny * nx
+    faces = nz * ny * (nx - 1) + nz * (ny - 1) * nx + 2 * n
+    return 4 * (n + 2 * faces), FOLD_OPS * n
+
+
+def check_density_kernels(model, kernels, step, adv_plain, mpdata_plain):
+    """The fold kernel (``kernels.density_winds`` with the state's
+    density) of ``model``'s state against its plain version (every bit),
+    both timed; then K1 and K4 on the operands it weights, at the path's
+    dt and clamped: K1 against its kernel-order oracle on those operands
+    (every bit) and the plain upwind with density (K1_RTOL), K4 at the
+    path's order and FCT against the plain MPDATA with density (K4_RTOL);
+    each timed with the fold, alone and against its plain version.
+    Returns the three kernel-table entries (K1 and K4 with density, the
+    fold)."""
+    import torch
+    s = model.state
+    g = model.geom_t
+    names = model.advect_names
+    adv = model.options.adv
+    stack = torch.stack([s[k] for k in names])
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    floors = torch.as_tensor(step.limit_floors(names), device=stack.device)
+    rho = s["density"]
+    winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    fold = lambda: kernels.density_winds(winds, rho)
+    dw = fold()
+    torch.cuda.synchronize()
+    ferr = max(oracle_err(got, want, f"density_fold kernel vs plain ({op})")
+               for got, want, op in zip(
+                   (dw.uj, dw.vj, dw.wj, dw.jaco),
+                   kernels.fold_plain(winds, rho), ("uj", "vj", "wj",
+                                                    "jaco")))
+    fms, fpms = cuda_ms(fold), cuda_ms(lambda: kernels.fold_plain(winds, rho))
+    nz, ny, nx = rho.shape
+    fold_entry = kernel_entry("density_fold", REPLACES["density_fold"], ferr,
+                              fms, fpms, fold_work(nz, ny, nx))
+    log(f"density_fold: max_abs_err {ferr} against its plain version; "
+        f"kernel {fms:.4f} ms, plain {fpms:.4f} ms")
+    raw = (stack, s["u"], s["v"], s["w"], dt, g.dx, g.jacobian_u,
+           g.jacobian_v, g.jacobian_w, g.jacobian, g.advection_dz)
+    out = torch.empty_like(stack)
+    order, fct = adv.mpdata_order, adv.flux_corrected_transport
+    runs = {
+        "advect_upwind_density": (
+            lambda w: kernels.advect_upwind(stack, w, dt, floors, True,
+                                            out=out),
+            lambda: adv_plain.advect_upwind(*raw, floors=floors,
+                                            near_end=True, rho=rho,
+                                            advect_density=True),
+            K1_RTOL, K1_ATOL, 1, False),
+        "advect_mpdata_density": (
+            lambda w: kernels.advect_mpdata(stack, w, dt, order, fct, floors,
+                                            True, out=out),
+            lambda: mpdata_plain.advect_mpdata(
+                *raw, order=order, use_fct=fct, advect_density=True,
+                floors=floors, near_end=True, rho=rho),
+            K4_RTOL, K4_ATOL, order, fct)}
+    entries = []
+    for name, (kernel, plain, rtol, atol, o, fc) in runs.items():
+        kernel(dw)
+        torch.cuda.synchronize()
+        err = assert_close(out, plain(), rtol, atol,
+                           f"{name} kernel on density-weighted operands vs "
+                           f"plain with density")
+        extra = {}
+        if name == "advect_upwind_density":
+            extra["max_abs_err_vs_oracle"] = oracle_err(
+                out, upwind_oracle(stack, dw, dt, floors, True),
+                f"{name} kernel vs kernel-order oracle on density-weighted "
+                f"operands")
+        ms = cuda_ms(lambda: kernel(fold()))
+        kms, pms = cuda_ms(lambda: kernel(dw)), cuda_ms(plain)
+        nbytes, ops = advect_work(*stack.shape, o, fc)
+        log(f"{name}: max_abs_err {err:.3e} against the plain version "
+            f"(rtol {rtol}, atol {atol}); fold + kernel {ms:.4f} ms "
+            f"(kernel {kms:.4f}, fold {fms:.4f}), plain {pms:.4f} ms")
+        entry = kernel_entry(name, REPLACES[name], err, ms, pms,
+                             (nbytes + 4 * rho.numel(),
+                              ops + FOLD_OPS * rho.numel()))
+        entry.update(extra, kernel_ms=kms, fold_ms=fms)
+        entries.append(entry)
+    return entries + [fold_entry]
+
+
+def throttle_due(model, step, intervals, interval):
+    """The microphysics calls the host's counter (``core.step.Throttle``)
+    predicts for ``intervals`` intervals of ``interval`` seconds of
+    ``model``: its winds stay put, so each substep but an interval's
+    shortened last one takes the CFL dt of its present state, in the
+    loop's float32 time."""
+    s, g = model.state, model.geom_t
+    dt_static = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                                  model.options.run.cfl_reduction_factor,
+                                  model.options.run.cfl_strictness)
+    calls = 0
+    for _ in range(intervals):
+        throttle = step.Throttle(model.options.mp.update_interval)
+        t, end = np.float32(0.0), np.float32(interval)
+        while t < end - np.float32(1e-3):
+            dt = min(dt_static, end - t)
+            calls += throttle.step(dt) is not None
+            t = np.float32(t + dt)
+    return calls
+
+
+def check_general_paths(ideal_ridge_model, cases, ridge_paths, kernels, step,
+                        adv_plain, mpdata_plain, tp, smi):
+    """Phase 12: the fold kernel, and K1 and K4 on the density-weighted
+    operands, on the MPDATA_density ridge after one interval; the five GENERAL_PATHS
+    driven over two intervals each with their launch counts (K1 or K4
+    once a substep; K3 or K5 once a substep, or under the throttle as
+    often as the host's counter predicts) and digests; the density ridge
+    sharded on one card against its unsharded drive; the small cases of
+    the two column-physics paths on the CPU and the card. Returns (the
+    three kernel-table entries, each drive's launch counts)."""
+    import torch
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.time_paths import INTERVAL, INTERVALS
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**cases["MPDATA_density"], device="cuda")
+    warm.advance(INTERVAL)
+    torch.cuda.synchronize()
+    log(f"MPDATA_density setup + first interval at 500x500x20: "
+        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps")
+    table = check_density_kernels(warm, kernels, step, adv_plain,
+                                  mpdata_plain)
+    del warm
+
+    launches, refs, paths = {}, {}, {}
+    for label in GENERAL_PATHS:
+        model = ideal_ridge_model(**cases[label], device="cuda")
+        if model.options.physics.microphysics == C.MP_THOMPSON:
+            tp.device_tables(step.thompson_params(model.options),
+                             model.state["pressure"].device)
+        paths[label] = path = step.path_kernels(model.options)
+        due = None
+        if model.options.mp.update_interval > 0:
+            due = {path[0]: throttle_due(model, step, INTERVALS, INTERVAL)}
+        launches[label], *refs[label] = drive(
+            model, kernels, label, path, smi,
+            fields=tuple(model.advect_names) + ("precipitation", "u", "v",
+                                                "w"), due=due)
+        if due:
+            log(f"{label}: {path[0]} launched {due[path[0]]} times in "
+                f"{refs[label][1]} substeps, as the host's counter "
+                f"predicts; {path[1]} once a substep")
+        del model
+
+    label, shape = GENERAL_SHARDED
+    sharded = sharded_drive(label, cases[label], one_card_mesh(shape),
+                            paths[label], tuple(refs[label]), kernels, smi)
+    # SB04 at the small case's rh 1.0 sits on its saturation revert edge:
+    # that case is held to twice its own one-ulp spread where it passes
+    # FULLPHYS_BOUNDS (tests/test_torch_column_general.py likewise)
+    for label in ("fullphys_mpdata", "fullphys_sb04"):
+        check_fullphys_cpu_card(ideal_ridge_model, ridge_paths[label], label,
+                                ulp_spread=label == "fullphys_sb04")
+    table[0]["launches"] = launches["upwind_density"]["advect_upwind"]
+    table[1]["launches"] = launches["MPDATA_density"]["advect_mpdata"]
+    table[2]["launches"] = launches["upwind_density"]["density_fold"]
+    table[2]["general"] = {"launches": {
+        label: n["density_fold"] for label, n in launches.items()
+        if n["density_fold"]}}
+    table[1]["sharded"] = {"mesh": list(shape),
+                           "launches": sharded["advect_mpdata"]}
+    return table, launches
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -2054,6 +2302,12 @@ def main():
     # width, counting kernel launches, resumed from its checkpoint, and the
     # small case on the CPU and the card
     file_launches = check_file_run(kernels, step, smi)
+    # 12. the general loop's options: density advection (K1 and K4 on
+    # density-weighted operands), the microphysics throttle, the column
+    # physics with MPDATA or SB04, each path counting kernel launches
+    general_table, general_launches = check_general_paths(
+        ideal_ridge_model, cases, RIDGE_PATHS, kernels, step, adv_plain,
+        mpdata_plain, thompson_plain, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -2070,6 +2324,11 @@ def main():
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):
             entry["file"] = {"launches": file_launches[name]}
+        general = {label: n[name] for label, n in general_launches.items()
+                   if n.get(name)}
+        if general:
+            entry["general"] = {"launches": general}
+    table += general_table
     log(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": table}))

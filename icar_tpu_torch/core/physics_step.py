@@ -45,6 +45,10 @@ class Statics:
                                        device=dev)
 
 
+# the condensate the PBL mixes, in pbl_simple's argument order
+HYDROMETEORS = ("cloud_water", "cloud_ice", "rain_mass", "snow_mass")
+
+
 def radiation(s, g: Statics, doy, year_length, dt):
     """ra_simple (time_step.f90:488): theta, shortwave, longwave and cloud
     fraction. ``doy`` and ``year_length`` are 0-d float32 tensors."""
@@ -152,20 +156,21 @@ def apply_fluxes(s, g: Statics, options, dt):
 
 
 def boundary_layer(s, g: Statics, dt):
-    """pbl_simple (pbl, time_step.f90:494), less mixing over open water."""
+    """pbl_simple (pbl, time_step.f90:494), less mixing over open water.
+    A species the state does not hold (SB04's has no cloud ice) mixes as
+    zeros and is not written, as in the JAX loop."""
     s = dict(s)
     water = (s["land_mask"] == 2.0) if "land_mask" in s else None
+    zeros = torch.zeros_like(s["potential_temperature"])
     th, qv, qc, qi, qr, qs = pbl_simple.pbl_simple(
-        s["potential_temperature"], s["water_vapor"], s["cloud_water"],
-        s["cloud_ice"], s["rain_mass"], s["snow_mass"], s["u_mass"],
-        s["v_mass"], s["exner"], s["density"], g.z, g.dz, g.terrain, dt,
-        water)
+        s["potential_temperature"], s["water_vapor"],
+        *(s.get(k, zeros) for k in HYDROMETEORS), s["u_mass"], s["v_mass"],
+        s["exner"], s["density"], g.z, g.dz, g.terrain, dt, water)
     s["potential_temperature"] = th
     s["water_vapor"] = qv
-    s["cloud_water"] = qc
-    s["cloud_ice"] = qi
-    s["rain_mass"] = qr
-    s["snow_mass"] = qs
+    for name, val in zip(HYDROMETEORS, (qc, qi, qr, qs)):
+        if name in s:
+            s[name] = val
     return s
 
 

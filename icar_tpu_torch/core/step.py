@@ -16,9 +16,15 @@ at its end. Otherwise (the general loop) the state's density is refreshed
 each substep and the microphysics accumulates precipitation in the state
 substep by substep -- SB04 (K3) on its five species with that density, or
 Thompson (K5) on its nine species with the mass-level thickness -- and
-MPDATA (K4) or upwind (K1) advects the stack. Time is carried in float32
-as the JAX loop carries it, so the substep lengths and the clamp's timing
-match. On CPU tensors the kernels' plain versions run.
+MPDATA (K4) or upwind (K1) advects the stack. Density advection
+(``run.advect_density``) and the microphysics throttle
+(``mp.update_interval``) take SB04 + upwind to the general loop too. With
+density the advection kernels run unchanged on operands weighted by the
+density the substep began with (``kernels.density_winds``); under the
+throttle the microphysics runs only on the substeps its float32 counter
+makes due, over the counter's time (``Throttle``). Time is carried in
+float32 as the JAX loop carries it, so the substep lengths and the
+clamp's timing match. On CPU tensors the kernels' plain versions run.
 
 Forcing tendencies of fields other than the advected species (a
 file-driven run's u, v, w, pressure and 2-D fields; full-field forcing)
@@ -33,10 +39,11 @@ fields take ``tend * dt`` over the whole field (``apply_forcing``).
 The loop runs on a list of blocks (``run_interval_sharded``): the whole
 domain is one block, and a model sharded over a device mesh holds one per
 shard (``parallel/mesh.py``), each with its halo, exchanged after every
-substep; the kernels run per block through ``parallel/shard_kernels.py``.
+substep; the kernels run per block through ``parallel/shard_kernels.py``
+(each block weights its own operands by its density, halo included).
 With column physics (radiation, the surface, the PBL, convection;
 ``core/physics_step.py``) the interval runs ``run_interval_physics`` on
-one block.
+one block, with either microphysics and either advection.
 """
 
 from __future__ import annotations
@@ -163,17 +170,61 @@ def _quantize(dt) -> np.float32:
 
 def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     """The kernels (names of ``kernels.LAUNCHES``) the interval loop
-    launches for ``options`` on the card; ``full_forcing``: under forcing
-    tendencies outside the advected species (``full_field_forcing``),
-    where SB04 + upwind runs the general loop's K3."""
+    launches for ``options`` on the card: the microphysics', the
+    advection's, then with density advection the fold's
+    (``kernels.density_winds``). ``full_forcing``: under forcing
+    tendencies outside the advected species (``full_field_forcing``).
+    SB04 + upwind takes the fast loop's K2 only without these, density
+    advection, the microphysics throttle and the column physics; else the
+    general loop's K3."""
     mpdata = options.physics.advection == C.ADV_MPDATA
+    advect = "advect_mpdata" if mpdata else "advect_upwind"
     if options.physics.microphysics == C.MP_THOMPSON:
-        return ("mp_thompson", "advect_mpdata" if mpdata else "advect_upwind")
-    if mpdata:
-        return ("mp_simple_rho", "advect_mpdata")
-    if full_forcing:
-        return ("mp_simple_rho", "advect_upwind")
-    return ("mp_simple", "advect_upwind")
+        mp = "mp_thompson"
+    elif mpdata or full_forcing or general_loop(options):
+        mp = "mp_simple_rho"
+    else:
+        mp = "mp_simple"
+    if options.run.advect_density:
+        return (mp, advect, "density_fold")
+    return (mp, advect)
+
+
+def general_loop(options) -> bool:
+    """Whether options of SB04 + upwind leave the fast loop for the general
+    one, as the JAX step does (icar_tpu/core/step.py:146-160): density
+    advection, the microphysics throttle or the column physics."""
+    return (options.run.advect_density
+            or float(options.mp.update_interval) > 0
+            or column_physics(options))
+
+
+class Throttle:
+    """A scheme's float32 time counter (icar_tpu/core/step.py:1124-1137
+    for the microphysics; the surface's likewise). It starts full at every
+    interval (:1790-1795), so the first substep runs the scheme; each
+    substep adds its dt, and once the counter reaches the update interval
+    less 1e-6 s the scheme runs over the counter's time and the counter
+    restarts at 0. So the first call of an interval integrates the update
+    interval plus dt. With an interval <= 0 the scheme runs every substep
+    over its dt."""
+
+    def __init__(self, interval):
+        self.interval = float(interval)
+        # the JAX loop compares in float32
+        self.due = np.float32(self.interval - 1e-6)
+        self.elapsed = np.float32(self.interval)
+
+    def step(self, dt):
+        """The time the scheme integrates in a substep of ``dt``, or None
+        when it does not run."""
+        if self.interval <= 0:
+            return dt
+        self.elapsed = np.float32(self.elapsed + dt)
+        if self.elapsed < self.due:
+            return None
+        ran, self.elapsed = self.elapsed, np.float32(0.0)
+        return ran
 
 
 def path_halo(options) -> int:
@@ -318,10 +369,12 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         floor_b = [f[:, None, None, None] for f in floors]
         no_floor = [torch.full_like(f, -np.inf) for f in floor_b]
 
-    # the general loop (MPDATA, Thompson, or full-field forcing)
-    # accumulates in the state, substep by substep; the upwind fast path
-    # adds the interval's sum
-    general = mpdata or thompson or full
+    # the general loop (MPDATA, Thompson, full-field forcing, density
+    # advection or the microphysics throttle) accumulates in the state,
+    # substep by substep; the upwind fast path adds the interval's sum
+    density = options.run.advect_density
+    general = mpdata or thompson or full or general_loop(options)
+    throttle = Throttle(options.mp.update_interval)
     if general:
         # the density follows theta (K3 reads it), the pressure-derived
         # fields a forced pressure
@@ -357,23 +410,29 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             if pressure_varies:
                 pressure = [s["pressure"].contiguous() for s in states]
                 exner = [s["exner"].contiguous() for s in states]
-        if thompson:
+        # the microphysics' time this substep (None: the throttle waits)
+        mp_dt = throttle.step(dt)
+        if mp_dt is not None and thompson:
             sk.thompson_stack_sharded(stacks, smap, exner, pressure, dz_mp,
-                                      dt, rain, snow, graupel, tparams)
-        else:
-            c2r, c2s = formation_rates(dt)
+                                      mp_dt, rain, snow, graupel, tparams)
+        elif mp_dt is not None:
+            c2r, c2s = formation_rates(mp_dt)
             sk.mp_simple_sharded(
                 *([q[i] for q in stacks] for i in species), pressure, exner,
-                dz_mp, rain, snow, dt, c2r, c2s,
+                dz_mp, rain, snow, mp_dt, c2r, c2s,
                 rho=[s["density"] for s in states] if general else None)
+        # density advection: the operands weighted by the density the
+        # substep began with (the microphysics does not refresh it)
+        awinds = ([kernels.density_winds(w, s["density"])
+                   for w, s in zip(winds, states)] if density else winds)
         if mpdata:
-            sk.advect_mpdata_sharded(layout, stacks, winds, dt,
+            sk.advect_mpdata_sharded(layout, stacks, awinds, dt,
                                      adv.mpdata_order,
                                      adv.flux_corrected_transport, floors,
                                      clamp, spares)
         else:
-            sk.advect_upwind_sharded(layout, stacks, winds, dt, floors, clamp,
-                                     spares)
+            sk.advect_upwind_sharded(layout, stacks, awinds, dt, floors,
+                                     clamp, spares)
         stacks, spares = spares, stacks
         if full:
             states = [apply_forcing(s, d, dt, m, adv_names)
@@ -414,17 +473,23 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                          ) -> Tuple[Dict[str, torch.Tensor], int]:
     """One interval of the general loop with column physics, on one block
     (icar_tpu/core/step.py ``step`` and ``physics_step`` :241-1232,
-    :1613-1814) for Thompson with upwind advection. Before the loop: the
-    partial diagnostics with w_real, one CFL dt, the species stack and the
-    advection winds. Per substep: the partial refresh (``substep_needs``),
-    then ``core/physics_step.py``'s stages -- radiation, the surface every
-    ``lsm.update_interval`` seconds of float32 model time (its counter
-    starts full, so the first substep runs it), the surface fluxes, the
-    boundary layer, convection --, then the rows of the stack a stage
-    replaced are written back, Thompson (K5) updates the stack and the
-    accumulators in place, and K1 advects it into the second buffer with
-    the near-end clamp folded in unless forcing follows; the water
-    vapour's advection tendency feeds the next substep's convection.
+    :1613-1814). Before the loop: the partial diagnostics with w_real, one
+    CFL dt, the species stack and the advection winds. Per substep: the
+    partial refresh (``substep_needs``), then ``core/physics_step.py``'s
+    stages -- radiation, the surface every ``lsm.update_interval``
+    seconds of float32 model time (``Throttle``: its counter starts full,
+    so the first substep runs it), the surface fluxes, the boundary layer,
+    convection --, then the rows of the stack a stage replaced are written
+    back; the microphysics (every ``mp.update_interval`` seconds likewise)
+    updates the stack and the accumulators in place -- Thompson (K5) on
+    its nine species, or SB04 (K3) on its five with the refreshed density
+    and the interface thickness (the cloud ice the PBL and convection
+    write stays in the state, unadvected, as in the JAX loop) --, and K1,
+    or K4 at the configured order and FCT, advects the stack into the
+    second buffer with the near-end clamp folded in unless forcing
+    follows, on density-weighted operands with ``advect_density``; the
+    water vapour's advection tendency feeds the next substep's
+    convection.
     Under full-field forcing (``full_field_forcing``) forced winds give a
     new dt and wind operands every substep, and w_real in the refresh, a
     forced pressure its derived fields (``substep_needs``), and
@@ -433,7 +498,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     PBL's substep count is one host read per substep. ``timer(stage)``,
     when given, returns a context manager around each stage's work
     (``time_paths.StageTimer``: diagnostics, radiation, surface, pbl,
-    convection, restack, mp_thompson, advection)."""
+    convection, restack, mp_thompson or mp_simple_rho, advection)."""
     stage = timer or (lambda name: contextlib.nullcontext())
 
     adv_names = tuple(adv_names)
@@ -441,9 +506,9 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     mp = phys.microphysics
     mpdata = phys.advection == C.ADV_MPDATA
     _check_species(mp, mpdata, adv_names)
-    if mp != C.MP_THOMPSON or mpdata:
-        raise ValueError("run_interval_physics: the column physics runs "
-                         "with Thompson and upwind advection only")
+    thompson = mp == C.MP_THOMPSON
+    adv = options.adv
+    density = options.run.advect_density
     dqdt = dqdt or {}
     dev = state["pressure"].device
     full = full_field_forcing(dqdt, adv_names)
@@ -461,15 +526,21 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                              options.run.cfl_strictness)
     # the accumulators are updated in place below: own them
     for k in ("precipitation", "snowfall", "graupel"):
-        s[k] = s[k].clone()
+        if k in s:
+            s[k] = s[k].clone()
     q = torch.stack([s[k] for k in adv_names])
     spare = torch.empty_like(q)
     if not winds_vary:
         winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
     floors = torch.as_tensor(limit_floors(adv_names), device=dev)
-    smap = mp_thompson.stack_smap(adv_names)
-    tparams = thompson_params(options)
-    dz_mass = geom.dz_mass.contiguous()
+    if thompson:
+        smap = mp_thompson.stack_smap(adv_names)
+        tparams = thompson_params(options)
+    else:
+        species = [adv_names.index(k) for k in MP_SPECIES]
+    # SB04 takes the interface thickness, Thompson the mass-level one
+    dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
+    mp_stage = path_kernels(options)[0]
     statics = ps.Statics(geom)
     i_qv = adv_names.index("water_vapor")
     tend = None
@@ -486,10 +557,8 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         day0 = np.float32(time_aux["day_of_year0"])
         year_length = torch.full((), float(np.float32(
             time_aux["year_length"])), device=dev)
-    lsm_int = float(options.lsm.update_interval)
-    # the throttle compares in float32, as the JAX loop does
-    lsm_due = np.float32(lsm_int - 1e-6)
-    lsm_elapsed = np.float32(lsm_int)
+    lsm_throttle = Throttle(options.lsm.update_interval)
+    mp_throttle = Throttle(options.mp.update_interval)
 
     def scalar(x):
         return torch.full((), float(x), device=dev)
@@ -520,14 +589,9 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                 s = ps.radiation(s, statics, scalar(doy), year_length, dt_t)
         if surface:
             with stage("surface"):
-                if lsm_int > 0:
-                    lsm_elapsed = np.float32(lsm_elapsed + dt)
-                    if lsm_elapsed >= lsm_due:
-                        s = ps.surface_fluxes(s, statics, options,
-                                              scalar(lsm_elapsed))
-                        lsm_elapsed = np.float32(0.0)
-                else:
-                    s = ps.surface_fluxes(s, statics, options, dt_t)
+                lsm_dt = lsm_throttle.step(dt)
+                if lsm_dt is not None:
+                    s = ps.surface_fluxes(s, statics, options, scalar(lsm_dt))
                 s = ps.apply_fluxes(s, statics, options, dt_t)
         if phys.boundarylayer == C.PBL_SIMPLE:
             with stage("pbl"):
@@ -545,12 +609,29 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
             for i, k in enumerate(adv_names):
                 if s[k] is not views[k]:
                     q[i].copy_(s[k])
-        with stage("mp_thompson"):
-            kernels.mp_thompson_stack(q, smap, s["exner"], s["pressure"],
-                                      dz_mass, dt, s["precipitation"],
-                                      s["snowfall"], s["graupel"], tparams)
+        mp_dt = mp_throttle.step(dt)
+        with stage(mp_stage):
+            if mp_dt is not None and thompson:
+                kernels.mp_thompson_stack(q, smap, s["exner"], s["pressure"],
+                                          dz_mp, mp_dt, s["precipitation"],
+                                          s["snowfall"], s["graupel"],
+                                          tparams)
+            elif mp_dt is not None:
+                c2r, c2s = formation_rates(mp_dt)
+                kernels.mp_simple_rho(
+                    *(q[i] for i in species), s["pressure"], s["exner"],
+                    s["density"], dz_mp, s["precipitation"], s["snowfall"],
+                    mp_dt, c2r, c2s)
         with stage("advection"):
-            kernels.advect_upwind(q, winds, dt, floors, clamp, out=spare)
+            awinds = (kernels.density_winds(winds, s["density"]) if density
+                      else winds)
+            if mpdata:
+                kernels.advect_mpdata(q, awinds, dt, adv.mpdata_order,
+                                      adv.flux_corrected_transport, floors,
+                                      clamp, out=spare)
+            else:
+                kernels.advect_upwind(q, awinds, dt, floors, clamp,
+                                      out=spare)
             if "tend_qv_adv" in s:
                 # the moisture convergence the next substep's trigger reads
                 s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t

@@ -3,11 +3,12 @@
 
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
-ideal ridge with SB04 microphysics and upwind or MPDATA advection (any
-order, with or without FCT), or with Thompson microphysics (mp=1) and
-either advection; with Thompson and upwind also the full physics column of
-bench.py's fullphys: simple radiation, Noah with simple water, the simple
-PBL and Tiedtke convection, in any subset. Every wind solver runs with
+ideal ridge with SB04 or Thompson (mp=1) microphysics and upwind or MPDATA
+advection (any order, with or without FCT), with or without density
+advection (``run.advect_density``) and the microphysics throttle
+(``mp.update_interval``), and with any subset of the full physics column
+of bench.py's fullphys: simple radiation, Noah with simple water, the
+simple PBL and Tiedtke convection. Every wind solver runs with
 each: balance only, linear theory (wind=1, its table built on the model's
 device at the first wind solve), the mass-conserving winds (wind=2), the
 iterative solver (wind=3), linear then iterative (wind=5), and flow
@@ -57,7 +58,6 @@ def _unported(options: Options):
     mp_slice = ("Slice F (Thompson-aerosol, mp=5)"
                 if ph.microphysics == C.MP_THOMPSON_AER
                 else "Slice F (the other schemes)")
-    column = column_physics(options)
     checks = (
         (ph.microphysics in (C.MP_SIMPLE, C.MP_THOMPSON),
          f"microphysics={ph.microphysics}", mp_slice),
@@ -73,16 +73,6 @@ def _unported(options: Options):
          f"water={ph.watersurface}", "Slice F (lake)"),
         (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
          f"convection={ph.convection}", "Slice F (the other schemes)"),
-        (not column or ph.microphysics == C.MP_THOMPSON,
-         f"the column physics with microphysics={ph.microphysics}",
-         "Slice C (the column physics with SB04 or MPDATA)"),
-        (not column or ph.advection == C.ADV_UPWIND,
-         f"the column physics with advection={ph.advection}",
-         "Slice C (the column physics with SB04 or MPDATA)"),
-        (not options.run.advect_density, "advect_density",
-         "Slice B (density advection)"),
-        (float(options.mp.update_interval) <= 0, "mp update_interval > 0",
-         "Slice C (the microphysics throttle)"),
     )
     for ok, what, where in checks:
         if not ok:
@@ -486,14 +476,19 @@ class ICARModel:
 # Thompson + MPDATA (bench.py --config mpdata_thompson), the full physics
 # column (bench.py --config fullphys: Thompson with upwind advection,
 # wind=2, simple radiation, Noah with simple water, simple PBL and Tiedtke
-# convection) and SB04 + upwind on linear-theory winds (bench.py --config
+# convection), SB04 + upwind on linear-theory winds (bench.py --config
 # linear, whose winds are solved anew before each interval:
-# ICARModel.winds_follow_state)
+# ICARModel.winds_follow_state); then the general loop's options on them:
+# density advection with either advection, SB04 + upwind with the
+# microphysics throttled to every 60 s, and the full physics column with
+# MPDATA, or with SB04 and without Tiedtke (the options refuse SB04 with a
+# deep convection scheme, config.py validate, as the JAX package's do)
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
                 rad=C.RA_SIMPLE, pbl=C.PBL_SIMPLE, lsm=C.LSM_NOAH,
                 water=C.WATER_SIMPLE, conv=C.CU_TIEDTKE)
+MP_THROTTLE_INTERVAL = 60.0
 
 
 def linear_lut_options(o):
@@ -505,13 +500,32 @@ def linear_lut_options(o):
     o.lt.buffer = 48
 
 
+def density_options(o):
+    """Density advection (the namelist's advect_density = .true.)."""
+    o.run.advect_density = True
+
+
+def mp_throttle_options(o):
+    """The microphysics every MP_THROTTLE_INTERVAL seconds (the namelist's
+    mp_parameters update_interval)."""
+    o.mp.update_interval = MP_THROTTLE_INTERVAL
+
+
 RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON),
                "fullphys": FULLPHYS,
                "linear": dict(windtype=C.WIND_LINEAR,
-                              options_cb=linear_lut_options)}
+                              options_cb=linear_lut_options),
+               "upwind_density": dict(options_cb=density_options),
+               "MPDATA_density": dict(adv=C.ADV_MPDATA,
+                                      options_cb=density_options),
+               "upwind_mp_throttle": dict(options_cb=mp_throttle_options),
+               "fullphys_mpdata": dict(FULLPHYS, adv=C.ADV_MPDATA),
+               "fullphys_sb04": dict(FULLPHYS, mp=C.MP_SIMPLE,
+                                     conv=C.CU_NONE)}
 # the paths a mesh shards (the column physics is not sharded yet)
-SHARDED_PATHS = ("upwind", "MPDATA", "Thompson")
+SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
+                 "MPDATA_density", "upwind_mp_throttle")
 
 
 def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,

@@ -7,8 +7,9 @@ Same operation order as the JAX package's jnp path (winds scaled as
 ``u * J_u / dx`` times dt, so the two agree to a few float32 ulp. Fields
 are (z, y, x); a stacked (nq, nz, ny, nx) species array advects in one
 call, with (nz, ...) winds or per-species (nq, nz, ...) winds (MPDATA's
-corrective passes, ``mpdata.py``). Density advection is not ported
-(ROADMAP Slice B).
+corrective passes, ``mpdata.py``). With ``advect_density`` every face wind
+is weighted by the face mean of the density and the jacobian divisor
+becomes J*rho, as in the JAX package (advect.f90's density option).
 """
 
 from __future__ import annotations
@@ -27,14 +28,33 @@ class CourantWinds(NamedTuple):
     W_m: torch.Tensor   # (nz, ny, nx)    top face of each layer
 
 
-def setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w):
+def face_density(rho):
+    """The density on the faces the Courant winds live on: the means of
+    the two cells beside each internal x and y face, and of the layers
+    below and above each layer top, the model top taking its own layer's
+    (icar_tpu/ops/advection.py setup_courant_winds)."""
+    rho_u = (rho[:, :, 1:] + rho[:, :, :-1]) * 0.5
+    rho_v = (rho[:, 1:, :] + rho[:, :-1, :]) * 0.5
+    rho_w = torch.cat([(rho[1:] + rho[:-1]) * 0.5, rho[-1:]], dim=0)
+    return rho_u, rho_v, rho_w
+
+
+def setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w, rho=None,
+                        advect_density: bool = False):
     """Pre-scale winds for one dt (advect.f90:306-351). U/V are divided by
     dx; W is not divided by dz because dz varies per cell. ``dt`` is a
-    float32 value (numpy scalar or Python float holding one)."""
+    float32 value (numpy scalar or Python float holding one). With
+    ``advect_density`` each wind is also weighted by ``rho`` on its face
+    (``face_density``), multiplied last, in the JAX order."""
     dt_dx = float(np.float32(dt) / np.float32(dx))
     U_m = u[:, :, 1:-1] * dt_dx * jaco_u[:, :, 1:-1]
     V_m = v[:, 1:-1, :] * dt_dx * jaco_v[:, 1:-1, :]
     W_m = w * float(dt) * jaco_w
+    if advect_density:
+        rho_u, rho_v, rho_w = face_density(rho)
+        U_m = U_m * rho_u
+        V_m = V_m * rho_v
+        W_m = W_m * rho_w
     return CourantWinds(U_m, V_m, W_m)
 
 
@@ -42,10 +62,11 @@ def _upwind_flux(ql, qr, U):
     return ((U + torch.abs(U)) * ql + (U - torch.abs(U)) * qr) * 0.5
 
 
-def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
+def advect3d_upwind(q, winds: CourantWinds, dz, jaco, rho=None,
+                    advect_density: bool = False):
     """Donor-cell update (advect3d, advect.f90:107-178) of a (..., nz, ny,
     nx) field. Interior cells (x, y in [1, n-2]) are updated; boundary
-    cells pass through."""
+    cells pass through. With ``advect_density`` the divisor is J*rho."""
     U_m, V_m, W_m = winds
 
     # x faces 1..nx-1 between cells (f-1, f); flux difference for cells 1..nx-2
@@ -63,6 +84,8 @@ def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
 
     qi = q[..., 1:-1, 1:-1]
     jacoi = jaco[:, 1:-1, 1:-1]
+    if advect_density:
+        jacoi = jacoi * rho[:, 1:-1, 1:-1]
     dzi = dz[:, 1:-1, 1:-1]
     fzi = fz[..., 1:-1, 1:-1]
 
@@ -82,12 +105,16 @@ def advect3d_upwind(q, winds: CourantWinds, dz, jaco):
 
 
 def advect_upwind(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
-                  jaco, dz, floors=None, near_end=False):
+                  jaco, dz, floors=None, near_end=False, rho=None,
+                  advect_density: bool = False):
     """Advect all species of ``stacked_q`` (nq, nz, ny, nx) at once
-    (upwind, advect.f90:380-418). With ``floors`` (nq,) and ``near_end``,
-    clamp each species to its floor (the near-end enforce_limits clamp)."""
-    winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w)
-    out = advect3d_upwind(stacked_q, winds, dz, jaco)
+    (upwind, advect.f90:380-418), weighted by the density ``rho`` (nz,
+    ny, nx) with ``advect_density``. With ``floors`` (nq,) and
+    ``near_end``, clamp each species to its floor (the near-end
+    enforce_limits clamp)."""
+    winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
+                                rho, advect_density)
+    out = advect3d_upwind(stacked_q, winds, dz, jaco, rho, advect_density)
     if floors is not None and near_end:
         floor = torch.as_tensor(floors, dtype=out.dtype, device=out.device)
         out = torch.maximum(out, floor[:, None, None, None])

@@ -35,7 +35,7 @@ from . import mpdata as mpdata_plain
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("advect_upwind.cu", "mp_simple.cu", "mpdata.cu",
-           "mp_thompson.cu", "upwind_floor.cu")
+           "mp_thompson.cu", "upwind_floor.cu", "density_fold.cu")
 HEADERS = ("upwind.cuh",)
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain version step by step (the ridge trajectory branches on one-ulp
@@ -49,12 +49,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # K1 has no limit. Kept here so that a model can be refused before the
 # library is built; the CPU tests hold these to the sources.
 MAX_NZ = {"advect_upwind": None, "mp_simple": 5810, "mp_simple_rho": 5810,
-          "advect_mpdata": 64, "mp_thompson": 1565}
+          "advect_mpdata": 64, "mp_thompson": 1565, "density_fold": None}
 
 # calls that launched a kernel since the last reset (K4's and K5's calls
 # are each one sequence of launches); only the kernel branch counts
 LAUNCHES = {"advect_upwind": 0, "mp_simple": 0, "mp_simple_rho": 0,
-            "advect_mpdata": 0, "mp_thompson": 0}
+            "advect_mpdata": 0, "mp_thompson": 0, "density_fold": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -181,6 +181,8 @@ def library() -> ctypes.CDLL:
         lib.icar_mp_thompson_smem_bytes.restype = L
         lib.icar_mp_thompson_n_consts.argtypes = []
         lib.icar_mp_thompson_n_consts.restype = I
+        lib.icar_density_fold.argtypes = [P] * 9 + [I, I, I, P]
+        lib.icar_density_fold.restype = I
         _LIB = lib
     return _LIB
 
@@ -209,8 +211,10 @@ def _raise_on(err: int, kernel: str):
 class AdvectWinds(NamedTuple):
     """Loop-invariant advection operands for one interval: the raw winds
     and metrics (the plain version scales them per substep in the jnp
-    order) and the kernel's metric winds u*J_u/dx, v*J_v/dx, w*J_w
-    (setup_module_winds, advect.f90:306-351, minus the dt factor)."""
+    order) and the kernel's metric winds u*J_u/dx, v*J_v/dx, w*J_w and
+    jacobian (setup_module_winds, advect.f90:306-351, minus the dt
+    factor). ``density_winds`` weights the kernel's four operands by the
+    density and records it in ``rho`` for the plain version."""
     u: torch.Tensor        # (nz, ny, nx+1)
     v: torch.Tensor        # (nz, ny+1, nx)
     w: torch.Tensor        # (nz, ny, nx)
@@ -218,11 +222,13 @@ class AdvectWinds(NamedTuple):
     jaco_v: torch.Tensor
     jaco_w: torch.Tensor
     dz: torch.Tensor       # advection_dz (nz, ny, nx)
-    jaco: torch.Tensor     # (nz, ny, nx)
+    jaco: torch.Tensor     # the kernel's (nz, ny, nx): J, or J*rho
     dx: float
     uj: torch.Tensor       # (nz, ny, nx-1) internal x faces
     vj: torch.Tensor       # (nz, ny-1, nx) internal y faces
     wj: torch.Tensor       # (nz, ny, nx)
+    jaco_c: torch.Tensor   # J (nz, ny, nx), the plain version's
+    rho: Optional[torch.Tensor] = None   # the density, with density_winds
 
 
 def prepare_advect_winds(u, v, w, geom) -> AdvectWinds:
@@ -234,9 +240,54 @@ def prepare_advect_winds(u, v, w, geom) -> AdvectWinds:
     vj = (v[:, 1:-1, :] * geom.jacobian_v[:, 1:-1, :]
           * (1.0 / dx)).contiguous()
     wj = (w * geom.jacobian_w).contiguous()
+    jaco = geom.jacobian.contiguous()
     return AdvectWinds(u, v, w, geom.jacobian_u, geom.jacobian_v,
                        geom.jacobian_w, geom.advection_dz.contiguous(),
-                       geom.jacobian.contiguous(), dx, uj, vj, wj)
+                       jaco, dx, uj, vj, wj, jaco)
+
+
+def density_winds(winds: AdvectWinds, rho) -> AdvectWinds:
+    """``winds`` for density advection with the cell density ``rho`` (nz,
+    ny, nx): the kernels' operands weighted as the JAX package weights
+    them (icar_tpu/ops/advection.py:33-50, 83-84; mpdata.py:206) -- each
+    face wind by the face mean of rho (``advection.face_density``: the
+    top face takes the top layer's), the jacobian by rho -- so that K1 and
+    K4 run unchanged on them. For CUDA tensors one launch of the fold
+    kernel (``csrc/density_fold.cu``) forms them, for CPU tensors its
+    plain version (``fold_plain``); the two give the same bits. The raw
+    fields stay for the plain advection, which a CPU tensor takes with
+    ``rho``."""
+    if rho.device.type == "cpu":
+        uj, vj, wj, jaco = fold_plain(winds, rho)
+        return winds._replace(uj=uj, vj=vj, wj=wj, jaco=jaco, rho=rho)
+    if rho.device.type != "cuda":
+        raise ValueError(f"density_winds: unsupported device {rho.device}")
+    nz, ny, nx = rho.shape
+    dev = rho.device
+    _check(rho, "rho", (nz, ny, nx), dev)
+    _check(winds.uj, "uj", (nz, ny, nx - 1), dev)
+    _check(winds.vj, "vj", (nz, ny - 1, nx), dev)
+    for name in ("wj", "jaco_c"):
+        _check(getattr(winds, name), name, (nz, ny, nx), dev)
+    out = [torch.empty_like(t) for t in (winds.uj, winds.vj, winds.wj,
+                                         winds.jaco_c)]
+    err = library().icar_density_fold(
+        rho.data_ptr(), winds.uj.data_ptr(), winds.vj.data_ptr(),
+        winds.wj.data_ptr(), winds.jaco_c.data_ptr(),
+        *(t.data_ptr() for t in out), nz, ny, nx,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "density_fold")
+    LAUNCHES["density_fold"] += 1
+    uj, vj, wj, jaco = out
+    return winds._replace(uj=uj, vj=vj, wj=wj, jaco=jaco, rho=rho)
+
+
+def fold_plain(winds: AdvectWinds, rho):
+    """The density fold in plain PyTorch: (uj, vj, wj, jaco) weighted by
+    the face means of ``rho`` and by ``rho``."""
+    rho_u, rho_v, rho_w = adv_plain.face_density(rho)
+    return (winds.uj * rho_u, winds.vj * rho_v, winds.wj * rho_w,
+            winds.jaco_c * rho)
 
 
 def advect_upwind(q, winds: AdvectWinds, dt, floors, near_end: bool,
@@ -249,8 +300,10 @@ def advect_upwind(q, winds: AdvectWinds, dt, floors, near_end: bool,
     if q.device.type == "cpu":
         res = adv_plain.advect_upwind(q, winds.u, winds.v, winds.w, dt,
                                       winds.dx, winds.jaco_u, winds.jaco_v,
-                                      winds.jaco_w, winds.jaco, winds.dz,
-                                      floors=floors, near_end=near_end)
+                                      winds.jaco_w, winds.jaco_c, winds.dz,
+                                      floors=floors, near_end=near_end,
+                                      rho=winds.rho,
+                                      advect_density=winds.rho is not None)
         if out is None:
             return res
         out.copy_(res)
@@ -442,8 +495,9 @@ def advect_mpdata(q, winds: AdvectWinds, dt, order: int, use_fct: bool,
     if q.device.type == "cpu":
         res = mpdata_plain.advect_mpdata(
             q, winds.u, winds.v, winds.w, dt, winds.dx, winds.jaco_u,
-            winds.jaco_v, winds.jaco_w, winds.jaco, winds.dz, order=order,
-            use_fct=use_fct, floors=floors, near_end=near_end)
+            winds.jaco_v, winds.jaco_w, winds.jaco_c, winds.dz, order=order,
+            use_fct=use_fct, floors=floors, near_end=near_end,
+            rho=winds.rho, advect_density=winds.rho is not None)
         if out is None:
             return res
         out.copy_(res)

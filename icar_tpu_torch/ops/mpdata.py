@@ -12,7 +12,9 @@ kernel K1 does, so the two agree to a few float32 ulp.
 
 Layout: (z, y, x); Courant winds as in ``advection.CourantWinds`` (U on
 internal x faces, V on internal y faces, W at layer tops, not divided by
-dz). Density advection is not ported (ROADMAP Slice B).
+dz). With ``advect_density`` the winds are density-weighted
+(``advection.setup_courant_winds``) and every use of the jacobian becomes
+G = J*rho: the pseudo-velocities and the divisor of every upwind pass.
 """
 
 from __future__ import annotations
@@ -173,13 +175,14 @@ def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool):
 
 
 def advect3d_mpdata(q, winds: CourantWinds, dz, jaco, order: int,
-                    use_fct: bool):
+                    use_fct: bool, rho=None, advect_density: bool = False):
     """Full MPDATA update of ``q`` (..., nz, ny, nx) (advect3d,
     adv_mpdata.f90:356-419). Interior cells are updated; boundary cells
-    pass through."""
-    G = jaco
+    pass through. With ``advect_density`` the jacobian is J*rho
+    throughout."""
+    G = jaco * rho if advect_density else jaco
     q_prev = q
-    q_new = advect3d_upwind(q, winds, dz, jaco)
+    q_new = advect3d_upwind(q, winds, dz, jaco, rho, advect_density)
     for _ in range(order - 1):
         Wn = winds.W_m / dz
         u2, v2, w2 = _pseudo_velocities(q_new, winds.U_m, winds.V_m, Wn, G)
@@ -195,24 +198,24 @@ def advect3d_mpdata(q, winds: CourantWinds, dz, jaco, order: int,
             w2 = torch.cat([wf * dz[:-1], torch.zeros_like(w2[..., :1, :, :])],
                            dim=-3)
         q_prev = q_new
-        q_new = advect3d_upwind(q_new, CourantWinds(u2, v2, w2), dz, jaco)
+        q_new = advect3d_upwind(q_new, CourantWinds(u2, v2, w2), dz, jaco,
+                                rho, advect_density)
     return q_new
 
 
 def advect_mpdata(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w, jaco,
                   dz, order: int = 2, use_fct: bool = True,
                   advect_density: bool = False, floors=None,
-                  near_end: bool = False):
+                  near_end: bool = False, rho=None):
     """Advect all species of ``stacked_q`` (nq, nz, ny, nx) with MPDATA in
-    one pass (mpdata, adv_mpdata.f90:463-524). With ``floors`` (nq,) and
-    ``near_end``, clamp each species to its floor (the near-end
+    one pass (mpdata, adv_mpdata.f90:463-524), weighted by the density
+    ``rho`` (nz, ny, nx) with ``advect_density``. With ``floors`` (nq,)
+    and ``near_end``, clamp each species to its floor (the near-end
     enforce_limits clamp)."""
-    if advect_density:
-        raise NotImplementedError(
-            "advect_density is not ported yet: Slice B (advection options) "
-            "in ROADMAP.md")
-    winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w)
-    out = advect3d_mpdata(stacked_q, winds, dz, jaco, order, use_fct)
+    winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
+                                rho, advect_density)
+    out = advect3d_mpdata(stacked_q, winds, dz, jaco, order, use_fct, rho,
+                          advect_density)
     if floors is not None and near_end:
         floor = torch.as_tensor(floors, dtype=out.dtype, device=out.device)
         out = torch.maximum(out, floor[:, None, None, None])

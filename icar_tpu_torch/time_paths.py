@@ -4,14 +4,17 @@
 
 For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
 (``models.icar.RIDGE``: SB04 + upwind, SB04 + MPDATA, Thompson + MPDATA,
-the full physics column of bench.py --config fullphys, and SB04 + upwind
-on the linear-theory winds of bench.py --config linear) it builds a fresh
+the full physics column of bench.py --config fullphys, SB04 + upwind on
+the linear-theory winds of bench.py --config linear, and the general
+loop's options: density advection, the microphysics throttle, the full
+physics column with MPDATA or SB04) it builds a fresh
 model, advances one 1200 s interval to warm up, then times ``--repeat``
 runs of two intervals each (``run_timed``) and prints one JSON line: for
 each path the grid-point substeps per second of every run over the
 natural grid, their median and the final state's float64 digest
 (``ICARModel.digest``), and the card's name; for the full-physics path
-also the CUDA-event milliseconds of each stage of one more interval
+(and the other column-physics paths) also the CUDA-event milliseconds
+of each stage of one more interval
 (``StageTimer``); for the linear path, whose winds are solved anew before
 each interval as bench.py does, the milliseconds of each of those updates
 (left out of the rate) and the stages of one more (N^2, lookup,

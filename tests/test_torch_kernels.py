@@ -106,7 +106,7 @@ def test_main_path_launches_each_kernel_per_substep(cuda):
     assert kernels.LAUNCHES == {"advect_upwind": m.last_n_substeps,
                                 "mp_simple": m.last_n_substeps,
                                 "mp_simple_rho": 0, "advect_mpdata": 0,
-                                "mp_thompson": 0}
+                                "mp_thompson": 0, "density_fold": 0}
 
 
 @pytest.mark.gpu
@@ -254,7 +254,7 @@ def test_mpdata_path_launches_each_kernel_per_substep(cuda):
     assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0,
                                 "mp_simple_rho": m.last_n_substeps,
                                 "advect_mpdata": m.last_n_substeps,
-                                "mp_thompson": 0}
+                                "mp_thompson": 0, "density_fold": 0}
 
 
 def _k5_matches_plain(state, dt, order=tuple(range(9))):
@@ -324,7 +324,8 @@ def test_thompson_path_launches_each_kernel_per_substep(cuda):
     assert kernels.LAUNCHES == {"advect_upwind": 0, "mp_simple": 0,
                                 "mp_simple_rho": 0,
                                 "advect_mpdata": m.last_n_substeps,
-                                "mp_thompson": m.last_n_substeps}
+                                "mp_thompson": m.last_n_substeps,
+                                "density_fold": 0}
 
 
 def test_thompson_wrapper_on_cpu_tensors_builds_and_launches_nothing(
@@ -454,3 +455,47 @@ def test_advect_kernel_on_an_empty_stack_launches_nothing(cuda):
     torch.cuda.synchronize()
     assert got.shape == (0, 4, 9, 13)
     assert kernels.LAUNCHES["advect_upwind"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near_end", [False, True])
+def test_advect_kernels_on_density_weighted_operands(ridge_state, near_end):
+    """Density advection: the fold kernel (``density_winds``, one launch)
+    gives its plain version's bits; K1 and K4 on the operands it weights
+    by the state's density, against the plain versions with that density
+    (K1 at rtol 5e-6, atol 1e-7 and every bit of its kernel-order oracle
+    on the weighted operands; K4 at order 2 with FCT, rtol 2e-5, atol
+    1e-6), one launch each."""
+    from chip_smoke import upwind_oracle
+    m = ridge_state
+    s, g = m.state, m.geom_t
+    stack = torch.stack([s[k] for k in m.advect_names])
+    floors = torch.as_tensor(limit_floors(m.advect_names), device=s["u"].device)
+    rho = s["density"]
+    kernels.reset_launches()
+    plain = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+    winds = kernels.density_winds(plain, rho)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["density_fold"] == 1
+    for got, want in zip((winds.uj, winds.vj, winds.wj, winds.jaco),
+                         kernels.fold_plain(plain, rho)):
+        assert torch.equal(got, want)
+    dt = np.float32(37.25)
+    raw = (stack, s["u"], s["v"], s["w"], dt, g.dx, g.jacobian_u,
+           g.jacobian_v, g.jacobian_w, g.jacobian, g.advection_dz)
+    got1 = kernels.advect_upwind(stack, winds, dt, floors, near_end)
+    got4 = kernels.advect_mpdata(stack, winds, dt, 2, True, floors, near_end)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["advect_upwind"] == 1
+    assert kernels.LAUNCHES["advect_mpdata"] == 1
+    want1 = adv_plain.advect_upwind(*raw, floors=floors, near_end=near_end,
+                                    rho=rho, advect_density=True)
+    np.testing.assert_allclose(got1.cpu().numpy(), want1.cpu().numpy(),
+                               rtol=5e-6, atol=1e-7)
+    assert float((got1 - upwind_oracle(stack, winds, dt, floors, near_end))
+                 .abs().max()) == 0.0
+    want4 = mpdata_plain.advect_mpdata(*raw, order=2, use_fct=True,
+                                       advect_density=True, floors=floors,
+                                       near_end=near_end, rho=rho)
+    np.testing.assert_allclose(got4.cpu().numpy(), want4.cpu().numpy(),
+                               rtol=2e-5, atol=1e-6)

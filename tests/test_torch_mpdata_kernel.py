@@ -258,6 +258,42 @@ def test_kernel_source_matches_plain(cpu_kernel, order, fct, near_end):
                                atol=K4_ATOL)
 
 
+def with_density(d, seed):
+    """``d`` with a seeded density falling with height (``rho``) and its
+    kernel operands weighted by it (``kernels.density_winds``)."""
+    r = np.random.default_rng(seed)
+    nz, ny, nx = d["dz"].shape
+    rho = (np.linspace(1.2, 0.6, nz)[:, None, None]
+           * r.uniform(0.9, 1.1, (nz, ny, nx)))
+    d = dict(d, rho=torch.tensor(rho.astype(np.float32)))
+    d["winds"] = kernels.density_winds(d["winds"], d["rho"])
+    return d
+
+
+@pytest.mark.parametrize("near_end", [False, True])
+@pytest.mark.parametrize("order,fct", [(1, False), (2, True), (2, False),
+                                       (3, True)])
+def test_kernel_source_on_density_weighted_operands(cpu_kernel, order, fct,
+                                                    near_end):
+    """Density advection runs K4 unchanged on the density-weighted
+    operands: held to the plain MPDATA with density (G = J*rho) at K4's
+    tolerance."""
+    S, nz, ny, nx, zw = SHAPES["tiles"]
+    d = with_density(_case(12, S, nz, ny, nx, zw), 3)
+    dt = np.float32(20.0)
+    got = _run_cpu_kernel(cpu_kernel, d, dt, order, fct, near_end)
+    want = mpdata_plain.advect_mpdata(
+        d["q"], d["u"], d["v"], d["w"], dt, 1000.0, d["jaco_u"],
+        d["jaco_v"], d["jaco_w"], d["jaco"], d["dz"], order=order,
+        use_fct=fct, advect_density=True, floors=d["floors"],
+        near_end=near_end, rho=d["rho"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=K4_RTOL,
+                               atol=K4_ATOL)
+    assert not np.allclose(got.numpy(), _plain(d, dt, order, fct,
+                                               near_end).numpy(),
+                           rtol=K4_RTOL, atol=K4_ATOL)
+
+
 @pytest.mark.parametrize("shape", ["nz2", "small"])
 @pytest.mark.parametrize("order,fct,near_end", [(2, True, True),
                                                 (3, False, False),

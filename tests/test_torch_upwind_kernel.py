@@ -27,7 +27,7 @@ import torch
 from chip_smoke import upwind_oracle
 from icar_tpu_torch.ops import advection as adv_plain
 from test_torch_mpdata_kernel import (SHAPES, _STUB_RUNTIME, _case,
-                                      write_upwind_header)
+                                      with_density, write_upwind_header)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
@@ -127,6 +127,26 @@ def test_k1_source_equals_kernel_order_oracle(cpu_k1, shape, near_end):
     assert _oracle_err(got, d, dt, near_end) == 0.0
     floor = float(d["floors"][2]) if near_end else 0.0
     assert torch.equal(got[2], torch.full_like(got[2], max(0.0, floor)))
+
+
+@pytest.mark.parametrize("near_end", [False, True])
+@pytest.mark.parametrize("shape", ["tiles", "ragged", "species9"])
+def test_k1_source_on_density_weighted_operands(cpu_k1, shape, near_end):
+    """Density advection runs K1 unchanged on the density-weighted
+    operands (``kernels.density_winds``): every bit of the kernel-order
+    oracle on them, and the plain upwind with density within
+    K1_RTOL/K1_ATOL."""
+    S, nz, ny, nx, zw = ORACLE_SHAPES[shape]
+    d = with_density(_case(27, S, nz, ny, nx, zw), 5)
+    dt = np.float32(20.0)
+    got = _run(cpu_k1, d, dt, near_end)
+    assert _oracle_err(got, d, dt, near_end) == 0.0
+    want = adv_plain.advect_upwind(
+        d["q"], d["u"], d["v"], d["w"], dt, 1000.0, d["jaco_u"],
+        d["jaco_v"], d["jaco_w"], d["jaco"], d["dz"], floors=d["floors"],
+        near_end=near_end, rho=d["rho"], advect_density=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=K1_RTOL,
+                               atol=K1_ATOL)
 
 
 def test_k1_empty_stack_launches_nothing(cpu_k1):
