@@ -113,6 +113,22 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    advect_mpdata_density (fold and kernel; the kernel and the fold
    alone) and density_fold, and the other kernels' launches under
    "general".
+13. RRTMG and YSU (fullphys_rrtmg_noah: bench.py --config fullphys_rrtmg
+   with Noah in Noah-MP's place, on the synthetic k-tables): on the
+   500x500x20 path's state after one interval, K1 against its
+   kernel-order oracle and K5 against its plain version (0.0 each), one
+   RRTMG call's wall and peak memory, its aten operations per stage
+   (tools/count_ops.py rrtmg_ops), one chunk of it (16,000 columns) on the
+   card against the CPU on the same McICA draws (RRTMG_CHUNK_BOUND); the
+   card's own McICA draw over one chunk against its cloud fractions
+   (binomial bound); then two intervals of a fresh model (K5 and K1 once a
+   substep, RRTMG as often as the host's counter predicts: once an
+   interval) with its digest, the stages of one more interval by CUDA
+   events (radiation_lw, radiation_sw, cloud_fraction, pbl_ysu, surface,
+   convection, mp_thompson, advection and the rest), and the small case
+   at noon on the CPU and the card (the larger of FULLPHYS_BOUNDS and
+   twice the CPU run's own one-ulp spread). K1's and K5's lines in the
+   table add these figures under "fullphys_rrtmg_noah".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -224,6 +240,30 @@ FILE_U_MEDIAN = (4.0, 16.0)
 GENERAL_PATHS = ("upwind_density", "MPDATA_density", "upwind_mp_throttle",
                  "fullphys_mpdata", "fullphys_sb04")
 GENERAL_SHARDED = ("MPDATA_density", (4, 1))
+# phase 13, RRTMG and YSU (models.icar RIDGE_PATHS fullphys_rrtmg_noah):
+# the small case starts at local noon (19:00 UTC at 105 W), so that the
+# shortwave works, and runs all land (with the water strip of
+# fullphys_small the JAX package's own run turns non-finite; ROADMAP
+# section 3); one RRTMG chunk alone (RRTMG_CHUNK_ROWS rows of the 500-wide
+# state, 16,000 columns) card against CPU on the same draws, each output
+# within RRTMG_CHUNK_BOUND of the CPU's largest magnitude (the card's
+# exp, log and pow round apart; the same draws and cloud fractions give
+# the same subcolumns), under a sun at RRTMG_CHUNK_COSZ; the card's own
+# McICA draw over one chunk of RRTMG_DRAW_FRACTIONS, each layer's cloudy
+# share within RRTMG_DRAW_SIGMAS binomial standard deviations
+RRTMG_NOON = "2020-12-01 19:00:00"
+RRTMG_CHUNK_ROWS = 32
+RRTMG_CHUNK_BOUND = 1e-4
+RRTMG_CHUNK_COSZ = 0.5
+RRTMG_DRAW_FRACTIONS = np.linspace(0.05, 0.95, 20)
+RRTMG_DRAW_SIGMAS = 5.0
+# the fields a one-ulp nudge of the small case leaves alone
+CATEGORIES = ("land_mask", "veg_type", "soil_type")
+# YSU's PBL height and exchange coefficient follow the PBL top's level
+# index: a column whose top moves one level moves them by a layer's depth,
+# so the card is held to the CPU on them as on FULLPHYS_ILL_CONDITIONED,
+# by the share of cells past the bound
+YSU_LEVEL_FIELDS = ("hpbl", "exch_h")
 
 
 def write_namelist(path, init, forcing, prefix, z, physics,
@@ -1557,15 +1597,16 @@ def fullphys_small(ideal_ridge_model, fullphys, device, nudge=False):
     return m
 
 
-def hold_card_to_cpu(cpu, card, label, spread=None):
+def hold_card_to_cpu(cpu, card, label, spread=None,
+                     ill=FULLPHYS_ILL_CONDITIONED):
     """Hold the model ``card`` (run on the card) to ``cpu`` (the same run
     on the CPU): every field finite and within FULLPHYS_BOUNDS of the
     CPU's (largest difference over the CPU field's largest magnitude;
-    FULLPHYS_ILL_CONDITIONED beyond the bound in at most
-    FULLPHYS_ILL_SHARE of the columns), or within twice ``spread`` of a
-    field (the same measure of the CPU run against one started a ulp
-    away) where that is larger. Returns the largest ratio of each group:
-    {group: (ratio, field, bound)}."""
+    the fields of ``ill`` beyond the bound in at most FULLPHYS_ILL_SHARE
+    of the cells), or within twice ``spread`` of a field (the same measure
+    of the CPU run against one started a ulp away) where that is larger.
+    Returns the largest ratio of each group: {group: (ratio, field,
+    bound)}."""
     worst = {}
     for k in cpu.state:
         want, got = cpu.field(k).astype(np.float64), card.field(k)
@@ -1578,14 +1619,15 @@ def hold_card_to_cpu(cpu, card, label, spread=None):
         rel = np.abs(got - want) / max(float(np.abs(want).max()), 1e-30)
         ratio = float(rel.max())
         beyond = float((rel > bound).mean())
-        ill = k in FULLPHYS_ILL_CONDITIONED
-        if beyond > (FULLPHYS_ILL_SHARE if ill else 0.0):
+        is_ill = k in ill
+        if beyond > (FULLPHYS_ILL_SHARE if is_ill else 0.0):
             raise AssertionError(f"{label}: {k} differs by up to "
                                  f"{ratio:.3e} of its largest value "
                                  f"between the card and the CPU, in "
                                  f"{100 * beyond:.1f}% of its cells beyond "
                                  f"{bound}")
-        group = ("cloud fraction, longwave" if ill else
+        group = ((", ".join(ill) if ill != FULLPHYS_ILL_CONDITIONED
+                  else "cloud fraction, longwave") if is_ill else
                  "species" if k in cpu.advect_names else "other")
         if ratio >= worst.get(group, (0.0, "", 0.0))[0]:
             worst[group] = (ratio, k, bound)
@@ -2081,19 +2123,22 @@ def check_density_kernels(model, kernels, step, adv_plain, mpdata_plain):
     return entries + [fold_entry]
 
 
-def throttle_due(model, step, intervals, interval):
-    """The microphysics calls the host's counter (``core.step.Throttle``)
+def throttle_due(model, step, intervals, interval, update_interval=None):
+    """The microphysics calls (or, given ``update_interval``, another
+    throttled scheme's) the host's counter (``core.step.Throttle``)
     predicts for ``intervals`` intervals of ``interval`` seconds of
     ``model``: its winds stay put, so each substep but an interval's
     shortened last one takes the CFL dt of its present state, in the
     loop's float32 time."""
+    if update_interval is None:
+        update_interval = model.options.mp.update_interval
     s, g = model.state, model.geom_t
     dt_static = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
                                   model.options.run.cfl_reduction_factor,
                                   model.options.run.cfl_strictness)
     calls = 0
     for _ in range(intervals):
-        throttle = step.Throttle(model.options.mp.update_interval)
+        throttle = step.Throttle(update_interval)
         t, end = np.float32(0.0), np.float32(interval)
         while t < end - np.float32(1e-3):
             dt = min(dt_static, end - t)
@@ -2163,6 +2208,319 @@ def check_general_paths(ideal_ridge_model, cases, ridge_paths, kernels, step,
     table[1]["sharded"] = {"mesh": list(shape),
                            "launches": sharded["advect_mpdata"]}
     return table, launches
+
+
+def rrtmg_noon_options(o):
+    """The synthetic RRTMG k-tables and a start at local noon."""
+    from icar_tpu_torch.models.icar import synthetic_rrtmg_tables
+    synthetic_rrtmg_tables(o)
+    o.run.start_date = RRTMG_NOON
+
+
+def rrtmg_small(ideal_ridge_model, opts, device, seed=None):
+    """The small fullphys_rrtmg_noah case at noon, all land, one interval
+    on ``device`` with McICA draws made on the CPU (the same on both
+    devices); with ``seed``, every nonzero value of every float field
+    but CATEGORIES starts one ulp up or down (seeded)."""
+    import torch
+    m = ideal_ridge_model(**FULLPHYS_SMALL, **dict(
+        opts, options_cb=rrtmg_noon_options), device=device)
+    if seed is not None:
+        r = np.random.default_rng(seed)
+        for k, a in m.state.items():
+            if a.dtype != torch.float32 or k in CATEGORIES:
+                continue
+            up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
+                                 device=a.device)
+            m.state[k] = torch.where(a != 0, torch.nextafter(a, torch.where(
+                up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf))),
+                a)
+    m.mcica_cdf = CountingCdf(on="cpu")
+    m.advance(FULLPHYS_SMALL_INTERVAL)
+    return m
+
+
+def check_rrtmg_small(ideal_ridge_model, opts):
+    """Phase 13 (a): the small case on the CPU and the card, the same
+    substeps and RRTMG calls, every field held by ``hold_card_to_cpu`` to
+    the larger of FULLPHYS_BOUNDS and twice the CPU run's own spread under
+    a one-ulp nudge of its initial state (three seeds: YSU's PBL top and
+    the microphysics' thresholds turn rounding into finite changes;
+    YSU_LEVEL_FIELDS by the share of cells past it), the shortwave working
+    on both."""
+    cpu = rrtmg_small(ideal_ridge_model, opts, "cpu")
+    card = rrtmg_small(ideal_ridge_model, opts, "cuda")
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"small fullphys_rrtmg_noah case: "
+                             f"{card.last_n_substeps} substeps on the card, "
+                             f"{cpu.last_n_substeps} on the CPU")
+    calls = [m.mcica_cdf.calls() for m in (cpu, card)]
+    if calls[0] != calls[1] or calls[0] < 1:
+        raise AssertionError(f"small fullphys_rrtmg_noah case: RRTMG calls "
+                             f"{calls} (CPU, card)")
+    spread = {k: 0.0 for k in cpu.state}
+    for seed in range(3):
+        nudged = rrtmg_small(ideal_ridge_model, opts, "cpu", seed)
+        for k in cpu.state:
+            want = cpu.field(k).astype(np.float64)
+            spread[k] = max(spread[k], float(
+                np.abs(nudged.field(k) - want).max()
+                / max(float(np.abs(want).max()), 1e-30)))
+    worst = hold_card_to_cpu(cpu, card, "small fullphys_rrtmg_noah case",
+                             spread, FULLPHYS_ILL_CONDITIONED
+                             + YSU_LEVEL_FIELDS)
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        if not m.field("shortwave").max() > 0:
+            raise AssertionError(f"small fullphys_rrtmg_noah case on the "
+                                 f"{where}: no shortwave at noon")
+    wide = {k: round(v, 6) for k, v in spread.items()
+            if 2 * v > FULLPHYS_BOUNDS["species" if k in cpu.advect_names
+                                       else "other"]}
+    log(f"small fullphys_rrtmg_noah case {FULLPHYS_SMALL['nx']}x"
+        f"{FULLPHYS_SMALL['ny']}x{FULLPHYS_SMALL['nz']} at noon, "
+        f"{FULLPHYS_SMALL_INTERVAL:.0f} s: {card.last_n_substeps} substeps "
+        f"and {calls[0]} RRTMG call on the card and the CPU; the CPU run's "
+        f"own one-ulp spread passes FULLPHYS_BOUNDS in {wide}; largest "
+        f"|card - CPU| / max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {b:.3e})" for g, (r, k, b) in worst.items()))
+
+
+def check_rrtmg_chunk(model):
+    """Phase 13 (b): one chunk of RRTMG_CHUNK_ROWS rows of ``model``'s
+    state through the longwave and the shortwave drivers on the card and
+    on the CPU with the same draws (made on the CPU) and the same cloud
+    fractions (cal_cldfra3 on the CPU), the sun at RRTMG_CHUNK_COSZ: each
+    output within RRTMG_CHUNK_BOUND of the CPU's largest magnitude.
+    Returns {output: largest relative difference}."""
+    import torch
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.physics import cloud_fraction, rrtmg_lw, rrtmg_sw
+    from icar_tpu_torch.physics.ghg import ghg_for_options
+    rows = slice(0, RRTMG_CHUNK_ROWS)
+    s = {k: (v[..., rows, :] if v.dim() >= 2 else v)
+         for k, v in model.state.items()}
+    dz = model.geom_t.dz_interface[:, rows]
+    if s["pressure"][0].numel() > rrtmg_lw.RRTMG_COL_CHUNK:
+        raise AssertionError("phase 13 chunk: more columns than one chunk")
+    cpu = {k: v.cpu() for k, v in s.items()}
+    cf, qc, qi = cloud_fraction.cal_cldfra3(
+        cpu["water_vapor"], cpu["cloud_water"], cpu["cloud_ice"],
+        cpu["snow_mass"], dz.cpu(), cpu["pressure"], cpu["temperature"],
+        cpu["land_mask"], model.geom.dx / 1000.0)
+    ghg = ghg_for_options(model.options)
+    cosz = torch.full_like(cpu["land_mask"], RRTMG_CHUNK_COSZ)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        st = {k: v.to(dev) for k, v in cpu.items()}
+        lw_t = ps._on_device(rrtmg_lw.get_lw_tables(), dev,
+                             rrtmg_lw.device_tables)
+        sw_t = ps._on_device(rrtmg_sw.get_sw_tables(), dev,
+                             rrtmg_lw.device_tables)
+        common = dict(xland=st["land_mask"], ghg=ghg)
+        lw = rrtmg_lw.rrtmg_lw_driver(
+            lw_t, rrtmg_lw.TorchCdf(on="cpu"), 0.0, st["pressure"],
+            st["pressure_interface"], st["temperature"],
+            st["temperature_interface"], st["skin_temperature"],
+            st["water_vapor"], qc.to(dev), qi.to(dev), st["snow_mass"],
+            cf.to(dev), st["re_cloud"], st["re_ice"], st["re_snow"],
+            st["density"], dz.to(dev), st["emissivity"], st["exner"],
+            **common)
+        sw = rrtmg_sw.rrtmg_sw_driver(
+            sw_t, rrtmg_lw.TorchCdf(on="cpu"), 0.0, st["pressure"],
+            st["pressure_interface"], st["temperature"],
+            st["temperature_interface"], cosz.to(dev), st["albedo"],
+            st["water_vapor"], qc.to(dev), qi.to(dev), st["snow_mass"],
+            cf.to(dev), st["re_cloud"], st["re_ice"], st["re_snow"],
+            st["density"], dz.to(dev), st["exner"], **common)
+        names = ("lw th_tend", "glw", "olr", "lwcf", "sw th_tend", "swdown",
+                 "gsw", "swcf", "swdir")
+        outs[dev] = dict(zip(names, [a.cpu().double() for a in lw + sw]))
+    worst = {}
+    for k, want in outs["cpu"].items():
+        got = outs["cuda"][k]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"RRTMG chunk on the card: non-finite {k}")
+        rel = float((got - want).abs().max()
+                    / max(float(want.abs().max()), 1e-30))
+        if rel > RRTMG_CHUNK_BOUND:
+            raise AssertionError(f"RRTMG chunk: {k} differs by {rel:.3e} of "
+                                 f"its largest value between the card and "
+                                 f"the CPU (bound {RRTMG_CHUNK_BOUND})")
+        worst[k] = rel
+    if not float(outs["cuda"]["swdown"].max()) > 0:
+        raise AssertionError("RRTMG chunk: no shortwave at the surface")
+    log(f"RRTMG one chunk ({RRTMG_CHUNK_ROWS}x{s['pressure'].shape[-1]} "
+        f"columns, cloud fraction up to {float(cf.max()):.3f}, cosz "
+        f"{RRTMG_CHUNK_COSZ}) card against CPU on the same draws: largest "
+        f"|card - CPU| / max|CPU| (bound {RRTMG_CHUNK_BOUND}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def check_mcica_draw(nz):
+    """Phase 13 (c): the card's own McICA draw (TorchCdf, its generator
+    on the card) over one chunk of RRTMG_COL_CHUNK columns and nz layers
+    with the cloud fractions RRTMG_DRAW_FRACTIONS (random overlap): each
+    layer's cloudy-subcolumn share within RRTMG_DRAW_SIGMAS binomial
+    standard deviations of its fraction. Returns the largest deviation in
+    standard deviations."""
+    import torch
+    from icar_tpu_torch.physics import rrtmg_lw
+    n, g = rrtmg_lw.RRTMG_COL_CHUNK, rrtmg_lw.NGPTLW
+    cf = torch.tensor(RRTMG_DRAW_FRACTIONS[:nz], dtype=torch.float32,
+                      device="cuda")
+    nl = cf.shape[0]
+    draw = rrtmg_lw.TorchCdf()("lw", 0.0, 0, 1, (nl, n, g), "cuda")
+    if draw.device.type != "cuda" or float(draw.min()) < 0 \
+            or float(draw.max()) >= 1:
+        raise AssertionError("the card's McICA draw is not uniform in "
+                             "[0, 1) on the card")
+    zero = torch.zeros((nl, n), device="cuda")
+    cloudy = rrtmg_lw.mcica_subcol(draw, cf[:, None].expand(nl, n), zero,
+                                   zero, zero)[0]
+    share = cloudy.double().mean(dim=(1, 2)).cpu().numpy()
+    p = RRTMG_DRAW_FRACTIONS[:nl]
+    sig = np.abs(share - p) / np.sqrt(p * (1 - p) / (n * g))
+    if sig.max() > RRTMG_DRAW_SIGMAS:
+        raise AssertionError(f"the card's McICA draw: cloudy shares {share} "
+                             f"against fractions {p}, {sig.max():.2f} "
+                             f"sigmas off")
+    log(f"McICA draw on the card ({nl} layers x {n} columns x {g} g-points):"
+        f" each layer's cloudy share within {sig.max():.2f} binomial "
+        f"sigmas of its fraction (bound {RRTMG_DRAW_SIGMAS})")
+    return float(sig.max())
+
+
+class CountingCdf:
+    """A McICA source that counts its draws (the kinds in order) and draws
+    as ``physics.rrtmg_lw.TorchCdf``."""
+
+    def __init__(self, on=None):
+        from icar_tpu_torch.physics.rrtmg_lw import TorchCdf
+        self.draw, self.kinds, self.chunks = TorchCdf(on), [], []
+
+    def __call__(self, kind, t, chunk, n_chunks, shape, device):
+        self.kinds.append(kind)
+        self.chunks.append(chunk)
+        return self.draw(kind, t, chunk, n_chunks, shape, device)
+
+    def calls(self):
+        """The RRTMG calls drawn for: the longwave's first chunks."""
+        return sum(k == "lw" and c == 0
+                   for k, c in zip(self.kinds, self.chunks))
+
+
+def check_rrtmg(ideal_ridge_model, cases, ridge_paths, kernels, step,
+                adv_plain, tp, thompson_cases, smi):
+    """Phase 13: RRTMG and YSU (fullphys_rrtmg_noah). On the 500x500x20
+    path's state after one interval: K1 against its kernel-order oracle
+    and K5 against its plain version (0.0 each), one RRTMG call's peak
+    memory and wall, its aten operations per stage (tools/count_ops.py),
+    one chunk card against CPU; the card's own McICA draw; two intervals
+    of a fresh model (K5 and K1 once a substep, RRTMG as often as the
+    host's counter predicts) with its digest; the stages of one more
+    interval by CUDA events; the small case card against CPU. Returns the
+    K1 and K5 figures for their table entries."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.physics.rrtmg_lw import RRTMG_COL_CHUNK
+    from icar_tpu_torch.time_paths import INTERVAL, INTERVALS, stage_ms
+    label = "fullphys_rrtmg_noah"
+    case = cases[label]
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**case, device="cuda")
+    tp.device_tables(step.thompson_params(warm.options),
+                     warm.state["pressure"].device)
+    warm.mcica_cdf = CountingCdf()
+    warm.advance(INTERVAL)
+    torch.cuda.synchronize()
+    log(f"{label} setup + first interval at 500x500x20: "
+        f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} substeps, "
+        f"{warm.mcica_cdf.kinds.count('lw')} longwave chunks drawn")
+    state_label = f"{label} state after one interval"
+    err1, oerr1, ms1, pms1, shape, _ = k1_on_state(warm, kernels, step,
+                                                   adv_plain, state_label)
+    err5, ms5, pms5, share, work5 = k5_on_state(warm, kernels, step, tp,
+                                                thompson_cases, state_label)
+    if oerr1 != 0.0 or err5 != 0.0:
+        raise AssertionError(f"{label}: K1 {oerr1} against its oracle, K5 "
+                             f"{err5} against its plain version")
+
+    # one RRTMG call on that state: peak memory over what the state holds,
+    # wall between synchronizes
+    g = ps.Statics(warm.geom_t, warm.options)
+    s = diagnostic_update(warm.state, warm.geom_t, full=True)
+    aux = warm._time_aux()
+    dev = s["pressure"].device
+    doy = torch.tensor(float(aux["day_of_year0"]), device=dev)
+    year = torch.tensor(float(aux["year_length"]), device=dev)
+    dt = torch.tensor(25.0, device=dev)
+    s = ps.rrtmg_zenith(s, g, doy, year)
+    ps.radiation_rrtmg(s, g, warm.options, 0.0, doy, year, dt,
+                       CountingCdf())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tw = time.perf_counter()
+    ps.radiation_rrtmg(s, g, warm.options, 0.0, doy, year, dt,
+                       CountingCdf())
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - tw
+    peak = torch.cuda.max_memory_allocated() - base
+    ny, nx = s["pressure"].shape[1:]
+    log(f"{label}: one RRTMG call (longwave and shortwave, "
+        f"{-(-ny * nx // RRTMG_COL_CHUNK)} chunks of {RRTMG_COL_CHUNK} "
+        f"columns) {call_s:.3f} s of wall, peak memory {peak / 2**30:.3f} "
+        f"GiB over the state's")
+    ops = count_ops.rrtmg_ops(warm)
+    log(f"{label}: aten operations per call at 500x500x20: "
+        + json.dumps(ops))
+    check_rrtmg_chunk(warm)
+    del warm, s
+    check_mcica_draw(int(case["nz"]))
+
+    model = ideal_ridge_model(**case, device="cuda")
+    model.mcica_cdf = CountingCdf()
+    path = step.path_kernels(model.options)
+    due = throttle_due(model, step, INTERVALS, INTERVAL,
+                       model.options.rad.update_interval_rrtmg)
+    launches, _, steps = drive(
+        model, kernels, label, path, smi,
+        fields=tuple(model.advect_names) + (
+            "precipitation", "convective_precipitation", "sensible_heat",
+            "latent_heat", "skin_temperature", "tend_th_lwrad",
+            "longwave", "out_longwave_rad", "hpbl", "exch_h", "u", "v",
+            "w"))
+    calls = model.mcica_cdf.calls()
+    if calls != due:
+        raise AssertionError(f"{label}: {calls} RRTMG calls in {steps} "
+                             f"substeps, the host's counter predicts {due}")
+    log(f"{label}: RRTMG called {calls} times in {steps} substeps, as the "
+        f"host's counter predicts; mp_thompson and advect_upwind once a "
+        f"substep")
+    stages = stage_ms(model)
+    total = sum(stages["stages_ms"].values())
+    log(f"{label} stages of one more interval ({stages['substeps']} "
+        f"substeps, wall {stages['wall_ms']:.1f} ms, the stages' events "
+        f"{total:.1f} ms), CUDA-event ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages["stages_ms"].items(),
+                                              key=lambda kv: -kv[1])))
+    del model
+    check_rrtmg_small(ideal_ridge_model, ridge_paths[label])
+    b1, by1 = bound(*advect_work(*shape))
+    b5, by5 = bound(*work5)
+    return {
+        "advect_upwind": {
+            "launches": launches["advect_upwind"], "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0]},
+        "mp_thompson": {
+            "launches": launches["mp_thompson"], "max_abs_err": err5,
+            "ms": ms5, "plain_ms": pms5, "bound_ms": b5, "bound_by": by5,
+            "active_tile_share": share}}
 
 
 def main():
@@ -2308,6 +2666,12 @@ def main():
     general_table, general_launches = check_general_paths(
         ideal_ridge_model, cases, RIDGE_PATHS, kernels, step, adv_plain,
         mpdata_plain, thompson_plain, smi)
+    # 13. RRTMG and YSU: K1 and K5 on that path's state, one RRTMG call's
+    # memory, operations and a chunk card against CPU, the card's McICA
+    # draw, two intervals counting kernel launches and RRTMG calls, the
+    # stages, and the small case card against CPU
+    rrtmg = check_rrtmg(ideal_ridge_model, cases, RIDGE_PATHS, kernels,
+                        step, adv_plain, thompson_plain, thompson_cases, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -2320,6 +2684,7 @@ def main():
             entry["launches"] = launches[name]
         if name in ("advect_upwind", "mp_thompson"):
             entry["fullphys"] = fullphys[name]
+            entry["fullphys_rrtmg_noah"] = rrtmg[name]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):

@@ -68,7 +68,8 @@ def compute_ivt(qv, u_mass, v_mass, p_i):
 # temperature follow theta; with forcing, the pressure-derived fields and
 # the mass-level winds follow their forcing; icar_tpu/core/step.py
 # _substep_needs)
-PARTIAL_FIELDS = frozenset(("density", "temperature", "exner",
+PARTIAL_FIELDS = frozenset(("density", "temperature",
+                            "temperature_interface", "exner",
                             "pressure_interface", "surface_pressure",
                             "uv_mass"))
 
@@ -89,9 +90,8 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
     if needs is not None:
         unknown = set(needs) - PARTIAL_FIELDS
         if unknown:
-            raise NotImplementedError(
-                f"partial refresh of {sorted(unknown)} is not ported yet: "
-                "Slice F (RRTMG) in ROADMAP.md")
+            raise ValueError(f"partial refresh of {sorted(unknown)}: not "
+                             "among PARTIAL_FIELDS")
         s = _refresh(s, needs)
         if with_w_real and "w_real" in s:
             s["w_real"] = w_real(s["w_real"], s["u"], s["v"], s["w"], geom)
@@ -169,6 +169,8 @@ def _refresh(s, needs):
     temperature = s["potential_temperature"] * s["exner"]
     if "temperature" in needs:
         s["temperature"] = temperature
+    if "temperature_interface" in needs:
+        s["temperature_interface"] = interface_from_mass(temperature)
     if "density" in needs:
         s["density"] = p / (C.RD * temperature)
     if "uv_mass" in needs:

@@ -1,9 +1,10 @@
 """The column physics of one substep of the general loop: radiation, the
 land and water surface, the surface fluxes, the boundary layer and
 convection, in the operator order of icar_tpu/core/step.py
-``physics_step`` (:241-803): ra_simple, the throttled surface (simple
-water, then Noah), apply_fluxes, pbl_simple, Tiedtke. The microphysics and
-the advection that follow run on the species stack (``core/step.py``).
+``physics_step`` (:241-803): ra_simple or RRTMG (its calls throttled, its
+heating applied every substep), the throttled surface (simple water, then
+Noah), apply_fluxes, YSU or pbl_simple, Tiedtke. The microphysics and the
+advection that follow run on the species stack (``core/step.py``).
 
 Each stage takes the state dict ``s`` (the advected species as rows of
 the stack, or tensors that replaced them) and returns a new dict with the
@@ -14,24 +15,34 @@ plain PyTorch on the card.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from .. import constants as C
 from ..ops.pointwise import inv
-from ..physics import cu_tiedtke, lsm_noah, pbl_simple, ra_simple, surface
+from ..physics import (cloud_fraction, cu_tiedtke, lsm_noah, pbl_simple,
+                       ra_simple, rrtmg_lw, rrtmg_sw, surface, ysu)
+from ..physics.ghg import ghg_for_options
 from ..physics.noah_params import load_tables
+
 
 class Statics:
     """What the column physics reads besides the state, made once per
     interval on the state's device: the lowest layer's height above the
     ground (z_atm), the interface thickness, heights and terrain, the solar
     geometry's longitude and sin/cos of the latitude (numpy float32 as the
-    JAX package forms them), and the Noah tables
-    (``noah_params.load_tables``)."""
+    JAX package forms them), the Noah tables (``noah_params.load_tables``)
+    and the grid spacing; with ``options`` that run RRTMG, its k-tables on
+    the state's device (``rrtmg_lw.get_lw_tables`` and, unless
+    ``use_simple_sw``, ``rrtmg_sw.get_sw_tables``, uploaded once per table
+    set and device) and the greenhouse gases of the run's start
+    (``ghg.ghg_for_options``)."""
 
-    def __init__(self, geom):
+    def __init__(self, geom, options=None):
         self.noah_tables = load_tables()
+        self.dx = float(geom.dx)
         self.dz = geom.dz_interface
         self.z = geom.z
         self.terrain = geom.terrain
@@ -43,6 +54,28 @@ class Statics:
                                        device=dev)
         self.cos_lat = torch.as_tensor(np.cos(lat * (np.pi / 180.0)),
                                        device=dev)
+        self.lw_tables = self.sw_tables = self.ghg = None
+        if options is not None and options.physics.radiation == C.RA_RRTMG:
+            rad = options.rad
+            self.lw_tables = _on_device(
+                rrtmg_lw.get_lw_tables(rad.rrtmg_support_dir), dev,
+                rrtmg_lw.device_tables)
+            if not rad.use_simple_sw:
+                self.sw_tables = _on_device(
+                    rrtmg_sw.get_sw_tables(rad.rrtmg_support_dir), dev,
+                    rrtmg_lw.device_tables)
+            self.ghg = ghg_for_options(options)
+
+
+# k-tables on a device: (id of the host tables, device) -> (host, device)
+_DEVICE_TABLES = {}
+
+
+def _on_device(tables, dev, upload):
+    key = (id(tables), str(dev))
+    if key not in _DEVICE_TABLES or _DEVICE_TABLES[key][0] is not tables:
+        _DEVICE_TABLES[key] = (tables, upload(tables, dev))
+    return _DEVICE_TABLES[key][1]
 
 
 # the condensate the PBL mixes, in pbl_simple's argument order
@@ -61,6 +94,97 @@ def radiation(s, g: Statics, doy, year_length, dt):
     s["shortwave"] = sw
     s["longwave"] = lw
     s["cloud_fraction"] = cc
+    return s
+
+
+def rrtmg_zenith(s, g: Statics, doy, year_length):
+    """The solar geometry of an RRTMG substep: ``cosine_zenith_angle`` is
+    the sine of the solar elevation (ra_driver.f90:298; a misnomer the
+    JAX package keeps, the value the flux geometry wants)."""
+    s = dict(s)
+    elev, _ = ra_simple.solar_elevation(doy, year_length, g.lon, g.sin_lat,
+                                        g.cos_lat)
+    s["cosine_zenith_angle"] = torch.sin(elev)
+    return s
+
+
+def radiation_rrtmg(s, g: Statics, options, t, doy, year_length, dt, cdf,
+                    stage=None):
+    """One RRTMG call (ra_driver.f90:304-515; icar_tpu/core/step.py
+    :281-347 ``do_radiation``): with ``icloud`` 3 the Thompson cloud
+    fraction and subgrid condensate for this call only (the column maximum
+    of the fraction stored), with 1 or 2 (and 0) a zero fraction; then the
+    shortwave -- RRTMG's, with its direct/diffuse split where the state
+    holds it, or under ``use_simple_sw`` ra_simple's without its
+    longwave, on snow + ice + graupel -- and the longwave. ``t`` is the
+    substep's time in the interval (its int32 seeds the McICA draws of
+    ``cdf``); ``doy``, ``year_length`` and ``dt`` 0-d float32 tensors.
+    Writes the stored heating tendencies and the radiation diagnostics;
+    ``stage(name)`` brackets cloud_fraction, radiation_sw and
+    radiation_lw."""
+    stage = stage or (lambda name: contextlib.nullcontext())
+    rad = options.rad
+    s = dict(s)
+    zeros = torch.zeros_like(s["potential_temperature"])
+    qc = s.get("cloud_water", zeros)
+    qi = s.get("cloud_ice", zeros)
+    qsn = s.get("snow_mass", zeros)
+    t3d = s["temperature"]
+    if rad.icloud == 3:
+        with stage("cloud_fraction"):
+            cldfra, qc, qi = cloud_fraction.cal_cldfra3(
+                s["water_vapor"], qc, qi, qsn, g.dz, s["pressure"], t3d,
+                s["land_mask"], g.dx / 1000.0)
+            s["cloud_fraction"] = torch.amax(cldfra, dim=0)
+    else:
+        # icloud 1/2: the fraction stays 0, a quirk of the reference flow
+        # (cldfra allocated, never filled; ra_driver.f90:237, :452-468)
+        cldfra = zeros
+    with stage("radiation_sw"):
+        if rad.use_simple_sw:
+            # simple SW only (F_runlw=.False.; ra_driver.f90:429), its qs
+            # snow + ice + graupel (:434-436)
+            _, sw, _, cc = ra_simple.ra_simple(
+                s["potential_temperature"], s["exner"], s["water_vapor"],
+                qc, qsn + qi + s.get("graupel_mass", zeros),
+                s.get("rain_mass", zeros), s["pressure"], g.lon, g.sin_lat,
+                g.cos_lat, doy, year_length, dt, runlw=False)
+            s["shortwave"] = sw
+            s["cloud_fraction"] = cc
+            s["tend_th_swrad"] = zeros
+        else:
+            sw_tend, swdown, _, swcf, swdir = rrtmg_sw.rrtmg_sw_driver(
+                g.sw_tables, cdf, t, s["pressure"], s["pressure_interface"],
+                t3d, s["temperature_interface"], s["cosine_zenith_angle"],
+                s["albedo"], s["water_vapor"], qc, qi, qsn, cldfra,
+                s["re_cloud"], s["re_ice"], s["re_snow"], s["density"],
+                g.dz, s["exner"], xland=s["land_mask"], ghg=g.ghg)
+            s["tend_th_swrad"] = sw_tend
+            s["shortwave"] = swdown
+            s["shortwave_cloud_forcing"] = swcf
+            if "shortwave_direct" in s:
+                s["shortwave_direct"] = swdir
+                s["shortwave_diffuse"] = swdown - swdir
+    with stage("radiation_lw"):
+        th_tend, glw, olr, lwcf = rrtmg_lw.rrtmg_lw_driver(
+            g.lw_tables, cdf, t, s["pressure"], s["pressure_interface"],
+            t3d, s["temperature_interface"], s["skin_temperature"],
+            s["water_vapor"], qc, qi, qsn, cldfra, s["re_cloud"],
+            s["re_ice"], s["re_snow"], s["density"], g.dz, s["emissivity"],
+            s["exner"], xland=s["land_mask"], ghg=g.ghg)
+        s["tend_th_lwrad"] = th_tend
+        s["longwave"] = glw
+        s["out_longwave_rad"] = olr
+        s["longwave_cloud_forcing"] = lwcf
+    return s
+
+
+def radiative_heating(s, dt):
+    """The stored RRTMG tendencies applied to theta, every substep
+    (ra_driver.f90:516)."""
+    s = dict(s)
+    s["potential_temperature"] = s["potential_temperature"] + (
+        s["tend_th_lwrad"] + s["tend_th_swrad"]) * dt
     return s
 
 
@@ -169,6 +293,45 @@ def boundary_layer(s, g: Statics, dt):
     s["potential_temperature"] = th
     s["water_vapor"] = qv
     for name, val in zip(HYDROMETEORS, (qc, qi, qr, qs)):
+        if name in s:
+            s[name] = val
+    return s
+
+
+def boundary_layer_ysu(s, g: Statics, dt):
+    """YSU (pbl, time_step.f90:494; icar_tpu/core/step.py:703-744): the
+    bulk Richardson number (calc_Richardson_nr, atm_utilities.f90:1131),
+    the surface layer -- NOTE reference quirk preserved: it is given the
+    lowest level's cloud water as its moisture (pbl_driver.f90:239) --,
+    then the scheme; theta, water vapour and the cloud water and ice the
+    state holds are written, and hpbl and exch_h where it holds them."""
+    s = dict(s)
+    zeros = torch.zeros_like(s["potential_temperature"])
+    u10, v10 = s["u_10m"], s["v_10m"]
+    wspd10 = torch.sqrt(u10 * u10 + v10 * v10)
+    wspd10 = torch.where(wspd10 == 0, torch.full_like(wspd10, 1e-5), wspd10)
+    tskin = s["skin_temperature"]
+    t1 = s["temperature"][0]
+    ri = ysu._rdiv(C.GRAVITY, t1) * (t1 - tskin) * g.z_atm \
+        / (wspd10 * wspd10)
+    qfx = s["latent_heat"] * inv(C.LH_VAPORIZATION)
+    qc = s.get("cloud_water", zeros)
+    qi = s.get("cloud_ice", zeros)
+    sfc = ysu.surface_layer(
+        s["surface_pressure"], tskin, s["pressure"][0], t1, qc[0],
+        s["u_mass"][0], s["v_mass"][0], g.z_atm, s["roughness_z0"],
+        s["land_mask"], g.dx, s["ustar"], s["sensible_heat"], qfx)
+    th, qv, qc, qi, hpbl, _, exch_h = ysu.ysu(
+        s["u_mass"], s["v_mass"], s["potential_temperature"],
+        s["temperature"], s["water_vapor"], qc, qi, s["pressure"],
+        s["pressure_interface"], s["exner"], g.dz, g.z, g.terrain,
+        s["surface_pressure"], tskin, s["roughness_z0"], s["land_mask"],
+        s["sensible_heat"], qfx, s["ustar"], u10, v10, sfc.psim, sfc.psih,
+        ri, dt)
+    s["potential_temperature"] = th
+    s["water_vapor"] = qv
+    for name, val in (("cloud_water", qc), ("cloud_ice", qi),
+                      ("hpbl", hpbl), ("exch_h", exch_h)):
         if name in s:
             s[name] = val
     return s

@@ -58,7 +58,7 @@ import torch
 from .. import constants as C
 from ..ops import kernels
 from ..ops.pointwise import inv
-from ..physics import mp_thompson
+from ..physics import mp_thompson, rrtmg_lw
 from ..physics.mp_simple import formation_rates
 from ..physics.thompson_tables import ThompsonParams
 from ..parallel import shard_kernels as sk
@@ -250,24 +250,28 @@ def substep_needs(options, pressure_varies: bool = False,
                   winds_vary: bool = False) -> frozenset:
     """The derived fields the general loop refreshes each substep: those a
     configured scheme reads whose inputs change within the interval
-    (icar_tpu/core/step.py ``_substep_needs``, without RRTMG and YSU,
-    which the port does not run). Density and temperature follow theta;
-    the pressure-derived fields follow a forced pressure
-    (``pressure_varies``), the mass-level winds forced winds
-    (``winds_vary``)."""
+    (icar_tpu/core/step.py ``_substep_needs``). Density and temperature
+    follow theta, and RRTMG's interface temperature; the pressure-derived
+    fields follow a forced pressure (``pressure_varies``), the mass-level
+    winds forced winds (``winds_vary``). Under YSU the loop refreshes
+    every field instead (``run_interval_physics``)."""
     ph = options.physics
     surface = (ph.landsurface != C.LSM_NONE
                or ph.watersurface != C.WATER_NONE)
+    rrtmg = ph.radiation == C.RA_RRTMG
     needs = set()
     if (ph.microphysics != C.MP_NONE or ph.boundarylayer != C.PBL_NONE
-            or ph.convection != C.CU_NONE or surface
+            or ph.convection != C.CU_NONE or rrtmg or surface
             or options.run.advect_density):
         needs.add("density")
-    if surface or ph.convection != C.CU_NONE:
+    if (rrtmg or surface or ph.boundarylayer == C.PBL_YSU
+            or ph.convection != C.CU_NONE):
         needs.add("temperature")
+    if rrtmg:
+        needs.add("temperature_interface")
     if pressure_varies:
         needs.add("exner")
-        if (surface or ph.convection != C.CU_NONE
+        if (surface or ph.convection != C.CU_NONE or rrtmg
                 or ph.boundarylayer != C.PBL_NONE):
             needs.add("pressure_interface")
             needs.add("surface_pressure")
@@ -280,19 +284,20 @@ def substep_needs(options, pressure_varies: bool = False,
 def run_interval(state: Dict[str, torch.Tensor], geom, options,
                  adv_names: Sequence[str], seconds: float,
                  dqdt: Optional[Dict[str, torch.Tensor]] = None,
-                 time_aux: Optional[Dict[str, float]] = None, timer=None
-                 ) -> Tuple[Dict[str, torch.Tensor], int]:
+                 time_aux: Optional[Dict[str, float]] = None, timer=None,
+                 cdf=None) -> Tuple[Dict[str, torch.Tensor], int]:
     """Integrate ``state`` over one interval of ``seconds``; returns the new
     state and the number of substeps. ``geom`` holds torch tensors;
     ``dqdt`` maps advected species to boundary forcing tendencies;
     ``time_aux`` holds the interval's ``day_of_year0`` and
     ``year_length`` (the radiation's solar geometry). With column physics
-    the interval runs ``run_interval_physics`` (``timer``: see there);
+    the interval runs ``run_interval_physics`` (``timer`` and ``cdf``:
+    see there);
     otherwise the whole domain is one block (``run_interval_sharded`` on a
     one-shard layout)."""
     if column_physics(options):
         return run_interval_physics(state, geom, options, adv_names,
-                                    seconds, dqdt, time_aux, timer)
+                                    seconds, dqdt, time_aux, timer, cdf)
     layout = single(state["pressure"].device, geom.ny, geom.nx)
     (state,), n = run_interval_sharded(layout, [state], [geom], options,
                                        adv_names, seconds, [dqdt or {}])
@@ -469,19 +474,22 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                          adv_names: Sequence[str], seconds: float,
                          dqdt: Optional[Dict[str, torch.Tensor]] = None,
                          time_aux: Optional[Dict[str, float]] = None,
-                         timer=None
+                         timer=None, cdf=None
                          ) -> Tuple[Dict[str, torch.Tensor], int]:
     """One interval of the general loop with column physics, on one block
     (icar_tpu/core/step.py ``step`` and ``physics_step`` :241-1232,
     :1613-1814). Before the loop: the partial diagnostics with w_real, one
     CFL dt, the species stack and the advection winds. Per substep: the
-    partial refresh (``substep_needs``), then ``core/physics_step.py``'s
-    stages -- radiation, the surface every ``lsm.update_interval``
-    seconds of float32 model time (``Throttle``: its counter starts full,
-    so the first substep runs it), the surface fluxes, the boundary layer,
-    convection --, then the rows of the stack a stage replaced are written
-    back; the microphysics (every ``mp.update_interval`` seconds likewise)
-    updates the stack and the accumulators in place -- Thompson (K5) on
+    partial refresh (``substep_needs``; under YSU the full one), then
+    ``core/physics_step.py``'s stages -- radiation (ra_simple; or RRTMG
+    every ``rad.update_interval_rrtmg`` seconds by its ``Throttle``, its
+    stored heating applied every substep), the surface every
+    ``lsm.update_interval`` seconds of float32 model time (``Throttle``:
+    its counter starts full, so the first substep runs it), the surface
+    fluxes, the boundary layer (YSU or pbl_simple), convection --, then the
+    rows of the stack a stage replaced are written back; the microphysics
+    (every ``mp.update_interval`` seconds likewise) updates the stack and
+    the accumulators in place -- Thompson (K5) on
     its nine species, or SB04 (K3) on its five with the refreshed density
     and the interface thickness (the cloud ice the PBL and convection
     write stays in the state, unadvected, as in the JAX loop) --, and K1,
@@ -494,11 +502,15 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     new dt and wind operands every substep, and w_real in the refresh, a
     forced pressure its derived fields (``substep_needs``), and
     ``apply_forcing`` follows the advection. The
-    ``time_aux`` of ``run_interval`` is required with the radiation. The
-    PBL's substep count is one host read per substep. ``timer(stage)``,
-    when given, returns a context manager around each stage's work
-    (``time_paths.StageTimer``: diagnostics, radiation, surface, pbl,
-    convection, restack, mp_thompson or mp_simple_rho, advection)."""
+    ``time_aux`` of ``run_interval`` is required with the radiation.
+    ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by
+    default). pbl_simple's substep count is one host read per substep;
+    YSU and RRTMG read nothing back. ``timer(stage)``, when given, returns
+    a context manager around each stage's work (``time_paths.StageTimer``:
+    diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
+    radiation_lw and radiation (the zenith and the heating), surface,
+    pbl or pbl_ysu, convection, restack, mp_thompson or mp_simple_rho,
+    advection)."""
     stage = timer or (lambda name: contextlib.nullcontext())
 
     adv_names = tuple(adv_names)
@@ -515,6 +527,9 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     pressure_varies, winds_vary = forcing_varies(dqdt) if full \
         else (False, False)
     needs = substep_needs(options, pressure_varies, winds_vary)
+    # YSU reads the 10 m winds and ustar, which only the full refresh
+    # forms (icar_tpu/core/step.py:1638, 1745-1749)
+    full_each = phys.boundarylayer == C.PBL_YSU
     convect = phys.convection == C.CU_TIEDTKE
     surface = (phys.landsurface != C.LSM_NONE
                or phys.watersurface != C.WATER_NONE)
@@ -541,7 +556,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     # SB04 takes the interface thickness, Thompson the mass-level one
     dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
     mp_stage = path_kernels(options)[0]
-    statics = ps.Statics(geom)
+    statics = ps.Statics(geom, options)
     i_qv = adv_names.index("water_vapor")
     tend = None
     if any(k in dqdt for k in adv_names):
@@ -550,13 +565,17 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         floor_b = floors[:, None, None, None]
     if tend is not None or full:
         bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
-    if phys.radiation == C.RA_SIMPLE:
+    rrtmg = phys.radiation == C.RA_RRTMG
+    if phys.radiation in (C.RA_SIMPLE, C.RA_RRTMG):
         if time_aux is None:
             raise ValueError("run_interval_physics: the radiation needs "
                              "time_aux (ICARModel._time_aux)")
         day0 = np.float32(time_aux["day_of_year0"])
         year_length = torch.full((), float(np.float32(
             time_aux["year_length"])), device=dev)
+    if rrtmg:
+        cdf = cdf or rrtmg_lw.TorchCdf()
+        rad_throttle = Throttle(options.rad.update_interval_rrtmg)
     lsm_throttle = Throttle(options.lsm.update_interval)
     mp_throttle = Throttle(options.mp.update_interval)
 
@@ -581,18 +600,39 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         dt_t = scalar(dt)
         views = {k: q[i] for i, k in enumerate(adv_names)}
         with stage("diagnostics"):
-            s = diagnostic_update({**s, **views}, geom, needs=needs,
-                                  with_w_real=convect and winds_vary)
+            if full_each:
+                s = diagnostic_update({**s, **views}, geom, full=True)
+            else:
+                s = diagnostic_update({**s, **views}, geom, needs=needs,
+                                      with_w_real=convect and winds_vary)
         if phys.radiation == C.RA_SIMPLE:
             doy = day0 + t * np.float32(inv(86400.0))
             with stage("radiation"):
                 s = ps.radiation(s, statics, scalar(doy), year_length, dt_t)
+        elif rrtmg:
+            doy = scalar(day0 + t * np.float32(inv(86400.0)))
+            with stage("radiation"):
+                s = ps.rrtmg_zenith(s, statics, doy, year_length)
+            if rad_throttle.step(dt) is not None:
+                s = ps.radiation_rrtmg(s, statics, options, t, doy,
+                                       year_length, dt_t, cdf, stage)
+            with stage("radiation"):
+                s = ps.radiative_heating(s, dt_t)
         if surface:
             with stage("surface"):
                 lsm_dt = lsm_throttle.step(dt)
                 if lsm_dt is not None:
                     s = ps.surface_fluxes(s, statics, options, scalar(lsm_dt))
                 s = ps.apply_fluxes(s, statics, options, dt_t)
+        if phys.boundarylayer == C.PBL_YSU:
+            with stage("pbl_ysu"):
+                s = ps.boundary_layer_ysu(s, statics, dt_t)
+                if convect:
+                    # the JAX loop takes the moisture before the PBL after
+                    # YSU has run (icar_tpu/core/step.py:746-747, 766-767),
+                    # so YSU's tendency reaches Tiedtke as 0
+                    s["tend_qv_pbl"] = (s["water_vapor"]
+                                        - s["water_vapor"]) / dt_t
         if phys.boundarylayer == C.PBL_SIMPLE:
             with stage("pbl"):
                 qv_before_pbl = s["water_vapor"]

@@ -7,8 +7,9 @@ ideal ridge with SB04 or Thompson (mp=1) microphysics and upwind or MPDATA
 advection (any order, with or without FCT), with or without density
 advection (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``), and with any subset of the full physics column
-of bench.py's fullphys: simple radiation, Noah with simple water, the
-simple PBL and Tiedtke convection. Every wind solver runs with
+of bench.py's fullphys: simple radiation or RRTMG (longwave and
+shortwave, or the simple shortwave), Noah with simple water, the simple
+PBL or YSU and Tiedtke convection. Every wind solver runs with
 each: balance only, linear theory (wind=1, its table built on the model's
 device at the first wind solve), the mass-conserving winds (wind=2), the
 iterative solver (wind=3), linear then iterative (wind=5), and flow
@@ -47,6 +48,10 @@ from ..ops import linear_winds as lw
 from ..ops import pointwise as pw
 from ..ops import wind as wind_ops
 from ..parallel.mesh import Layout, Mesh, scatter_geometry
+from ..physics import rrtmg_lw, rrtmg_sw
+from ..physics.rrtmg_lw import TorchCdf
+from ..physics.rrtmg_lw_tables import synthetic_lw_tables
+from ..physics.rrtmg_sw_tables import synthetic_sw_tables
 
 
 LINEAR_WINDS = (C.WIND_LINEAR, C.WIND_LINEAR_ITERATIVE)
@@ -63,10 +68,10 @@ def _unported(options: Options):
          f"microphysics={ph.microphysics}", mp_slice),
         (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
          f"advection={ph.advection}", "Slice B (advection options)"),
-        (ph.radiation in (C.RA_NONE, C.RA_SIMPLE),
-         f"radiation={ph.radiation}", "Slice F (RRTMG)"),
-        (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE),
-         f"pbl={ph.boundarylayer}", "Slice F (YSU)"),
+        (ph.radiation in (C.RA_NONE, C.RA_SIMPLE, C.RA_RRTMG),
+         f"radiation={ph.radiation}", "Slice F (radiation=1)"),
+        (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE, C.PBL_YSU),
+         f"pbl={ph.boundarylayer}", "Slice F (the other PBL schemes)"),
         (ph.landsurface in (C.LSM_NONE, C.LSM_NOAH),
          f"lsm={ph.landsurface}", "Slice F (Noah-MP and the others)"),
         (ph.watersurface in (C.WATER_NONE, C.WATER_SIMPLE),
@@ -127,6 +132,9 @@ class ICARModel:
         self._case_winds = None
         # the monthly precipitation bias-correction scale (12, ny, nx)
         self._rain_frac_months: Optional[torch.Tensor] = None
+        # RRTMG's McICA draw (physics.rrtmg_lw.TorchCdf; the tests put the
+        # JAX package's draws here)
+        self.mcica_cdf = TorchCdf()
 
     @property
     def winds_follow_state(self) -> bool:
@@ -392,7 +400,8 @@ class ICARModel:
         if self.mesh is None:
             self.state, self._last_n = run_interval(
                 self.state, self.geom_t, self.options, self.advect_names,
-                seconds, self._dqdt, self._time_aux(), timer)
+                seconds, self._dqdt, self._time_aux(), timer,
+                self.mcica_cdf)
         else:
             self.blocks, self._last_n = run_interval_sharded(
                 self.layout, self.blocks, self._geom_blocks, self.options,
@@ -482,7 +491,10 @@ class ICARModel:
 # density advection with either advection, SB04 + upwind with the
 # microphysics throttled to every 60 s, and the full physics column with
 # MPDATA, or with SB04 and without Tiedtke (the options refuse SB04 with a
-# deep convection scheme, config.py validate, as the JAX package's do)
+# deep convection scheme, config.py validate, as the JAX package's do);
+# and bench.py --config fullphys_rrtmg with Noah in Noah-MP's place:
+# RRTMG (longwave and shortwave every 1800 s, icloud 3, on the synthetic
+# k-tables bench.py injects, seeds 0 and 1) and YSU
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
@@ -511,6 +523,19 @@ def mp_throttle_options(o):
     o.mp.update_interval = MP_THROTTLE_INTERVAL
 
 
+def synthetic_rrtmg_tables(o=None):
+    """Inject the synthetic RRTMG k-tables bench.py --config
+    fullphys_rrtmg runs on (bench.py:98-102; the real rrtmg_support files
+    are not in the repository); as an ``options_cb`` it leaves the options
+    at their defaults (update_interval_rrtmg 1800 s, icloud 3, the RRTMG
+    shortwave)."""
+    rrtmg_lw.set_lw_tables(synthetic_lw_tables())
+    rrtmg_sw.set_sw_tables(synthetic_sw_tables())
+
+
+FULLPHYS_RRTMG_NOAH = dict(FULLPHYS, rad=C.RA_RRTMG, pbl=C.PBL_YSU,
+                           options_cb=synthetic_rrtmg_tables)
+
 RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON),
                "fullphys": FULLPHYS,
@@ -522,7 +547,8 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "upwind_mp_throttle": dict(options_cb=mp_throttle_options),
                "fullphys_mpdata": dict(FULLPHYS, adv=C.ADV_MPDATA),
                "fullphys_sb04": dict(FULLPHYS, mp=C.MP_SIMPLE,
-                                     conv=C.CU_NONE)}
+                                     conv=C.CU_NONE),
+               "fullphys_rrtmg_noah": FULLPHYS_RRTMG_NOAH}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
                  "MPDATA_density", "upwind_mp_throttle")

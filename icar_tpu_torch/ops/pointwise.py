@@ -97,29 +97,38 @@ def cumsum(x, dim: int):
     totals. torch.cumsum accumulates float32 in float64 on the CPU and
     scans in another order on the card; this order is the same on both
     devices, and equal to the JAX package's bit for bit."""
-    return _blocked_scan(x.movedim(dim, -1)).movedim(-1, dim)
+    return _blocked_scan(x.movedim(dim, -1), False).movedim(-1, dim)
 
 
-def _blocked_scan(x):
+def cumprod(x, dim: int):
+    """The cumulative product of ``x`` along ``dim`` in the order of
+    ``jnp.cumprod`` on the JAX package's CPU backend (the blocks of
+    ``cumsum``), bit-equal to it."""
+    return _blocked_scan(x.movedim(dim, -1), True).movedim(-1, dim)
+
+
+def _blocked_scan(x, product):
     n = x.shape[-1]
     if n <= _SCAN_BLOCK:
-        return _sequential_scan(x)
+        return _sequential_scan(x, product)
     nb = -(-n // _SCAN_BLOCK)
-    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n),
+                                     value=1.0 if product else 0.0)
     inner = _sequential_scan(blocks.reshape(*x.shape[:-1], nb,
-                                            _SCAN_BLOCK))
-    totals = _blocked_scan(inner[..., -1])
-    carry = torch.cat([torch.zeros_like(totals[..., :1]),
-                       totals[..., :-1]], dim=-1)
-    out = (inner + carry[..., None]).reshape(*x.shape[:-1], -1)
-    return out[..., :n]
+                                            _SCAN_BLOCK), product)
+    totals = _blocked_scan(inner[..., -1], product)
+    first = (torch.ones_like if product else torch.zeros_like)(
+        totals[..., :1])
+    carry = torch.cat([first, totals[..., :-1]], dim=-1)[..., None]
+    out = (inner * carry if product else inner + carry)
+    return out.reshape(*x.shape[:-1], -1)[..., :n]
 
 
-def _sequential_scan(x):
+def _sequential_scan(x, product=False):
     out = torch.empty_like(x)
     acc = x[..., 0]
     out[..., 0] = acc
     for i in range(1, x.shape[-1]):
-        acc = acc + x[..., i]
+        acc = acc * x[..., i] if product else acc + x[..., i]
         out[..., i] = acc
     return out

@@ -76,10 +76,13 @@ def longwave_down(t_air, cloud_cover):
 
 
 def ra_simple(theta, exner, qv, qc, qs, qr, p, lon, sin_lat, cos_lat,
-              day_of_year, year_length, dt):
+              day_of_year, year_length, dt, runlw=True):
     """The scheme (ra_simple, ra_simple.f90:192-271). ``dt`` is a 0-d
-    float32 tensor or a number. Returns (theta, swdown, lwdown,
-    cloud_cover)."""
+    float32 tensor or a number. ``runlw=False`` is F_runlw=.False.
+    (ra_simple.f90:260-266): only swdown and the cloud cover, no lwdown
+    (None) and no radiative cooling, as the RRTMG driver borrows the
+    simple shortwave (use_simple_sw, ra_driver.f90:429-449). Returns
+    (theta, swdown, lwdown, cloud_cover)."""
     t = theta * exner
     t_air = torch.sum(t[:N_RAD_LAYERS], dim=0) * inv(N_RAD_LAYERS)
     rh = torch.sum(relative_humidity(t[:N_RAD_LAYERS], qv[:N_RAD_LAYERS],
@@ -92,6 +95,8 @@ def ra_simple(theta, exner, qv, qc, qs, qr, p, lon, sin_lat, cos_lat,
                                      sin_lat, cos_lat)
     cc = cloudfrac(rh, hydrometeors)
     sw = shortwave_down(day_frac, cc, elev)
+    if not runlw:
+        return theta, sw, None, cc
     lw = longwave_down(t_air, cc)
 
     # ~1.5 K/day radiative cooling (ra_simple.f90:233)

@@ -7,7 +7,8 @@ For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
 the full physics column of bench.py --config fullphys, SB04 + upwind on
 the linear-theory winds of bench.py --config linear, and the general
 loop's options: density advection, the microphysics throttle, the full
-physics column with MPDATA or SB04) it builds a fresh
+physics column with MPDATA or SB04; and bench.py --config fullphys_rrtmg
+with Noah, RRTMG and YSU) it builds a fresh
 model, advances one 1200 s interval to warm up, then times ``--repeat``
 runs of two intervals each (``run_timed``) and prints one JSON line: for
 each path the grid-point substeps per second of every run over the

@@ -51,8 +51,9 @@ def test_diagnostic_update_matches(ridge, full):
 
 
 def test_density_refresh_matches(ridge):
-    """The general loop's per-substep refresh (needs={"density"}) from a
-    state whose theta moved since its exner was computed."""
+    """The general loop's per-substep refresh (needs={"density"}, and
+    RRTMG's {"temperature_interface"}) from a state whose theta moved
+    since its exner was computed."""
     geom, s = ridge
     s = dict(s)
     s["potential_temperature"] = (s["potential_temperature"] + 0.5
@@ -68,9 +69,20 @@ def test_density_refresh_matches(ridge):
     for k in s:
         if k != "density":
             np.testing.assert_array_equal(got[k].numpy(), s[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # RRTMG's interface temperature refreshes alike; a field outside the
+    # partial refresh is refused
+    want = jdiag.diagnostic_update({k: jnp.asarray(v) for k, v in s.items()},
+                                   geom, full=False,
+                                   needs={"temperature_interface"})
+    got = tdiag.diagnostic_update(state_from_numpy(s, "cpu"),
+                                  geometry_to_torch(geom, "cpu"),
+                                  needs={"temperature_interface"})
+    np.testing.assert_allclose(got["temperature_interface"].numpy(),
+                               np.asarray(want["temperature_interface"]),
+                               rtol=1e-6)
+    with pytest.raises(ValueError, match="PARTIAL_FIELDS"):
         tdiag.diagnostic_update(state_from_numpy(s, "cpu"), None,
-                                needs={"temperature_interface"})
+                                needs={"iwv"})
 
 
 def test_exner_matches_compiled_reference():

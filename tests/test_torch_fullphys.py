@@ -33,7 +33,8 @@ from icar_tpu.models.icar import ideal_ridge_model as jax_model
 from icar_tpu_torch import constants as C
 from icar_tpu_torch.convert import state_from_numpy
 from icar_tpu_torch.core.step import path_kernels, run_interval
-from icar_tpu_torch.models.icar import FULLPHYS, ideal_ridge_model
+from icar_tpu_torch.models.icar import (FULLPHYS, ideal_ridge_model,
+                                        synthetic_rrtmg_tables)
 from icar_tpu_torch.ops import kernels
 
 torch.set_num_threads(2)
@@ -214,15 +215,18 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
 @pytest.mark.parametrize("option,value,match", [
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
     ("convection", C.CU_NSAS, "Slice F \\(the other schemes\\)"),
-    ("boundarylayer", C.PBL_YSU, "Slice F \\(YSU\\)"),
+
     ("landsurface", C.LSM_NOAHMP, "Slice F \\(Noah-MP"),
     ("watersurface", C.WATER_LAKE, "Slice F \\(lake\\)"),
-    ("radiation", C.RA_RRTMG, "Slice F \\(RRTMG\\)"),
-    ("convection", C.CU_KF, "Slice F \\(the other schemes\\)"),
-    ("convection", C.CU_BMJ, "Slice F \\(the other schemes\\)"),
     # options these cases refused until they were ported (their ids kept):
     # each now runs (match None), and SB04 with Tiedtke is refused by the
     # options' own validation, as in the JAX package (ValueError)
+    pytest.param("boundarylayer", C.PBL_YSU, None,
+                 id="boundarylayer-3-Slice F \\(YSU\\)"),
+    pytest.param("radiation", C.RA_RRTMG, None,
+                 id="radiation-3-Slice F \\(RRTMG\\)"),
+    ("convection", C.CU_KF, "Slice F \\(the other schemes\\)"),
+    ("convection", C.CU_BMJ, "Slice F \\(the other schemes\\)"),
     pytest.param("microphysics", C.MP_SIMPLE,
                  "mp_simple is not tuned for use with deep convection",
                  id="microphysics-2-Slice C \\(the column physics with"),
@@ -239,9 +243,12 @@ def test_options_outside_the_slice_raise(option, value, match):
     """(c) Every option outside the slice raises NotImplementedError naming
     its ROADMAP slice, on the fullphys configuration. The options ported
     since (``match`` None: MPDATA, density advection, the microphysics
-    throttle) build and run one 60 s interval with finite fields; SB04
-    with Tiedtke raises the options' ValueError."""
+    throttle, YSU, RRTMG on the synthetic k-tables) build and run one 60 s
+    interval with finite fields; SB04 with Tiedtke raises the options'
+    ValueError."""
     def cb(o):
+        if value == C.RA_RRTMG:
+            synthetic_rrtmg_tables(o)
         if option == "advect_density":
             o.run.advect_density = value
         elif option == "mp_update_interval":

@@ -29,7 +29,8 @@ from icar_tpu import constants as C
 from icar_tpu.models.icar import ideal_ridge_model as jax_model
 from icar_tpu_torch.convert import state_from_numpy
 from icar_tpu_torch.core.step import quantized_dt
-from icar_tpu_torch.models.icar import ICARModel, ideal_ridge_model
+from icar_tpu_torch.models.icar import (ICARModel, ideal_ridge_model,
+                                        synthetic_rrtmg_tables)
 
 torch.set_num_threads(1)
 
@@ -116,10 +117,13 @@ def test_interval_matches_jax(forcing):
 def test_unported_options_raise(option, value):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP slice. The column physics with SB04 (radiation, the PBL and
-    Noah here) has been ported since: those options build and run one
-    interval with finite fields; Tiedtke with SB04 is refused by the
-    options' own validation (ValueError), as in the JAX package."""
+    Noah here, and RRTMG on the synthetic k-tables) has been ported since:
+    those options build and run one interval with finite fields; Tiedtke
+    with SB04 is refused by the options' own validation (ValueError), as
+    in the JAX package."""
     def cb(o):
+        if value == C.RA_RRTMG and option == "radiation":
+            synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)
     if (option, value) in COLUMN_WITH_SB04:
         _runs_one_interval(cb)
@@ -138,7 +142,8 @@ def test_unported_options_raise(option, value):
 # listed it
 COLUMN_WITH_SB04 = {("radiation", C.RA_SIMPLE),
                     ("boundarylayer", C.PBL_SIMPLE),
-                    ("landsurface", C.LSM_NOAH)}
+                    ("landsurface", C.LSM_NOAH),
+                    ("radiation", C.RA_RRTMG)}
 
 
 def _runs_one_interval(options_cb):

@@ -34,7 +34,14 @@ COPIES = {
     "forcing/ideal.py": (),
     "physics/thompson_tables.py": (),
     "physics/noah_params.py": (),
+    "physics/rrtmg_lw_tables.py": (),
+    "physics/rrtmg_sw_tables.py": (),
+    "physics/ghg.py": (),
 }
+
+# data files the port reads from its own copies: copy -> original
+DATA_COPIES = ("physics/data/rrtmg_lw_data.npz",
+               "physics/data/rrtmg_sw_data.npz")
 
 
 def _body(path):
@@ -56,6 +63,16 @@ def test_copy_matches_original(rel):
     omitted = COPIES[rel]
     want = [n for n in orig if n[0] not in omitted]
     assert copy == want, f"icar_tpu_torch/{rel} drifted from icar_tpu/{rel}"
+
+
+@pytest.mark.parametrize("rel", DATA_COPIES)
+def test_data_copy_is_byte_equal(rel):
+    """The port's copy of a JAX-package data file (the RRTMG in-source
+    tables) equals its original byte for byte."""
+    with open(os.path.join(REPO, "icar_tpu", rel), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "icar_tpu_torch", rel), "rb") as f:
+        assert f.read() == want
 
 
 # functions (and host classes) the port copies one by one out of
