@@ -129,6 +129,22 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    at noon on the CPU and the card (the larger of FULLPHYS_BOUNDS and
    twice the CPU run's own one-ulp spread). K1's and K5's lines in the
    table add these figures under "fullphys_rrtmg_noah".
+14. bench.py --config fullphys_rrtmg as bench.py builds it (RIDGE_PATHS
+   fullphys_rrtmg: Noah-MP with its glacier column, initialised on the
+   host as bench.py does): on the 500x500x20 path's state after one
+   interval, K1 against its kernel-order oracle and K5 against its plain
+   version (0.0 each), one surface call's time by CUDA events (its
+   noahmp and glacier columns) and the aten operations of one Noah-MP
+   and one glacier call (tools/count_ops.py noahmp_ops); then two
+   intervals of a fresh model (K5 and K1 once a substep and no other
+   kernel, RRTMG and Noah-MP as often as the host's counters predict,
+   convective rain) with its digest, the stages of one more interval by
+   CUDA events (noahmp and glacier within surface), and the small case
+   (noahmp_small_model: a glacier strip, snow of one to three layers) at
+   noon on the CPU and the card (the larger of FULLPHYS_BOUNDS and twice
+   the CPU run's own one-ulp spread; the layer count by the share of
+   cells). K1's and K5's lines in the table add these figures under
+   "fullphys_rrtmg".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -184,6 +200,53 @@ SHARD_CHECK_MESHES = ((4, 1), (2, 2))
 FULLPHYS_SMALL = dict(nx=30, ny=12, nz=10, dx=1000.0, hill_height=600.0,
                       u_speed=9.0, rh=1.0)
 FULLPHYS_SMALL_INTERVAL = 600.0
+# phase 14's small case (tests/test_torch_noahmp_model.py): FULLPHYS_SMALL
+# on RIDGE_PATHS["fullphys_rrtmg"] with a strip of glacier (MODIS ice,
+# category 15) along the south edge and snow on a few cells before the
+# Noah-MP init: 6, 15, 60 and 150 mm make one, two and three layers
+NOAHMP_ICE = 15
+NOAHMP_SNOW_MM = (6.0, 15.0, 60.0, 150.0)
+
+
+def noahmp_small_surface(veg_type, swe):
+    """(veg_type, swe) of phase 14's small case, from the ideal case's
+    (numpy (ny, nx)): the two southern rows glacier, a row of snow
+    patches further north."""
+    veg = np.array(veg_type, np.float32)
+    swe = np.array(swe, np.float32)
+    veg[:2] = NOAHMP_ICE
+    for i, mm in enumerate(NOAHMP_SNOW_MM):
+        swe[5:7, 3 + 6 * i:6 + 6 * i] = mm
+    return veg, swe
+
+
+# the init's fields bench.py leaves out that a snow pack needs (ROADMAP
+# section 3: without them its layers hold no ice and the run turns
+# non-finite), installed as the file-driven driver does
+NOAHMP_SNOW_FIELDS = {"snow_layer_ice": "snice",
+                      "snow_layer_liquid_water": "snliq",
+                      "snow_height": "snowh", "soil_water_content": "smc"}
+
+
+def noahmp_small_model(device):
+    """Phase 14's small case on ``device``, starting at local noon
+    (RRTMG_NOON): noahmp_small_surface, then ``init_noahmp_state`` anew
+    with bench.py's fields and NOAHMP_SNOW_FIELDS (bench.py's fields
+    leave the inputs of the init as they were)."""
+    import torch
+    from icar_tpu_torch.models.icar import (NOAHMP_BENCH_FIELDS,
+                                            RIDGE_PATHS, ideal_ridge_model,
+                                            init_noahmp_state)
+    m = ideal_ridge_model(**FULLPHYS_SMALL, **dict(
+        RIDGE_PATHS["fullphys_rrtmg"], options_cb=rrtmg_noon_options),
+        device=device)
+    s = m.state
+    veg, swe = noahmp_small_surface(s["veg_type"].cpu().numpy(),
+                                    s["swe"].cpu().numpy())
+    s["veg_type"] = torch.as_tensor(veg, device=s["swe"].device)
+    s["swe"] = torch.as_tensor(swe, device=s["swe"].device)
+    return init_noahmp_state(m, dict(NOAHMP_BENCH_FIELDS,
+                                     **NOAHMP_SNOW_FIELDS))
 FULLPHYS_BOUNDS = {"species": 1e-4, "other": 1e-3}
 FULLPHYS_ILL_CONDITIONED = ("cloud_fraction", "longwave")
 FULLPHYS_ILL_SHARE = 0.05
@@ -2523,6 +2586,210 @@ def check_rrtmg(ideal_ridge_model, cases, ridge_paths, kernels, step,
             "active_tile_share": share}}
 
 
+def noahmp_small(device, seed=None):
+    """Phase 14's small case, one interval on ``device`` with McICA draws
+    made on the CPU and Noah-MP's calls counted; with ``seed``, every
+    nonzero value of every float field but CATEGORIES starts one ulp up
+    or down (seeded). Returns (model, Noah-MP calls)."""
+    import torch
+    from icar_tpu_torch.physics import noahmp
+    m = noahmp_small_model(device)
+    if seed is not None:
+        r = np.random.default_rng(seed)
+        for k, a in m.state.items():
+            if a.dtype != torch.float32 or k in CATEGORIES:
+                continue
+            up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
+                                 device=a.device)
+            m.state[k] = torch.where(a != 0, torch.nextafter(a, torch.where(
+                up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf))),
+                a)
+    m.mcica_cdf = CountingCdf(on="cpu")
+    with counted_calls(noahmp, "noahmp_driver") as calls:
+        m.advance(FULLPHYS_SMALL_INTERVAL)
+    return m, len(calls)
+
+
+class counted_calls:
+    """Within the ``with``, each call of ``module.name`` appends to the
+    list the ``with`` gives."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.calls.append(1)
+            return self.fn(*a, **k)
+        setattr(self.module, self.name, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def check_noahmp_small():
+    """Phase 14 (a): the small case (noahmp_small_model: a glacier strip
+    and snow of one to three layers) on the CPU and the card, the same
+    substeps and RRTMG and Noah-MP calls, every field held by
+    ``hold_card_to_cpu`` to the larger of FULLPHYS_BOUNDS and twice the
+    CPU run's own spread under a one-ulp nudge of its initial state (three
+    seeds), YSU_LEVEL_FIELDS and the snow layer count by the share of
+    cells past it; the glacier strip's ground at or below freezing on
+    both."""
+    cpu, n_cpu = noahmp_small("cpu")
+    card, n_card = noahmp_small("cuda")
+    label = "small fullphys_rrtmg case"
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"{label}: {card.last_n_substeps} substeps on "
+                             f"the card, {cpu.last_n_substeps} on the CPU")
+    calls = [m.mcica_cdf.calls() for m in (cpu, card)]
+    if calls[0] != calls[1] or calls[0] < 1 or n_cpu != n_card \
+            or n_cpu < 1:
+        raise AssertionError(f"{label}: RRTMG calls {calls}, Noah-MP calls "
+                             f"{[n_cpu, n_card]} (CPU, card)")
+    spread = {k: 0.0 for k in cpu.state}
+    for seed in range(3):
+        nudged, _ = noahmp_small("cpu", seed)
+        for k in cpu.state:
+            want = cpu.field(k).astype(np.float64)
+            spread[k] = max(spread[k], float(
+                np.abs(nudged.field(k) - want).max()
+                / max(float(np.abs(want).max()), 1e-30)))
+    worst = hold_card_to_cpu(cpu, card, label, spread,
+                             FULLPHYS_ILL_CONDITIONED + YSU_LEVEL_FIELDS
+                             + ("snow_nlayers",))
+    ice = cpu.field("veg_type") == NOAHMP_ICE
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        if not (m.field("ground_surf_temperature")[ice] <= 273.16).all():
+            raise AssertionError(f"{label} on the {where}: glacier ground "
+                                 f"above freezing")
+    layers = np.unique(card.field("snow_nlayers"))
+    log(f"{label} {FULLPHYS_SMALL['nx']}x{FULLPHYS_SMALL['ny']}x"
+        f"{FULLPHYS_SMALL['nz']} at noon, {FULLPHYS_SMALL_INTERVAL:.0f} s: "
+        f"{card.last_n_substeps} substeps, {calls[0]} RRTMG and {n_cpu} "
+        f"Noah-MP calls on the card and the CPU; snow layer counts "
+        f"{layers.tolist()}; largest |card - CPU| / max|CPU| per group "
+        f"(bound): " + ", ".join(f"{g} {r:.3e} ({k}; {b:.3e})"
+                                 for g, (r, k, b) in worst.items()))
+
+
+def check_noahmp(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
+                 thompson_cases, smi):
+    """Phase 14: bench.py's fullphys_rrtmg as bench.py builds it (Noah-MP
+    and its glacier column, RIDGE_PATHS["fullphys_rrtmg"]). On the
+    500x500x20 path's state after one interval: K1 against its
+    kernel-order oracle and K5 against its plain version (0.0 each); one
+    surface call's wall by CUDA events (Noah-MP's column and the
+    glacier's) and the aten operations of one Noah-MP and one glacier call
+    (tools/count_ops.py noahmp_ops); two intervals of a fresh model (K5
+    and K1 once a substep and nothing else, RRTMG and Noah-MP as often as
+    the host's counters predict, convective rain) with its digest; the
+    stages of one more interval by CUDA events; the small case card
+    against CPU. Returns the K1 and K5 figures for their table entries."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.physics import noahmp
+    from icar_tpu_torch.time_paths import (INTERVAL, INTERVALS, StageTimer,
+                                           stage_ms)
+    label = "fullphys_rrtmg"
+    case = cases[label]
+    t0 = time.perf_counter()
+    warm = ideal_ridge_model(**case, device="cuda")
+    tp.device_tables(step.thompson_params(warm.options),
+                     warm.state["pressure"].device)
+    warm.mcica_cdf = CountingCdf()
+    warm.advance(INTERVAL)
+    torch.cuda.synchronize()
+    log(f"{label} setup (Noah-MP init on the host) + first interval at "
+        f"500x500x20: {time.perf_counter() - t0:.1f} s, "
+        f"{warm.last_n_substeps} substeps")
+    state_label = f"{label} state after one interval"
+    err1, oerr1, ms1, pms1, shape, _ = k1_on_state(warm, kernels, step,
+                                                   adv_plain, state_label)
+    err5, ms5, pms5, share, work5 = k5_on_state(warm, kernels, step, tp,
+                                                thompson_cases, state_label)
+    if oerr1 != 0.0 or err5 != 0.0:
+        raise AssertionError(f"{label}: K1 {oerr1} against its oracle, K5 "
+                             f"{err5} against its plain version")
+
+    # one surface call (lsm_dt 300 s) on that state, after one untimed
+    g = ps.Statics(warm.geom_t, warm.options)
+    s = diagnostic_update(warm.state, warm.geom_t, full=True)
+    doy, year = count_ops._time_scalars(warm)
+    lsm_dt = torch.tensor(300.0, device="cuda")
+    ps.surface_fluxes(s, g, warm.options, lsm_dt, doy, year)
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    with timer("surface"):
+        ps.surface_fluxes(s, g, warm.options, lsm_dt, doy, year, timer)
+    ms = timer.ms()
+    call_s = time.perf_counter() - tw
+    ops = count_ops.noahmp_ops(warm)
+    log(f"{label}: one surface call {1e3 * call_s:.1f} ms of wall; "
+        f"CUDA-event ms: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in ms.items())
+        + "; aten operations per call: " + json.dumps(ops))
+    del warm, s
+
+    model = ideal_ridge_model(**case, device="cuda")
+    model.mcica_cdf = CountingCdf()
+    path = step.path_kernels(model.options)
+    due = throttle_due(model, step, INTERVALS, INTERVAL,
+                       model.options.rad.update_interval_rrtmg)
+    due_lsm = throttle_due(model, step, INTERVALS, INTERVAL,
+                           model.options.lsm.update_interval)
+    with counted_calls(noahmp, "noahmp_driver") as nmp_calls:
+        launches, _, steps = drive(
+            model, kernels, label, path, smi,
+            fields=tuple(model.advect_names) + (
+                "precipitation", "convective_precipitation",
+                "sensible_heat", "latent_heat", "skin_temperature",
+                "ground_surf_temperature", "veg_leaf_temperature",
+                "soil_temperature", "longwave", "hpbl", "u", "v", "w"))
+    calls = model.mcica_cdf.calls()
+    if calls != due or len(nmp_calls) != due_lsm:
+        raise AssertionError(f"{label}: {calls} RRTMG and {len(nmp_calls)}"
+                             f" Noah-MP calls in {steps} substeps, the "
+                             f"host's counters predict {due} and {due_lsm}")
+    conv = float(model.global_field("convective_precipitation").max())
+    if not conv > 0:
+        raise AssertionError(f"{label}: no convective rain")
+    log(f"{label}: RRTMG called {calls} and Noah-MP {len(nmp_calls)} times "
+        f"in {steps} substeps, as the host's counters predict; "
+        f"mp_thompson and advect_upwind once a substep; convective rain "
+        f"max {conv:.3f} mm")
+    stages = stage_ms(model)
+    total = sum(v for k, v in stages["stages_ms"].items()
+                if k not in ("noahmp", "glacier"))
+    log(f"{label} stages of one more interval ({stages['substeps']} "
+        f"substeps, wall {stages['wall_ms']:.1f} ms, the stages' events "
+        f"{total:.1f} ms; noahmp and glacier within surface), CUDA-event "
+        f"ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages["stages_ms"].items(),
+                                              key=lambda kv: -kv[1])))
+    del model
+    check_noahmp_small()
+    b1, by1 = bound(*advect_work(*shape))
+    b5, by5 = bound(*work5)
+    return {
+        "advect_upwind": {
+            "launches": launches["advect_upwind"], "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0]},
+        "mp_thompson": {
+            "launches": launches["mp_thompson"], "max_abs_err": err5,
+            "ms": ms5, "plain_ms": pms5, "bound_ms": b5, "bound_by": by5,
+            "active_tile_share": share}}
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -2672,6 +2939,12 @@ def main():
     # stages, and the small case card against CPU
     rrtmg = check_rrtmg(ideal_ridge_model, cases, RIDGE_PATHS, kernels,
                         step, adv_plain, thompson_plain, thompson_cases, smi)
+    # 14. bench.py's fullphys_rrtmg with Noah-MP and its glacier column: K1
+    # and K5 on that path's state, one surface call's time and operations,
+    # two intervals counting kernel launches, RRTMG and Noah-MP calls, the
+    # stages, and the small case card against CPU
+    noahmp = check_noahmp(ideal_ridge_model, cases, kernels, step,
+                          adv_plain, thompson_plain, thompson_cases, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -2685,6 +2958,7 @@ def main():
         if name in ("advect_upwind", "mp_thompson"):
             entry["fullphys"] = fullphys[name]
             entry["fullphys_rrtmg_noah"] = rrtmg[name]
+            entry["fullphys_rrtmg"] = noahmp[name]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):

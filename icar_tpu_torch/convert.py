@@ -11,6 +11,7 @@ tests run both packages from the same state and table.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
@@ -60,3 +61,30 @@ def linear_winds_from_numpy(lut_u, lut_v, pert_u, pert_v, device,
     return ((table_to_torch(lut_u, device, dtype),
              table_to_torch(lut_v, device, dtype)),
             table_to_torch(pert_u, device), table_to_torch(pert_v, device))
+
+
+def noahmp_state_from_numpy(arrays: Dict[str, np.ndarray], device
+                            ) -> Dict[str, torch.Tensor]:
+    """A Noah-MP column state (``physics.noahmp`` keys, e.g. the JAX
+    package's ``noahmp_init_state`` or a JAX column's new state as numpy)
+    as tensors on ``device``: float32, the layer count ``isnow`` int32."""
+    return {k: torch.tensor(np.asarray(v), device=device,
+                            dtype=torch.int32 if k == "isnow"
+                            else torch.float32)
+            for k, v in arrays.items()}
+
+
+def params_from_numpy(params: SimpleNamespace, device) -> SimpleNamespace:
+    """A resolved parameter namespace (the JAX package's
+    ``noahmp_params.resolve_params``, its arrays as numpy or jax arrays)
+    with its arrays as tensors on ``device``: float32, integer arrays
+    int32, boolean ones bool; numbers and numpy tables kept as they are."""
+    out = SimpleNamespace()
+    for k, v in vars(params).items():
+        if hasattr(v, "dtype") and not isinstance(v, np.ndarray):
+            a = np.asarray(v)
+            dtype = (torch.bool if a.dtype == bool else torch.int32
+                     if a.dtype.kind in "iu" else torch.float32)
+            v = torch.tensor(a, device=device, dtype=dtype)
+        out.__dict__[k] = v
+    return out

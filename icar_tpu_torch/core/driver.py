@@ -96,8 +96,9 @@ class ICARDriver:
             device=self.model.device)
         self._install_initial_conditions(raw0)
         self._install_external_conditions()
-        # the lake and Noah-MP initialisations of the JAX driver are not
-        # ported: ICARModel refuses their options (Slice F)
+        # the lake's initialisation is not ported: ICARModel refuses its
+        # option (Slice F)
+        self._init_noahmp()
 
         if options.output.engine == "classic-async":
             self.writer = AsyncStepWriter(options.output.output_file,
@@ -182,6 +183,58 @@ class ICARDriver:
         self.model.state = s
         if applied:
             print("external initial conditions applied:", ", ".join(applied))
+
+    def _init_noahmp(self):
+        """The Noah-MP prognostic state (noahmp_init + snow_init,
+        lsm_noahmpdrv.f90:1443-2149; icar_tpu/core/driver.py:210-252):
+        ``noahmp.noahmp_init_state`` on the host from the model's surface
+        fields, its fields uploaded to the model's device. Skipped on
+        restart, whose file holds them."""
+        from .. import constants as C
+        o = self.options
+        if o.physics.landsurface != C.LSM_NOAHMP or o.run.restart:
+            return
+        from ..physics import noahmp as nmp
+        from ..physics.noah_params import load_tables
+        from ..physics.noahmp_params import load_mp_tables
+        m = self.model
+        s = dict(m.state)
+        host = {k: s[k].detach().cpu().numpy() for k in (
+            "skin_temperature", "swe", "snow_height", "soil_temperature",
+            "soil_water_content", "soil_type", "veg_type")}
+        init = nmp.noahmp_init_state(
+            host["skin_temperature"], np.asarray(host["swe"], np.float32),
+            host["snow_height"], host["soil_temperature"],
+            host["soil_water_content"], host["soil_type"],
+            host["veg_type"],
+            load_mp_tables(lu_categories=o.lsm.LU_Categories),
+            load_tables())
+        mapping = {
+            "snow_albedo_prev": "albold", "snow_water_eq_prev": "sneqvo",
+            "soil_liquid_water": "sh2o", "soil_water_content": "smc",
+            "canopy_temperature": "tah",
+            "canopy_vapor_pressure": "eah", "canopy_fwet": "fwet",
+            "canopy_water_liquid": "canliq", "canopy_water_ice": "canice",
+            "veg_leaf_temperature": "tv", "ground_surf_temperature": "tg",
+            "snow_layer_depth": "zsnso", "snow_height": "snowh",
+            "snow_layer_ice": "snice",
+            "snow_layer_liquid_water": "snliq",
+            "water_table_depth": "zwt", "water_aquifer": "wa",
+            "storage_gw": "wt", "lai": "lai", "sai": "sai",
+            "coeff_momentum_drag": "cm", "coeff_heat_exchange": "ch",
+            "snow_age_factor": "tauss", "swe": "sneqv",
+        }
+        up = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                       device=m.device)
+        for field, key in mapping.items():
+            if field in s:
+                s[field] = up(init[key])
+        s["snow_nlayers"] = up(init["isnow"])
+        nsn = s["snow_temperature"].shape[0]
+        s["snow_temperature"] = up(init["stc"][:nsn])
+        s["soil_temperature"] = up(init["stc"][nsn:])
+        m.state = s
+        print("NoahMP state initialized")
 
     def _rain_frac_month(self, t):
         """Month index of the bias-correction climatology at model time t

@@ -22,10 +22,12 @@ import torch
 
 from .. import constants as C
 from ..ops.pointwise import inv
-from ..physics import (cloud_fraction, cu_tiedtke, lsm_noah, pbl_simple,
-                       ra_simple, rrtmg_lw, rrtmg_sw, surface, ysu)
+from ..physics import (cloud_fraction, cu_tiedtke, lsm_noah, noahmp,
+                       noahmp_glacier, pbl_simple, ra_simple, rrtmg_lw,
+                       rrtmg_sw, surface, ysu)
 from ..physics.ghg import ghg_for_options
 from ..physics.noah_params import load_tables
+from ..physics.noahmp_params import load_mp_tables, resolve_params
 
 
 class Statics:
@@ -48,8 +50,15 @@ class Statics:
         self.terrain = geom.terrain
         self.z_atm = geom.z[0] - geom.terrain
         self.lon = geom.lon
+        self.lat = geom.lat
         lat = geom.lat.cpu().numpy()
         dev = geom.z.device
+        self.mp_tables = self.zsoil = None
+        if options is not None \
+                and options.physics.landsurface == C.LSM_NOAHMP:
+            self.mp_tables = load_mp_tables(
+                lu_categories=options.lsm.LU_Categories)
+            self.zsoil = torch.as_tensor(noahmp.ZSOIL, device=dev)
         self.sin_lat = torch.as_tensor(np.sin(lat * (np.pi / 180.0)),
                                        device=dev)
         self.cos_lat = torch.as_tensor(np.cos(lat * (np.pi / 180.0)),
@@ -188,11 +197,17 @@ def radiative_heating(s, dt):
     return s
 
 
-def surface_fluxes(s, g: Statics, options, lsm_dt):
+def surface_fluxes(s, g: Statics, options, lsm_dt, doy=None,
+                   year_length=None, stage=None):
     """The surface stage (lsm, time_step.f90:491; icar_tpu/core/step.py
-    :365-680 for water=1 and lsm=4): simple open-water fluxes on water
-    cells, Noah on land cells over ``lsm_dt`` (the time since its last
-    call, a 0-d float32 tensor), then the 2 m diagnostics."""
+    :365-680 for water=1, lsm=3 and lsm=4): simple open-water fluxes on
+    water cells, then Noah or Noah-MP on land cells over ``lsm_dt`` (the
+    time since the last call, a 0-d float32 tensor), then the 2 m
+    diagnostics. Noah-MP takes the day of the year and the year's length
+    (0-d float32 tensors) for its phenology and solar zenith;
+    ``stage(name)`` brackets its column ("noahmp") and the glacier
+    column's ("glacier")."""
+    stage = stage or (lambda name: contextlib.nullcontext())
     phys = options.physics
     s = dict(s)
     u0, v0 = s["u_mass"][0], s["v_mass"][0]
@@ -252,6 +267,17 @@ def surface_fluxes(s, g: Statics, options, lsm_dt):
                                   + nout["runoff_subsurface"])
         # a copy: the microphysics adds to the accumulator in place
         s["rainbl"] = s["precipitation"].clone()
+    if phys.landsurface == C.LSM_NOAHMP:
+        with stage("noahmp"):
+            s, sh, lh, tskin, z0, qv_surf, nstate, pnmp, cosz, \
+                precip_delta = _noahmp(s, g, options, lsm_dt, doy,
+                                       year_length, sh, lh, tskin, z0,
+                                       qv_surf)
+        with stage("glacier"):
+            s, sh, lh, tskin = _glacier(s, g, options, lsm_dt, nstate, pnmp,
+                                        cosz, precip_delta, sh, lh, tskin)
+        # a copy: the microphysics adds to the accumulator in place
+        s["rainbl"] = s["precipitation"].clone()
     lnz2 = torch.log((2.0 + z0) / z0)
     ex2 = (C.KARMAN / lnz2) ** 2 * wind
     t2, q2 = surface.surface_diagnostics(
@@ -265,6 +291,141 @@ def surface_fluxes(s, g: Statics, options, lsm_dt):
         s["temperature_2m"] = t2
         s["humidity_2m"] = q2
     return s
+
+
+# state field -> Noah-MP state key, written back on land cells
+# (icar_tpu/core/step.py:577-601)
+NOAHMP_FIELDS = (
+    ("snow_albedo_prev", "albold"), ("snow_water_eq_prev", "sneqvo"),
+    ("soil_liquid_water", "sh2o"), ("soil_water_content", "smc"),
+    ("canopy_temperature", "tah"), ("canopy_vapor_pressure", "eah"),
+    ("canopy_fwet", "fwet"), ("canopy_water_liquid", "canliq"),
+    ("canopy_water_ice", "canice"), ("veg_leaf_temperature", "tv"),
+    ("ground_surf_temperature", "tg"), ("snow_layer_depth", "zsnso"),
+    ("snow_height", "snowh"), ("snow_layer_ice", "snice"),
+    ("snow_layer_liquid_water", "snliq"), ("water_table_depth", "zwt"),
+    ("water_aquifer", "wa"), ("storage_gw", "wt"), ("lai", "lai"),
+    ("sai", "sai"), ("coeff_momentum_drag", "cm"),
+    ("coeff_heat_exchange", "ch"), ("snow_age_factor", "tauss"))
+# ... and those the glacier column writes back on its cells (:640-651)
+GLACIER_FIELDS = (
+    ("snow_water_eq_prev", "sneqvo"), ("soil_liquid_water", "sh2o"),
+    ("soil_water_content", "smc"), ("ground_surf_temperature", "tg"),
+    ("snow_layer_depth", "zsnso"), ("snow_height", "snowh"),
+    ("snow_layer_ice", "snice"), ("snow_layer_liquid_water", "snliq"),
+    ("coeff_momentum_drag", "cm"), ("coeff_heat_exchange", "ch"),
+    ("snow_age_factor", "tauss"))
+
+
+def _write_back(s, new, mask, fields, options):
+    """The columns' new state on ``mask``'s cells: the named fields, the
+    snow and soil temperatures out of the stacked ``stc``, the layer count
+    (float in the state) and the snow water clamped to ``max_swe``."""
+    for name, key in fields:
+        v = new[key]
+        m = mask[None] if v.dim() == 3 else mask
+        s[name] = torch.where(m, v, s[name])
+    nsn = s["snow_temperature"].shape[0]
+    s["snow_temperature"] = torch.where(mask[None], new["stc"][:nsn],
+                                        s["snow_temperature"])
+    s["soil_temperature"] = torch.where(mask[None], new["stc"][nsn:],
+                                        s["soil_temperature"])
+    s["snow_nlayers"] = torch.where(mask, new["isnow"].to(torch.float32),
+                                    s["snow_nlayers"])
+    s["swe"] = torch.where(mask, torch.clamp(new["sneqv"],
+                                             max=options.lsm.max_swe),
+                           s["swe"])
+
+
+def _noahmp(s, g: Statics, options, lsm_dt, doy, year_length, sh, lh,
+            tskin, z0, qv_surf):
+    """Noah-MP on the land cells (lsm_driver.f90:1293-1517;
+    icar_tpu/core/step.py:477-601): the per-cell parameters, cosz as the
+    sine of the solar elevation (lsm_driver.f90:1336-1338), the column
+    state with the snow temperatures over the soil's, then the fluxes and
+    the state written back on land. Returns the updated state and fluxes,
+    and the column state, parameters, cosz and precipitation the glacier
+    column takes."""
+    veg_t = s["veg_type"].to(torch.int32)
+    soil_t = s["soil_type"].to(torch.int32)
+    pnmp = resolve_params(g.mp_tables, g.noah_tables, veg_t, soil_t)
+    elev, _ = ra_simple.solar_elevation(doy, year_length, g.lon, g.sin_lat,
+                                        g.cos_lat)
+    cosz = torch.sin(elev)
+    land = s["land_mask"] == 1.0
+    precip_delta = torch.clamp(s["precipitation"] - s["rainbl"], min=0.0)
+    nstate = dict(
+        albold=s["snow_albedo_prev"], sneqvo=s["snow_water_eq_prev"],
+        stc=torch.cat([s["snow_temperature"], s["soil_temperature"]], 0),
+        sh2o=s["soil_liquid_water"], smc=s["soil_water_content"],
+        tah=s["canopy_temperature"], eah=s["canopy_vapor_pressure"],
+        fwet=s["canopy_fwet"], canliq=s["canopy_water_liquid"],
+        canice=s["canopy_water_ice"], tv=s["veg_leaf_temperature"],
+        tg=s["ground_surf_temperature"], qsfc=s["water_vapor"][0],
+        isnow=s["snow_nlayers"].to(torch.int32),
+        zsnso=s["snow_layer_depth"], snowh=s["snow_height"],
+        sneqv=s["swe"], snice=s["snow_layer_ice"],
+        snliq=s["snow_layer_liquid_water"], zwt=s["water_table_depth"],
+        wa=s["water_aquifer"], wt=s["storage_gw"], lai=s["lai"],
+        sai=s["sai"], cm=s["coeff_momentum_drag"],
+        ch=s["coeff_heat_exchange"], tauss=s["snow_age_factor"])
+    p_i = s["pressure_interface"]
+    nout, nnew = noahmp.noahmp_driver(
+        pnmp, g.lat, year_length, doy, cosz, lsm_dt,
+        s["vegetation_fraction"], veg_t, s["temperature"][0], p_i[1],
+        p_i[0], s["u_mass"][0], s["v_mass"][0], s["water_vapor"][0],
+        s["shortwave"], s["longwave"], precip_delta,
+        s["soil_deep_temperature"], g.z_atm, nstate)
+    sh = torch.where(land, nout["hfx"], sh)
+    lh = torch.where(land, nout["lh"], lh)
+    tskin = torch.where(land, nout["tsk"], tskin)
+    z0 = torch.where(land, nout["z0wrf"], z0)
+    qv_surf = torch.where(land, nout["q1"], qv_surf)
+    s["ground_heat_flux"] = torch.where(land, nout["grdflx"],
+                                        s["ground_heat_flux"])
+    s["albedo"] = torch.where(land & (nout["albedo"] > 0.0), nout["albedo"],
+                              s["albedo"])
+    s["emissivity"] = torch.where(land, nout["emissi"], s["emissivity"])
+    s["runoff_surface"] = s["runoff_surface"] + torch.where(
+        land, nout["runsrf"] * lsm_dt, 0.0)
+    s["runoff_subsurface"] = s["runoff_subsurface"] + torch.where(
+        land, nout["runsub"] * lsm_dt, 0.0)
+    _write_back(s, nnew, land, NOAHMP_FIELDS, options)
+    s["canopy_water"] = torch.where(land, nnew["canliq"] + nnew["canice"],
+                                    s["canopy_water"])
+    return s, sh, lh, tskin, z0, qv_surf, nstate, pnmp, cosz, precip_delta
+
+
+def _glacier(s, g: Statics, options, lsm_dt, nstate, pnmp, cosz,
+             precip_delta, sh, lh, tskin):
+    """The glacier column on land cells of the ice category (noahmplsm,
+    lsm_noahmpdrv.f90:876; icar_tpu/core/step.py:604-662), from the column
+    state Noah-MP started from, overriding Noah-MP's result there."""
+    land = s["land_mask"] == 1.0
+    gmask = land & (s["veg_type"].to(torch.int32) == g.mp_tables.isice)
+    tot = nstate["snice"] + nstate["snliq"]
+    ficeold = torch.where(tot > 0.0, nstate["snice"]
+                          / torch.clamp(tot, min=1e-6), 0.0)
+    qv0 = s["water_vapor"][0]
+    gout, gnew = noahmp_glacier.glacier_sflx(
+        pnmp, cosz, lsm_dt, g.zsoil, s["temperature"][0],
+        s["pressure_interface"][1], s["u_mass"][0], s["v_mass"][0],
+        qv0 / (1.0 + qv0), s["shortwave"], s["longwave"],
+        precip_delta / lsm_dt, s["soil_deep_temperature"], ficeold,
+        g.z_atm, dict(nstate))
+    sh = torch.where(gmask, gout["fsh"], sh)
+    lh = torch.where(gmask, gout["fgev"], lh)
+    tskin = torch.where(gmask, gout["trad"], tskin)
+    s["ground_heat_flux"] = torch.where(gmask, gout["ssoil"],
+                                        s["ground_heat_flux"])
+    s["albedo"] = torch.where(gmask & (gout["albedo"] > 0.0),
+                              gout["albedo"], s["albedo"])
+    s["runoff_surface"] = s["runoff_surface"] + torch.where(
+        gmask, gout["runsrf"] * lsm_dt, 0.0)
+    s["runoff_subsurface"] = s["runoff_subsurface"] + torch.where(
+        gmask, gout["runsub"] * lsm_dt, 0.0)
+    _write_back(s, gnew, gmask, GLACIER_FIELDS, options)
+    return s, sh, lh, tskin
 
 
 def apply_fluxes(s, g: Statics, options, dt):

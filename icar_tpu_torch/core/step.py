@@ -290,9 +290,9 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     state and the number of substeps. ``geom`` holds torch tensors;
     ``dqdt`` maps advected species to boundary forcing tendencies;
     ``time_aux`` holds the interval's ``day_of_year0`` and
-    ``year_length`` (the radiation's solar geometry). With column physics
-    the interval runs ``run_interval_physics`` (``timer`` and ``cdf``:
-    see there);
+    ``year_length`` (the solar geometry of the radiation and Noah-MP).
+    With column physics the interval runs ``run_interval_physics``
+    (``timer`` and ``cdf``: see there);
     otherwise the whole domain is one block (``run_interval_sharded`` on a
     one-shard layout)."""
     if column_physics(options):
@@ -502,14 +502,16 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     new dt and wind operands every substep, and w_real in the refresh, a
     forced pressure its derived fields (``substep_needs``), and
     ``apply_forcing`` follows the advection. The
-    ``time_aux`` of ``run_interval`` is required with the radiation.
+    ``time_aux`` of ``run_interval`` is required with the radiation or
+    Noah-MP.
     ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by
     default). pbl_simple's substep count is one host read per substep;
     YSU and RRTMG read nothing back. ``timer(stage)``, when given, returns
     a context manager around each stage's work (``time_paths.StageTimer``:
     diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
-    radiation_lw and radiation (the zenith and the heating), surface,
-    pbl or pbl_ysu, convection, restack, mp_thompson or mp_simple_rho,
+    radiation_lw and radiation (the zenith and the heating), surface --
+    with Noah-MP its noahmp and glacier columns within it --, pbl or
+    pbl_ysu, convection, restack, mp_thompson or mp_simple_rho,
     advection)."""
     stage = timer or (lambda name: contextlib.nullcontext())
 
@@ -566,10 +568,13 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     if tend is not None or full:
         bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
     rrtmg = phys.radiation == C.RA_RRTMG
-    if phys.radiation in (C.RA_SIMPLE, C.RA_RRTMG):
+    noahmp = phys.landsurface == C.LSM_NOAHMP
+    year_length = None
+    if phys.radiation in (C.RA_SIMPLE, C.RA_RRTMG) or noahmp:
         if time_aux is None:
-            raise ValueError("run_interval_physics: the radiation needs "
-                             "time_aux (ICARModel._time_aux)")
+            raise ValueError("run_interval_physics: the radiation and "
+                             "Noah-MP need time_aux "
+                             "(ICARModel._time_aux)")
         day0 = np.float32(time_aux["day_of_year0"])
         year_length = torch.full((), float(np.float32(
             time_aux["year_length"])), device=dev)
@@ -622,7 +627,11 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
             with stage("surface"):
                 lsm_dt = lsm_throttle.step(dt)
                 if lsm_dt is not None:
-                    s = ps.surface_fluxes(s, statics, options, scalar(lsm_dt))
+                    doy_t = scalar(day0 + t * np.float32(inv(86400.0))) \
+                        if noahmp else None
+                    s = ps.surface_fluxes(s, statics, options,
+                                          scalar(lsm_dt), doy_t, year_length,
+                                          stage)
                 s = ps.apply_fluxes(s, statics, options, dt_t)
         if phys.boundarylayer == C.PBL_YSU:
             with stage("pbl_ysu"):

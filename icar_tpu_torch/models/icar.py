@@ -8,15 +8,16 @@ advection (any order, with or without FCT), with or without density
 advection (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``), and with any subset of the full physics column
 of bench.py's fullphys: simple radiation or RRTMG (longwave and
-shortwave, or the simple shortwave), Noah with simple water, the simple
-PBL or YSU and Tiedtke convection. Every wind solver runs with
-each: balance only, linear theory (wind=1, its table built on the model's
-device at the first wind solve), the mass-conserving winds (wind=2), the
-iterative solver (wind=3), linear then iterative (wind=5), and flow
-blocking. Any other option raises ``NotImplementedError`` naming the
-ROADMAP slice that ports it. Forcing tendencies (``set_forcing_tendencies``)
-relax the advected species on the boundary ring and change u, v, w,
-pressure and the 2-D fields everywhere (a file-driven run's,
+shortwave, or the simple shortwave), Noah or Noah-MP (with its glacier
+column) with simple water, the simple PBL or YSU and Tiedtke convection.
+Every wind solver runs with each: balance only, linear theory (wind=1,
+its table built on the model's device at the first wind solve), the
+mass-conserving winds (wind=2), the iterative solver (wind=3), linear
+then iterative (wind=5), and flow blocking. Any other option raises
+``NotImplementedError`` naming the ROADMAP slice that ports it. Forcing
+tendencies (``set_forcing_tendencies``) relax the advected species on
+the boundary ring and change u, v, w, pressure and the 2-D fields
+everywhere (a file-driven run's,
 ``core/driver.py``); a monthly rain fraction scales each interval's
 precipitation (``set_rain_fraction``). ``attach_mesh`` shards a model over
 a device mesh (``parallel/mesh.py``); its state then lives in one block
@@ -72,8 +73,8 @@ def _unported(options: Options):
          f"radiation={ph.radiation}", "Slice F (radiation=1)"),
         (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE, C.PBL_YSU),
          f"pbl={ph.boundarylayer}", "Slice F (the other PBL schemes)"),
-        (ph.landsurface in (C.LSM_NONE, C.LSM_NOAH),
-         f"lsm={ph.landsurface}", "Slice F (Noah-MP and the others)"),
+        (ph.landsurface in (C.LSM_NONE, C.LSM_NOAH, C.LSM_NOAHMP),
+         f"lsm={ph.landsurface}", "Slice F (the other land surfaces)"),
         (ph.watersurface in (C.WATER_NONE, C.WATER_SIMPLE),
          f"water={ph.watersurface}", "Slice F (lake)"),
         (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
@@ -494,7 +495,8 @@ class ICARModel:
 # deep convection scheme, config.py validate, as the JAX package's do);
 # and bench.py --config fullphys_rrtmg with Noah in Noah-MP's place:
 # RRTMG (longwave and shortwave every 1800 s, icloud 3, on the synthetic
-# k-tables bench.py injects, seeds 0 and 1) and YSU
+# k-tables bench.py injects, seeds 0 and 1) and YSU; then that config as
+# bench.py builds it, with Noah-MP
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
@@ -536,6 +538,58 @@ def synthetic_rrtmg_tables(o=None):
 FULLPHYS_RRTMG_NOAH = dict(FULLPHYS, rad=C.RA_RRTMG, pbl=C.PBL_YSU,
                            options_cb=synthetic_rrtmg_tables)
 
+
+# state field -> noahmp_init_state key: the fields bench.py's
+# _init_noahmp_state installs (bench.py:160-169; the file-driven driver
+# installs more, core.driver.ICARDriver._init_noahmp). NOTE reference
+# fault kept (ROADMAP section 3): the snow layers' ice and liquid water,
+# the snow height and the soil water content are not among them, so a
+# cell that starts with snow layers gets layers without mass
+NOAHMP_BENCH_FIELDS = {
+    "snow_albedo_prev": "albold", "snow_water_eq_prev": "sneqvo",
+    "soil_liquid_water": "sh2o", "canopy_temperature": "tah",
+    "canopy_vapor_pressure": "eah", "veg_leaf_temperature": "tv",
+    "ground_surf_temperature": "tg", "snow_layer_depth": "zsnso",
+    "water_table_depth": "zwt", "water_aquifer": "wa",
+    "storage_gw": "wt", "lai": "lai", "sai": "sai"}
+
+
+def init_noahmp_state(model: ICARModel,
+                      fields: Optional[Dict[str, str]] = None) -> ICARModel:
+    """The Noah-MP initial state of an ideal run as bench.py builds it
+    (bench.py:136-175 ``_init_noahmp_state``; the reference reads these
+    from its land files): the skin, soil and deep-soil temperatures from
+    the lowest air temperature, then ``noahmp_init_state`` on the host,
+    then its ``fields`` (NOAHMP_BENCH_FIELDS by default), the layer count
+    and the snow and soil temperatures, uploaded to the model's device.
+    Returns ``model``."""
+    from ..physics.noah_params import load_tables
+    from ..physics.noahmp import NSNOW, noahmp_init_state
+    from ..physics.noahmp_params import load_mp_tables
+
+    st = model._global_state()
+    s = {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
+    s["skin_temperature"] = np.asarray(s["temperature"][0],
+                                       np.float32).copy()
+    s["soil_temperature"][:] = s["skin_temperature"][None]
+    s["soil_deep_temperature"] = s["skin_temperature"].copy()
+    init = noahmp_init_state(
+        s["skin_temperature"], s["swe"].astype(np.float32),
+        s["snow_height"], s["soil_temperature"], s["soil_water_content"],
+        s["soil_type"], s["veg_type"], load_mp_tables(), load_tables())
+    for f, k in (NOAHMP_BENCH_FIELDS if fields is None else fields).items():
+        s[f] = init[k]
+    s["snow_nlayers"] = init["isnow"]
+    s["snow_temperature"] = init["stc"][:NSNOW]
+    s["soil_temperature"] = init["stc"][NSNOW:]
+    model._install({k: model._tensor(v) for k, v in s.items()})
+    return model
+
+
+# bench.py --config fullphys_rrtmg as bench.py builds it: Noah-MP with its
+# glacier column (ideal_ridge_model initialises it as bench.py does)
+FULLPHYS_RRTMG = dict(FULLPHYS_RRTMG_NOAH, lsm=C.LSM_NOAHMP)
+
 RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "Thompson": dict(adv=C.ADV_MPDATA, mp=C.MP_THOMPSON),
                "fullphys": FULLPHYS,
@@ -548,7 +602,8 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "fullphys_mpdata": dict(FULLPHYS, adv=C.ADV_MPDATA),
                "fullphys_sb04": dict(FULLPHYS, mp=C.MP_SIMPLE,
                                      conv=C.CU_NONE),
-               "fullphys_rrtmg_noah": FULLPHYS_RRTMG_NOAH}
+               "fullphys_rrtmg_noah": FULLPHYS_RRTMG_NOAH,
+               "fullphys_rrtmg": FULLPHYS_RRTMG}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
                  "MPDATA_density", "upwind_mp_throttle")
@@ -564,7 +619,9 @@ def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,
     """The standard ideal-ridge case (tests/gen_ideal_test.py semantics),
     with the JAX package's defaults, on ``device`` (the card by default).
     ``options_cb(options)`` can adjust scheme sub-options before the model
-    is built."""
+    is built. With Noah-MP the land state is initialised as bench.py does
+    (``init_noahmp_state``; the JAX package's ideal_ridge_model leaves
+    that to its caller, bench.py)."""
     from ..forcing.ideal import (ideal_latlon, make_ideal_case,
                                  schaer_topography)
 
@@ -592,4 +649,6 @@ def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,
     model = ICARModel(o, terrain, lat, lon, device=device)
     model.set_initial_conditions(make_ideal_case(model.geom, u_profile=u_speed,
                                                  rh=rh))
+    if model.options.physics.landsurface == C.LSM_NOAHMP:
+        init_noahmp_state(model)
     return model

@@ -296,13 +296,17 @@ def test_the_cuda_path_and_a_mesh():
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("landsurface", C.LSM_NOAHMP, "Slice F \\(Noah-MP"),
+    # the land surface's case, its id kept from when Noah-MP (now ported:
+    # tests/test_torch_noahmp_model.py) was its example
+    pytest.param("landsurface", C.LSM_BASIC,
+                 "Slice F \\(the other land surfaces\\)",
+                 id="landsurface-4-Slice F \\(Noah-MP"),
     ("watersurface", C.WATER_LAKE, "Slice F \\(lake\\)"),
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
     ("convection", C.CU_KF, "Slice F \\(the other schemes\\)")])
 def test_the_rest_of_slice_f_still_raises(option, value, match):
-    """Noah-MP, the lake, Thompson-aerosol and the other schemes still
-    raise naming their slice, with RRTMG and YSU."""
+    """The other land surfaces, the lake, Thompson-aerosol and the other
+    schemes still raise naming their slice, with RRTMG and YSU."""
     def cb(o):
         synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)

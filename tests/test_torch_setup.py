@@ -97,12 +97,18 @@ FUNCTION_COPIES = {
         "ForcingData")),
     "utils/diagnostics_debug.py": ("utils/diagnostics_debug.py", (
         "Timer", "Timers")),
+    "physics/noahmp_params.py": ("physics/noahmp_params.py", (
+        "NSOIL", "NSNOW", "SOILCOLOR", "_MODIS", "_RAD", "_GLOBAL",
+        "_VEG_KEYS", "load_mp_tables")),
+    "physics/noahmp.py": ("physics/noahmp.py", (
+        "ZSOIL", "DZSOIL", "noahmp_init_state")),
 }
 
 
 def _functions(source):
     """Top-level function and class definitions of ``source`` (text) by
-    name: (first docstring line, AST dump without the docstring)."""
+    name: (first docstring line, AST dump without the docstring); and its
+    assignments to one name (tables, constants): (None, AST dump)."""
     out = {}
     for node in ast.parse(source).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -110,22 +116,28 @@ def _functions(source):
             if doc is not None:
                 node.body = node.body[1:]
             out[node.name] = ((doc or "").split("\n")[0], ast.dump(node))
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = (None, ast.dump(node))
     return out
 
 
 @pytest.mark.parametrize("orig,name", sorted(
     (o, n) for o, (_, names) in FUNCTION_COPIES.items() for n in names))
 def test_function_copy_matches_original(orig, name):
-    """Each copied function's (or class's) AST equals its original's
-    (its own docstring aside,
-    the sources read as text, not imported); its docstring's first line
-    names the source."""
+    """Each copied function's (or class's, or named table's) AST equals
+    its original's (its own docstring aside, the sources read as text, not
+    imported); a function's docstring's first line names the source, a
+    table's module docstring does."""
     rel, _ = FUNCTION_COPIES[orig]
     src = open(os.path.join(REPO, "icar_tpu", orig)).read()
     want = _functions(src.replace("jnp.", "np."))[name][1]
-    doc, got = _functions(open(os.path.join(REPO, "icar_tpu_torch",
-                                            rel)).read())[name]
-    assert doc.startswith(f"Copy of icar_tpu/{orig}"), doc
+    copy_src = open(os.path.join(REPO, "icar_tpu_torch", rel)).read()
+    doc, got = _functions(copy_src)[name]
+    if doc is None:
+        assert f"icar_tpu/{orig}" in ast.get_docstring(ast.parse(copy_src))
+    else:
+        assert doc.startswith(f"Copy of icar_tpu/{orig}"), doc
     assert got == want, f"icar_tpu_torch/{rel} {name} drifted from " \
                         f"icar_tpu/{orig}"
 
@@ -232,3 +244,39 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_noahmp_columns_return_float32():
+    """noahmp_driver and glacier_sflx on float32 inputs return float32
+    (int32 layer counts): no float64 table or constant promotes them."""
+    from icar_tpu_torch.physics import noahmp, noahmp_glacier
+    from icar_tpu_torch.physics.noah_params import load_tables
+    from icar_tpu_torch.physics.noahmp_params import (load_mp_tables,
+                                                      resolve_params)
+    shape = (1, 2)
+    f = lambda v: torch.full(shape, v, dtype=torch.float32)
+    for veg, soil in ((10, 6), (15, 6)):
+        st = noahmp.noahmp_init_state(
+            np.full(shape, 270.0, np.float32),
+            np.full(shape, 40.0, np.float32), np.zeros(shape, np.float32),
+            np.full((4,) + shape, 271.0, np.float32),
+            np.full((4,) + shape, 0.3, np.float32),
+            np.full(shape, soil, np.int32), np.full(shape, veg, np.int32),
+            load_mp_tables(), load_tables())
+        st = {k: torch.as_tensor(v) for k, v in st.items()}
+        vt = torch.full(shape, veg, dtype=torch.int32)
+        p = resolve_params(load_mp_tables(), load_tables(), vt,
+                           torch.full(shape, soil, dtype=torch.int32))
+        dt = torch.tensor(600.0)
+        out, new = noahmp.noahmp_driver(
+            p, f(45.0), torch.tensor(365.0), torch.tensor(100.0), f(0.5),
+            dt, f(0.5), vt, f(272.0), f(9e4), f(9.05e4), f(3.0), f(1.0),
+            f(3e-3), f(400.0), f(300.0), f(1.0), f(280.0), f(30.0), st)
+        gout, gnew = noahmp_glacier.glacier_sflx(
+            p, f(0.5), dt, torch.as_tensor(noahmp.ZSOIL), f(272.0), f(9e4),
+            f(3.0), f(1.0), f(3e-3), f(400.0), f(300.0), f(1e-3), f(260.0),
+            torch.ones((3,) + shape), f(30.0), st)
+        for k, v in list(out.items()) + list(new.items()) \
+                + list(gout.items()) + list(gnew.items()):
+            want = torch.int32 if k == "isnow" else torch.float32
+            assert v.dtype == want, k

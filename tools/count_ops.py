@@ -5,8 +5,10 @@ stage of one substep of the full-physics ridge, counted on the CPU.
     python tools/count_ops.py [--nz 20] [--path fullphys_rrtmg_noah]
 
 Builds the full-physics ridge (models.icar FULLPHYS, or with ``--path
-fullphys_rrtmg_noah`` its RRTMG + YSU variant) at a small width on the
-CPU, advances one 600 s interval, then runs each column-physics stage of
+fullphys_rrtmg_noah`` its RRTMG + YSU variant, or with ``--path
+fullphys_rrtmg`` that variant with Noah-MP, as bench.py builds it) at a
+small width on the CPU, advances one 600 s interval, then runs each
+column-physics stage of
 core/physics_step.py once on that state under a dispatch counter and
 prints one JSON line: the aten operations each stage dispatches (on the
 card each is a launch or a view) and the interval's total with its
@@ -15,7 +17,8 @@ branch on the data in Python, apart from the PBL's diffusion substeps),
 but for RRTMG, whose call repeats per chunk of RRTMG_COL_CHUNK columns
 (``rrtmg_ops`` counts it on a model of any size and device, as
 chip_smoke.py does at full width); Tiedtke's grow with the levels (its
-level scans).
+level scans). ``noahmp_ops`` counts one Noah-MP and one glacier column
+call.
 """
 
 import argparse
@@ -44,6 +47,55 @@ def count(fn, *a):
     with c:
         fn(*a)
     return c.n
+
+
+def _time_scalars(m):
+    """(doy, year length) of ``m``'s interval as 0-d tensors on its
+    device."""
+    import torch
+    aux = m._time_aux()
+    dev = m.device
+    return (torch.tensor(float(aux["day_of_year0"]), device=dev),
+            torch.tensor(float(aux["year_length"]), device=dev))
+
+
+def noahmp_ops(m):
+    """The aten operations of one ``noahmp_driver`` call and one
+    ``glacier_sflx`` call within one surface stage (lsm_dt 300 s) on the
+    state of ``m`` (a model of the fullphys_rrtmg path, on any device),
+    and of the whole stage: {name: count}. No column reads back to the
+    host, so the counts do not depend on the state; on the CPU they hold
+    a few more, which depend on the width (``ops/pointwise.py`` pads and
+    cuts its operands there)."""
+    import torch
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.physics import noahmp, noahmp_glacier
+    s = diagnostic_update(m.state, m.geom_t, full=True)
+    g = ps.Statics(m.geom_t, m.options)
+    doy, year = _time_scalars(m)
+    counts = {}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrap(*a, **k):
+            out = []
+            counts[name] = count(lambda: out.append(fn(*a, **k)))
+            return out[0]
+        return fn, wrap
+    wrapped = [(mod, name) + counted(mod, name) for mod, name in (
+        (noahmp, "noahmp_driver"), (noahmp_glacier, "glacier_sflx"))]
+    try:
+        for mod, name, _, wrap in wrapped:
+            setattr(mod, name, wrap)
+        total = count(ps.surface_fluxes, s, g, m.options,
+                      torch.tensor(300.0, device=m.device), doy, year)
+    finally:
+        for mod, name, fn, _ in wrapped:
+            setattr(mod, name, fn)
+    counts["surface stage (Noah-MP, glacier, simple water)"] = total
+    return counts
 
 
 def rrtmg_ops(m):
@@ -85,7 +137,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nz", type=int, default=20)
     ap.add_argument("--path", default="fullphys",
-                    choices=("fullphys", "fullphys_rrtmg_noah"))
+                    choices=("fullphys", "fullphys_rrtmg_noah",
+                             "fullphys_rrtmg"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -100,13 +153,14 @@ def main():
     s = diagnostic_update(m.state, m.geom_t, full=False, with_w_real=True)
     g = ps.Statics(m.geom_t)
     dt = torch.tensor(25.0)
-    aux = m._time_aux()
-    doy = torch.tensor(float(aux["day_of_year0"]))
-    year = torch.tensor(float(aux["year_length"]))
-    ops = {"surface (Noah and simple water)": count(
-        ps.surface_fluxes, s, g, m.options, dt),
-        "apply_fluxes": count(ps.apply_fluxes, s, g, m.options, dt),
-        "convection (Tiedtke)": count(ps.convection, s, g, m.options, dt)}
+    doy, year = _time_scalars(m)
+    ops = {"apply_fluxes": count(ps.apply_fluxes, s, g, m.options, dt),
+           "convection (Tiedtke)": count(ps.convection, s, g, m.options, dt)}
+    if args.path == "fullphys_rrtmg":
+        ops.update(noahmp_ops(m))
+    else:
+        ops["surface (Noah and simple water)"] = count(
+            ps.surface_fluxes, s, g, m.options, dt)
     if args.path == "fullphys":
         ops.update(radiation=count(ps.radiation, s, g, doy, year, dt),
                    pbl=count(ps.boundary_layer, s, g, dt))
