@@ -145,6 +145,25 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    the CPU run's own one-ulp spread; the layer count by the share of
    cells). K1's and K5's lines in the table add these figures under
    "fullphys_rrtmg".
+15. the CLM lake (water=3) on bench.py's fullphys ridge with a band of
+   lake across the upwind flat (install_lake: columns LAKE_BAND of every
+   row, lake_init with the default 50 m): on the 500x500x20 path's state
+   after one interval, K1 against its kernel-order oracle and K5 against
+   its plain version (0.0 each), one surface call's time by CUDA events
+   (its lake column) and the aten operations of one lake call
+   (tools/count_ops.py lake_ops); then two intervals of a fresh model (K5
+   and K1 once a substep and no other kernel, the lake as often as the
+   host's counter predicts, convective rain) with its digest and the
+   lake's (t_lake3d, t_soisno3d, lake_icefrac3d, t_grnd2d), the stages
+   of one more interval by CUDA events (lake within surface); the small
+   lake case (lake_small_model: cold air, lake ice, snow of one to five
+   layers) on the CPU and the card (the larger of FULLPHYS_BOUNDS and
+   twice the CPU run's own one-ulp spread; the layer count and the ice
+   fraction by the share of cells); and the small file-driven case with
+   radiation=1, lsm=1, the lake, SB04 + upwind and the simple PBL
+   through core.driver.main on the CPU and the card (K3 and K1 alike;
+   its output and restart held the same way). K1's and K5's lines in the
+   table add these figures under "fullphys_lake".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -154,6 +173,7 @@ without a CUDA device it exits non-zero before printing a result. Imports
 nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -247,6 +267,144 @@ def noahmp_small_model(device):
     s["swe"] = torch.as_tensor(swe, device=s["swe"].device)
     return init_noahmp_state(m, dict(NOAHMP_BENCH_FIELDS,
                                      **NOAHMP_SNOW_FIELDS))
+# phase 15, the CLM lake (water=3; tests/test_lake.py:263-285): bench.py's
+# fullphys ridge at 500x500x20 with the lake scheme and a band of lake
+# (MODIS category 21, the default 50 m deep) across the upwind flat,
+# columns LAKE_BAND on every row; the small case is that test's ideal
+# ridge with its lake strip, in air LAKE_SMALL_COLD below the
+# Weisman-Klemp sounding (the lake starts frozen at the top and its ice
+# grows) and snow on the strip that lake_init lays as one to five layers
+# (LAKE_SMALL_SWE mm by row)
+LAKE_CATEGORY = 21
+LAKE_BAND = (50, 150)
+LAKE_SMALL = dict(nx=24, ny=8, nz=10, dx=1000.0, hill_height=300.0, rh=0.5)
+LAKE_SMALL_BAND = (4, 8)
+LAKE_SMALL_COLD = 30.0
+LAKE_SMALL_SWE = (0.0, 4.0, 7.0, 20.0, 45.0, 100.0, 200.0, 0.0)
+LAKE_SMALL_INTERVAL = 1800.0
+# the lake's fields held by the share of cells past their bound: its snow
+# layer count and ice fraction flip with one-ulp differences at their
+# thresholds (ROADMAP section 3)
+LAKE_LEVEL_FIELDS = ("snl2d", "lake_icefrac3d")
+# the small file-driven case with the options that take the forcing's
+# radiation (radiation=1) and surface fluxes (lsm=1), the lake (water=3)
+# on a strip of LAKE_FILE_BAND, SB04 + upwind and the simple PBL; the
+# forcing file gains surface fields (LAKE_FILE_SURFACE: per forcing step,
+# W m-2 and K) that the namelist names (LAKE_FILE_VARS)
+LAKE_FILE_BAND = (4, 12)
+LAKE_FILE_DEPTH = 10.0
+LAKE_FILE_PHYSICS = dict(mp=2, adv=1, rad=1, lsm=1, water=3, pbl=2)
+LAKE_FILE_SURFACE = {"swdown": (350.0, 420.0, 380.0),
+                     "lwdown": (300.0, 310.0, 320.0),
+                     "sh": (40.0, 60.0, 50.0), "lh": (80.0, 100.0, 90.0),
+                     "sst": (284.0, 285.0, 286.0)}
+LAKE_FILE_VARS = {"swdown_var": "swdown", "lwdown_var": "lwdown",
+                  "shvar": "sh", "lhvar": "lh", "sst_var": "sst"}
+
+
+def install_lake(model, cols, swe=None):
+    """A lake band over the columns ``cols`` (first, end) of every row of
+    ``model``, installed on the host as tests/test_lake.py does: the
+    land-use category LAKE_CATEGORY on the band, the skin temperature and
+    the sst the lowest level's temperature, ``swe`` (mm by row) on the
+    band when given, ``water_lake.lake_init`` with the default depth, the
+    lake cells water in ``land_mask``; uploaded to the model's device.
+    Returns ``model``."""
+    import torch
+    from icar_tpu_torch.physics.water_lake import lake_init
+    st = model.state
+    s = {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
+    s["veg_type"][:, cols[0]:cols[1]] = LAKE_CATEGORY
+    s["skin_temperature"] = np.asarray(s["temperature"][0],
+                                       np.float32).copy()
+    s["sst"] = s["skin_temperature"].copy()
+    if swe is not None:
+        s["swe"][:, cols[0]:cols[1]] = np.asarray(swe, np.float32)[:, None]
+    lake_init(s, np.asarray(model.geom.terrain), np.asarray(model.geom.lat))
+    new = {k: torch.as_tensor(np.asarray(s[k]), dtype=v.dtype,
+                              device=v.device) for k, v in st.items()}
+    new["land_mask"] = torch.where(new["lakemask"] > 0.5, 2.0,
+                                   new["land_mask"])
+    model.state = new
+    return model
+
+
+def lake_small_model(device):
+    """Phase 15's small case on ``device``: tests/test_lake.py's ideal
+    ridge with water=3 in air LAKE_SMALL_COLD below its sounding, its lake
+    strip with LAKE_SMALL_SWE."""
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.forcing.ideal import (make_ideal_case,
+                                              weisman_klemp_theta)
+    from icar_tpu_torch.models.icar import ideal_ridge_model
+    m = ideal_ridge_model(**LAKE_SMALL, water=C.WATER_LAKE, device=device)
+    m.set_initial_conditions(make_ideal_case(
+        m.geom, u_profile=10.0, rh=LAKE_SMALL["rh"],
+        theta_profile=lambda z: weisman_klemp_theta(z) - LAKE_SMALL_COLD))
+    return install_lake(m, LAKE_SMALL_BAND, LAKE_SMALL_SWE)
+
+
+class lake_land_use:
+    """Within the ``with``, a file-driven driver (``core.driver.
+    ICARDriver``) set up finds the land-use category LAKE_CATEGORY and a
+    lake depth of LAKE_FILE_DEPTH on the columns ``cols`` before its lake
+    init: neither the port's driver nor
+    the JAX package's reads a land-use category from a file (ROADMAP
+    section 3). ``driver_class``: the driver class to patch (the port's by
+    default)."""
+
+    def __init__(self, cols, driver_class=None):
+        if driver_class is None:
+            from icar_tpu_torch.core.driver import ICARDriver
+            driver_class = ICARDriver
+        self.cls, self.cols = driver_class, cols
+        self.fn = driver_class._install_external_conditions
+
+    def __enter__(self):
+        fn, cols = self.fn, self.cols
+
+        def with_lakes(driver):
+            fn(driver)
+            s = dict(driver.model.state)
+            veg = s["veg_type"]
+            col = np.arange(veg.shape[-1])
+            band = ((col >= cols[0]) & (col < cols[1])).astype(np.float32)
+            import torch
+            if torch.is_tensor(veg):
+                band = torch.as_tensor(band, device=veg.device)
+            s["veg_type"] = veg * (1.0 - band) + LAKE_CATEGORY * band
+            s["lake_depth"] = s["lake_depth"] * (1.0 - band) \
+                + LAKE_FILE_DEPTH * band
+            driver.model.state = s
+        self.cls._install_external_conditions = with_lakes
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._install_external_conditions = self.fn
+        return False
+
+
+def add_surface_forcing(path, fields=None):
+    """Append the forcing-only options' surface fields to the forcing file
+    ``path`` (write_ideal_files' layout): each of ``fields`` (name: one
+    value per forcing step; LAKE_FILE_SURFACE by default) as a (time, y,
+    x) variable, uniform in space."""
+    from icar_tpu_torch.io.netcdf import NCFile
+    fields = LAKE_FILE_SURFACE if fields is None else fields
+    with NCFile(path) as f:
+        ny, nx = f.var_shape("lat")
+        nt = f.var_shape("u")[0]
+    with NCFile(path, "a") as f:
+        for name, values in fields.items():
+            if len(values) != nt:
+                raise ValueError(f"{name}: {len(values)} values for {nt} "
+                                 f"forcing steps")
+            data = np.broadcast_to(np.asarray(values, np.float32)[:, None,
+                                                                  None],
+                                   (nt, ny, nx)).copy()
+            f.create_var(name, ("time", "y", "x"), data)
+
+
 FULLPHYS_BOUNDS = {"species": 1e-4, "other": 1e-3}
 FULLPHYS_ILL_CONDITIONED = ("cloud_fraction", "longwave")
 FULLPHYS_ILL_SHARE = 0.05
@@ -322,6 +480,9 @@ RRTMG_DRAW_FRACTIONS = np.linspace(0.05, 0.95, 20)
 RRTMG_DRAW_SIGMAS = 5.0
 # the fields a one-ulp nudge of the small case leaves alone
 CATEGORIES = ("land_mask", "veg_type", "soil_type")
+# the fields a one-ulp nudge leaves alone on a lake state: the categories,
+# the lake mask and the layer count, which the scheme reads as integers
+LAKE_NOT_NUDGED = CATEGORIES + ("lakemask", "snl2d")
 # YSU's PBL height and exchange coefficient follow the PBL top's level
 # index: a column whose top moves one level moves them by a layer's depth,
 # so the card is held to the CPU on them as on FULLPHYS_ILL_CONDITIONED,
@@ -330,13 +491,14 @@ YSU_LEVEL_FIELDS = ("hpbl", "exch_h")
 
 
 def write_namelist(path, init, forcing, prefix, z, physics,
-                   restart_from=None):
+                   restart_from=None, var_list=None):
     """Write an options file for one hour of a file-driven run from the
     files ``init`` and ``forcing``: ``z`` (FILE_RUN_Z or FILE_SMALL_Z) its
     levels, ``physics`` its &physics settings, forcing and output every
     FILE_INTERVAL, output and restarts named from ``prefix`` (a restart at
-    each output), resumed from the checkpoint ``restart_from`` when given.
-    Returns ``path``."""
+    each output), resumed from the checkpoint ``restart_from`` when given,
+    ``var_list`` its &var_list entries (namelist key: variable) when
+    given. Returns ``path``."""
     phys = ", ".join(f"{k} = {v}" for k, v in physics.items())
     dz = ", ".join(f"{d:.1f}" for d in z["dz_levels"])
     text = f"""&model_version
@@ -371,6 +533,12 @@ def write_namelist(path, init, forcing, prefix, z, physics,
     if restart_from:
         text += f"""&restart_info
     restart_file = "{restart_from}",
+/
+"""
+    if var_list:
+        entries = "\n".join(f'    {k} = "{v}",' for k, v in var_list.items())
+        text += f"""&var_list
+{entries}
 /
 """
     with open(path, "w") as f:
@@ -1697,6 +1865,38 @@ def hold_card_to_cpu(cpu, card, label, spread=None,
     return worst
 
 
+def nudged(state, seed, skip=CATEGORIES):
+    """``state`` with every nonzero value of every float32 field but those
+    of ``skip`` one ulp up or down (drawn from ``seed``)."""
+    import torch
+    r = np.random.default_rng(seed)
+    out = dict(state)
+    for k, a in state.items():
+        if a.dtype != torch.float32 or k in skip:
+            continue
+        up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
+                             device=a.device)
+        out[k] = torch.where(a != 0, torch.nextafter(a, torch.where(
+            up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf))), a)
+    return out
+
+
+def own_spread(cpu, run, seeds=3):
+    """The CPU run's own spread: for each field of the CPU model ``cpu``,
+    the largest |nudged - cpu| over the field's largest magnitude of the
+    models ``run(seed)`` (started from ``nudged`` states) for ``seeds``
+    seeds."""
+    spread = {k: 0.0 for k in cpu.state}
+    for seed in range(seeds):
+        other = run(seed)
+        for k in cpu.state:
+            want = cpu.field(k).astype(np.float64)
+            spread[k] = max(spread[k], float(
+                np.abs(other.field(k) - want).max()
+                / max(float(np.abs(want).max()), 1e-30)))
+    return spread
+
+
 def check_fullphys_cpu_card(ideal_ridge_model, fullphys, label="fullphys",
                             ulp_spread=False):
     """The small full-physics case (of the schemes ``fullphys``) on the
@@ -2285,19 +2485,10 @@ def rrtmg_small(ideal_ridge_model, opts, device, seed=None):
     on ``device`` with McICA draws made on the CPU (the same on both
     devices); with ``seed``, every nonzero value of every float field
     but CATEGORIES starts one ulp up or down (seeded)."""
-    import torch
     m = ideal_ridge_model(**FULLPHYS_SMALL, **dict(
         opts, options_cb=rrtmg_noon_options), device=device)
     if seed is not None:
-        r = np.random.default_rng(seed)
-        for k, a in m.state.items():
-            if a.dtype != torch.float32 or k in CATEGORIES:
-                continue
-            up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
-                                 device=a.device)
-            m.state[k] = torch.where(a != 0, torch.nextafter(a, torch.where(
-                up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf))),
-                a)
+        m.state = nudged(m.state, seed)
     m.mcica_cdf = CountingCdf(on="cpu")
     m.advance(FULLPHYS_SMALL_INTERVAL)
     return m
@@ -2321,14 +2512,8 @@ def check_rrtmg_small(ideal_ridge_model, opts):
     if calls[0] != calls[1] or calls[0] < 1:
         raise AssertionError(f"small fullphys_rrtmg_noah case: RRTMG calls "
                              f"{calls} (CPU, card)")
-    spread = {k: 0.0 for k in cpu.state}
-    for seed in range(3):
-        nudged = rrtmg_small(ideal_ridge_model, opts, "cpu", seed)
-        for k in cpu.state:
-            want = cpu.field(k).astype(np.float64)
-            spread[k] = max(spread[k], float(
-                np.abs(nudged.field(k) - want).max()
-                / max(float(np.abs(want).max()), 1e-30)))
+    spread = own_spread(cpu, lambda seed: rrtmg_small(
+        ideal_ridge_model, opts, "cpu", seed))
     worst = hold_card_to_cpu(cpu, card, "small fullphys_rrtmg_noah case",
                              spread, FULLPHYS_ILL_CONDITIONED
                              + YSU_LEVEL_FIELDS)
@@ -2591,19 +2776,10 @@ def noahmp_small(device, seed=None):
     made on the CPU and Noah-MP's calls counted; with ``seed``, every
     nonzero value of every float field but CATEGORIES starts one ulp up
     or down (seeded). Returns (model, Noah-MP calls)."""
-    import torch
     from icar_tpu_torch.physics import noahmp
     m = noahmp_small_model(device)
     if seed is not None:
-        r = np.random.default_rng(seed)
-        for k, a in m.state.items():
-            if a.dtype != torch.float32 or k in CATEGORIES:
-                continue
-            up = torch.as_tensor(r.uniform(size=tuple(a.shape)) < 0.5,
-                                 device=a.device)
-            m.state[k] = torch.where(a != 0, torch.nextafter(a, torch.where(
-                up, torch.full_like(a, np.inf), torch.full_like(a, -np.inf))),
-                a)
+        m.state = nudged(m.state, seed)
     m.mcica_cdf = CountingCdf(on="cpu")
     with counted_calls(noahmp, "noahmp_driver") as calls:
         m.advance(FULLPHYS_SMALL_INTERVAL)
@@ -2651,14 +2827,7 @@ def check_noahmp_small():
             or n_cpu < 1:
         raise AssertionError(f"{label}: RRTMG calls {calls}, Noah-MP calls "
                              f"{[n_cpu, n_card]} (CPU, card)")
-    spread = {k: 0.0 for k in cpu.state}
-    for seed in range(3):
-        nudged, _ = noahmp_small("cpu", seed)
-        for k in cpu.state:
-            want = cpu.field(k).astype(np.float64)
-            spread[k] = max(spread[k], float(
-                np.abs(nudged.field(k) - want).max()
-                / max(float(np.abs(want).max()), 1e-30)))
+    spread = own_spread(cpu, lambda seed: noahmp_small("cpu", seed)[0])
     worst = hold_card_to_cpu(cpu, card, label, spread,
                              FULLPHYS_ILL_CONDITIONED + YSU_LEVEL_FIELDS
                              + ("snow_nlayers",))
@@ -2777,6 +2946,286 @@ def check_noahmp(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
                                               key=lambda kv: -kv[1])))
     del model
     check_noahmp_small()
+    b1, by1 = bound(*advect_work(*shape))
+    b5, by5 = bound(*work5)
+    return {
+        "advect_upwind": {
+            "launches": launches["advect_upwind"], "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0]},
+        "mp_thompson": {
+            "launches": launches["mp_thompson"], "max_abs_err": err5,
+            "ms": ms5, "plain_ms": pms5, "bound_ms": b5, "bound_by": by5,
+            "active_tile_share": share}}
+
+
+def lake_small(device, seed=None):
+    """Phase 15's small case (lake_small_model), one LAKE_SMALL_INTERVAL
+    on ``device`` with the lake's calls counted; with ``seed``, every
+    nonzero value of every float field but CATEGORIES, the lake mask and
+    the layer count starts one ulp up or down (seeded). Returns (model,
+    lake calls)."""
+    from icar_tpu_torch.physics import water_lake
+    m = lake_small_model(device)
+    if seed is not None:
+        m.state = nudged(m.state, seed, LAKE_NOT_NUDGED)
+    with counted_calls(water_lake, "lake_driver") as calls:
+        m.advance(LAKE_SMALL_INTERVAL)
+    return m, len(calls)
+
+
+def check_lake_small():
+    """Phase 15 (b): the small lake case (lake_small_model: cold air, the
+    lake strip with snow of one to five layers) on the CPU and the card:
+    the same substeps and lake calls, every field held by
+    ``hold_card_to_cpu`` to the larger of FULLPHYS_BOUNDS and twice the
+    CPU run's own spread under a one-ulp nudge (three seeds), the layer
+    count and the ice fraction (LAKE_LEVEL_FIELDS) by the share of cells
+    past it; lake ice and snow layers on both, the lake state untouched
+    outside the lake."""
+    cpu, n_cpu = lake_small("cpu")
+    card, n_card = lake_small("cuda")
+    label = "small lake case"
+    if card.last_n_substeps != cpu.last_n_substeps or n_cpu != n_card \
+            or n_cpu < 1:
+        raise AssertionError(f"{label}: substeps {card.last_n_substeps} / "
+                             f"{cpu.last_n_substeps}, lake calls {n_card} /"
+                             f" {n_cpu} (card / CPU)")
+    spread = own_spread(cpu, lambda seed: lake_small("cpu", seed)[0])
+    worst = hold_card_to_cpu(cpu, card, label, spread,
+                             FULLPHYS_ILL_CONDITIONED + LAKE_LEVEL_FIELDS)
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        lake = m.field("lakemask") > 0.5
+        if not (m.field("lake_icefrac3d")[0][lake] > 0).all():
+            raise AssertionError(f"{label} on the {where}: no ice on the "
+                                 f"lake's top layer")
+        if not (m.field("snl2d")[~lake] == 0).all():
+            raise AssertionError(f"{label} on the {where}: lake state "
+                                 f"outside the lake")
+    layers = np.unique(card.field("snl2d")[card.field("lakemask") > 0.5])
+    log(f"{label} {LAKE_SMALL['nx']}x{LAKE_SMALL['ny']}x{LAKE_SMALL['nz']}, "
+        f"{LAKE_SMALL_INTERVAL:.0f} s: {card.last_n_substeps} substeps, "
+        f"{n_cpu} lake calls on the card and the CPU; snow layer counts on "
+        f"the lake {sorted(layers.tolist())}; top-layer ice fraction "
+        f"{float(card.field('lake_icefrac3d')[0].max()):.3f}; largest "
+        f"|card - CPU| / max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {b:.3e})" for g, (r, k, b) in worst.items()))
+
+
+class nudged_after_init:
+    """Within the ``with``, a file-driven driver (``core.driver.
+    ICARDriver``) set up starts, right after its lake init, from every
+    nonzero float32 value of its state but CATEGORIES, the lake mask and
+    the layer count one ulp up or down (``seed``)."""
+
+    def __init__(self, seed):
+        from icar_tpu_torch.core.driver import ICARDriver
+        self.cls, self.seed = ICARDriver, seed
+        self.fn = ICARDriver._init_noahmp
+
+    def __enter__(self):
+        fn, seed = self.fn, self.seed
+
+        def with_nudge(driver):
+            driver.model.state = nudged(driver.model.state, seed,
+                                        LAKE_NOT_NUDGED)
+            return fn(driver)
+        self.cls._init_noahmp = with_nudge
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._init_noahmp = self.fn
+        return False
+
+
+def check_lake_file(kernels):
+    """Phase 15 (c): the small file-driven case with the forcing-only
+    options (LAKE_FILE_PHYSICS: radiation=1, lsm=1, the lake on
+    LAKE_FILE_BAND, SB04 + upwind, the simple PBL) through
+    ``core.driver.main`` on the CPU and on the card, its forcing file with
+    the surface fields these options read (add_surface_forcing): K3 and
+    K1 launched alike on the card and no other kernel; the output at 0,
+    1800 and 3600 s and the 3600 s restart (the lake's fields among its
+    own) held card against CPU to the larger of FULLPHYS_BOUNDS and twice
+    the CPU run's own spread under a one-ulp nudge of its state after
+    set-up (three seeds: the lake's sensible heat carries the float32
+    rounding of its column energy), the layer count and the ice fraction
+    by the share of cells."""
+    import tempfile
+    from icar_tpu_torch.core.driver import main as driver_main
+    from icar_tpu_torch.forcing.ideal import write_ideal_files
+    from icar_tpu_torch.io.netcdf import NCFile
+    label = "small file run, the lake and the forcing-only options"
+    outs = {}
+    with tempfile.TemporaryDirectory() as d:
+        init, forcing = write_ideal_files(d, **FILE_SMALL)
+        add_surface_forcing(forcing)
+        runs = [("cpu", "cpu", None), ("cuda", "cuda", None)] + [
+            (f"nudged{seed}", "cpu", seed) for seed in range(3)]
+        for run, device, seed in runs:
+            prefix = os.path.join(d, f"{run}_")
+            nml = write_namelist(prefix + "options.nml", init, forcing,
+                                 prefix, FILE_SMALL_Z, LAKE_FILE_PHYSICS,
+                                 var_list=LAKE_FILE_VARS)
+            kernels.reset_launches()
+            with lake_land_use(LAKE_FILE_BAND), (
+                    nudged_after_init(seed) if seed is not None
+                    else contextlib.nullcontext()):
+                code = driver_main([nml, "--device", device])
+            if code != 0:
+                raise AssertionError(f"{label} on {device}: exit {code}")
+            with NCFile(prefix + "out_run.nc") as f_out, \
+                    NCFile(prefix + "rst_00003600.nc") as f_rst:
+                outs[run] = ({n: f_out.read(n) for n in f_out.variables()},
+                             {n: f_rst.read(n) for n in f_rst.variables()},
+                             dict(kernels.LAUNCHES))
+    card_launches = outs["cuda"][2]
+    k3, k1 = card_launches["mp_simple_rho"], card_launches["advect_upwind"]
+    others = {k: v for k, v in card_launches.items()
+              if k not in ("mp_simple_rho", "advect_upwind") and v}
+    if not (k3 == k1 > 0) or others:
+        raise AssertionError(f"{label}: launches {card_launches}")
+    species = ("potential_temperature", "water_vapor", "cloud_water",
+               "rain_mass", "snow_mass")
+    worst = {}
+    for i, what in enumerate(("output", "restart")):
+        cpu, card = outs["cpu"][i], outs["cuda"][i]
+        for k, want in cpu.items():
+            want = np.asarray(want, np.float64)
+            scale = max(float(np.abs(want).max()), 1e-30)
+            spread = max(float(np.abs(outs[f"nudged{seed}"][i][k]
+                                      - want).max()) / scale
+                         for seed in range(3))
+            bound_k = max(FULLPHYS_BOUNDS["species" if k in species
+                                          else "other"], 2 * spread)
+            got = np.asarray(card[k])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{label} on the card: non-finite "
+                                     f"{what} {k}")
+            rel = np.abs(got - want) / scale
+            share = FULLPHYS_ILL_SHARE if k in LAKE_LEVEL_FIELDS else 0.0
+            if (rel > bound_k).mean() > share:
+                raise AssertionError(f"{label}: {what} {k} differs by up "
+                                     f"to {float(rel.max()):.3e} of its "
+                                     f"largest value between the card and "
+                                     f"the CPU (bound {bound_k:.3e})")
+            ratio = float(rel.max()) / bound_k
+            if k not in LAKE_LEVEL_FIELDS and \
+                    ratio >= worst.get(what, (0.0, "", 0.0))[0]:
+                worst[what] = (ratio, k, bound_k)
+    lake = outs["cpu"][1]["lakemask"] > 0.5
+    log(f"{label} {FILE_SMALL['nx']}x{FILE_SMALL['ny']}x{FILE_SMALL_Z['nz']}"
+        f" through core.driver.main: {int(lake.sum())} lake cells, K3 and "
+        f"K1 {k1} launches each on the card; largest |card - CPU| / "
+        f"max|CPU| as a share of its bound: " + ", ".join(
+            f"{w} {r:.3f} ({k}; bound {b:.3e})"
+            for w, (r, k, b) in worst.items()))
+
+
+def check_lake(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
+               thompson_cases, smi):
+    """Phase 15: the CLM lake (water=3) on bench.py's fullphys ridge with
+    a lake band (LAKE_BAND, install_lake). On the 500x500x20 path's state
+    after one interval: K1 against its kernel-order oracle and K5 against
+    its plain version (0.0 each); one surface call's wall by CUDA events
+    (the lake's column within) and the aten operations of one lake call
+    (tools/count_ops.py lake_ops); two intervals of a fresh model (K5 and
+    K1 once a substep and nothing else, the lake as often as the host's
+    counter predicts) with its digest and the lake's; the stages of one
+    more interval by CUDA events; then the small lake case and the
+    file-driven case with the forcing-only options, card against CPU.
+    Returns the K1 and K5 figures for their table entries."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.core.state import state_digest
+    from icar_tpu_torch.physics import water_lake
+    from icar_tpu_torch.time_paths import (INTERVAL, INTERVALS, StageTimer,
+                                           stage_ms)
+    label = "fullphys_lake"
+    case = dict(cases["fullphys"], water=C.WATER_LAKE)
+    t0 = time.perf_counter()
+    warm = install_lake(ideal_ridge_model(**case, device="cuda"), LAKE_BAND)
+    tp.device_tables(step.thompson_params(warm.options),
+                     warm.state["pressure"].device)
+    warm.advance(INTERVAL)
+    torch.cuda.synchronize()
+    n_lake = int(warm.field("lakemask").sum())
+    log(f"{label} setup (lake_init on the host, {n_lake} lake cells) + "
+        f"first interval at 500x500x20: {time.perf_counter() - t0:.1f} s, "
+        f"{warm.last_n_substeps} substeps")
+    state_label = f"{label} state after one interval"
+    err1, oerr1, ms1, pms1, shape, _ = k1_on_state(warm, kernels, step,
+                                                   adv_plain, state_label)
+    err5, ms5, pms5, share, work5 = k5_on_state(warm, kernels, step, tp,
+                                                thompson_cases, state_label)
+    if oerr1 != 0.0 or err5 != 0.0:
+        raise AssertionError(f"{label}: K1 {oerr1} against its oracle, K5 "
+                             f"{err5} against its plain version")
+    log(f"{label}: K1 on the {state_label} 0.0 against its oracle, "
+        f"{ms1:.4f} ms (plain {pms1:.4f}); K5 0.0 against its plain "
+        f"version, {ms5:.4f} ms (plain {pms5:.4f}), {100 * share:.1f}% of "
+        f"tiles active")
+
+    # one surface call (lsm_dt 300 s) on that state, after one untimed
+    g = ps.Statics(warm.geom_t, warm.options)
+    s = diagnostic_update(warm.state, warm.geom_t, full=True)
+    lsm_dt = torch.tensor(300.0, device="cuda")
+    ps.surface_fluxes(s, g, warm.options, lsm_dt)
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    with timer("surface"):
+        ps.surface_fluxes(s, g, warm.options, lsm_dt, stage=timer)
+    ms = timer.ms()
+    call_s = time.perf_counter() - tw
+    ops = count_ops.lake_ops(warm)
+    log(f"{label}: one surface call {1e3 * call_s:.1f} ms of wall; "
+        f"CUDA-event ms: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in ms.items())
+        + "; aten operations per call: " + json.dumps(ops))
+    del warm, s
+
+    model = install_lake(ideal_ridge_model(**case, device="cuda"), LAKE_BAND)
+    path = step.path_kernels(model.options)
+    due_lsm = throttle_due(model, step, INTERVALS, INTERVAL,
+                           model.options.lsm.update_interval)
+    with counted_calls(water_lake, "lake_driver") as lake_calls:
+        launches, _, steps = drive(
+            model, kernels, label, path, smi,
+            fields=tuple(model.advect_names) + (
+                "precipitation", "convective_precipitation",
+                "sensible_heat", "latent_heat", "skin_temperature",
+                "soil_temperature", "t_lake3d", "t_grnd2d",
+                "lake_icefrac3d", "u", "v", "w"))
+    if len(lake_calls) != due_lsm:
+        raise AssertionError(f"{label}: {len(lake_calls)} lake calls in "
+                             f"{steps} substeps, the host's counter "
+                             f"predicts {due_lsm}")
+    conv = float(model.global_field("convective_precipitation").max())
+    if not conv > 0:
+        raise AssertionError(f"{label}: no convective rain")
+    lake_digest = state_digest(
+        {k: model.global_field(k) for k in ("t_lake3d", "t_soisno3d",
+                                            "lake_icefrac3d", "t_grnd2d")},
+        ["t_lake3d", "t_soisno3d", "lake_icefrac3d", "t_grnd2d"])
+    log(f"digest {label} lake: " + json.dumps(lake_digest))
+    log(f"{label}: the lake called {len(lake_calls)} times in {steps} "
+        f"substeps, as the host's counter predicts; mp_thompson and "
+        f"advect_upwind once a substep; convective rain max {conv:.3f} mm")
+    stages = stage_ms(model)
+    total = sum(v for k, v in stages["stages_ms"].items() if k != "lake")
+    log(f"{label} stages of one more interval ({stages['substeps']} "
+        f"substeps, wall {stages['wall_ms']:.1f} ms, the stages' events "
+        f"{total:.1f} ms; lake within surface), CUDA-event ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages["stages_ms"].items(),
+                                              key=lambda kv: -kv[1])))
+    del model
+    check_lake_small()
+    check_lake_file(kernels)
     b1, by1 = bound(*advect_work(*shape))
     b5, by5 = bound(*work5)
     return {
@@ -2945,6 +3394,13 @@ def main():
     # stages, and the small case card against CPU
     noahmp = check_noahmp(ideal_ridge_model, cases, kernels, step,
                           adv_plain, thompson_plain, thompson_cases, smi)
+    # 15. the CLM lake on the fullphys ridge with a lake band: K1 and K5 on
+    # that path's state, one surface call's time and the lake's
+    # operations, two intervals counting kernel launches and lake calls,
+    # the stages; the small lake case and the file-driven case with the
+    # forcing-only options, card against CPU
+    lake = check_lake(ideal_ridge_model, cases, kernels, step, adv_plain,
+                      thompson_plain, thompson_cases, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -2959,6 +3415,7 @@ def main():
             entry["fullphys"] = fullphys[name]
             entry["fullphys_rrtmg_noah"] = rrtmg[name]
             entry["fullphys_rrtmg"] = noahmp[name]
+            entry["fullphys_lake"] = lake[name]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):

@@ -96,8 +96,7 @@ class ICARDriver:
             device=self.model.device)
         self._install_initial_conditions(raw0)
         self._install_external_conditions()
-        # the lake's initialisation is not ported: ICARModel refuses its
-        # option (Slice F)
+        self._init_lake()
         self._init_noahmp()
 
         if options.output.engine == "classic-async":
@@ -183,6 +182,40 @@ class ICARDriver:
         self.model.state = s
         if applied:
             print("external initial conditions applied:", ", ".join(applied))
+
+    def _init_lake(self):
+        """The CLM lake's state (lakeini, water_lake.f90:4904-5431 via
+        lsm_init, lsm_driver.f90:884-989; icar_tpu/core/driver.py:181-208):
+        ``water_lake.lake_init`` on the host from the model's surface
+        fields with the land-use table's lake and water categories, its
+        fields uploaded to the model's device; the lake cells become water
+        in ``land_mask`` (lsm_driver.f90:710, 880). Skipped on restart,
+        whose file holds the lake state."""
+        from .. import constants as C
+        o = self.options
+        if o.physics.watersurface != C.WATER_LAKE or o.run.restart:
+            return
+        from ..physics.water_lake import lake_init
+        m = self.model
+        fields = {k: v.detach().cpu().numpy().copy()
+                  for k, v in m.state.items()}
+        _, _, water_cat, lake_cat = o.lsm.resolved_categories()
+        lake_init(fields, np.asarray(m.geom.terrain),
+                  np.asarray(m.geom.lat), lake_category=lake_cat,
+                  water_category=water_cat,
+                  lakedepth_default=o.lsm.lakedepth_default,
+                  lake_min_elev=o.lsm.lake_min_elev)
+        s = dict(m.state)
+        for k, v in fields.items():
+            if k in s:
+                s[k] = torch.as_tensor(np.asarray(v), dtype=s[k].dtype,
+                                       device=m.device)
+        lake = torch.as_tensor(fields["lakemask"] > 0.5, device=m.device)
+        if "land_mask" in s:
+            s["land_mask"] = torch.where(lake, 2.0, s["land_mask"])
+        m.state = s
+        print(f"lake model initialized: {int(fields['lakemask'].sum())} "
+              f"lake cells")
 
     def _init_noahmp(self):
         """The Noah-MP prognostic state (noahmp_init + snow_init,

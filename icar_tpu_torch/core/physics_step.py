@@ -2,8 +2,10 @@
 land and water surface, the surface fluxes, the boundary layer and
 convection, in the operator order of icar_tpu/core/step.py
 ``physics_step`` (:241-803): ra_simple or RRTMG (its calls throttled, its
-heating applied every substep), the throttled surface (simple water, then
-Noah), apply_fluxes, YSU or pbl_simple, Tiedtke. The microphysics and the
+heating applied every substep; with radiation=1 the forcing's radiation
+stays), the throttled surface (simple water, the lake, then Noah or
+Noah-MP; with lsm=1 the forcing's fluxes stay on land), apply_fluxes, YSU
+or pbl_simple, Tiedtke. The microphysics and the
 advection that follow run on the species stack (``core/step.py``).
 
 Each stage takes the state dict ``s`` (the advected species as rows of
@@ -24,7 +26,7 @@ from .. import constants as C
 from ..ops.pointwise import inv
 from ..physics import (cloud_fraction, cu_tiedtke, lsm_noah, noahmp,
                        noahmp_glacier, pbl_simple, ra_simple, rrtmg_lw,
-                       rrtmg_sw, surface, ysu)
+                       rrtmg_sw, surface, water_lake, ysu)
 from ..physics.ghg import ghg_for_options
 from ..physics.noah_params import load_tables
 from ..physics.noahmp_params import load_mp_tables, resolve_params
@@ -200,13 +202,16 @@ def radiative_heating(s, dt):
 def surface_fluxes(s, g: Statics, options, lsm_dt, doy=None,
                    year_length=None, stage=None):
     """The surface stage (lsm, time_step.f90:491; icar_tpu/core/step.py
-    :365-680 for water=1, lsm=3 and lsm=4): simple open-water fluxes on
-    water cells, then Noah or Noah-MP on land cells over ``lsm_dt`` (the
-    time since the last call, a 0-d float32 tensor), then the 2 m
-    diagnostics. Noah-MP takes the day of the year and the year's length
-    (0-d float32 tensors) for its phenology and solar zenith;
-    ``stage(name)`` brackets its column ("noahmp") and the glacier
-    column's ("glacier")."""
+    :365-680): simple open-water fluxes on water cells (water=1, and
+    water=3 where the state holds an sst), then the CLM lake on the lake
+    cells (water=3), then Noah or Noah-MP on land cells over ``lsm_dt``
+    (the time since the last call, a 0-d float32 tensor), then the 2 m
+    diagnostics. With lsm=1 and radiation=1 the fluxes and radiation are
+    the forcing's, left in place but on water and lake cells. Noah-MP
+    takes the day of the year and the year's length (0-d float32 tensors)
+    for its phenology and solar zenith; ``stage(name)`` brackets the
+    lake's column ("lake"), Noah-MP's ("noahmp") and the glacier column's
+    ("glacier")."""
     stage = stage or (lambda name: contextlib.nullcontext())
     phys = options.physics
     s = dict(s)
@@ -218,11 +223,16 @@ def surface_fluxes(s, g: Statics, options, lsm_dt, doy=None,
     tskin = s["skin_temperature"]
     t1 = s["temperature"][0]
     qv_surf = s["water_vapor"][0]
-    if phys.watersurface == C.WATER_SIMPLE:
+    if phys.watersurface in (C.WATER_SIMPLE, C.WATER_LAKE) and "sst" in s:
+        # under water=3 the simple scheme still handles the ocean cells
+        # (lsm_driver.f90:1063-1072); the lake overwrites its own below
         water = s["land_mask"] == 2.0        # kLC_WATER
         sh, lh, z0, tskin, qv_surf = surface.water_simple(
             s["sst"], s["surface_pressure"], wind, s["ustar"],
             s["water_vapor"][0], t1, g.z_atm, water, sh, lh, z0, tskin)
+    if phys.watersurface == C.WATER_LAKE:
+        with stage("lake"):
+            s, sh, lh, tskin = _lake(s, g, options, lsm_dt, sh, lh, tskin)
     if phys.landsurface == C.LSM_NOAH:
         lnz = torch.log((g.z_atm + z0) / z0)
         base = (75 * C.KARMAN ** 2 * torch.sqrt((g.z_atm + z0) / z0)) \
@@ -291,6 +301,38 @@ def surface_fluxes(s, g: Statics, options, lsm_dt, doy=None,
         s["temperature_2m"] = t2
         s["humidity_2m"] = q2
     return s
+
+
+def _lake(s, g: Statics, options, lsm_dt, sh, lh, tskin):
+    """The CLM lake on the whole grid, its results written back on the
+    lake cells (lsm_driver.f90:1075-1140; icar_tpu/core/step.py:389-420):
+    sensible and latent heat, skin temperature, ground heat flux, albedo
+    and every lake field. Its precipitation is the accumulation since the
+    last call, as Noah's (the JAX package's choice: the reference passes a
+    stale value). Then ``rainbl`` follows the accumulator unless Noah runs
+    after (ROADMAP section 3: Noah-MP then reads no precipitation).
+    Returns the updated state and fluxes."""
+    lakemask = s["lakemask"] > 0.5
+    precip_delta = torch.clamp(
+        (s["precipitation"] - s["rainbl"]).to(torch.float32), min=0.0)
+    p_i = s["pressure_interface"]
+    lout, lfields = water_lake.lake_driver(
+        s, s["temperature"][0], p_i[0], p_i[1], g.dz[0],
+        s["water_vapor"][0], s["u_mass"][0], s["v_mass"][0], s["longwave"],
+        s["shortwave"], precip_delta, g.lat, lsm_dt)
+    sh = torch.where(lakemask, lout["hfx"], sh)
+    lh = torch.where(lakemask, lout["lh"], lh)
+    tskin = torch.where(lakemask, lout["tsk"], tskin)
+    s["ground_heat_flux"] = torch.where(lakemask, lout["grdflx"],
+                                        s["ground_heat_flux"])
+    s["albedo"] = torch.where(lakemask, lout["albedo"], s["albedo"])
+    for k, v in lfields.items():
+        m = lakemask[None] if v.dim() == 3 else lakemask
+        s[k] = torch.where(m, v.to(s[k].dtype), s[k])
+    if options.physics.landsurface != C.LSM_NOAH:
+        # a copy: the microphysics adds to the accumulator in place
+        s["rainbl"] = s["precipitation"].clone()
+    return s, sh, lh, tskin
 
 
 # state field -> Noah-MP state key, written back on land cells

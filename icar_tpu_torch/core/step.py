@@ -43,7 +43,10 @@ substep; the kernels run per block through ``parallel/shard_kernels.py``
 (each block weights its own operands by its density, halo included).
 With column physics (radiation, the surface, the PBL, convection;
 ``core/physics_step.py``) the interval runs ``run_interval_physics`` on
-one block, with either microphysics and either advection.
+one block, with either microphysics and either advection. Without
+microphysics (mp=0: theta and water vapour advected) or without advection
+(advection=0: the species stacked but not advected) either loop runs the
+general loop's work without that scheme's kernel, as the JAX step does.
 """
 
 from __future__ import annotations
@@ -123,17 +126,45 @@ def thompson_params(options) -> ThompsonParams:
                              for f in dataclasses.fields(ThompsonParams)})
 
 
-def _check_species(mp: int, mpdata: bool, adv_names):
+# the species the registry advects without microphysics
+# (icar_tpu/registry.py:377-378)
+NO_MP_SPECIES = ("potential_temperature", "water_vapor")
+
+
+def _check_species(mp: int, adv: int, adv_names):
     """Raise ValueError unless the microphysics, the advection and the
     advected species are a pair that the loop runs (which options are
-    ported is ICARModel's decision, models/icar.py ``_unported``)."""
-    want = {C.MP_SIMPLE: MP_SPECIES,
+    ported is ICARModel's decision, models/icar.py ``_unported``). With
+    advection=0 the registry's species ride the stack unadvected."""
+    want = {C.MP_NONE: NO_MP_SPECIES, C.MP_SIMPLE: MP_SPECIES,
             C.MP_THOMPSON: mp_thompson.SPECIES}.get(mp)
-    if want is None or sorted(adv_names) != sorted(want):
+    name = {C.ADV_NONE: "no", C.ADV_UPWIND: "upwind",
+            C.ADV_MPDATA: "MPDATA"}.get(adv)
+    if want is None or name is None or sorted(adv_names) != sorted(want):
         raise ValueError(
-            f"run_interval: microphysics={mp} with "
-            f"{'MPDATA' if mpdata else 'upwind'} advection and the species "
-            f"{tuple(adv_names)} is not a configuration it runs")
+            f"run_interval: microphysics={mp} with {name or adv} "
+            f"advection and the species {tuple(adv_names)} is not a "
+            f"configuration it runs")
+
+
+def limited_rest(state, adv_names) -> Tuple[str, ...]:
+    """The limited fields the state holds outside the species stack,
+    which the general loop clamps to >= 0 near an interval's end
+    (icar_tpu/core/step.py:1718-1719). Under advection=0 the registry's
+    species are excluded too (the JAX loop keeps them off its stack and
+    out of this clamp alike)."""
+    return tuple(k for k in LIMITED_FIELDS
+                 if k in state and k not in adv_names)
+
+
+def _clamp_rest(state, rest):
+    """``state`` with each field of ``rest`` clamped to >= 0."""
+    if not rest:
+        return state
+    s = dict(state)
+    for k in rest:
+        s[k] = torch.clamp(s[k], min=0.0)
+    return s
 
 
 def limit_floors(adv_names: Sequence[str]) -> np.ndarray:
@@ -170,33 +201,41 @@ def _quantize(dt) -> np.float32:
 
 def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     """The kernels (names of ``kernels.LAUNCHES``) the interval loop
-    launches for ``options`` on the card: the microphysics', the
-    advection's, then with density advection the fold's
-    (``kernels.density_winds``). ``full_forcing``: under forcing
-    tendencies outside the advected species (``full_field_forcing``).
-    SB04 + upwind takes the fast loop's K2 only without these, density
-    advection, the microphysics throttle and the column physics; else the
-    general loop's K3."""
-    mpdata = options.physics.advection == C.ADV_MPDATA
-    advect = "advect_mpdata" if mpdata else "advect_upwind"
-    if options.physics.microphysics == C.MP_THOMPSON:
-        mp = "mp_thompson"
-    elif mpdata or full_forcing or general_loop(options):
-        mp = "mp_simple_rho"
-    else:
-        mp = "mp_simple"
-    if options.run.advect_density:
-        return (mp, advect, "density_fold")
-    return (mp, advect)
+    launches for ``options`` on the card: the microphysics' (none with
+    mp=0), the advection's, then with density advection the fold's
+    (``kernels.density_winds``; none of the three with advection=0).
+    ``full_forcing``: under forcing tendencies outside the advected
+    species (``full_field_forcing``). SB04 + upwind takes the fast loop's
+    K2 only without these, density advection, the microphysics throttle
+    and the column physics; else the general loop's K3."""
+    ph = options.physics
+    mpdata = ph.advection == C.ADV_MPDATA
+    path = []
+    if ph.microphysics == C.MP_THOMPSON:
+        path.append("mp_thompson")
+    elif ph.microphysics == C.MP_SIMPLE:
+        path.append("mp_simple_rho"
+                    if mpdata or full_forcing or general_loop(options)
+                    else "mp_simple")
+    if ph.advection != C.ADV_NONE:
+        path.append("advect_mpdata" if mpdata else "advect_upwind")
+        if options.run.advect_density:
+            path.append("density_fold")
+    return tuple(path)
 
 
 def general_loop(options) -> bool:
     """Whether options of SB04 + upwind leave the fast loop for the general
     one, as the JAX step does (icar_tpu/core/step.py:146-160): density
-    advection, the microphysics throttle or the column physics."""
+    advection, the microphysics throttle or the column physics; and any
+    loop without microphysics or without advection (the fast path needs
+    both)."""
+    ph = options.physics
     return (options.run.advect_density
             or float(options.mp.update_interval) > 0
-            or column_physics(options))
+            or column_physics(options)
+            or ph.microphysics == C.MP_NONE
+            or ph.advection == C.ADV_NONE)
 
 
 class Throttle:
@@ -327,8 +366,10 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     adv_names = tuple(adv_names)
     mp = options.physics.microphysics
     mpdata = options.physics.advection == C.ADV_MPDATA
-    _check_species(mp, mpdata, adv_names)
+    advect = options.physics.advection != C.ADV_NONE
+    _check_species(mp, options.physics.advection, adv_names)
     thompson = mp == C.MP_THOMPSON
+    sb04 = mp == C.MP_SIMPLE
     dqdts = dqdts or [{} for _ in states]
     adv = options.adv
     full = full_field_forcing(dqdts[0], adv_names)
@@ -361,7 +402,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     if thompson:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
-    else:
+    elif sb04:
         species = [adv_names.index(k) for k in MP_SPECIES]
 
     tend = None
@@ -373,6 +414,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         bmask = layout.boundary_masks()
         floor_b = [f[:, None, None, None] for f in floors]
         no_floor = [torch.full_like(f, -np.inf) for f in floor_b]
+    rest = limited_rest(states[0], adv_names)
 
     # the general loop (MPDATA, Thompson, full-field forcing, density
     # advection or the microphysics throttle) accumulates in the state,
@@ -384,8 +426,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         # the density follows theta (K3 reads it), the pressure-derived
         # fields a forced pressure
         needs = substep_needs(options, pressure_varies, winds_vary)
-        rain = [s["precipitation"].clone() for s in states]
-        snow = [s["snowfall"].clone() for s in states]
+        if sb04 or thompson:
+            rain = [s["precipitation"].clone() for s in states]
+            snow = [s["snowfall"].clone() for s in states]
         if thompson:
             graupel = [s["graupel"].clone() for s in states]
     else:
@@ -408,7 +451,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         # the near-end clamp folds into advection unless forcing follows
         clamp = near_end and tend is None
         if general:
-            th = smap[0] if thompson else species[0]
+            th = adv_names.index("potential_temperature")
             states = [diagnostic_update({**s, "potential_temperature": q[th]},
                                         g, needs=needs)
                       for s, q, g in zip(states, stacks, geoms)]
@@ -416,7 +459,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
                 pressure = [s["pressure"].contiguous() for s in states]
                 exner = [s["exner"].contiguous() for s in states]
         # the microphysics' time this substep (None: the throttle waits)
-        mp_dt = throttle.step(dt)
+        mp_dt = throttle.step(dt) if sb04 or thompson else None
         if mp_dt is not None and thompson:
             sk.thompson_stack_sharded(stacks, smap, exner, pressure, dz_mp,
                                       mp_dt, rain, snow, graupel, tparams)
@@ -426,29 +469,30 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
                 *([q[i] for q in stacks] for i in species), pressure, exner,
                 dz_mp, rain, snow, mp_dt, c2r, c2s,
                 rho=[s["density"] for s in states] if general else None)
-        # density advection: the operands weighted by the density the
-        # substep began with (the microphysics does not refresh it)
-        awinds = ([kernels.density_winds(w, s["density"])
-                   for w, s in zip(winds, states)] if density else winds)
-        if mpdata:
-            sk.advect_mpdata_sharded(layout, stacks, awinds, dt,
-                                     adv.mpdata_order,
-                                     adv.flux_corrected_transport, floors,
-                                     clamp, spares)
-        else:
-            sk.advect_upwind_sharded(layout, stacks, awinds, dt, floors,
-                                     clamp, spares)
-        stacks, spares = spares, stacks
+        if advect:
+            # density advection: the operands weighted by the density the
+            # substep began with (the microphysics does not refresh it)
+            awinds = ([kernels.density_winds(w, s["density"])
+                       for w, s in zip(winds, states)] if density
+                      else winds)
+            if mpdata:
+                sk.advect_mpdata_sharded(layout, stacks, awinds, dt,
+                                         adv.mpdata_order,
+                                         adv.flux_corrected_transport,
+                                         floors, clamp, spares)
+            else:
+                sk.advect_upwind_sharded(layout, stacks, awinds, dt, floors,
+                                         clamp, spares)
+            stacks, spares = spares, stacks
         if full:
             states = [apply_forcing(s, d, dt, m, adv_names)
                       for s, d, m in zip(states, dqdts, bmask)]
         if tend is not None:
-            # boundary-ring relaxation of the advected species (apply_
-            # forcing, domain_obj.f90:2400-2428), then the near-end clamp
-            stacks = [torch.maximum(q + te * (float(dt) * m),
-                                    fb if near_end else nf)
+            stacks = [_relax(q, te, dt, m, fb if near_end else nf, advect)
                       for q, te, m, fb, nf in zip(stacks, tend, bmask,
                                                   floor_b, no_floor)]
+        if near_end:
+            states = [_clamp_rest(s, rest) for s in states]
         layout.exchange(stacks)
         t = np.float32(t + dt)
         n += 1
@@ -458,16 +502,28 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         s = dict(s)
         for i, k in enumerate(adv_names):
             s[k] = q[i]
-        if general:
+        if general and (sb04 or thompson):
             s["precipitation"] = rain[b]
             s["snowfall"] = snow[b]
             if thompson:
                 s["graupel"] = graupel[b]
-        else:
+        elif not general:
             s["precipitation"] = s["precipitation"] + rain[b]
             s["snowfall"] = s["snowfall"] + snow[b]
         out.append(diagnostic_update(s, g, full=True))
     return out, n
+
+
+def _relax(q, tend, dt, bmask, floor, advected):
+    """The boundary-ring relaxation of the species stack ``q`` towards its
+    forcing (apply_forcing, domain_obj.f90:2400-2428), then the near-end
+    clamp to ``floor``, as the JAX loop does on its stacked carry; under
+    advection=0, where the JAX loop keeps the species off its stack,
+    ``apply_forcing``'s own order and no clamp
+    (icar_tpu/core/step.py:1718-1719)."""
+    if not advected:
+        return q + tend * float(dt) * bmask
+    return torch.maximum(q + tend * (float(dt) * bmask), floor)
 
 
 def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
@@ -510,17 +566,24 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     a context manager around each stage's work (``time_paths.StageTimer``:
     diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
     radiation_lw and radiation (the zenith and the heating), surface --
-    with Noah-MP its noahmp and glacier columns within it --, pbl or
-    pbl_ysu, convection, restack, mp_thompson or mp_simple_rho,
-    advection)."""
+    with the lake its lake column, with Noah-MP its noahmp and glacier
+    columns within it --, pbl or pbl_ysu, convection, restack,
+    mp_thompson or mp_simple_rho, advection). Without microphysics
+    (mp=0) the stack holds theta and water vapour and no microphysics
+    runs; without advection (advection=0) the species stay put, neither
+    K1 nor K4 launches, and the near-end clamp leaves them alone, as the
+    JAX loop leaves species it does not stack (its forcing relaxes them
+    on the boundary ring in apply_forcing's order)."""
     stage = timer or (lambda name: contextlib.nullcontext())
 
     adv_names = tuple(adv_names)
     phys = options.physics
     mp = phys.microphysics
     mpdata = phys.advection == C.ADV_MPDATA
-    _check_species(mp, mpdata, adv_names)
+    advect = phys.advection != C.ADV_NONE
+    _check_species(mp, phys.advection, adv_names)
     thompson = mp == C.MP_THOMPSON
+    sb04 = mp == C.MP_SIMPLE
     adv = options.adv
     density = options.run.advect_density
     dqdt = dqdt or {}
@@ -553,11 +616,12 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     if thompson:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
-    else:
+    elif sb04:
         species = [adv_names.index(k) for k in MP_SPECIES]
     # SB04 takes the interface thickness, Thompson the mass-level one
     dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
-    mp_stage = path_kernels(options)[0]
+    mp_stage = path_kernels(options)[0] if sb04 or thompson else None
+    rest = limited_rest(s, adv_names)
     statics = ps.Statics(geom, options)
     i_qv = adv_names.index("water_vapor")
     tend = None
@@ -658,41 +722,44 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
             for i, k in enumerate(adv_names):
                 if s[k] is not views[k]:
                     q[i].copy_(s[k])
-        mp_dt = mp_throttle.step(dt)
-        with stage(mp_stage):
-            if mp_dt is not None and thompson:
-                kernels.mp_thompson_stack(q, smap, s["exner"], s["pressure"],
-                                          dz_mp, mp_dt, s["precipitation"],
-                                          s["snowfall"], s["graupel"],
-                                          tparams)
-            elif mp_dt is not None:
-                c2r, c2s = formation_rates(mp_dt)
-                kernels.mp_simple_rho(
-                    *(q[i] for i in species), s["pressure"], s["exner"],
-                    s["density"], dz_mp, s["precipitation"], s["snowfall"],
-                    mp_dt, c2r, c2s)
-        with stage("advection"):
-            awinds = (kernels.density_winds(winds, s["density"]) if density
-                      else winds)
-            if mpdata:
-                kernels.advect_mpdata(q, awinds, dt, adv.mpdata_order,
-                                      adv.flux_corrected_transport, floors,
-                                      clamp, out=spare)
-            else:
-                kernels.advect_upwind(q, awinds, dt, floors, clamp,
-                                      out=spare)
-            if "tend_qv_adv" in s:
-                # the moisture convergence the next substep's trigger reads
-                s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t
-        q, spare = spare, q
+        mp_dt = mp_throttle.step(dt) if mp_stage else None
+        if mp_dt is not None:
+            with stage(mp_stage):
+                if thompson:
+                    kernels.mp_thompson_stack(
+                        q, smap, s["exner"], s["pressure"], dz_mp, mp_dt,
+                        s["precipitation"], s["snowfall"], s["graupel"],
+                        tparams)
+                else:
+                    c2r, c2s = formation_rates(mp_dt)
+                    kernels.mp_simple_rho(
+                        *(q[i] for i in species), s["pressure"],
+                        s["exner"], s["density"], dz_mp, s["precipitation"],
+                        s["snowfall"], mp_dt, c2r, c2s)
+        if advect:
+            with stage("advection"):
+                awinds = (kernels.density_winds(winds, s["density"])
+                          if density else winds)
+                if mpdata:
+                    kernels.advect_mpdata(q, awinds, dt, adv.mpdata_order,
+                                          adv.flux_corrected_transport,
+                                          floors, clamp, out=spare)
+                else:
+                    kernels.advect_upwind(q, awinds, dt, floors, clamp,
+                                          out=spare)
+                if "tend_qv_adv" in s:
+                    # the moisture convergence the next substep's trigger
+                    # reads
+                    s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t
+            q, spare = spare, q
         if full:
             s = apply_forcing(s, dqdt, dt, bmask, adv_names)
         if tend is not None:
-            # boundary-ring relaxation, then the near-end clamp
-            q = torch.maximum(q + tend * (float(dt) * bmask),
-                              floor_b if near_end else
-                              torch.full_like(floor_b, -np.inf))
+            q = _relax(q, tend, dt, bmask, floor_b if near_end else
+                       torch.full_like(floor_b, -np.inf), advect)
             spare = torch.empty_like(q)
+        if near_end:
+            s = _clamp_rest(s, rest)
         t = np.float32(t + dt)
         n += 1
 

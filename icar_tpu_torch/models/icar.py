@@ -3,18 +3,22 @@
 
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
-ideal ridge with SB04 or Thompson (mp=1) microphysics and upwind or MPDATA
-advection (any order, with or without FCT), with or without density
-advection (``run.advect_density``) and the microphysics throttle
+ideal ridge with SB04, Thompson (mp=1) or no microphysics and upwind,
+MPDATA (any order, with or without FCT) or no advection, with or without
+density advection (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``), and with any subset of the full physics column
-of bench.py's fullphys: simple radiation or RRTMG (longwave and
-shortwave, or the simple shortwave), Noah or Noah-MP (with its glacier
-column) with simple water, the simple PBL or YSU and Tiedtke convection.
+of bench.py's fullphys: the forcing's radiation (radiation=1), simple
+radiation or RRTMG (longwave and shortwave, or the simple shortwave), the
+forcing's surface fluxes (lsm=1), Noah or Noah-MP (with its glacier
+column), simple water or the CLM lake (water=3, ``physics/water_lake.py``;
+its state from ``lake_init``, as ``core.driver`` does), the simple PBL or
+YSU and Tiedtke convection.
 Every wind solver runs with each: balance only, linear theory (wind=1,
 its table built on the model's device at the first wind solve), the
 mass-conserving winds (wind=2), the iterative solver (wind=3), linear
-then iterative (wind=5), and flow blocking. Any other option raises
-``NotImplementedError`` naming the ROADMAP slice that ports it. Forcing
+then iterative (wind=5), and flow blocking. Any other microphysics or
+convection scheme raises ``NotImplementedError`` naming the ROADMAP slice
+that ports it (what the options' validation rejects, ValueError). Forcing
 tendencies (``set_forcing_tendencies``) relax the advected species on
 the boundary ring and change u, v, w, pressure and the 2-D fields
 everywhere (a file-driven run's,
@@ -59,24 +63,16 @@ LINEAR_WINDS = (C.WIND_LINEAR, C.WIND_LINEAR_ITERATIVE)
 
 
 def _unported(options: Options):
-    """Why ``options`` leave the ported configurations, or None."""
+    """Why ``options`` leave the ported configurations, or None. The
+    options both packages' validation rejects (pbl=1, lsm=2, water=1) are
+    left to ``Options.validate``."""
     ph = options.physics
     mp_slice = ("Slice F (Thompson-aerosol, mp=5)"
                 if ph.microphysics == C.MP_THOMPSON_AER
                 else "Slice F (the other schemes)")
     checks = (
-        (ph.microphysics in (C.MP_SIMPLE, C.MP_THOMPSON),
+        (ph.microphysics in (C.MP_NONE, C.MP_SIMPLE, C.MP_THOMPSON),
          f"microphysics={ph.microphysics}", mp_slice),
-        (ph.advection in (C.ADV_UPWIND, C.ADV_MPDATA),
-         f"advection={ph.advection}", "Slice B (advection options)"),
-        (ph.radiation in (C.RA_NONE, C.RA_SIMPLE, C.RA_RRTMG),
-         f"radiation={ph.radiation}", "Slice F (radiation=1)"),
-        (ph.boundarylayer in (C.PBL_NONE, C.PBL_SIMPLE, C.PBL_YSU),
-         f"pbl={ph.boundarylayer}", "Slice F (the other PBL schemes)"),
-        (ph.landsurface in (C.LSM_NONE, C.LSM_NOAH, C.LSM_NOAHMP),
-         f"lsm={ph.landsurface}", "Slice F (the other land surfaces)"),
-        (ph.watersurface in (C.WATER_NONE, C.WATER_SIMPLE),
-         f"water={ph.watersurface}", "Slice F (lake)"),
         (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
          f"convection={ph.convection}", "Slice F (the other schemes)"),
     )

@@ -215,9 +215,12 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
 @pytest.mark.parametrize("option,value,match", [
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
     ("convection", C.CU_NSAS, "Slice F \\(the other schemes\\)"),
-    ("landsurface", C.LSM_BASIC,
-     "Slice F \\(the other land surfaces\\)"),
-    ("watersurface", C.WATER_LAKE, "Slice F \\(lake\\)"),
+    # the forcing's surface fluxes (lsm=1) and the lake, refused until
+    # they were ported (their ids kept): each now runs (match None)
+    pytest.param("landsurface", C.LSM_BASIC, None,
+                 id="landsurface-1-Slice F \\(the other land surfaces\\)"),
+    pytest.param("watersurface", C.WATER_LAKE, None,
+                 id="watersurface-3-Slice F \\(lake\\)"),
     # options these cases refused until they were ported (their ids kept):
     # each now runs (match None), and SB04 with Tiedtke is refused by the
     # options' own validation, as in the JAX package (ValueError)
@@ -245,8 +248,9 @@ def test_options_outside_the_slice_raise(option, value, match):
     """(c) Every option outside the slice raises NotImplementedError naming
     its ROADMAP slice, on the fullphys configuration. The options ported
     since (``match`` None: MPDATA, density advection, the microphysics
-    throttle, YSU, RRTMG on the synthetic k-tables, Noah-MP) build and run
-    one 60 s interval with finite fields; SB04 with Tiedtke raises the
+    throttle, YSU, RRTMG on the synthetic k-tables, Noah-MP, the forcing's
+    surface fluxes, the lake -- here without lake cells) build and run one
+    60 s interval with finite fields; SB04 with Tiedtke raises the
     options' ValueError."""
     def cb(o):
         if value == C.RA_RRTMG:

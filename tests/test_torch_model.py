@@ -117,15 +117,16 @@ def test_interval_matches_jax(forcing):
 def test_unported_options_raise(option, value):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP slice. The column physics with SB04 (radiation, the PBL and
-    Noah here, and RRTMG on the synthetic k-tables) has been ported since:
-    those options build and run one interval with finite fields; Tiedtke
-    with SB04 is refused by the options' own validation (ValueError), as
-    in the JAX package."""
+    Noah here, and RRTMG on the synthetic k-tables), no microphysics, no
+    advection and the CLM lake (here without lake cells) have been ported
+    since: those options build and run one interval with finite fields;
+    Tiedtke with SB04 is refused by the options' own validation
+    (ValueError), as in the JAX package."""
     def cb(o):
         if value == C.RA_RRTMG and option == "radiation":
             synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)
-    if (option, value) in COLUMN_WITH_SB04:
+    if (option, value) in COLUMN_WITH_SB04 | NO_SCHEME_OR_LAKE:
         _runs_one_interval(cb)
         return
     if (option, value) == ("convection", C.CU_TIEDTKE):
@@ -144,6 +145,13 @@ COLUMN_WITH_SB04 = {("radiation", C.RA_SIMPLE),
                     ("boundarylayer", C.PBL_SIMPLE),
                     ("landsurface", C.LSM_NOAH),
                     ("radiation", C.RA_RRTMG)}
+
+
+# no microphysics, no advection and the lake, ported since
+# test_unported_options_raise listed them
+NO_SCHEME_OR_LAKE = {("microphysics", C.MP_NONE),
+                     ("advection", C.ADV_NONE),
+                     ("watersurface", C.WATER_LAKE)}
 
 
 def _runs_one_interval(options_cb):

@@ -296,17 +296,23 @@ def test_the_cuda_path_and_a_mesh():
 
 
 @pytest.mark.parametrize("option,value,match", [
-    # the land surface's case, its id kept from when Noah-MP (now ported:
-    # tests/test_torch_noahmp_model.py) was its example
-    pytest.param("landsurface", C.LSM_BASIC,
-                 "Slice F \\(the other land surfaces\\)",
+    # two cases whose ids are kept from their earlier examples, Noah-MP
+    # and then the forcing's surface fluxes, and the lake (each ported
+    # since: tests/test_torch_noahmp_model.py, tests/test_torch_lake_
+    # driver.py), now holding microphysics and convection schemes that
+    # are still refused
+    pytest.param("microphysics", C.MP_WSM6,
+                 "Slice F \\(the other schemes\\)",
                  id="landsurface-4-Slice F \\(Noah-MP"),
-    ("watersurface", C.WATER_LAKE, "Slice F \\(lake\\)"),
+    pytest.param("convection", C.CU_NSAS,
+                 "Slice F \\(the other schemes\\)",
+                 id="watersurface-3-Slice F \\(lake\\)"),
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
     ("convection", C.CU_KF, "Slice F \\(the other schemes\\)")])
 def test_the_rest_of_slice_f_still_raises(option, value, match):
-    """The other land surfaces, the lake, Thompson-aerosol and the other
-    schemes still raise naming their slice, with RRTMG and YSU."""
+    """The other microphysics schemes, Thompson-aerosol and the other
+    convection schemes still raise naming their slice, with RRTMG and
+    YSU."""
     def cb(o):
         synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)

@@ -102,6 +102,13 @@ FUNCTION_COPIES = {
         "_VEG_KEYS", "load_mp_tables")),
     "physics/noahmp.py": ("physics/noahmp.py", (
         "ZSOIL", "DZSOIL", "noahmp_init_state")),
+    "physics/water_lake.py": ("physics/water_lake.py", (
+        "NLEVLAKE", "NLEVSNOW", "NLEVSOIL", "NSOISNO", "NCOL", "VKC", "GRAV",
+        "SB", "TFRZ", "DENH2O", "DENICE", "CPICE", "CPLIQ", "HFUS", "HVAP",
+        "HSUB", "RAIR", "CPAIR", "TCRIT", "TKWAT", "TKICE", "TKAIRC",
+        "BDSNO", "SPVAL", "DEPTH_C", "WIMP", "SSI", "CNFAC", "EMG", "ZII",
+        "BETA1", "TDMAX", "BETA_LAKE", "ZA_LAKE", "SAND", "CLAY", "DZMIN",
+        "lake_init")),
 }
 
 

@@ -6,8 +6,9 @@ stage of one substep of the full-physics ridge, counted on the CPU.
 
 Builds the full-physics ridge (models.icar FULLPHYS, or with ``--path
 fullphys_rrtmg_noah`` its RRTMG + YSU variant, or with ``--path
-fullphys_rrtmg`` that variant with Noah-MP, as bench.py builds it) at a
-small width on the CPU, advances one 600 s interval, then runs each
+fullphys_rrtmg`` that variant with Noah-MP, as bench.py builds it, or
+with ``--path fullphys_lake`` the fullphys ridge with the lake) at a small
+width on the CPU, advances one 600 s interval, then runs each
 column-physics stage of
 core/physics_step.py once on that state under a dispatch counter and
 prints one JSON line: the aten operations each stage dispatches (on the
@@ -18,7 +19,8 @@ but for RRTMG, whose call repeats per chunk of RRTMG_COL_CHUNK columns
 (``rrtmg_ops`` counts it on a model of any size and device, as
 chip_smoke.py does at full width); Tiedtke's grow with the levels (its
 level scans). ``noahmp_ops`` counts one Noah-MP and one glacier column
-call.
+call; ``lake_ops`` one CLM lake call (``--path fullphys_lake``: the
+fullphys ridge with water=3 and chip_smoke.py's lake band).
 """
 
 import argparse
@@ -98,6 +100,35 @@ def noahmp_ops(m):
     return counts
 
 
+def lake_ops(m):
+    """The aten operations of one ``lake_driver`` call within one surface
+    stage (lsm_dt 300 s) on the state of ``m`` (a model with water=3, on
+    any device), and of the whole stage: {name: count}. The lake reads
+    nothing back to the host, so the count does not depend on the state
+    (on the CPU it holds a few more, as ``noahmp_ops`` says)."""
+    import torch
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.physics import water_lake
+    s = diagnostic_update(m.state, m.geom_t, full=True)
+    g = ps.Statics(m.geom_t, m.options)
+    counts = {}
+    fn = water_lake.lake_driver
+
+    def wrap(*a, **k):
+        out = []
+        counts["lake_driver"] = count(lambda: out.append(fn(*a, **k)))
+        return out[0]
+    water_lake.lake_driver = wrap
+    try:
+        total = count(ps.surface_fluxes, s, g, m.options,
+                      torch.tensor(300.0, device=m.device))
+    finally:
+        water_lake.lake_driver = fn
+    counts["surface stage (lake, simple water, the land's scheme)"] = total
+    return counts
+
+
 def rrtmg_ops(m):
     """The aten operations of one call of each RRTMG stage and of YSU on
     the state of ``m`` (a model of the fullphys_rrtmg_noah path, on any
@@ -138,17 +169,24 @@ def main():
     ap.add_argument("--nz", type=int, default=20)
     ap.add_argument("--path", default="fullphys",
                     choices=("fullphys", "fullphys_rrtmg_noah",
-                             "fullphys_rrtmg"))
+                             "fullphys_rrtmg", "fullphys_lake"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
+    from icar_tpu_torch import constants as C
     from icar_tpu_torch.core import physics_step as ps
     from icar_tpu_torch.core.diagnostics import diagnostic_update
     from icar_tpu_torch.models.icar import RIDGE_PATHS, ideal_ridge_model
 
+    lake = args.path == "fullphys_lake"
+    opts = (dict(RIDGE_PATHS["fullphys"], water=C.WATER_LAKE) if lake
+            else RIDGE_PATHS[args.path])
     m = ideal_ridge_model(nx=30, ny=12, nz=args.nz, dx=1000.0,
                           hill_height=600.0, u_speed=9.0, rh=1.0,
-                          **RIDGE_PATHS[args.path], device="cpu")
+                          **opts, device="cpu")
+    if lake:
+        import chip_smoke
+        chip_smoke.install_lake(m, (2, 10))
     m.advance(600.0)
     s = diagnostic_update(m.state, m.geom_t, full=False, with_w_real=True)
     g = ps.Statics(m.geom_t)
@@ -158,10 +196,12 @@ def main():
            "convection (Tiedtke)": count(ps.convection, s, g, m.options, dt)}
     if args.path == "fullphys_rrtmg":
         ops.update(noahmp_ops(m))
+    elif lake:
+        ops.update(lake_ops(m))
     else:
         ops["surface (Noah and simple water)"] = count(
             ps.surface_fluxes, s, g, m.options, dt)
-    if args.path == "fullphys":
+    if args.path in ("fullphys", "fullphys_lake"):
         ops.update(radiation=count(ps.radiation, s, g, doy, year, dt),
                    pbl=count(ps.boundary_layer, s, g, dt))
     else:
