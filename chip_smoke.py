@@ -164,6 +164,27 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    through core.driver.main on the CPU and the card (K3 and K1 alike;
    its output and restart held the same way). K1's and K5's lines in the
    table add these figures under "fullphys_lake".
+16. the other microphysics (WSM3 mp=6, WSM6 mp=4, Morrison mp=3; no
+   kernel of their own, plain PyTorch on the card): bench.py's ridge with
+   each in SB04's place (RIDGE_PATHS wsm3, wsm6, morrison) at 500x500x20.
+   For each, on the path's state after one interval: K1 on its stack of
+   4, 7 or 11 species against its kernel-order oracle (every bit) and its
+   plain version, one scheme call timed by CUDA events and by the host's
+   clock, and its aten operations (tools/count_ops.py wsm3_ops, wsm6_ops,
+   morrison_ops); on Morrison's, K4 (order 2, FCT) on its 11 species
+   against its plain version. Then two intervals of a fresh model (K1
+   once a substep and no other kernel, the scheme as often as the host's
+   counter predicts: every substep; every field finite) with its
+   digest, and the stages of
+   one more interval by CUDA events (diagnostics, mp_wsm3 / mp_wsm6 /
+   mp_morrison, advection). Then the small cases on the CPU and the card,
+   each field within the larger of FULLPHYS_BOUNDS and twice the CPU run's
+   own one-ulp spread (three seeds): each scheme on the cold ridge
+   MP_SMALL (ice and snow aloft on both), with upwind and with MPDATA
+   there, and in the small full-physics case (with Tiedtke; it and WSM3
+   read w_real).
+   K1's line in the table adds these figures under "wsm3", "wsm6" and
+   "morrison", K4's its 11-species figures under "morrison".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -282,6 +303,22 @@ LAKE_SMALL_BAND = (4, 8)
 LAKE_SMALL_COLD = 30.0
 LAKE_SMALL_SWE = (0.0, 4.0, 7.0, 20.0, 45.0, 100.0, 200.0, 0.0)
 LAKE_SMALL_INTERVAL = 1800.0
+# phase 16, the other microphysics: bench.py's ridge with WSM3, WSM6 or
+# Morrison in SB04's place (models.icar RIDGE_PATHS); the small cases on a
+# ridge of 20 levels (its top near -30 C) at rh 1.0, where each scheme makes
+# cloud ice and snow aloft within the interval, with the options of each
+# (mp=6 WSM3, mp=4 WSM6, mp=3 Morrison; adv=2 MPDATA)
+OTHER_MP = ("wsm3", "wsm6", "morrison")
+MP_SMALL = dict(nx=48, ny=12, nz=20, dx=1000.0, hill_height=600.0,
+                u_speed=10.0, rh=1.0)
+MP_SMALL_INTERVAL = 1200.0
+MP_SMALL_PATHS = (("wsm3", dict(mp=6)), ("wsm6", dict(mp=4)),
+                  ("morrison", dict(mp=3)),
+                  ("wsm3 + MPDATA", dict(mp=6, adv=2)),
+                  ("wsm6 + MPDATA", dict(mp=4, adv=2)),
+                  ("morrison + MPDATA", dict(mp=3, adv=2)))
+# and each in the small full-physics case, in Thompson's place (mp)
+MP_FULLPHYS = (("WSM3", 6), ("WSM6", 4), ("Morrison", 3))
 # the lake's fields held by the share of cells past their bound: its snow
 # layer count and ice fraction flip with one-ulp differences at their
 # thresholds (ROADMAP section 3)
@@ -1176,6 +1213,16 @@ def check_mpdata_kernels(model, kernels, step, mpdata_plain, mp_plain,
 def check_mpdata_thompson(model, kernels, step, mpdata_plain):
     """K4 on the Thompson path's 9-species stack, at its order and FCT,
     against its plain version on the state the Thompson drive left."""
+    err, ms, pms, work = k4_on_state(model, kernels, step, mpdata_plain)
+    return [kernel_entry("advect_mpdata_9species",
+                         REPLACES["advect_mpdata_9species"], err, ms, pms,
+                         work)]
+
+
+def k4_on_state(model, kernels, step, mpdata_plain):
+    """K4 on ``model``'s advected stack at the path's dt and its options'
+    order and FCT, clamped, against its plain version (K4_RTOL), both
+    timed: (max abs err, kernel ms, plain ms, the work for ``bound``)."""
     import torch
     s = model.state
     g = model.geom_t
@@ -1204,9 +1251,7 @@ def check_mpdata_thompson(model, kernels, step, mpdata_plain):
     log(f"K4 advect_mpdata, {len(names)} species: max_abs_err {err:.3e} "
         f"(rtol {K4_RTOL}, atol {K4_ATOL}); kernel {ms:.4f} ms, plain "
         f"{pms:.4f} ms")
-    return [kernel_entry("advect_mpdata_9species",
-                         REPLACES["advect_mpdata_9species"], err, ms, pms,
-                         advect_work(*stack.shape, order, fct))]
+    return err, ms, pms, advect_work(*stack.shape, order, fct)
 
 
 def thompson_states(cases, dev):
@@ -3239,6 +3284,185 @@ def check_lake(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
             "active_tile_share": share}}
 
 
+def mp_small(ideal_ridge_model, opts, device, seed=None, fullphys=False):
+    """Phase 16's small case of the options ``opts`` on ``device``: one
+    MP_SMALL_INTERVAL interval of the cold ridge MP_SMALL, or with
+    ``fullphys`` one FULLPHYS_SMALL_INTERVAL interval of the small
+    full-physics case (FULLPHYS_SMALL with its water strip); with
+    ``seed``, every nonzero value of every float field but CATEGORIES
+    starts one ulp up or down (seeded)."""
+    if fullphys:
+        m = ideal_ridge_model(**FULLPHYS_SMALL, **opts, device=device)
+        land = m.state["land_mask"].clone()
+        land[:, :10] = 2.0
+        m.state = {**m.state, "land_mask": land}
+    else:
+        m = ideal_ridge_model(**MP_SMALL, **opts, device=device)
+    if seed is not None:
+        m.state = nudged(m.state, seed)
+    m.advance(FULLPHYS_SMALL_INTERVAL if fullphys else MP_SMALL_INTERVAL)
+    return m
+
+
+def check_mp_small(ideal_ridge_model, label, opts, fullphys=False):
+    """Phase 16's small case ``label`` (``mp_small``) on the CPU and the
+    card: the same substeps, every field held by ``hold_card_to_cpu`` to
+    the larger of FULLPHYS_BOUNDS and twice the CPU run's own spread under
+    a one-ulp nudge of its initial state (three seeds); on the cold ridge,
+    cloud ice and snow aloft on both (WSM3's one class of each: its cloud
+    water and rain mass below 0 C)."""
+    cpu = mp_small(ideal_ridge_model, opts, "cpu", fullphys=fullphys)
+    card = mp_small(ideal_ridge_model, opts, "cuda", fullphys=fullphys)
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"small {label} case: {card.last_n_substeps} "
+                             f"substeps on the card, {cpu.last_n_substeps} "
+                             f"on the CPU")
+    spread = own_spread(cpu, lambda seed: mp_small(
+        ideal_ridge_model, opts, "cpu", seed, fullphys))
+    worst = hold_card_to_cpu(cpu, card, f"small {label} case", spread)
+    frozen = {}
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        if fullphys:
+            if not m.field("precipitation").max() > 0:
+                raise AssertionError(f"small {label} case on the {where}: "
+                                     f"no precipitation")
+            continue
+        cold = m.field("temperature") < 273.15
+        ice, snow = (("cloud_water", "rain_mass")
+                     if "cloud_ice" not in m.state
+                     else ("cloud_ice", "snow_mass"))
+        frozen[where] = (float(m.field(ice)[cold].max()),
+                         float(m.field(snow)[cold].max()))
+        if not min(frozen[where]) > 0:
+            raise AssertionError(f"small {label} case on the {where}: no "
+                                 f"ice or snow aloft ({frozen[where]})")
+    case = FULLPHYS_SMALL if fullphys else MP_SMALL
+    log(f"small {label} case {case['nx']}x{case['ny']}x{case['nz']}, "
+        f"{FULLPHYS_SMALL_INTERVAL if fullphys else MP_SMALL_INTERVAL:.0f}"
+        f" s: {card.last_n_substeps} substeps on the card and the CPU; "
+        + (f"ice and snow maxima below 0 C (CPU, card) {frozen}; "
+           if frozen else "")
+        + "largest |card - CPU| / max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {b:.3e})" for g, (r, k, b) in worst.items()))
+
+
+def plain_mp_call(model, step, mp):
+    """One call of the plain scheme ``mp`` with the copies into the stack
+    (``core.step.plain_microphysics``) on ``model``'s state at the path's
+    dt: (CUDA-event ms, median of 3 on fresh copies of the stack and the
+    accumulators; the host's wall of one more call in ms)."""
+    import torch
+    s, g = model.state, model.geom_t
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    names = model.advect_names
+    q0 = torch.stack([s[k] for k in names])
+    acc0 = [s.get(k) for k in ("precipitation", "snowfall", "graupel")]
+    work = {}
+
+    def setup():
+        work["q"] = q0.clone()
+        work["acc"] = [None if a is None else a.clone() for a in acc0]
+
+    def run():
+        step.plain_microphysics(mp, work["q"], names, s, g.dz_mass, dt,
+                                *work["acc"])
+    ms = cuda_ms(run, reps=3, setup=setup)
+    setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return ms, 1e3 * (time.perf_counter() - t0)
+
+
+def check_other_mp(ideal_ridge_model, cases, kernels, step, adv_plain,
+                   mpdata_plain, smi):
+    """Phase 16: WSM3, WSM6 and Morrison on bench.py's ridge (RIDGE_PATHS
+    wsm3, wsm6, morrison). For each, on the 500x500x20 path's state after
+    one interval: K1 against its kernel-order oracle (0.0) and its plain
+    version, one scheme call by CUDA events and the host's clock, its aten
+    operations (tools/count_ops.py); on Morrison's, K4 on its 11 species
+    against its plain version. Two intervals of a fresh model (K1 once a
+    substep and nothing else, the scheme as often as the host's counter
+    predicts) with its digest; the stages of one more interval by CUDA
+    events. Then the small cases, card against CPU (``check_mp_small``).
+    Returns (K1's figures by path, K4's on Morrison's state)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.models.icar import FULLPHYS
+    from icar_tpu_torch.time_paths import INTERVAL, INTERVALS, stage_ms
+    k1, k4 = {}, None
+    for label in OTHER_MP:
+        case = cases[label]
+        mp = case["mp"]
+        t0 = time.perf_counter()
+        warm = ideal_ridge_model(**case, device="cuda")
+        warm.advance(INTERVAL)
+        torch.cuda.synchronize()
+        log(f"{label} setup + first interval at 500x500x20: "
+            f"{time.perf_counter() - t0:.1f} s, {warm.last_n_substeps} "
+            f"substeps")
+        state_label = f"{label} state after one interval"
+        err1, oerr1, ms1, pms1, shape, _ = k1_on_state(
+            warm, kernels, step, adv_plain, state_label)
+        if oerr1 != 0.0:
+            raise AssertionError(f"{label}: K1 {oerr1} against its oracle")
+        call_ms, call_wall = plain_mp_call(warm, step, mp)
+        ops = count_ops.PLAIN_MP_OPS[label](warm)
+        log(f"{label}: K1 on its {shape[0]} species 0.0 against its oracle, "
+            f"{ms1:.4f} ms (plain {pms1:.4f}); one {step.plain_mp_stage(mp)}"
+            f" call {call_ms:.3f} ms by CUDA events, {call_wall:.1f} ms of "
+            f"wall; aten operations per call: " + json.dumps(ops))
+        if mp == C.MP_MORRISON:
+            err4, ms4, pms4, work4 = k4_on_state(warm, kernels, step,
+                                                 mpdata_plain)
+            b4, by4 = bound(*work4)
+            k4 = {"max_abs_err": err4, "ms": ms4, "plain_ms": pms4,
+                  "bound_ms": b4, "bound_by": by4, "species": shape[0]}
+        del warm
+
+        model = ideal_ridge_model(**case, device="cuda")
+        path = step.path_kernels(model.options)
+        if path != ("advect_upwind",):
+            raise AssertionError(f"{label}: path {path}")
+        due = throttle_due(model, step, INTERVALS, INTERVAL)
+        module = step.PLAIN_MP[mp]
+        fname = "mp_morrison" if mp == C.MP_MORRISON else label
+        with counted_calls(module, fname) as calls:
+            launches, _, steps = drive(model, kernels, label, path, smi,
+                                       fields=tuple(model.state))
+        if not len(calls) == due == steps:
+            raise AssertionError(f"{label}: {len(calls)} scheme calls in "
+                                 f"{steps} substeps, the host's counter "
+                                 f"predicts {due}")
+        log(f"{label}: {fname} called {len(calls)} times in {steps} "
+            f"substeps, as the host's counter predicts; advect_upwind once "
+            f"a substep")
+        stages = stage_ms(model)
+        log(f"{label} stages of one more interval ({stages['substeps']} "
+            f"substeps, wall {stages['wall_ms']:.1f} ms), CUDA-event ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                stages["stages_ms"].items(), key=lambda kv: -kv[1])))
+        del model
+        b1, by1 = bound(*advect_work(*shape))
+        k1[label] = {
+            "launches": launches["advect_upwind"], "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0],
+            "scheme_ms": call_ms, "scheme_wall_ms": call_wall,
+            "scheme_ops": ops}
+    for label, opts in MP_SMALL_PATHS:
+        check_mp_small(ideal_ridge_model, label, opts)
+    for label, mp in MP_FULLPHYS:
+        check_mp_small(ideal_ridge_model, f"fullphys with {label}",
+                       dict(FULLPHYS, mp=mp), fullphys=True)
+    return k1, k4
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -3401,6 +3625,12 @@ def main():
     # forcing-only options, card against CPU
     lake = check_lake(ideal_ridge_model, cases, kernels, step, adv_plain,
                       thompson_plain, thompson_cases, smi)
+    # 16. WSM3, WSM6 and Morrison on the ridge: K1 on their stacks of 4, 7
+    # and 11 species and K4 on Morrison's, one scheme call's time and
+    # operations, two intervals counting kernel launches and scheme calls,
+    # the stages; the small cases card against CPU
+    other_k1, other_k4 = check_other_mp(ideal_ridge_model, cases, kernels,
+                                        step, adv_plain, mpdata_plain, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -3416,6 +3646,10 @@ def main():
             entry["fullphys_rrtmg_noah"] = rrtmg[name]
             entry["fullphys_rrtmg"] = noahmp[name]
             entry["fullphys_lake"] = lake[name]
+        if name == "advect_upwind":
+            entry.update(other_k1)
+        if name == "advect_mpdata":
+            entry["morrison"] = other_k4
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):

@@ -14,9 +14,11 @@ upwind advection is the fast path: SB04 forms the density in its kernel
 (K2) and the surface precipitation of the interval is added to the state
 at its end. Otherwise (the general loop) the state's density is refreshed
 each substep and the microphysics accumulates precipitation in the state
-substep by substep -- SB04 (K3) on its five species with that density, or
-Thompson (K5) on its nine species with the mass-level thickness -- and
-MPDATA (K4) or upwind (K1) advects the stack. Density advection
+substep by substep -- SB04 (K3) on its five species with that density,
+Thompson (K5) on its nine species with the mass-level thickness, or WSM3,
+WSM6 or Morrison (no kernel: plain PyTorch, ``plain_microphysics``) on
+their four, seven or eleven -- and MPDATA (K4) or upwind (K1) advects the
+stack. Density advection
 (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``) take SB04 + upwind to the general loop too. With
 density the advection kernels run unchanged on operands weighted by the
@@ -61,7 +63,7 @@ import torch
 from .. import constants as C
 from ..ops import kernels
 from ..ops.pointwise import inv
-from ..physics import mp_thompson, rrtmg_lw
+from ..physics import mp_morrison, mp_thompson, mp_wsm3, mp_wsm6, rrtmg_lw
 from ..physics.mp_simple import formation_rates
 from ..physics.thompson_tables import ThompsonParams
 from ..parallel import shard_kernels as sk
@@ -130,6 +132,51 @@ def thompson_params(options) -> ThompsonParams:
 # (icar_tpu/registry.py:377-378)
 NO_MP_SPECIES = ("potential_temperature", "water_vapor")
 
+# the schemes no TPU kernel runs, plain PyTorch on the card: mp -> module;
+# each module's name is the stage the loops time the scheme under
+PLAIN_MP = {C.MP_WSM3: mp_wsm3, C.MP_WSM6: mp_wsm6,
+            C.MP_MORRISON: mp_morrison}
+
+
+def plain_mp_stage(mp: int) -> str:
+    """The timer's stage of the plain scheme ``mp`` (mp_wsm3, mp_wsm6,
+    mp_morrison)."""
+    return PLAIN_MP[mp].__name__.rsplit(".", 1)[1]
+
+
+def plain_microphysics(mp: int, q, adv_names, s, dz, dt, rain, snow,
+                       graupel=None):
+    """WSM3, WSM6 or Morrison (``mp``) over ``dt`` seconds on the species
+    stack ``q`` (rows ``adv_names``), with the state ``s``'s exner and
+    pressure, its refreshed density (WSM3, WSM6; Morrison forms its own)
+    and w_real (WSM3; Morrison takes it unread) and the mass-level
+    thickness ``dz`` (icar_tpu/core/step.py:945-958, 1077-1123). The
+    scheme's outputs are copied into the stack's rows and the accumulators
+    ``rain``, ``snow`` and (WSM6, Morrison) ``graupel`` are updated in
+    place, as the other schemes' kernels update theirs."""
+    row = {k: q[i] for i, k in enumerate(adv_names)}
+    dt_t = torch.full((), float(dt), dtype=torch.float32, device=q.device)
+    ex, p = s["exner"], s["pressure"]
+    if mp == C.MP_WSM3:
+        out = mp_wsm3.wsm3(*(row[k] for k in mp_wsm3.SPECIES),
+                           s["w_real"], ex, p, dz, s["density"], dt_t,
+                           rain, snow)
+        acc = (rain, snow)
+    elif mp == C.MP_WSM6:
+        out = mp_wsm6.wsm6(*(row[k] for k in mp_wsm6.SPECIES), ex, p, dz,
+                           s["density"], dt_t, rain, snow, graupel)
+        acc = (rain, snow, graupel)
+    else:
+        out = mp_morrison.mp_morrison(
+            *(row[k] for k in mp_morrison.SPECIES), ex, p, dz,
+            s.get("w_real"), dt_t, rain, snow, graupel)
+        acc = (rain, snow, graupel)
+    species = PLAIN_MP[mp].SPECIES
+    for k, v in zip(species, out):
+        row[k].copy_(v)
+    for a, v in zip(acc, out[len(species):]):
+        a.copy_(v)
+
 
 def _check_species(mp: int, adv: int, adv_names):
     """Raise ValueError unless the microphysics, the advection and the
@@ -137,7 +184,8 @@ def _check_species(mp: int, adv: int, adv_names):
     ported is ICARModel's decision, models/icar.py ``_unported``). With
     advection=0 the registry's species ride the stack unadvected."""
     want = {C.MP_NONE: NO_MP_SPECIES, C.MP_SIMPLE: MP_SPECIES,
-            C.MP_THOMPSON: mp_thompson.SPECIES}.get(mp)
+            C.MP_THOMPSON: mp_thompson.SPECIES,
+            **{k: m.SPECIES for k, m in PLAIN_MP.items()}}.get(mp)
     name = {C.ADV_NONE: "no", C.ADV_UPWIND: "upwind",
             C.ADV_MPDATA: "MPDATA"}.get(adv)
     if want is None or name is None or sorted(adv_names) != sorted(want):
@@ -202,7 +250,8 @@ def _quantize(dt) -> np.float32:
 def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     """The kernels (names of ``kernels.LAUNCHES``) the interval loop
     launches for ``options`` on the card: the microphysics' (none with
-    mp=0), the advection's, then with density advection the fold's
+    mp=0, nor with WSM3, WSM6 or Morrison, which run as plain PyTorch), the
+    advection's, then with density advection the fold's
     (``kernels.density_winds``; none of the three with advection=0).
     ``full_forcing``: under forcing tendencies outside the advected
     species (``full_field_forcing``). SB04 + upwind takes the fast loop's
@@ -229,12 +278,14 @@ def general_loop(options) -> bool:
     one, as the JAX step does (icar_tpu/core/step.py:146-160): density
     advection, the microphysics throttle or the column physics; and any
     loop without microphysics or without advection (the fast path needs
-    both)."""
+    both), or with a microphysics other than SB04 and Thompson (WSM3,
+    WSM6, Morrison: only the general loop runs them)."""
     ph = options.physics
     return (options.run.advect_density
             or float(options.mp.update_interval) > 0
             or column_physics(options)
             or ph.microphysics == C.MP_NONE
+            or ph.microphysics in PLAIN_MP
             or ph.advection == C.ADV_NONE)
 
 
@@ -333,19 +384,20 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     With column physics the interval runs ``run_interval_physics``
     (``timer`` and ``cdf``: see there);
     otherwise the whole domain is one block (``run_interval_sharded`` on a
-    one-shard layout)."""
+    one-shard layout; ``timer``: see there)."""
     if column_physics(options):
         return run_interval_physics(state, geom, options, adv_names,
                                     seconds, dqdt, time_aux, timer, cdf)
     layout = single(state["pressure"].device, geom.ny, geom.nx)
     (state,), n = run_interval_sharded(layout, [state], [geom], options,
-                                       adv_names, seconds, [dqdt or {}])
+                                       adv_names, seconds, [dqdt or {}],
+                                       timer)
     return state, n
 
 
 def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
                          geoms, options, adv_names: Sequence[str],
-                         seconds: float, dqdts=None
+                         seconds: float, dqdts=None, timer=None
                          ) -> Tuple[List[Dict[str, torch.Tensor]], int]:
     """``run_interval`` on a domain held as blocks (``mesh.Layout``):
     ``states``, ``geoms`` and ``dqdts`` hold one block each, with a halo of
@@ -362,7 +414,18 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     elementwise work gives each cell the unsharded bits. The boundary
     ring is taken from global positions. Derived fields that the
     epilogue writes only on a block's interior (w_real, the 10 m winds)
-    are exact at owned cells, not at a block's inner edge."""
+    are exact at owned cells, not at a block's inner edge.
+
+    WSM3, WSM6 and Morrison run in the general loop as plain PyTorch
+    (``plain_microphysics``) on the stack's rows, with the mass-level
+    thickness; WSM3 reads w_real, formed in the interval's first partial
+    diagnostics (and each substep under forced winds), as the JAX loop
+    forms it for mp=6 (icar_tpu/core/step.py:1639-1645, 1748).
+    ``timer(stage)``, when given, returns a context manager around each
+    stage's work (``time_paths.StageTimer``: diagnostics, the
+    microphysics' -- mp_simple, mp_simple_rho, mp_thompson, mp_wsm3,
+    mp_wsm6 or mp_morrison --, advection)."""
+    stage = timer or (lambda name: contextlib.nullcontext())
     adv_names = tuple(adv_names)
     mp = options.physics.microphysics
     mpdata = options.physics.advection == C.ADV_MPDATA
@@ -370,6 +433,11 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     _check_species(mp, options.physics.advection, adv_names)
     thompson = mp == C.MP_THOMPSON
     sb04 = mp == C.MP_SIMPLE
+    plain = mp in PLAIN_MP
+    # the schemes with a graupel accumulator
+    graupel_acc = thompson or mp in (C.MP_WSM6, C.MP_MORRISON)
+    # WSM3 reads w_real (icar_tpu/core/step.py:1639)
+    w_real_cfg = mp == C.MP_WSM3
     dqdts = dqdts or [{} for _ in states]
     adv = options.adv
     full = full_field_forcing(dqdts[0], adv_names)
@@ -381,7 +449,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     pressure_varies, winds_vary = forcing_varies(dqdts[0]) if full \
         else (False, False)
 
-    states = [diagnostic_update(s, g, full=False)
+    states = [diagnostic_update(s, g, full=False, with_w_real=w_real_cfg)
               for s, g in zip(states, geoms)]
     dt_static = sharded_dt(states, geoms, options.run.cfl_reduction_factor,
                            options.run.cfl_strictness)
@@ -390,10 +458,10 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     spares = [torch.empty_like(q) for q in stacks]
     pressure = [s["pressure"].contiguous() for s in states]
     exner = [s["exner"].contiguous() for s in states]
-    # SB04 takes the interface thickness, Thompson the mass-level one
-    # (icar_tpu/core/step.py:996)
-    dz_mp = [(g.dz_mass if thompson else g.dz_interface).contiguous()
-             for g in geoms]
+    # SB04 takes the interface thickness, the other schemes the mass-level
+    # one (icar_tpu/core/step.py:952, 996, 1085, 1113)
+    dz_mp = [(g.dz_mass if thompson or plain else g.dz_interface)
+             .contiguous() for g in geoms]
     if not winds_vary:
         winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
                  for s, g in zip(states, geoms)]
@@ -422,15 +490,18 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     density = options.run.advect_density
     general = mpdata or thompson or full or general_loop(options)
     throttle = Throttle(options.mp.update_interval)
+    mp_stage = (plain_mp_stage(mp) if plain else
+                path_kernels(options, full)[0] if sb04 or thompson
+                else None)
     if general:
         # the density follows theta (K3 reads it), the pressure-derived
         # fields a forced pressure
         needs = substep_needs(options, pressure_varies, winds_vary)
-        if sb04 or thompson:
+        if mp != C.MP_NONE:
             rain = [s["precipitation"].clone() for s in states]
             snow = [s["snowfall"].clone() for s in states]
-        if thompson:
-            graupel = [s["graupel"].clone() for s in states]
+        graupel = ([s["graupel"].clone() for s in states] if graupel_acc
+                   else [None] * len(states))
     else:
         rain = [torch.zeros_like(s["precipitation"]) for s in states]
         snow = [torch.zeros_like(r) for r in rain]
@@ -452,37 +523,50 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         clamp = near_end and tend is None
         if general:
             th = adv_names.index("potential_temperature")
-            states = [diagnostic_update({**s, "potential_temperature": q[th]},
-                                        g, needs=needs)
-                      for s, q, g in zip(states, stacks, geoms)]
+            with stage("diagnostics"):
+                states = [diagnostic_update(
+                    {**s, "potential_temperature": q[th]}, g, needs=needs,
+                    with_w_real=w_real_cfg and winds_vary)
+                    for s, q, g in zip(states, stacks, geoms)]
             if pressure_varies:
                 pressure = [s["pressure"].contiguous() for s in states]
                 exner = [s["exner"].contiguous() for s in states]
         # the microphysics' time this substep (None: the throttle waits)
-        mp_dt = throttle.step(dt) if sb04 or thompson else None
-        if mp_dt is not None and thompson:
-            sk.thompson_stack_sharded(stacks, smap, exner, pressure, dz_mp,
-                                      mp_dt, rain, snow, graupel, tparams)
-        elif mp_dt is not None:
-            c2r, c2s = formation_rates(mp_dt)
-            sk.mp_simple_sharded(
-                *([q[i] for q in stacks] for i in species), pressure, exner,
-                dz_mp, rain, snow, mp_dt, c2r, c2s,
-                rho=[s["density"] for s in states] if general else None)
+        mp_dt = throttle.step(dt) if mp_stage else None
+        if mp_dt is not None:
+            with stage(mp_stage):
+                if thompson:
+                    sk.thompson_stack_sharded(stacks, smap, exner, pressure,
+                                              dz_mp, mp_dt, rain, snow,
+                                              graupel, tparams)
+                elif sb04:
+                    c2r, c2s = formation_rates(mp_dt)
+                    sk.mp_simple_sharded(
+                        *([q[i] for q in stacks] for i in species),
+                        pressure, exner, dz_mp, rain, snow, mp_dt, c2r, c2s,
+                        rho=[s["density"] for s in states] if general
+                        else None)
+                else:
+                    for b, s in enumerate(states):
+                        plain_microphysics(mp, stacks[b], adv_names, s,
+                                           dz_mp[b], mp_dt, rain[b],
+                                           snow[b], graupel[b])
         if advect:
-            # density advection: the operands weighted by the density the
-            # substep began with (the microphysics does not refresh it)
-            awinds = ([kernels.density_winds(w, s["density"])
-                       for w, s in zip(winds, states)] if density
-                      else winds)
-            if mpdata:
-                sk.advect_mpdata_sharded(layout, stacks, awinds, dt,
-                                         adv.mpdata_order,
-                                         adv.flux_corrected_transport,
-                                         floors, clamp, spares)
-            else:
-                sk.advect_upwind_sharded(layout, stacks, awinds, dt, floors,
-                                         clamp, spares)
+            with stage("advection"):
+                # density advection: the operands weighted by the density
+                # the substep began with (the microphysics does not
+                # refresh it)
+                awinds = ([kernels.density_winds(w, s["density"])
+                           for w, s in zip(winds, states)] if density
+                          else winds)
+                if mpdata:
+                    sk.advect_mpdata_sharded(layout, stacks, awinds, dt,
+                                             adv.mpdata_order,
+                                             adv.flux_corrected_transport,
+                                             floors, clamp, spares)
+                else:
+                    sk.advect_upwind_sharded(layout, stacks, awinds, dt,
+                                             floors, clamp, spares)
             stacks, spares = spares, stacks
         if full:
             states = [apply_forcing(s, d, dt, m, adv_names)
@@ -502,10 +586,10 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         s = dict(s)
         for i, k in enumerate(adv_names):
             s[k] = q[i]
-        if general and (sb04 or thompson):
+        if general and mp != C.MP_NONE:
             s["precipitation"] = rain[b]
             s["snowfall"] = snow[b]
-            if thompson:
+            if graupel_acc:
                 s["graupel"] = graupel[b]
         elif not general:
             s["precipitation"] = s["precipitation"] + rain[b]
@@ -546,9 +630,11 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     rows of the stack a stage replaced are written back; the microphysics
     (every ``mp.update_interval`` seconds likewise) updates the stack and
     the accumulators in place -- Thompson (K5) on
-    its nine species, or SB04 (K3) on its five with the refreshed density
+    its nine species, SB04 (K3) on its five with the refreshed density
     and the interface thickness (the cloud ice the PBL and convection
-    write stays in the state, unadvected, as in the JAX loop) --, and K1,
+    write stays in the state, unadvected, as in the JAX loop), or WSM3,
+    WSM6 or Morrison (``plain_microphysics``; WSM3 with w_real, formed
+    with Tiedtke's) --, and K1,
     or K4 at the configured order and FCT, advects the stack into the
     second buffer with the near-end clamp folded in unless forcing
     follows, on density-weighted operands with ``advect_density``; the
@@ -561,14 +647,17 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     ``time_aux`` of ``run_interval`` is required with the radiation or
     Noah-MP.
     ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by
-    default). pbl_simple's substep count is one host read per substep;
-    YSU and RRTMG read nothing back. ``timer(stage)``, when given, returns
-    a context manager around each stage's work (``time_paths.StageTimer``:
+    default). pbl_simple's substep count is one host read per substep,
+    WSM3's, WSM6's and Morrison's sedimentation counts two, three and one
+    a call; YSU and RRTMG read nothing back. ``timer(stage)``, when given,
+    returns a context manager around each stage's work
+    (``time_paths.StageTimer``:
     diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
     radiation_lw and radiation (the zenith and the heating), surface --
     with the lake its lake column, with Noah-MP its noahmp and glacier
     columns within it --, pbl or pbl_ysu, convection, restack,
-    mp_thompson or mp_simple_rho, advection). Without microphysics
+    mp_thompson, mp_simple_rho, mp_wsm3, mp_wsm6 or mp_morrison,
+    advection). Without microphysics
     (mp=0) the stack holds theta and water vapour and no microphysics
     runs; without advection (advection=0) the species stay put, neither
     K1 nor K4 launches, and the near-end clamp leaves them alone, as the
@@ -584,6 +673,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     _check_species(mp, phys.advection, adv_names)
     thompson = mp == C.MP_THOMPSON
     sb04 = mp == C.MP_SIMPLE
+    plain = mp in PLAIN_MP
     adv = options.adv
     density = options.run.advect_density
     dqdt = dqdt or {}
@@ -598,9 +688,12 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     convect = phys.convection == C.CU_TIEDTKE
     surface = (phys.landsurface != C.LSM_NONE
                or phys.watersurface != C.WATER_NONE)
+    # Tiedtke and WSM3 read w_real (icar_tpu/core/step.py:1639-1645)
+    w_real_cfg = convect or mp == C.MP_WSM3
 
     with stage("diagnostics"):
-        s = diagnostic_update(state, geom, full=False, with_w_real=convect)
+        s = diagnostic_update(state, geom, full=False,
+                              with_w_real=w_real_cfg)
     dt_static = quantized_dt(s["u"], s["v"], s["w"], geom.dz_levels,
                              geom.dx, options.run.cfl_reduction_factor,
                              options.run.cfl_strictness)
@@ -618,9 +711,12 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         tparams = thompson_params(options)
     elif sb04:
         species = [adv_names.index(k) for k in MP_SPECIES]
-    # SB04 takes the interface thickness, Thompson the mass-level one
-    dz_mp = (geom.dz_mass if thompson else geom.dz_interface).contiguous()
-    mp_stage = path_kernels(options)[0] if sb04 or thompson else None
+    # SB04 takes the interface thickness, the other schemes the mass-level
+    # one
+    dz_mp = (geom.dz_mass if thompson or plain
+             else geom.dz_interface).contiguous()
+    mp_stage = (path_kernels(options)[0] if sb04 or thompson
+                else plain_mp_stage(mp) if plain else None)
     rest = limited_rest(s, adv_names)
     statics = ps.Statics(geom, options)
     i_qv = adv_names.index("water_vapor")
@@ -673,7 +769,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                 s = diagnostic_update({**s, **views}, geom, full=True)
             else:
                 s = diagnostic_update({**s, **views}, geom, needs=needs,
-                                      with_w_real=convect and winds_vary)
+                                      with_w_real=w_real_cfg and winds_vary)
         if phys.radiation == C.RA_SIMPLE:
             doy = day0 + t * np.float32(inv(86400.0))
             with stage("radiation"):
@@ -730,6 +826,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                         q, smap, s["exner"], s["pressure"], dz_mp, mp_dt,
                         s["precipitation"], s["snowfall"], s["graupel"],
                         tparams)
+                elif plain:
+                    plain_microphysics(mp, q, adv_names, s, dz_mp, mp_dt,
+                                       s["precipitation"], s["snowfall"],
+                                       s.get("graupel"))
                 else:
                     c2r, c2s = formation_rates(mp_dt)
                     kernels.mp_simple_rho(

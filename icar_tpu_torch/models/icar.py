@@ -3,7 +3,8 @@
 
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
-ideal ridge with SB04, Thompson (mp=1) or no microphysics and upwind,
+ideal ridge with SB04, Thompson (mp=1), Morrison (mp=3), WSM6 (mp=4),
+WSM3 (mp=6) or no microphysics and upwind,
 MPDATA (any order, with or without FCT) or no advection, with or without
 density advection (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``), and with any subset of the full physics column
@@ -26,7 +27,8 @@ everywhere (a file-driven run's,
 precipitation (``set_rain_fraction``). ``attach_mesh`` shards a model over
 a device mesh (``parallel/mesh.py``); its state then lives in one block
 per shard (not yet with the column physics, linear theory, blocking, a
-rain fraction or forcing outside the advected species).
+rain fraction, forcing outside the advected species or WSM3, WSM6 or
+Morrison).
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
 from ..core.state import (ACCUMULATORS, advected_names, create_state,
                           state_digest)
-from ..core.step import (column_physics, path_halo, path_kernels,
-                         run_interval, run_interval_sharded)
+from ..core.step import (PLAIN_MP, column_physics, path_halo,
+                         path_kernels, run_interval, run_interval_sharded)
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
 from ..ops import blocking as blk
@@ -71,7 +73,8 @@ def _unported(options: Options):
                 if ph.microphysics == C.MP_THOMPSON_AER
                 else "Slice F (the other schemes)")
     checks = (
-        (ph.microphysics in (C.MP_NONE, C.MP_SIMPLE, C.MP_THOMPSON),
+        (ph.microphysics in (C.MP_NONE, C.MP_SIMPLE, C.MP_THOMPSON,
+                             C.MP_MORRISON, C.MP_WSM6, C.MP_WSM3),
          f"microphysics={ph.microphysics}", mp_slice),
         (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
          f"convection={ph.convection}", "Slice F (the other schemes)"),
@@ -154,6 +157,11 @@ class ICARModel:
                 "ported yet: Slice G (sharded full physics; the PBL's "
                 "domain-wide substep count, the convection's w_real) in "
                 "ROADMAP.md")
+        if self.options.physics.microphysics in PLAIN_MP:
+            raise NotImplementedError(
+                "attach_mesh: a sharded model with WSM3, WSM6 or Morrison "
+                "is not ported yet: Slice G remainders (ROADMAP.md section "
+                "1 item 7)")
         if self.winds_follow_state or self.options.block.block_flow:
             raise NotImplementedError(
                 "attach_mesh: a sharded model with linear-theory winds or "
@@ -387,8 +395,9 @@ class ICARModel:
         with a mesh: the blocks are in ``self.blocks``).
         ``rain_frac_month`` selects the bias-correction scale
         (``set_rain_fraction``) applied to this interval's precipitation
-        increment at its end. ``timer`` times the column physics' stages
-        (``core.step.run_interval_physics``)."""
+        increment at its end. ``timer`` times the interval loop's stages
+        (``core.step.run_interval_physics``, or without column physics
+        ``run_interval_sharded``'s; not with a mesh)."""
         if rain_frac_month is not None:
             if self._rain_frac_months is None:
                 raise ValueError("advance: rain_frac_month needs a prior "
@@ -599,7 +608,12 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "fullphys_sb04": dict(FULLPHYS, mp=C.MP_SIMPLE,
                                      conv=C.CU_NONE),
                "fullphys_rrtmg_noah": FULLPHYS_RRTMG_NOAH,
-               "fullphys_rrtmg": FULLPHYS_RRTMG}
+               "fullphys_rrtmg": FULLPHYS_RRTMG,
+               # bench.py's ridge with each of the other schemes in SB04's
+               # place
+               "wsm3": dict(mp=C.MP_WSM3),
+               "wsm6": dict(mp=C.MP_WSM6),
+               "morrison": dict(mp=C.MP_MORRISON)}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
                  "MPDATA_density", "upwind_mp_throttle")

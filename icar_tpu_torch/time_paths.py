@@ -7,19 +7,20 @@ For each path of ``RIDGE_PATHS`` on bench.py's ridge at 500x500x20
 the full physics column of bench.py --config fullphys, SB04 + upwind on
 the linear-theory winds of bench.py --config linear, and the general
 loop's options: density advection, the microphysics throttle, the full
-physics column with MPDATA or SB04; and bench.py --config fullphys_rrtmg
-with Noah, RRTMG and YSU) it builds a fresh
+physics column with MPDATA or SB04; bench.py --config fullphys_rrtmg
+with Noah, RRTMG and YSU, and as bench.py builds it; the ridge with WSM3,
+WSM6 or Morrison in SB04's place) it builds a fresh
 model, advances one 1200 s interval to warm up, then times ``--repeat``
 runs of two intervals each (``run_timed``) and prints one JSON line: for
 each path the grid-point substeps per second of every run over the
 natural grid, their median and the final state's float64 digest
 (``ICARModel.digest``), and the card's name; for the full-physics path
-(and the other column-physics paths) also the CUDA-event milliseconds
-of each stage of one more interval
-(``StageTimer``); for the linear path, whose winds are solved anew before
-each interval as bench.py does, the milliseconds of each of those updates
-(left out of the rate) and the stages of one more (N^2, lookup,
-balance). With ``--mesh cards`` the model is sharded with one
+(and the other column-physics paths) and the paths of WSM3, WSM6 and
+Morrison also the CUDA-event milliseconds of each stage of one more
+interval (``StageTimer``); for the linear path, whose winds are solved
+anew before each interval as bench.py does, the milliseconds of each of
+those updates (left out of the rate) and the stages of one more (N^2,
+lookup, balance). With ``--mesh cards`` the model is sharded with one
 shard per visible card (``make_mesh``; the paths of ``SHARDED_PATHS``);
 its digest equals the unsharded run's. ``chip_smoke.py`` drives the same
 cases through the same ``run_timed``; this module repeats the measurement
@@ -37,7 +38,7 @@ import time
 
 import torch
 
-from .core.step import column_physics
+from .core.step import PLAIN_MP, column_physics
 from .models.icar import RIDGE, RIDGE_PATHS, SHARDED_PATHS, ideal_ridge_model
 
 INTERVAL = 1200.0
@@ -73,10 +74,13 @@ def run_timed(model, intervals=INTERVALS, interval=INTERVAL, wind_ms=None):
 
 
 class StageTimer:
-    """CUDA-event milliseconds of the named stages of the column-physics
-    loop (``core.step.run_interval_physics``'s ``timer``): each call
-    ``timer(name)`` brackets a stage's work with two events on the current
-    stream; ``ms()`` synchronizes and sums them per stage."""
+    """CUDA-event milliseconds of the named stages of the interval loops
+    (the ``timer`` of ``core.step.run_interval_physics`` and of
+    ``run_interval_sharded``: diagnostics, the column stages, the
+    microphysics' -- mp_simple, mp_simple_rho, mp_thompson, mp_wsm3,
+    mp_wsm6, mp_morrison --, advection): each call ``timer(name)``
+    brackets a stage's work with two events on the current stream;
+    ``ms()`` synchronizes and sums them per stage."""
 
     def __init__(self):
         self.events = {}
@@ -98,8 +102,8 @@ class StageTimer:
 
 def stage_ms(model, interval=INTERVAL):
     """The CUDA-event milliseconds of each stage of one more interval of
-    ``model`` (a column-physics path), with the interval's wall and
-    substeps."""
+    ``model`` (a column-physics path, or one of WSM3, WSM6 or Morrison),
+    with the interval's wall and substeps."""
     timer = StageTimer()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -137,7 +141,8 @@ def time_path(case, repeat, cards=False):
         steps, seconds = run_timed(model, wind_ms=wind_ms)
         rates.append(gp * steps / seconds)
     digest = model.digest()
-    stages = stage_ms(model) if column_physics(model.options) else None
+    stages = (stage_ms(model) if column_physics(model.options)
+              or model.options.physics.microphysics in PLAIN_MP else None)
     winds = ({"update_ms": wind_ms, "one_update": wind_stage_ms(model)}
              if model.winds_follow_state else None)
     return rates, digest, stages, winds

@@ -118,15 +118,16 @@ def test_unported_options_raise(option, value):
     """Options outside the port raise NotImplementedError naming their
     ROADMAP slice. The column physics with SB04 (radiation, the PBL and
     Noah here, and RRTMG on the synthetic k-tables), no microphysics, no
-    advection and the CLM lake (here without lake cells) have been ported
-    since: those options build and run one interval with finite fields;
-    Tiedtke with SB04 is refused by the options' own validation
-    (ValueError), as in the JAX package."""
+    advection, the CLM lake (here without lake cells) and Morrison and
+    WSM6 have been ported since: those options build and run one interval
+    with finite fields; Tiedtke with SB04 is refused by the options' own
+    validation (ValueError), as in the JAX package."""
     def cb(o):
         if value == C.RA_RRTMG and option == "radiation":
             synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)
-    if (option, value) in COLUMN_WITH_SB04 | NO_SCHEME_OR_LAKE:
+    if (option, value) in (COLUMN_WITH_SB04 | NO_SCHEME_OR_LAKE
+                           | OTHER_MICROPHYSICS):
         _runs_one_interval(cb)
         return
     if (option, value) == ("convection", C.CU_TIEDTKE):
@@ -152,6 +153,12 @@ COLUMN_WITH_SB04 = {("radiation", C.RA_SIMPLE),
 NO_SCHEME_OR_LAKE = {("microphysics", C.MP_NONE),
                      ("advection", C.ADV_NONE),
                      ("watersurface", C.WATER_LAKE)}
+
+
+# Morrison and WSM6, ported since test_unported_options_raise listed them
+# (tests/test_torch_mp_models.py holds them to the JAX package's model)
+OTHER_MICROPHYSICS = {("microphysics", C.MP_MORRISON),
+                      ("microphysics", C.MP_WSM6)}
 
 
 def _runs_one_interval(options_cb):

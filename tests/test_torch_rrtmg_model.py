@@ -297,11 +297,11 @@ def test_the_cuda_path_and_a_mesh():
 
 @pytest.mark.parametrize("option,value,match", [
     # two cases whose ids are kept from their earlier examples, Noah-MP
-    # and then the forcing's surface fluxes, and the lake (each ported
-    # since: tests/test_torch_noahmp_model.py, tests/test_torch_lake_
-    # driver.py), now holding microphysics and convection schemes that
-    # are still refused
-    pytest.param("microphysics", C.MP_WSM6,
+    # and then the forcing's surface fluxes, then WSM6, and the lake (each
+    # ported since: tests/test_torch_noahmp_model.py, tests/test_torch_
+    # mp_models.py, tests/test_torch_lake_driver.py), now holding
+    # convection schemes that are still refused
+    pytest.param("convection", C.CU_BMJ,
                  "Slice F \\(the other schemes\\)",
                  id="landsurface-4-Slice F \\(Noah-MP"),
     pytest.param("convection", C.CU_NSAS,
@@ -310,9 +310,8 @@ def test_the_cuda_path_and_a_mesh():
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
     ("convection", C.CU_KF, "Slice F \\(the other schemes\\)")])
 def test_the_rest_of_slice_f_still_raises(option, value, match):
-    """The other microphysics schemes, Thompson-aerosol and the other
-    convection schemes still raise naming their slice, with RRTMG and
-    YSU."""
+    """Thompson-aerosol and the other convection schemes still raise
+    naming their slice, with RRTMG and YSU."""
     def cb(o):
         synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)

@@ -109,13 +109,34 @@ FUNCTION_COPIES = {
         "BDSNO", "SPVAL", "DEPTH_C", "WIMP", "SSI", "CNFAC", "EMG", "ZII",
         "BETA1", "TDMAX", "BETA_LAKE", "ZA_LAKE", "SAND", "CLAY", "DZMIN",
         "lake_init")),
+    # the microphysics schemes' host constants (a name of a tuple
+    # assignment holds the whole statement)
+    "physics/mp_wsm3.py": ("physics/mp_wsm3.py", tuple("""
+        G CPD RD RV CPV T0C EP1 EP2 QMIN XLS XLV0 XLF0 CLIQ CICE PSAT DEN0
+        DENR DENS DTCLDCR N0R AVTR BVTR R0 PEAUT XNCR XMYU AVTS BVTS N0SMAX
+        LAMDARMAX LAMDASMAX DICON DIMAX N0S ALPHA QCRMIN PI XLV1 QC0 QCK1
+        _G3PBR _G4PBR _G5PBRO2 PVTR PACRR PRECR1 PRECR2 ROQIMAX _G3PBS
+        _G4PBS _G5PBSO2 PVTS PACRS PRECS1 PRECS2 PIDN0R PIDN0S RSLOPERMAX
+        RSLOPESMAX""".split())),
+    "physics/mp_wsm6.py": ("physics/mp_wsm6.py", tuple("""
+        N0R N0G AVTR R0 PEAUT XNCR XMYU AVTS AVTG DENG N0SMAX LAMDARMAX
+        DICON DIMAX N0S ALPHA PFRZ1 QCRMIN EACRC DENS QS0 PI XLV1 QC0 QCK1
+        G3PBR G4PBR G5PBRO2 G6PBR PVTR PACRR PRECR1 PRECR2 ROQIMAX G3PBS
+        G4PBS G5PBSO2 PVTS PACRS PRECS1 PRECS2 PACRC G3PBG G4PBG G5PBGO2
+        PVTG PACRG PRECG1 PRECG2 PIDN0R PIDN0S PIDN0G RSLOPERMAX RSLOPESMAX
+        RSLOPEGMAX""".split())),
+    "physics/mp_morrison.py": ("physics/mp_morrison.py", tuple("""
+        CP G R RV EP_2 PI AI BI RHOSU RHOW AIMM DCS MI0 MG0 F1S QSMALL EII
+        RIN CPW CI_ CS_ DG MMULT LAMMAXI LAMMAXR LAMMAXS LAMMAXG NDCNST
+        _Consts _CONSTS _SVP_LIQ _SVP_ICE""".split())),
 }
 
 
 def _functions(source):
     """Top-level function and class definitions of ``source`` (text) by
     name: (first docstring line, AST dump without the docstring); and its
-    assignments to one name (tables, constants): (None, AST dump)."""
+    assignments to one name or a tuple of names (tables, constants), by
+    each name: (None, AST dump)."""
     out = {}
     for node in ast.parse(source).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -126,6 +147,10 @@ def _functions(source):
         elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name):
             out[node.targets[0].id] = (None, ast.dump(node))
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Tuple):
+            for t in node.targets[0].elts:
+                out[t.id] = (None, ast.dump(node))
     return out
 
 

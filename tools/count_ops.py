@@ -20,7 +20,12 @@ but for RRTMG, whose call repeats per chunk of RRTMG_COL_CHUNK columns
 chip_smoke.py does at full width); Tiedtke's grow with the levels (its
 level scans). ``noahmp_ops`` counts one Noah-MP and one glacier column
 call; ``lake_ops`` one CLM lake call (``--path fullphys_lake``: the
-fullphys ridge with water=3 and chip_smoke.py's lake band).
+fullphys ridge with water=3 and chip_smoke.py's lake band);
+``wsm3_ops``, ``wsm6_ops`` and ``morrison_ops`` one call of that
+microphysics scheme on a model's state (``--path wsm3``, ``wsm6`` or
+``morrison``: the ridge with that scheme in SB04's place, no column
+physics; their sedimentation loops run as many trips as the state's
+fastest fall needs, so these counts follow the state).
 """
 
 import argparse
@@ -129,6 +134,66 @@ def lake_ops(m):
     return counts
 
 
+def _plain_mp_ops(m, mp):
+    """The aten operations of one call of the scheme ``mp`` (WSM3, WSM6
+    or Morrison) on the state of ``m`` (a model of that scheme, on any
+    device) at its interval's dt, and of the call with the copies of its
+    outputs into the species stack (``core.step.plain_microphysics``):
+    {name: count}. The host reads of the sedimentation count as one
+    operation each."""
+    import torch
+    from icar_tpu_torch.core import step
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    s = diagnostic_update(m.state, m.geom_t, full=False, with_w_real=True)
+    g = m.geom_t
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           m.options.run.cfl_reduction_factor,
+                           m.options.run.cfl_strictness)
+    q = torch.stack([s[k] for k in m.advect_names])
+    acc = [s[k].clone() if k in s else None
+           for k in ("precipitation", "snowfall", "graupel")]
+    mod = step.PLAIN_MP[mp]
+    name = {"mp_wsm3": "wsm3", "mp_wsm6": "wsm6",
+            "mp_morrison": "mp_morrison"}[step.plain_mp_stage(mp)]
+    fn = getattr(mod, name)
+    counts = {}
+
+    def wrap(*a, **k):
+        out = []
+        counts[name] = count(lambda: out.append(fn(*a, **k)))
+        return out[0]
+    setattr(mod, name, wrap)
+    try:
+        total = count(step.plain_microphysics, mp, q, m.advect_names, s,
+                      g.dz_mass, dt, *acc)
+    finally:
+        setattr(mod, name, fn)
+    counts[f"{name} with the stack's copies"] = total
+    return counts
+
+
+def wsm3_ops(m):
+    """``_plain_mp_ops`` of WSM3 (mp=6)."""
+    from icar_tpu_torch import constants as C
+    return _plain_mp_ops(m, C.MP_WSM3)
+
+
+def wsm6_ops(m):
+    """``_plain_mp_ops`` of WSM6 (mp=4)."""
+    from icar_tpu_torch import constants as C
+    return _plain_mp_ops(m, C.MP_WSM6)
+
+
+def morrison_ops(m):
+    """``_plain_mp_ops`` of Morrison (mp=3)."""
+    from icar_tpu_torch import constants as C
+    return _plain_mp_ops(m, C.MP_MORRISON)
+
+
+PLAIN_MP_OPS = {"wsm3": wsm3_ops, "wsm6": wsm6_ops,
+                "morrison": morrison_ops}
+
+
 def rrtmg_ops(m):
     """The aten operations of one call of each RRTMG stage and of YSU on
     the state of ``m`` (a model of the fullphys_rrtmg_noah path, on any
@@ -169,7 +234,8 @@ def main():
     ap.add_argument("--nz", type=int, default=20)
     ap.add_argument("--path", default="fullphys",
                     choices=("fullphys", "fullphys_rrtmg_noah",
-                             "fullphys_rrtmg", "fullphys_lake"))
+                             "fullphys_rrtmg", "fullphys_lake")
+                    + tuple(PLAIN_MP_OPS))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -184,6 +250,11 @@ def main():
     m = ideal_ridge_model(nx=30, ny=12, nz=args.nz, dx=1000.0,
                           hill_height=600.0, u_speed=9.0, rh=1.0,
                           **opts, device="cpu")
+    if args.path in PLAIN_MP_OPS:
+        m.advance(600.0)
+        print(json.dumps({"nz": args.nz, "path": args.path,
+                          "ops_per_call": PLAIN_MP_OPS[args.path](m)}))
+        return
     if lake:
         import chip_smoke
         chip_smoke.install_lake(m, (2, 10))
