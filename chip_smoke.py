@@ -319,6 +319,23 @@ MP_SMALL_PATHS = (("wsm3", dict(mp=6)), ("wsm6", dict(mp=4)),
                   ("morrison + MPDATA", dict(mp=3, adv=2)))
 # and each in the small full-physics case, in Thompson's place (mp)
 MP_FULLPHYS = (("WSM3", 6), ("WSM6", 4), ("Morrison", 3))
+# phase 17, the other convection schemes: bench.py's fullphys ridge with
+# Kain-Fritsch, NSAS or BMJ in Tiedtke's place (RIDGE_PATHS fullphys_kf,
+# fullphys_nsas, fullphys_bmj), and their small cases: FULLPHYS_SMALL with
+# its water strip, one FULLPHYS_SMALL_INTERVAL interval for NSAS and BMJ
+# (and NSAS again under RRTMG and YSU, rrtmg_small, so that hpbl > 0
+# reaches its shallow scheme); Kain-Fritsch two intervals of the case 20
+# levels deep (CU_SMALL_KF; FULLPHYS_SMALL's model top, 3.2 km, lies below
+# the 3 km cloud depth that KF's trigger asks above the LCL, so KF
+# convects nowhere there, in both packages), so that its NCA countdown
+# freezes and releases the tendencies
+CU_PATHS = (("fullphys_kf", 3), ("fullphys_nsas", 4), ("fullphys_bmj", 5))
+CU_SMALL_KF = dict(FULLPHYS_SMALL, nz=20)
+CU_SMALL_KF_INTERVALS = 2
+# the state fields each scheme keeps, digested after each drive
+CU_STATE_FIELDS = {"fullphys_kf": ("kf_nca", "kf_w0avg", "kf_prate"),
+                   "fullphys_nsas": ("convective_precipitation",),
+                   "fullphys_bmj": ("cldefi",)}
 # the lake's fields held by the share of cells past their bound: its snow
 # layer count and ice fraction flip with one-ulp differences at their
 # thresholds (ROADMAP section 3)
@@ -3463,6 +3480,199 @@ def check_other_mp(ideal_ridge_model, cases, kernels, step, adv_plain,
     return k1, k4
 
 
+def cu_small(ideal_ridge_model, label, device, seed=None):
+    """Phase 17's small case of the path ``label`` on ``device``:
+    FULLPHYS_SMALL with its water strip (Kain-Fritsch: CU_SMALL_KF over
+    CU_SMALL_KF_INTERVALS intervals), or for ``nsas_ysu`` the small RRTMG
+    + YSU case with NSAS in Tiedtke's place (``rrtmg_small``, all land at
+    noon); with ``seed``, every nonzero float value one ulp up or down
+    (``nudged``)."""
+    import torch
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.models.icar import FULLPHYS_RRTMG_NOAH, RIDGE_PATHS
+    if label == "nsas_ysu":
+        return rrtmg_small(ideal_ridge_model, dict(FULLPHYS_RRTMG_NOAH,
+                                                   conv=C.CU_NSAS),
+                           device, seed)
+    kf = label == "fullphys_kf"
+    m = ideal_ridge_model(**(CU_SMALL_KF if kf else FULLPHYS_SMALL),
+                          **RIDGE_PATHS[label], device=device)
+    land = m.state["land_mask"].clone()
+    land[:, :10] = 2.0
+    m.state = {**m.state, "land_mask": land}
+    if seed is not None:
+        m.state = nudged(m.state, seed)
+    for _ in range(CU_SMALL_KF_INTERVALS if kf else 1):
+        m.advance(FULLPHYS_SMALL_INTERVAL)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return m
+
+
+def check_cu_small(ideal_ridge_model, label):
+    """Phase 17's small case ``label`` (``cu_small``) on the CPU and the
+    card: the same substeps; every field held by ``hold_card_to_cpu`` to
+    the larger of FULLPHYS_BOUNDS and twice the CPU run's own spread under
+    a one-ulp nudge (three seeds; under YSU its level fields by the share
+    of cells past it); convective rain in some columns on both, and under
+    YSU a PBL height above 0 on both."""
+    cpu = cu_small(ideal_ridge_model, label, "cpu")
+    card = cu_small(ideal_ridge_model, label, "cuda")
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"small {label} case: {card.last_n_substeps} "
+                             f"substeps on the card, {cpu.last_n_substeps} "
+                             f"on the CPU")
+    spread = own_spread(cpu, lambda seed: cu_small(ideal_ridge_model, label,
+                                                   "cpu", seed))
+    ill = FULLPHYS_ILL_CONDITIONED + (YSU_LEVEL_FIELDS
+                                      if label == "nsas_ysu" else ())
+    worst = hold_card_to_cpu(cpu, card, f"small {label} case", spread, ill)
+    shares = {}
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        shares[where] = float((m.field("convective_precipitation")
+                               > 0).mean())
+        if not shares[where] > 0:
+            raise AssertionError(f"small {label} case on the {where}: no "
+                                 f"convective rain")
+        if label == "nsas_ysu" and not m.field("hpbl").max() > 0:
+            raise AssertionError(f"small {label} case on the {where}: no "
+                                 f"PBL height for NSAS's shallow scheme")
+    extra = ""
+    if label == "fullphys_kf":
+        extra = (f"NCA running at the end in "
+                 f"{100 * float((card.field('kf_nca') > 0).mean()):.1f}% "
+                 f"of the card's columns; ")
+    grid = CU_SMALL_KF if label == "fullphys_kf" else FULLPHYS_SMALL
+    log(f"small {label} case {grid['nx']}x{grid['ny']}x{grid['nz']}: "
+        f"{card.last_n_substeps} substeps in its last interval on the card "
+        f"and the CPU; columns with convective rain (CPU, card) "
+        f"{shares['CPU']:.3f}, {shares['card']:.3f}; {extra}largest "
+        f"|card - CPU| / max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {b:.3e})" for g, (r, k, b) in worst.items()))
+
+
+def convection_call(model, step):
+    """One convection stage (``core.physics_step.convection``: the
+    path's scheme) on ``model``'s state at the path's dt: (CUDA-event ms,
+    median of 3; the host's wall of one more call in ms)."""
+    import torch
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    g = model.geom_t
+    s = diagnostic_update(model.state, g, full=False, with_w_real=True)
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    dt = torch.tensor(float(dt), device=s["pressure"].device)
+    statics = ps.Statics(g, model.options)
+    run = lambda: ps.convection(s, statics, model.options, dt)
+    ms = cuda_ms(run, reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return ms, 1e3 * (time.perf_counter() - t0)
+
+
+def check_convection(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
+                     thompson_cases, smi):
+    """Phase 17: Kain-Fritsch, NSAS and BMJ on bench.py's fullphys ridge
+    (RIDGE_PATHS fullphys_kf, fullphys_nsas, fullphys_bmj). For each: two
+    intervals of a fresh 500x500x20 model (``drive``: K5 and K1 once a
+    substep and nothing else, the scheme once a substep) with its digest
+    and its scheme's own fields' digest, the share of columns it triggered
+    (columns with convective rain in the two intervals; Kain-Fritsch's
+    with NCA running after the last call too) and the convective rain's
+    total;
+    on the state the drive left, K1 against its kernel-order oracle (0.0)
+    and its plain version and K5 against its plain version (0.0; its
+    active tiles), one convection call by CUDA events and the host's
+    clock with its aten operations (tools/count_ops.py), and the stages of
+    one more interval by CUDA events. Then the small cases, card against
+    CPU (``check_cu_small``). Returns the K1 and K5 figures by path."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch.core.state import state_digest
+    from icar_tpu_torch.physics import cu_bmj, cu_kf, cu_nsas
+    from icar_tpu_torch.time_paths import stage_ms
+    schemes = {"fullphys_kf": (cu_kf, "kfcps"),
+               "fullphys_nsas": (cu_nsas, "nsas"),
+               "fullphys_bmj": (cu_bmj, "bmj")}
+    figures = {}
+    for label, conv in CU_PATHS:
+        case = cases[label]
+        t0 = time.perf_counter()
+        model = ideal_ridge_model(**case, device="cuda")
+        tp.device_tables(step.thompson_params(model.options),
+                         model.state["pressure"].device)
+        path = step.path_kernels(model.options)
+        if path != ("mp_thompson", "advect_upwind"):
+            raise AssertionError(f"{label}: path {path}")
+        log(f"{label} setup at 500x500x20: {time.perf_counter() - t0:.1f} s")
+        module, fname = schemes[label]
+        with counted_calls(module, fname) as calls:
+            launches, _, steps = drive(model, kernels, label, path, smi,
+                                       fields=tuple(model.state))
+        if len(calls) != steps:
+            raise AssertionError(f"{label}: {fname} called {len(calls)} "
+                                 f"times in {steps} substeps")
+        fields = CU_STATE_FIELDS[label]
+        log(f"digest {label} scheme: " + json.dumps(state_digest(
+            {k: model.global_field(k) for k in fields}, list(fields))))
+        conv_rain = model.global_field("convective_precipitation")
+        share = float((conv_rain > 0).float().mean())
+        nca = (f", with NCA running after the last call "
+               f"{float((model.global_field('kf_nca') > 0).float().mean())}"
+               if label == "fullphys_kf" else "")
+        log(f"{label}: {fname} called once a substep ({steps} calls); "
+            f"triggered share (columns with convective rain in two "
+            f"intervals) {share}{nca}; convective rain total "
+            f"{float(conv_rain.double().sum())!r} mm over "
+            f"{conv_rain.numel()} columns, max {float(conv_rain.max())!r} "
+            f"mm")
+        state_label = f"{label} state after two intervals"
+        err1, oerr1, ms1, pms1, shape, _ = k1_on_state(
+            model, kernels, step, adv_plain, state_label)
+        err5, ms5, pms5, tiles, work5 = k5_on_state(
+            model, kernels, step, tp, thompson_cases, state_label)
+        if oerr1 != 0.0 or err5 != 0.0:
+            raise AssertionError(f"{label}: K1 {oerr1} against its oracle, "
+                                 f"K5 {err5} against its plain version")
+        log(f"{label}: K1 on the {state_label} 0.0 against its oracle, "
+            f"{ms1:.4f} ms (plain {pms1:.4f}); K5 0.0 against its plain "
+            f"version, {ms5:.4f} ms (plain {pms5:.4f}), {100 * tiles:.1f}% "
+            f"of tiles active")
+        call_ms, call_wall = convection_call(model, step)
+        ops = count_ops.CONVECTION_OPS[label](model)
+        log(f"{label}: one convection call {call_ms:.3f} ms by CUDA "
+            f"events, {call_wall:.1f} ms of wall; aten operations per "
+            f"call: " + json.dumps(ops))
+        stages = stage_ms(model)
+        log(f"{label} stages of one more interval ({stages['substeps']} "
+            f"substeps, wall {stages['wall_ms']:.1f} ms), CUDA-event ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                stages["stages_ms"].items(), key=lambda kv: -kv[1])))
+        del model
+        b1, by1 = bound(*advect_work(*shape))
+        b5, by5 = bound(*work5)
+        figures[label] = {
+            "advect_upwind": {
+                "launches": launches["advect_upwind"], "max_abs_err": err1,
+                "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+                "bound_ms": b1, "bound_by": by1, "species": shape[0]},
+            "mp_thompson": {
+                "launches": launches["mp_thompson"], "max_abs_err": err5,
+                "ms": ms5, "plain_ms": pms5, "bound_ms": b5,
+                "bound_by": by5, "active_tile_share": tiles},
+            "scheme": {"triggered_share": share, "call_ms": call_ms,
+                       "call_wall_ms": call_wall, "ops": ops}}
+    for label in ("fullphys_kf", "fullphys_nsas", "fullphys_bmj",
+                  "nsas_ysu"):
+        check_cu_small(ideal_ridge_model, label)
+    return figures
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -3631,6 +3841,14 @@ def main():
     # the stages; the small cases card against CPU
     other_k1, other_k4 = check_other_mp(ideal_ridge_model, cases, kernels,
                                         step, adv_plain, mpdata_plain, smi)
+    # 17. Kain-Fritsch, NSAS and BMJ on the fullphys ridge: two intervals
+    # counting kernel launches and scheme calls, the triggered share and
+    # the convective rain, K1 and K5 on each path's state, one scheme
+    # call's time and operations, the stages; the small cases card
+    # against CPU
+    convection = check_convection(ideal_ridge_model, cases, kernels, step,
+                                  adv_plain, thompson_plain, thompson_cases,
+                                  smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -3646,6 +3864,8 @@ def main():
             entry["fullphys_rrtmg_noah"] = rrtmg[name]
             entry["fullphys_rrtmg"] = noahmp[name]
             entry["fullphys_lake"] = lake[name]
+            for label, fig in convection.items():
+                entry[label] = fig[name]
         if name == "advect_upwind":
             entry.update(other_k1)
         if name == "advect_mpdata":

@@ -5,8 +5,9 @@ convection, in the operator order of icar_tpu/core/step.py
 heating applied every substep; with radiation=1 the forcing's radiation
 stays), the throttled surface (simple water, the lake, then Noah or
 Noah-MP; with lsm=1 the forcing's fluxes stay on land), apply_fluxes, YSU
-or pbl_simple, Tiedtke. The microphysics and the
-advection that follow run on the species stack (``core/step.py``).
+or pbl_simple, then Tiedtke, Kain-Fritsch, NSAS or BMJ. The microphysics
+and the advection that follow run on the species stack
+(``core/step.py``).
 
 Each stage takes the state dict ``s`` (the advected species as rows of
 the stack, or tensors that replaced them) and returns a new dict with the
@@ -24,9 +25,10 @@ import torch
 
 from .. import constants as C
 from ..ops.pointwise import inv
-from ..physics import (cloud_fraction, cu_tiedtke, lsm_noah, noahmp,
-                       noahmp_glacier, pbl_simple, ra_simple, rrtmg_lw,
-                       rrtmg_sw, surface, water_lake, ysu)
+from ..physics import (cloud_fraction, cu_bmj, cu_kf, cu_nsas, cu_tiedtke,
+                       lsm_noah, noahmp, noahmp_glacier, pbl_simple,
+                       ra_simple, rrtmg_lw, rrtmg_sw, surface, water_lake,
+                       ysu)
 from ..physics.ghg import ghg_for_options
 from ..physics.noah_params import load_tables
 from ..physics.noahmp_params import load_mp_tables, resolve_params
@@ -35,9 +37,10 @@ from ..physics.noahmp_params import load_mp_tables, resolve_params
 class Statics:
     """What the column physics reads besides the state, made once per
     interval on the state's device: the lowest layer's height above the
-    ground (z_atm), the interface thickness, heights and terrain, the solar
-    geometry's longitude and sin/cos of the latitude (numpy float32 as the
-    JAX package forms them), the Noah tables (``noah_params.load_tables``)
+    ground (z_atm), the interface and mass-level thicknesses, heights and
+    terrain, the solar geometry's longitude and sin/cos of the latitude
+    (numpy float32 as the JAX package forms them), the Noah tables
+    (``noah_params.load_tables``)
     and the grid spacing; with ``options`` that run RRTMG, its k-tables on
     the state's device (``rrtmg_lw.get_lw_tables`` and, unless
     ``use_simple_sw``, ``rrtmg_sw.get_sw_tables``, uploaded once per table
@@ -48,6 +51,7 @@ class Statics:
         self.noah_tables = load_tables()
         self.dx = float(geom.dx)
         self.dz = geom.dz_interface
+        self.dz_mass = geom.dz_mass
         self.z = geom.z
         self.terrain = geom.terrain
         self.z_atm = geom.z[0] - geom.terrain
@@ -540,36 +544,140 @@ def boundary_layer_ysu(s, g: Statics, dt):
     return s
 
 
-def convection(s, g: Statics, options, dt):
-    """Tiedtke (convect, time_step.f90:497; cu_driver.f90): the interface
-    w with a zero bottom, the interface pressures with the model top
-    reflected, the tendency fractions' blend, and the convective rain
-    added to both accumulators (before the microphysics adds its own)."""
-    s = dict(s)
+def _interface_w_p(s):
+    """The interface w with a zero bottom and the interface pressures with
+    the model top reflected (pressure_interface holds the interface below
+    each layer), as Tiedtke and NSAS take them."""
     w_if = torch.cat([torch.zeros_like(s["w_real"][:1]), s["w_real"]], 0)
     p_if = torch.cat([s["pressure_interface"],
                       2.0 * s["pressure"][-1:]
                       - s["pressure_interface"][-1:]], 0)
+    return w_if, p_if
+
+
+def _blend(s, options, th_c, qv_c, qc_c=None, qi_c=None):
+    """The scheme's new theta, vapour and (where given and held) cloud
+    water and ice blended in by the tendency fractions."""
+    cu = options.cu
+    th0, qv0 = s["potential_temperature"], s["water_vapor"]
+    if cu.tend_th_fraction > 0:
+        s["potential_temperature"] = th0 + (th_c - th0) \
+            * cu.tend_th_fraction
+    if cu.tend_qv_fraction > 0:
+        s["water_vapor"] = qv0 + (qv_c - qv0) * cu.tend_qv_fraction
+    if qc_c is not None and cu.tend_qc_fraction > 0 and "cloud_water" in s:
+        s["cloud_water"] = s["cloud_water"] \
+            + (qc_c - s["cloud_water"]) * cu.tend_qc_fraction
+    if qi_c is not None and cu.tend_qi_fraction > 0 and "cloud_ice" in s:
+        s["cloud_ice"] = s["cloud_ice"] \
+            + (qi_c - s["cloud_ice"]) * cu.tend_qi_fraction
+
+
+def _convective_rain(s, rain):
+    """The convective rain added to both accumulators (before the
+    microphysics adds its own)."""
+    s["precipitation"] = s["precipitation"] + rain
+    s["convective_precipitation"] = s["convective_precipitation"] + rain
+
+
+def convection(s, g: Statics, options, dt):
+    """The convection scheme of ``options`` (convect, time_step.f90:497;
+    cu_driver.f90; icar_tpu/core/step.py:763-904): Tiedtke, Kain-Fritsch,
+    NSAS or BMJ, each adding its convective rain to both accumulators."""
+    conv = options.physics.convection
+    if conv == C.CU_KF:
+        return convection_kf(s, g, options, dt)
+    if conv == C.CU_NSAS:
+        return convection_nsas(s, g, options, dt)
+    if conv == C.CU_BMJ:
+        return convection_bmj(s, g, options, dt)
+    return convection_tiedtke(s, g, options, dt)
+
+
+def convection_tiedtke(s, g: Statics, options, dt):
+    """Tiedtke (cu_tiedtke): the interface w and pressures
+    (``_interface_w_p``), the tendency fractions' blend when
+    ``tendency_fraction`` is on, and the convective rain."""
+    s = dict(s)
+    w_if, p_if = _interface_w_p(s)
     th_c, qv_c, qc_c, qi_c, rain_c = cu_tiedtke.tiedtke(
         s["u_mass"], s["v_mass"], w_if, s["temperature"], s["water_vapor"],
         s["cloud_water"], s["cloud_ice"], s["exner"], s["density"],
         s["tend_qv_adv"], s["tend_qv_pbl"], s["pressure"], p_if, g.dz,
         s["latent_heat"] * inv(C.LH_VAPORIZATION), s["sensible_heat"],
         s["land_mask"], dt)
+    if options.cu.tendency_fraction > 0:
+        _blend(s, options, th_c, qv_c, qc_c, qi_c)
+    _convective_rain(s, rain_c)
+    return s
+
+
+def convection_kf(s, g: Statics, options, dt):
+    """Kain-Fritsch (icar_tpu/core/step.py:805-845): its tendencies
+    persist in the state while the NCA countdown runs (``cu_kf.kfcps``);
+    with ``tendency_fraction`` on they are applied as t * dt * fraction,
+    and the rain and snow tendencies feed the grid-scale rain and snow in
+    full (the commented ICAR feedback, cu_driver.f90:494-498)."""
+    s = dict(s)
+    (t_th, t_qv, t_qc, t_qr, t_qi, t_qs, raincv, w0avg, nca,
+     prate) = cu_kf.kfcps(
+        s["u_mass"], s["v_mass"], s["potential_temperature"],
+        s["water_vapor"], s["pressure"], s["density"], g.dz_mass,
+        s["w_real"], s["exner"], dt, g.dx, s["kf_w0avg"], s["kf_nca"],
+        s["kf_prate"], s["tend_th_cu"], s["tend_qv_cu"], s["tend_qc_cu"],
+        s["tend_qr_cu"], s["tend_qi_cu"], s["tend_qs_cu"])
+    s["kf_w0avg"], s["kf_nca"], s["kf_prate"] = w0avg, nca, prate
+    s["tend_th_cu"], s["tend_qv_cu"] = t_th, t_qv
+    s["tend_qc_cu"], s["tend_qr_cu"] = t_qc, t_qr
+    s["tend_qi_cu"], s["tend_qs_cu"] = t_qi, t_qs
     cu = options.cu
     if cu.tendency_fraction > 0:
-        th0, qv0 = s["potential_temperature"], s["water_vapor"]
-        if cu.tend_th_fraction > 0:
-            s["potential_temperature"] = th0 + (th_c - th0) \
-                * cu.tend_th_fraction
-        if cu.tend_qv_fraction > 0:
-            s["water_vapor"] = qv0 + (qv_c - qv0) * cu.tend_qv_fraction
-        if cu.tend_qc_fraction > 0:
-            s["cloud_water"] = s["cloud_water"] \
-                + (qc_c - s["cloud_water"]) * cu.tend_qc_fraction
-        if cu.tend_qi_fraction > 0:
-            s["cloud_ice"] = s["cloud_ice"] \
-                + (qi_c - s["cloud_ice"]) * cu.tend_qi_fraction
-    s["precipitation"] = s["precipitation"] + rain_c
-    s["convective_precipitation"] = s["convective_precipitation"] + rain_c
+        for name, tend, frac in (
+                ("potential_temperature", t_th, cu.tend_th_fraction),
+                ("water_vapor", t_qv, cu.tend_qv_fraction),
+                ("cloud_water", t_qc, cu.tend_qc_fraction),
+                ("cloud_ice", t_qi, cu.tend_qi_fraction)):
+            if frac > 0 and name in s:
+                s[name] = s[name] + tend * dt * frac
+        for name, tend in (("rain_mass", t_qr), ("snow_mass", t_qs)):
+            if name in s:
+                s[name] = s[name] + tend * dt
+    _convective_rain(s, raincv)
+    return s
+
+
+def convection_nsas(s, g: Statics, options, dt):
+    """NSAS (icar_tpu/core/step.py:847-881): the interface w and pressures
+    (``_interface_w_p``), the PBL height (0 without one that forms it),
+    the tendency fractions' blend and the convective rain. NOTE reference
+    quirk preserved: the JAX step calls ``nsas`` without the microphysics
+    option, so its detrainment splits cloud water and ice (ncloud 2)
+    whatever the microphysics (ROADMAP section 3)."""
+    s = dict(s)
+    w_if, p_if = _interface_w_p(s)
+    zeros = torch.zeros_like(s["potential_temperature"])
+    th_c, qv_c, qc_c, qi_c, rain_c = cu_nsas.nsas(
+        s["u_mass"], s["v_mass"], w_if, s["temperature"], s["water_vapor"],
+        s.get("cloud_water", zeros), s.get("cloud_ice", zeros),
+        s["density"], s["pressure"], p_if, g.dz, s["exner"],
+        s.get("hpbl", torch.zeros_like(s["sensible_heat"])),
+        s["sensible_heat"], s["latent_heat"] * inv(C.LH_VAPORIZATION),
+        s["land_mask"], g.dx, dt)
+    _blend(s, options, th_c, qv_c, qc_c, qi_c)
+    _convective_rain(s, rain_c)
+    return s
+
+
+def convection_bmj(s, g: Statics, options, dt):
+    """BMJ (icar_tpu/core/step.py:883-904): the surface pressure from the
+    lowest interface, the theta and vapour fractions' blend, the cloud
+    efficiency kept in the state and the convective rain."""
+    s = dict(s)
+    th_c, qv_c, rain_c, cldefi = cu_bmj.bmj(
+        s["temperature"], s["potential_temperature"], s["water_vapor"],
+        s["pressure"], s["exner"], s["density"], g.dz, s["land_mask"],
+        s["cldefi"], dt, psfc=s["pressure_interface"][0])
+    _blend(s, options, th_c, qv_c)
+    s["cldefi"] = cldefi
+    _convective_rain(s, rain_c)
     return s

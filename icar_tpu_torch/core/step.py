@@ -626,15 +626,16 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     stored heating applied every substep), the surface every
     ``lsm.update_interval`` seconds of float32 model time (``Throttle``:
     its counter starts full, so the first substep runs it), the surface
-    fluxes, the boundary layer (YSU or pbl_simple), convection --, then the
-    rows of the stack a stage replaced are written back; the microphysics
-    (every ``mp.update_interval`` seconds likewise) updates the stack and
-    the accumulators in place -- Thompson (K5) on
+    fluxes, the boundary layer (YSU or pbl_simple), convection (Tiedtke,
+    Kain-Fritsch, NSAS or BMJ) --, then the rows of the stack a stage
+    replaced are written back (Kain-Fritsch's rain and snow too); the
+    microphysics (every ``mp.update_interval`` seconds likewise) updates
+    the stack and the accumulators in place -- Thompson (K5) on
     its nine species, SB04 (K3) on its five with the refreshed density
     and the interface thickness (the cloud ice the PBL and convection
     write stays in the state, unadvected, as in the JAX loop), or WSM3,
     WSM6 or Morrison (``plain_microphysics``; WSM3 with w_real, formed
-    with Tiedtke's) --, and K1,
+    with the convection's) --, and K1,
     or K4 at the configured order and FCT, advects the stack into the
     second buffer with the near-end clamp folded in unless forcing
     follows, on density-weighted operands with ``advect_density``; the
@@ -649,9 +650,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by
     default). pbl_simple's substep count is one host read per substep,
     WSM3's, WSM6's and Morrison's sedimentation counts two, three and one
-    a call; YSU and RRTMG read nothing back. ``timer(stage)``, when given,
-    returns a context manager around each stage's work
-    (``time_paths.StageTimer``:
+    a call, Kain-Fritsch's feedback substeps one for each closure trip it
+    runs and one more; YSU, RRTMG, NSAS and BMJ read nothing back.
+    ``timer(stage)``, when given, returns a context manager around each
+    stage's work (``time_paths.StageTimer``:
     diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
     radiation_lw and radiation (the zenith and the heating), surface --
     with the lake its lake column, with Noah-MP its noahmp and glacier
@@ -685,10 +687,15 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     # YSU reads the 10 m winds and ustar, which only the full refresh
     # forms (icar_tpu/core/step.py:1638, 1745-1749)
     full_each = phys.boundarylayer == C.PBL_YSU
-    convect = phys.convection == C.CU_TIEDTKE
+    convect = phys.convection != C.CU_NONE
+    # only Tiedtke reads the PBL's moisture tendency (icar_tpu/core/
+    # step.py:765-767; the JAX step takes the moisture before the PBL for
+    # any scheme, :743-744, and leaves the others without it)
+    tiedtke = phys.convection == C.CU_TIEDTKE
     surface = (phys.landsurface != C.LSM_NONE
                or phys.watersurface != C.WATER_NONE)
-    # Tiedtke and WSM3 read w_real (icar_tpu/core/step.py:1639-1645)
+    # every convection scheme and WSM3 read w_real (icar_tpu/core/
+    # step.py:1639-1645)
     w_real_cfg = convect or mp == C.MP_WSM3
 
     with stage("diagnostics"):
@@ -796,7 +803,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         if phys.boundarylayer == C.PBL_YSU:
             with stage("pbl_ysu"):
                 s = ps.boundary_layer_ysu(s, statics, dt_t)
-                if convect:
+                if tiedtke:
                     # the JAX loop takes the moisture before the PBL after
                     # YSU has run (icar_tpu/core/step.py:746-747, 766-767),
                     # so YSU's tendency reaches Tiedtke as 0
@@ -806,7 +813,7 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
             with stage("pbl"):
                 qv_before_pbl = s["water_vapor"]
                 s = ps.boundary_layer(s, statics, dt_t)
-                if convect:
+                if tiedtke:
                     s["tend_qv_pbl"] = (s["water_vapor"] - qv_before_pbl) \
                         / dt_t
         if convect:

@@ -76,7 +76,8 @@ def _unported(options: Options):
         (ph.microphysics in (C.MP_NONE, C.MP_SIMPLE, C.MP_THOMPSON,
                              C.MP_MORRISON, C.MP_WSM6, C.MP_WSM3),
          f"microphysics={ph.microphysics}", mp_slice),
-        (ph.convection in (C.CU_NONE, C.CU_TIEDTKE),
+        (ph.convection in (C.CU_NONE, C.CU_TIEDTKE, C.CU_KF, C.CU_NSAS,
+                           C.CU_BMJ),
          f"convection={ph.convection}", "Slice F (the other schemes)"),
     )
     for ok, what, where in checks:
@@ -501,7 +502,9 @@ class ICARModel:
 # and bench.py --config fullphys_rrtmg with Noah in Noah-MP's place:
 # RRTMG (longwave and shortwave every 1800 s, icloud 3, on the synthetic
 # k-tables bench.py injects, seeds 0 and 1) and YSU; then that config as
-# bench.py builds it, with Noah-MP
+# bench.py builds it, with Noah-MP; and the full physics column with each
+# of the other convection schemes (Kain-Fritsch, NSAS, BMJ) in Tiedtke's
+# place
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
@@ -613,7 +616,10 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                # place
                "wsm3": dict(mp=C.MP_WSM3),
                "wsm6": dict(mp=C.MP_WSM6),
-               "morrison": dict(mp=C.MP_MORRISON)}
+               "morrison": dict(mp=C.MP_MORRISON),
+               "fullphys_kf": dict(FULLPHYS, conv=C.CU_KF),
+               "fullphys_nsas": dict(FULLPHYS, conv=C.CU_NSAS),
+               "fullphys_bmj": dict(FULLPHYS, conv=C.CU_BMJ)}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
                  "MPDATA_density", "upwind_mp_throttle")

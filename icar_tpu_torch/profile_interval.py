@@ -8,7 +8,7 @@ physics column) under torch.profiler.
 
 Builds the model (the bench's ridge, 500x500x20 by default; ``--path``
 takes a path of ``models.icar.RIDGE_PATHS`` -- upwind, MPDATA, Thompson,
-fullphys, linear -- instead of --adv and --mp), advances one interval to
+fullphys, linear, fullphys_kf, ... -- instead of --adv and --mp), advances one interval to
 warm up (the kernel build and first launches), then profiles one more
 interval (on the linear path each interval follows its wind update, as in
 bench.py)

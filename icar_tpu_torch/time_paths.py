@@ -9,7 +9,8 @@ the linear-theory winds of bench.py --config linear, and the general
 loop's options: density advection, the microphysics throttle, the full
 physics column with MPDATA or SB04; bench.py --config fullphys_rrtmg
 with Noah, RRTMG and YSU, and as bench.py builds it; the ridge with WSM3,
-WSM6 or Morrison in SB04's place) it builds a fresh
+WSM6 or Morrison in SB04's place; the full physics column with
+Kain-Fritsch, NSAS or BMJ in Tiedtke's place) it builds a fresh
 model, advances one 1200 s interval to warm up, then times ``--repeat``
 runs of two intervals each (``run_timed``) and prints one JSON line: for
 each path the grid-point substeps per second of every run over the
@@ -17,7 +18,8 @@ natural grid, their median and the final state's float64 digest
 (``ICARModel.digest``), and the card's name; for the full-physics path
 (and the other column-physics paths) and the paths of WSM3, WSM6 and
 Morrison also the CUDA-event milliseconds of each stage of one more
-interval (``StageTimer``); for the linear path, whose winds are solved
+interval (``StageTimer``; the ``convection`` stage holds whichever
+scheme the path runs); for the linear path, whose winds are solved
 anew before each interval as bench.py does, the milliseconds of each of
 those updates (left out of the rate) and the stages of one more (N^2,
 lookup, balance). With ``--mesh cards`` the model is sharded with one

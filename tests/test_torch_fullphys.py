@@ -214,7 +214,10 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
 
 @pytest.mark.parametrize("option,value,match", [
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
-    ("convection", C.CU_NSAS, "Slice F \\(the other schemes\\)"),
+    # the other convection schemes, refused until they were ported (their
+    # ids kept): each now runs (match None)
+    pytest.param("convection", C.CU_NSAS, None,
+                 id="convection-4-Slice F \\(the other schemes\\)"),
     # the forcing's surface fluxes (lsm=1) and the lake, refused until
     # they were ported (their ids kept): each now runs (match None)
     pytest.param("landsurface", C.LSM_BASIC, None,
@@ -230,8 +233,10 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
                  id="boundarylayer-3-Slice F \\(YSU\\)"),
     pytest.param("radiation", C.RA_RRTMG, None,
                  id="radiation-3-Slice F \\(RRTMG\\)"),
-    ("convection", C.CU_KF, "Slice F \\(the other schemes\\)"),
-    ("convection", C.CU_BMJ, "Slice F \\(the other schemes\\)"),
+    pytest.param("convection", C.CU_KF, None,
+                 id="convection-3-Slice F \\(the other schemes\\)"),
+    pytest.param("convection", C.CU_BMJ, None,
+                 id="convection-5-Slice F \\(the other schemes\\)"),
     pytest.param("microphysics", C.MP_SIMPLE,
                  "mp_simple is not tuned for use with deep convection",
                  id="microphysics-2-Slice C \\(the column physics with"),
@@ -249,9 +254,9 @@ def test_options_outside_the_slice_raise(option, value, match):
     its ROADMAP slice, on the fullphys configuration. The options ported
     since (``match`` None: MPDATA, density advection, the microphysics
     throttle, YSU, RRTMG on the synthetic k-tables, Noah-MP, the forcing's
-    surface fluxes, the lake -- here without lake cells) build and run one
-    60 s interval with finite fields; SB04 with Tiedtke raises the
-    options' ValueError."""
+    surface fluxes, the lake -- here without lake cells --, Kain-Fritsch,
+    NSAS, BMJ) build and run one 60 s interval with finite fields; SB04
+    with Tiedtke raises the options' ValueError."""
     def cb(o):
         if value == C.RA_RRTMG:
             synthetic_rrtmg_tables(o)

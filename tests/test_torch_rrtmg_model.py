@@ -299,22 +299,32 @@ def test_the_cuda_path_and_a_mesh():
     # two cases whose ids are kept from their earlier examples, Noah-MP
     # and then the forcing's surface fluxes, then WSM6, and the lake (each
     # ported since: tests/test_torch_noahmp_model.py, tests/test_torch_
-    # mp_models.py, tests/test_torch_lake_driver.py), now holding
-    # convection schemes that are still refused
-    pytest.param("convection", C.CU_BMJ,
-                 "Slice F \\(the other schemes\\)",
+    # mp_models.py, tests/test_torch_lake_driver.py), holding the other
+    # convection schemes, which are ported since too (match None)
+    pytest.param("convection", C.CU_BMJ, None,
                  id="landsurface-4-Slice F \\(Noah-MP"),
-    pytest.param("convection", C.CU_NSAS,
-                 "Slice F \\(the other schemes\\)",
+    pytest.param("convection", C.CU_NSAS, None,
                  id="watersurface-3-Slice F \\(lake\\)"),
     ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
-    ("convection", C.CU_KF, "Slice F \\(the other schemes\\)")])
+    pytest.param("convection", C.CU_KF, None,
+                 id="convection-3-Slice F \\(the other schemes\\)")])
 def test_the_rest_of_slice_f_still_raises(option, value, match):
-    """Thompson-aerosol and the other convection schemes still raise
-    naming their slice, with RRTMG and YSU."""
+    """Thompson-aerosol still raises naming its slice, with RRTMG and
+    YSU; the other convection schemes (``match`` None) build under RRTMG
+    and YSU and run one 60 s interval with finite fields, NSAS reading
+    the PBL height YSU forms."""
     def cb(o):
         synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)
+    if match is None:
+        m = ideal_ridge_model(**CASE, **dict(FULLPHYS_RRTMG_NOAH,
+                                             options_cb=cb), device="cpu")
+        m.advance(60.0)
+        assert m.last_n_substeps > 0
+        for k in m.state:
+            assert np.isfinite(m.field(k)).all(), k
+        assert float(m.field("hpbl").max()) > 0
+        return
     with pytest.raises(NotImplementedError, match=match):
         ideal_ridge_model(**CASE, **dict(FULLPHYS_RRTMG_NOAH,
                                          options_cb=cb), device="cpu")

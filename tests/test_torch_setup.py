@@ -37,6 +37,7 @@ COPIES = {
     "physics/rrtmg_lw_tables.py": (),
     "physics/rrtmg_sw_tables.py": (),
     "physics/ghg.py": (),
+    "physics/bmj_tables.py": (),
 }
 
 # data files the port reads from its own copies: copy -> original
@@ -267,7 +268,9 @@ def test_port_imports_no_jax():
             "    icar_tpu_torch.__path__, 'icar_tpu_torch.')]\n"
             "for n in names:\n"
             "    importlib.import_module(n)\n"
-            "assert 'icar_tpu_torch.physics.mp_thompson' in names, names\n"
+            "for m in ('mp_thompson', 'cu_kf', 'cu_nsas', 'cu_bmj',\n"
+            "          'bmj_tables'):\n"
+            "    assert 'icar_tpu_torch.physics.' + m in names, names\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'icar_tpu' "
             "or m.startswith('icar_tpu.')]\n"

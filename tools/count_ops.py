@@ -25,7 +25,13 @@ fullphys ridge with water=3 and chip_smoke.py's lake band);
 microphysics scheme on a model's state (``--path wsm3``, ``wsm6`` or
 ``morrison``: the ridge with that scheme in SB04's place, no column
 physics; their sedimentation loops run as many trips as the state's
-fastest fall needs, so these counts follow the state).
+fastest fall needs, so these counts follow the state); ``kf_ops``,
+``nsas_ops`` and ``bmj_ops`` one call of that convection scheme within
+the convection stage (``--path fullphys_kf``, ``fullphys_nsas`` or
+``fullphys_bmj``: the fullphys ridge with that scheme in Tiedtke's place;
+Kain-Fritsch's closure runs as many trips, and its feedback substeps as
+many steps, as the state's convecting columns need, each trip's host read
+counted as one operation, so its count follows the state).
 """
 
 import argparse
@@ -194,6 +200,55 @@ PLAIN_MP_OPS = {"wsm3": wsm3_ops, "wsm6": wsm6_ops,
                 "morrison": morrison_ops}
 
 
+def _convection_ops(m, module, name):
+    """The aten operations of one call of ``module.name`` (a convection
+    scheme) within one convection stage (dt 25 s) on the state of ``m``
+    (a model of that scheme, on any device), and of the whole stage:
+    {name: count}."""
+    import torch
+    from icar_tpu_torch.core import physics_step as ps
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    s = diagnostic_update(m.state, m.geom_t, full=False, with_w_real=True)
+    g = ps.Statics(m.geom_t)
+    fn = getattr(module, name)
+    counts = {}
+
+    def wrap(*a, **k):
+        out = []
+        counts[name] = count(lambda: out.append(fn(*a, **k)))
+        return out[0]
+    setattr(module, name, wrap)
+    try:
+        total = count(ps.convection, s, g, m.options,
+                      torch.tensor(25.0, device=m.device))
+    finally:
+        setattr(module, name, fn)
+    counts["convection stage"] = total
+    return counts
+
+
+def kf_ops(m):
+    """``_convection_ops`` of Kain-Fritsch (conv=3, ``cu_kf.kfcps``)."""
+    from icar_tpu_torch.physics import cu_kf
+    return _convection_ops(m, cu_kf, "kfcps")
+
+
+def nsas_ops(m):
+    """``_convection_ops`` of NSAS (conv=4, ``cu_nsas.nsas``)."""
+    from icar_tpu_torch.physics import cu_nsas
+    return _convection_ops(m, cu_nsas, "nsas")
+
+
+def bmj_ops(m):
+    """``_convection_ops`` of BMJ (conv=5, ``cu_bmj.bmj``)."""
+    from icar_tpu_torch.physics import cu_bmj
+    return _convection_ops(m, cu_bmj, "bmj")
+
+
+CONVECTION_OPS = {"fullphys_kf": kf_ops, "fullphys_nsas": nsas_ops,
+                  "fullphys_bmj": bmj_ops}
+
+
 def rrtmg_ops(m):
     """The aten operations of one call of each RRTMG stage and of YSU on
     the state of ``m`` (a model of the fullphys_rrtmg_noah path, on any
@@ -235,7 +290,7 @@ def main():
     ap.add_argument("--path", default="fullphys",
                     choices=("fullphys", "fullphys_rrtmg_noah",
                              "fullphys_rrtmg", "fullphys_lake")
-                    + tuple(PLAIN_MP_OPS))
+                    + tuple(PLAIN_MP_OPS) + tuple(CONVECTION_OPS))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -250,10 +305,11 @@ def main():
     m = ideal_ridge_model(nx=30, ny=12, nz=args.nz, dx=1000.0,
                           hill_height=600.0, u_speed=9.0, rh=1.0,
                           **opts, device="cpu")
-    if args.path in PLAIN_MP_OPS:
+    if args.path in PLAIN_MP_OPS or args.path in CONVECTION_OPS:
         m.advance(600.0)
+        fn = PLAIN_MP_OPS.get(args.path) or CONVECTION_OPS[args.path]
         print(json.dumps({"nz": args.nz, "path": args.path,
-                          "ops_per_call": PLAIN_MP_OPS[args.path](m)}))
+                          "ops_per_call": fn(m)}))
         return
     if lake:
         import chip_smoke
