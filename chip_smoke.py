@@ -185,6 +185,25 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    read w_real).
    K1's line in the table adds these figures under "wsm3", "wsm6" and
    "morrison", K4's its 11-species figures under "morrison".
+17. Kain-Fritsch, NSAS and BMJ on bench.py's fullphys ridge in Tiedtke's
+   place (check_convection): two intervals each (K5 and K1 once a
+   substep, the scheme once a substep), K1 and K5 on each state, one
+   convection call's time and operations, the stages; the small cases on
+   the CPU and the card.
+18. Thompson-aerosol (mp=5) on bench.py's mpdata_thompson ridge
+   (check_thompson_aer): two intervals of the constant-Nc ridge
+   (thompson_aer: K5 and K4 once a substep; its digest must equal the
+   Thompson ridge's of phase 6 in every field), K5 on the state it
+   leaves (0.0); two intervals of the aerosol-aware ridge
+   (thompson_aer_aware: K4 on its 12 species once a substep and no other
+   kernel, the plain scheme once a substep, droplets and nwfa moved), K1
+   on its 12 species against its oracle (0.0) and K4 on them, one scheme
+   call timed with its operations, the stages; the aware ridge sharded
+   2x2 on this card against its unsharded digest; the small cases (the
+   aware ridge with upwind, K1 once a substep on the card; the RRTMG +
+   YSU + Noah-MP case with the aware scheme) on the CPU and the card.
+   K1's line adds its 12-species figures under "thompson_aer_aware", K4's
+   likewise, K5's its figures under "thompson_aer".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -336,6 +355,24 @@ CU_SMALL_KF_INTERVALS = 2
 CU_STATE_FIELDS = {"fullphys_kf": ("kf_nca", "kf_w0avg", "kf_prate"),
                    "fullphys_nsas": ("convective_precipitation",),
                    "fullphys_bmj": ("cldefi",)}
+# phase 18, Thompson-aerosol (mp=5): bench.py's mpdata_thompson ridge with
+# mp=5 in Thompson's place, without and with the aerosol-aware option
+# (RIDGE_PATHS thompson_aer, thompson_aer_aware), each taking AER_SUBSTEPS
+# substeps in its two intervals; the aware ridge once more on AER_SHARDS
+# shards of this card; the five fields whose digests the constant-Nc ridge
+# must share with the Thompson ridge's (mp=1); the small cases: the aware
+# ridge AER_SMALL with upwind (K1 on its twelve species) over
+# AER_SMALL_INTERVAL, and the small RRTMG + YSU + Noah-MP case at noon
+# (FULLPHYS_RRTMG on FULLPHYS_SMALL) with the aware scheme, whose radii
+# reach the longwave and the shortwave
+AER_PATHS = ("thompson_aer", "thompson_aer_aware")
+AER_SUBSTEPS = 46
+AER_SHARDS = (2, 2)
+AER_DIGEST_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
+                     "rain_mass", "precipitation")
+AER_SMALL = dict(nx=48, ny=12, nz=10, dx=1000.0, hill_height=600.0,
+                 u_speed=10.0, rh=1.0)
+AER_SMALL_INTERVAL = 600.0
 # the lake's fields held by the share of cells past their bound: its snow
 # layer count and ice fraction flip with one-ulp differences at their
 # thresholds (ROADMAP section 3)
@@ -1851,7 +1888,7 @@ def sharded_drive(label, case, mesh, path, reference, kernels, smi):
     from icar_tpu_torch.physics.mp_thompson import device_tables
     model = ideal_ridge_model(**case, device="cuda")
     model.attach_mesh(mesh)
-    if case.get("mp") == C.MP_THOMPSON:
+    if case.get("mp") in (C.MP_THOMPSON, C.MP_THOMPSON_AER):
         # the lookup tables go to each card as set-up, before the timed run
         for dev in set(mesh.devices):
             device_tables(thompson_params(model.options), dev)
@@ -3673,6 +3710,248 @@ def check_convection(ideal_ridge_model, cases, kernels, step, adv_plain, tp,
     return figures
 
 
+def aer_small(ideal_ridge_model, label, device, seed=None):
+    """Phase 18's small case ``label`` on ``device``: "ridge", the
+    aerosol-aware ridge AER_SMALL with upwind advection over
+    AER_SMALL_INTERVAL; "fullphys_rrtmg", the small RRTMG + YSU + Noah-MP
+    case (FULLPHYS_RRTMG on FULLPHYS_SMALL, all land, at noon on the
+    synthetic k-tables, McICA draws made on the CPU) with the aware scheme
+    over FULLPHYS_SMALL_INTERVAL; with ``seed``, every nonzero value of
+    every float field but CATEGORIES one ulp up or down (``nudged``)."""
+    import torch
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.models.icar import (FULLPHYS_RRTMG,
+                                            aerosol_aware_options)
+    if label == "ridge":
+        m = ideal_ridge_model(**AER_SMALL, mp=C.MP_THOMPSON_AER,
+                              options_cb=aerosol_aware_options,
+                              device=device)
+    else:
+        def options(o):
+            rrtmg_noon_options(o)
+            aerosol_aware_options(o)
+        m = ideal_ridge_model(**FULLPHYS_SMALL, **dict(
+            FULLPHYS_RRTMG, mp=C.MP_THOMPSON_AER, options_cb=options),
+            device=device)
+        m.mcica_cdf = CountingCdf(on="cpu")
+    if seed is not None:
+        m.state = nudged(m.state, seed)
+    m.advance(AER_SMALL_INTERVAL if label == "ridge"
+              else FULLPHYS_SMALL_INTERVAL)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return m
+
+
+def check_aer_small(ideal_ridge_model, label):
+    """Phase 18's small case ``label`` (``aer_small``) on the CPU and the
+    card: the same substeps (and RRTMG calls), every field held by
+    ``hold_card_to_cpu`` to the larger of FULLPHYS_BOUNDS and twice the
+    CPU run's own one-ulp spread (three seeds; under YSU its level fields
+    by the share of cells past it); droplets and a droplet radius off its
+    default on both; on the card K1 once a substep and no other kernel.
+    Returns the card run's K1 launches."""
+    from icar_tpu_torch.ops import kernels
+    cpu = aer_small(ideal_ridge_model, label, "cpu")
+    kernels.reset_launches()
+    card = aer_small(ideal_ridge_model, label, "cuda")
+    launches = dict(kernels.LAUNCHES)
+    what = f"small aerosol-aware {label} case"
+    if launches != dict(launches, advect_upwind=card.last_n_substeps) \
+            or sum(launches.values()) != card.last_n_substeps:
+        raise AssertionError(f"{what}: launches {launches} in "
+                             f"{card.last_n_substeps} substeps")
+    if card.last_n_substeps != cpu.last_n_substeps:
+        raise AssertionError(f"{what}: {card.last_n_substeps} substeps on "
+                             f"the card, {cpu.last_n_substeps} on the CPU")
+    rrtmg = label != "ridge"
+    calls = ""
+    if rrtmg:
+        n = [m.mcica_cdf.calls() for m in (cpu, card)]
+        if n[0] != n[1] or n[0] < 1:
+            raise AssertionError(f"{what}: RRTMG calls {n} (CPU, card)")
+        calls = f" and {n[0]} RRTMG call"
+    spread = own_spread(cpu, lambda seed: aer_small(ideal_ridge_model,
+                                                    label, "cpu", seed))
+    ill = FULLPHYS_ILL_CONDITIONED + (YSU_LEVEL_FIELDS if rrtmg else ())
+    worst = hold_card_to_cpu(cpu, card, what, spread, ill)
+    for m, where in ((cpu, "CPU"), (card, "card")):
+        if not (m.field("cloud_number").max() > 0
+                and m.field("re_cloud").max() > 2.49e-6):
+            raise AssertionError(f"{what} on the {where}: no droplets or "
+                                 f"no droplet radius")
+    grid = AER_SMALL if label == "ridge" else FULLPHYS_SMALL
+    log(f"{what} {grid['nx']}x{grid['ny']}x{grid['nz']}: "
+        f"{card.last_n_substeps} substeps{calls} on the card and the CPU, "
+        f"K1 once a substep on the card's twelve species; "
+        f"re_cloud max (CPU, card) {float(cpu.field('re_cloud').max())!r}, "
+        f"{float(card.field('re_cloud').max())!r} m; largest |card - CPU| "
+        f"/ max|CPU| per group (bound): " + ", ".join(
+            f"{g} {r:.3e} ({k}; {b:.3e})" for g, (r, k, b) in worst.items()))
+    return launches["advect_upwind"]
+
+
+def aer_call(model, step):
+    """One call of the aerosol-aware scheme with the surface flux and the
+    copies into the stack (``core.step.thompson_aer_microphysics``) on
+    ``model``'s state at the path's dt: (CUDA-event ms, median of 3 on
+    fresh copies of the stack and the accumulators; the host's wall of one
+    more call in ms)."""
+    import torch
+    s, g = model.state, model.geom_t
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           model.options.run.cfl_reduction_factor,
+                           model.options.run.cfl_strictness)
+    names = model.advect_names
+    params = step.thompson_params(model.options)
+    q0 = torch.stack([s[k] for k in names])
+    acc0 = [s[k] for k in ("precipitation", "snowfall", "graupel")]
+    work = {}
+
+    def setup():
+        work["q"] = q0.clone()
+        work["acc"] = [a.clone() for a in acc0]
+
+    def run():
+        step.thompson_aer_microphysics(work["q"], names, s, g.dz_mass, dt,
+                                       *work["acc"], params)
+    ms = cuda_ms(run, reps=3, setup=setup)
+    setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return ms, 1e3 * (time.perf_counter() - t0)
+
+
+def check_thompson_aer(ideal_ridge_model, cases, kernels, step, adv_plain,
+                       mpdata_plain, tp, thompson_cases, thompson_ref, smi):
+    """Phase 18: Thompson-aerosol (mp=5) on bench.py's mpdata_thompson
+    ridge (RIDGE_PATHS thompson_aer, thompson_aer_aware), two intervals of
+    a fresh 500x500x20 model each (``drive``): AER_SUBSTEPS substeps; K5
+    and K4 once a substep on thompson_aer, whose digest must equal the
+    Thompson ridge's ``thompson_ref`` (its digest, substeps) in every
+    field, AER_DIGEST_FIELDS among them (the radii feed nothing on the
+    ridge), K5 then 0.0 against its plain version on the state it left;
+    K4 alone once a substep on the aware ridge, the scheme once a
+    substep, the droplet number above 0 somewhere and nwfa off its
+    initial profile, every field finite, then on its state K1 on its
+    twelve species against its kernel-order oracle (0.0) and its plain
+    version, K4 on them against its plain version, one scheme call by
+    CUDA events and the host's clock with its aten operations
+    (tools/count_ops.py thompson_aer_ops), the stages of one more interval;
+    the aware ridge sharded AER_SHARDS on this card against its unsharded
+    digest; the small cases card against CPU (``check_aer_small``).
+    Returns the figures of K1, K4 and K5 by path."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import count_ops
+    from icar_tpu_torch.core.state import state_digest
+    from icar_tpu_torch.time_paths import stage_ms
+    t_phase = time.perf_counter()
+    figures, refs = {}, {}
+    for label in AER_PATHS:
+        aware = label == "thompson_aer_aware"
+        model = ideal_ridge_model(**cases[label], device="cuda")
+        tp.device_tables(step.thompson_params(model.options),
+                         model.state["pressure"].device)
+        if aware:
+            tp.device_tnc_wev(model.state["pressure"].device)
+        path = step.path_kernels(model.options)
+        want = (("advect_mpdata",) if aware
+                else ("mp_thompson", "advect_mpdata"))
+        if path != want:
+            raise AssertionError(f"{label}: path {path}")
+        nwfa0 = model.state["nwfa"].clone() if aware else None
+        with counted_calls(step, "thompson_aer_microphysics") as calls:
+            launches, digest, steps = drive(
+                model, kernels, label, path, smi,
+                fields=tuple(model.state))
+        refs[label] = (digest, steps)
+        if steps != AER_SUBSTEPS or len(calls) != (steps if aware else 0):
+            raise AssertionError(f"{label}: {steps} substeps (expected "
+                                 f"{AER_SUBSTEPS}), the aerosol-aware "
+                                 f"scheme called {len(calls)} times")
+        radii = ("re_cloud", "re_ice", "re_snow")
+        log(f"digest {label} radii: " + json.dumps(state_digest(
+            {k: model.global_field(k) for k in radii}, list(radii))))
+        if float(model.global_field("re_cloud").max()) <= 2.49e-6:
+            raise AssertionError(f"{label}: the droplet radius stayed at "
+                                 f"its default everywhere")
+        state_label = f"{label} state after two intervals"
+        if not aware:
+            ref_digest, ref_steps = thompson_ref
+            if (digest, steps) != (ref_digest, ref_steps):
+                raise AssertionError(
+                    f"{label}: {steps} substeps and digest {digest}; the "
+                    f"Thompson ridge (mp=1): {ref_steps}, {ref_digest}")
+            log(f"{label}: {steps} substeps and every digest sum equal to "
+                f"the Thompson ridge's (mp=1; "
+                f"{', '.join(AER_DIGEST_FIELDS)} among them)")
+            err5, ms5, pms5, tiles, work5 = k5_on_state(
+                model, kernels, step, tp, thompson_cases, state_label)
+            if err5 != 0.0:
+                raise AssertionError(f"{label}: K5 {err5} against its plain "
+                                     f"version")
+            b5, by5 = bound(*work5)
+            figures["mp_thompson"] = {
+                "launches": launches["mp_thompson"], "max_abs_err": err5,
+                "ms": ms5, "plain_ms": pms5, "bound_ms": b5,
+                "bound_by": by5, "active_tile_share": tiles}
+            figures["advect_mpdata_9species"] = {
+                "launches": launches["advect_mpdata"]}
+            del model
+            continue
+        nc_max = float(model.global_field("cloud_number").max())
+        moved = float((model.state["nwfa"] - nwfa0).abs().max())
+        if not (nc_max > 0 and moved > 0):
+            raise AssertionError(f"{label}: droplet number max {nc_max}, "
+                                 f"nwfa moved by at most {moved}")
+        log(f"{label}: thompson_aer_microphysics called once a substep "
+            f"({len(calls)} calls); droplet number max {nc_max!r} kg-1; "
+            f"nwfa moved off its initial profile by up to {moved!r} kg-1")
+        err1, oerr1, ms1, pms1, shape, _ = k1_on_state(
+            model, kernels, step, adv_plain, state_label)
+        if oerr1 != 0.0:
+            raise AssertionError(f"{label}: K1 {oerr1} against its oracle")
+        err4, ms4, pms4, work4 = k4_on_state(model, kernels, step,
+                                             mpdata_plain)
+        call_ms, call_wall = aer_call(model, step)
+        ops = count_ops.thompson_aer_ops(model)
+        log(f"{label}: K1 on its {shape[0]} species 0.0 against its "
+            f"oracle, {ms1:.4f} ms (plain {pms1:.4f}); K4 on them "
+            f"{err4:.3e} against its plain version, {ms4:.4f} ms (plain "
+            f"{pms4:.4f}); one thompson_aer_microphysics call {call_ms:.3f} "
+            f"ms by CUDA events, {call_wall:.1f} ms of wall; aten operations "
+            f"per call: " + json.dumps(ops))
+        stages = stage_ms(model)
+        log(f"{label} stages of one more interval ({stages['substeps']} "
+            f"substeps, wall {stages['wall_ms']:.1f} ms), CUDA-event ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                stages["stages_ms"].items(), key=lambda kv: -kv[1])))
+        del model
+        b1, by1 = bound(*advect_work(*shape))
+        b4, by4 = bound(*work4)
+        figures["advect_upwind"] = {
+            "launches": 0, "max_abs_err": err1,
+            "max_abs_err_vs_oracle": oerr1, "ms": ms1, "plain_ms": pms1,
+            "bound_ms": b1, "bound_by": by1, "species": shape[0],
+            "scheme_ms": call_ms, "scheme_wall_ms": call_wall,
+            "scheme_ops": ops}
+        figures["advect_mpdata"] = {
+            "launches": launches["advect_mpdata"], "max_abs_err": err4,
+            "ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": by4,
+            "species": shape[0]}
+    label = "thompson_aer_aware"
+    sharded_drive(label, cases[label], one_card_mesh(AER_SHARDS),
+                  ("advect_mpdata",), refs[label], kernels, smi)
+    figures["advect_upwind"]["small_launches"] = {
+        small: check_aer_small(ideal_ridge_model, small)
+        for small in ("ridge", "fullphys_rrtmg")}
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return figures
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -3849,6 +4128,14 @@ def main():
     convection = check_convection(ideal_ridge_model, cases, kernels, step,
                                   adv_plain, thompson_plain, thompson_cases,
                                   smi)
+    # 18. Thompson-aerosol (mp=5) on the Thompson ridge: the constant-Nc
+    # ridge (K5, K4; the Thompson ridge's digest), the aerosol-aware ridge
+    # (K4 on twelve species; K1 on them against its oracle), one scheme
+    # call's time and operations, the stages, the aware ridge sharded 2x2;
+    # the small cases card against CPU
+    aer = check_thompson_aer(ideal_ridge_model, cases, kernels, step,
+                             adv_plain, mpdata_plain, thompson_plain,
+                             thompson_cases, tuple(thompson_ref), smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -3868,8 +4155,14 @@ def main():
                 entry[label] = fig[name]
         if name == "advect_upwind":
             entry.update(other_k1)
+            entry["thompson_aer_aware"] = aer["advect_upwind"]
         if name == "advect_mpdata":
             entry["morrison"] = other_k4
+            entry["thompson_aer_aware"] = aer["advect_mpdata"]
+        if name == "advect_mpdata_9species":
+            entry["thompson_aer"] = aer["advect_mpdata_9species"]
+        if name == "mp_thompson":
+            entry["thompson_aer"] = aer["mp_thompson"]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
         if name in ("advect_upwind", "mp_simple_rho"):

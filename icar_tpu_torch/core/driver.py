@@ -152,6 +152,14 @@ class ICARDriver:
                      "nwfa", "nifa"):
             if name in target and name in s:
                 s[name] = target[name]
+        if "nwfa" in target and "nwfa2d" in s:
+            # the CCN replenishment flux from the ingested surface nwfa
+            # (thompson_aer_init runs after the ingest in the reference;
+            # mp_thompson_aer.f90:536-549), made on the host
+            from ..physics.mp_thompson import aer_surface_flux
+            s["nwfa2d"] = m._tensor(np.asarray(aer_surface_flux(
+                target["nwfa"][0].detach().cpu().numpy(), m.geom.dx),
+                np.float32))
         m.state = diagnostic_update(s, m.geom_t)
         u, v, w = m.compute_winds(target["u"], target["v"], rotate=True)
         s = dict(m.state)

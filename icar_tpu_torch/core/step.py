@@ -15,10 +15,12 @@ upwind advection is the fast path: SB04 forms the density in its kernel
 at its end. Otherwise (the general loop) the state's density is refreshed
 each substep and the microphysics accumulates precipitation in the state
 substep by substep -- SB04 (K3) on its five species with that density,
-Thompson (K5) on its nine species with the mass-level thickness, or WSM3,
+Thompson (K5) on its nine species with the mass-level thickness, WSM3,
 WSM6 or Morrison (no kernel: plain PyTorch, ``plain_microphysics``) on
-their four, seven or eleven -- and MPDATA (K4) or upwind (K1) advects the
-stack. Density advection
+their four, seven or eleven, or Thompson-aerosol (mp=5: K5 as Thompson,
+or aerosol-aware the plain ``thompson_aer_microphysics`` on its twelve;
+then the effective radii, ``effective_radii``) -- and MPDATA (K4) or
+upwind (K1) advects the stack. Density advection
 (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``) take SB04 + upwind to the general loop too. With
 density the advection kernels run unchanged on operands weighted by the
@@ -132,10 +134,23 @@ def thompson_params(options) -> ThompsonParams:
 # (icar_tpu/registry.py:377-378)
 NO_MP_SPECIES = ("potential_temperature", "water_vapor")
 
+# Thompson (mp=1) and Thompson-aerosol (mp=5): without the aerosol-aware
+# option both run K5, mp=5 then forming the effective radii
+THOMPSON_MP = (C.MP_THOMPSON, C.MP_THOMPSON_AER)
+
 # the schemes no TPU kernel runs, plain PyTorch on the card: mp -> module;
 # each module's name is the stage the loops time the scheme under
 PLAIN_MP = {C.MP_WSM3: mp_wsm3, C.MP_WSM6: mp_wsm6,
             C.MP_MORRISON: mp_morrison}
+
+
+def aerosol_aware(options) -> bool:
+    """Whether ``options`` run the aerosol-aware Thompson-Eidhammer scheme
+    (mp=5 with ``mp.use_aerosol_aware``): the registry then adds the
+    droplet and aerosol numbers, and the JAX step runs the scheme's jnp
+    path (icar_tpu/core/step.py:970-1036)."""
+    return (options.physics.microphysics == C.MP_THOMPSON_AER
+            and bool(options.mp.use_aerosol_aware))
 
 
 def plain_mp_stage(mp: int) -> str:
@@ -178,13 +193,57 @@ def plain_microphysics(mp: int, q, adv_names, s, dz, dt, rain, snow,
         a.copy_(v)
 
 
-def _check_species(mp: int, adv: int, adv_names):
+def thompson_aer_microphysics(q, adv_names, s, dz, dt, rain, snow, graupel,
+                              params):
+    """The aerosol-aware Thompson-Eidhammer scheme over ``dt`` seconds on
+    the species stack ``q`` (rows ``adv_names``: the twelve of
+    ``mp_thompson.AER_SPECIES``), with the state ``s``'s exner, pressure,
+    surface CCN flux ``nwfa2d`` (``nwfa2d * dt`` added to the lowest
+    level's nwfa the scheme reads) and w_real (zeros where the state has
+    none), and the mass-level thickness ``dz`` (icar_tpu/core/step.py:
+    1020-1036). Its outputs are copied into the stack's rows and the
+    accumulators updated in place, as ``plain_microphysics`` does."""
+    row = {k: q[i] for i, k in enumerate(adv_names)}
+    nwfa = row["nwfa"]
+    if "nwfa2d" in s:
+        nwfa = torch.cat([(nwfa[0] + s["nwfa2d"] * float(dt))[None],
+                          nwfa[1:]])
+    w = s["w_real"] if "w_real" in s else torch.zeros_like(nwfa)
+    out = mp_thompson.mp_thompson_aer(
+        *(row[k] for k in mp_thompson.SPECIES), row["cloud_number"], nwfa,
+        row["nifa"], s["exner"], s["pressure"], dz, float(dt), rain, snow,
+        graupel, w=w, params=params)
+    for k, v in zip(mp_thompson.AER_SPECIES, out):
+        row[k].copy_(v)
+    for a, v in zip((rain, snow, graupel), out[12:]):
+        a.copy_(v)
+
+
+def effective_radii(s, q, adv_names, params, aware: bool):
+    """``s`` with the effective radii mp=5 forms after its microphysics
+    (``mp_thompson.calc_effect_rad`` on the stack's updated rows, with the
+    droplet number when ``aware``; icar_tpu/core/step.py:1003-1011,
+    1066-1073), which RRTMG reads at its next call."""
+    row = {k: q[i] for i, k in enumerate(adv_names)}
+    s = dict(s)
+    s["re_cloud"], s["re_ice"], s["re_snow"] = mp_thompson.calc_effect_rad(
+        row["potential_temperature"] * s["exner"], s["pressure"],
+        row["water_vapor"], row["cloud_water"], row["cloud_ice"],
+        row["ice_number"], row["snow_mass"], params,
+        nc=row["cloud_number"] if aware else None)
+    return s
+
+
+def _check_species(mp: int, adv: int, adv_names, aware: bool = False):
     """Raise ValueError unless the microphysics, the advection and the
-    advected species are a pair that the loop runs (which options are
-    ported is ICARModel's decision, models/icar.py ``_unported``). With
-    advection=0 the registry's species ride the stack unadvected."""
+    advected species are a pair that the loop runs (which options run is
+    the options' validation's decision, ``Options.validate``). With
+    advection=0 the registry's species ride the stack unadvected;
+    ``aware``: mp=5's aerosol-aware scheme, with its twelve."""
     want = {C.MP_NONE: NO_MP_SPECIES, C.MP_SIMPLE: MP_SPECIES,
             C.MP_THOMPSON: mp_thompson.SPECIES,
+            C.MP_THOMPSON_AER: (mp_thompson.AER_SPECIES if aware
+                                else mp_thompson.SPECIES),
             **{k: m.SPECIES for k, m in PLAIN_MP.items()}}.get(mp)
     name = {C.ADV_NONE: "no", C.ADV_UPWIND: "upwind",
             C.ADV_MPDATA: "MPDATA"}.get(adv)
@@ -249,9 +308,10 @@ def _quantize(dt) -> np.float32:
 
 def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     """The kernels (names of ``kernels.LAUNCHES``) the interval loop
-    launches for ``options`` on the card: the microphysics' (none with
-    mp=0, nor with WSM3, WSM6 or Morrison, which run as plain PyTorch), the
-    advection's, then with density advection the fold's
+    launches for ``options`` on the card: the microphysics' (K5 for
+    Thompson and mp=5's constant-Nc mode; none with mp=0, nor with WSM3,
+    WSM6, Morrison or mp=5's aerosol-aware scheme, which run as plain
+    PyTorch), the advection's, then with density advection the fold's
     (``kernels.density_winds``; none of the three with advection=0).
     ``full_forcing``: under forcing tendencies outside the advected
     species (``full_field_forcing``). SB04 + upwind takes the fast loop's
@@ -260,7 +320,7 @@ def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
     ph = options.physics
     mpdata = ph.advection == C.ADV_MPDATA
     path = []
-    if ph.microphysics == C.MP_THOMPSON:
+    if ph.microphysics in THOMPSON_MP and not aerosol_aware(options):
         path.append("mp_thompson")
     elif ph.microphysics == C.MP_SIMPLE:
         path.append("mp_simple_rho"
@@ -271,6 +331,21 @@ def path_kernels(options, full_forcing: bool = False) -> Tuple[str, ...]:
         if options.run.advect_density:
             path.append("density_fold")
     return tuple(path)
+
+
+def mp_stage_name(options, full_forcing: bool = False) -> Optional[str]:
+    """The timer's stage of the interval loops' microphysics (``timer`` of
+    ``run_interval_sharded`` and ``run_interval_physics``): the kernel's
+    name (mp_simple, mp_simple_rho, mp_thompson), the plain scheme's
+    (mp_wsm3, mp_wsm6, mp_morrison, mp_thompson_aer), or None with mp=0."""
+    mp = options.physics.microphysics
+    if mp in PLAIN_MP:
+        return plain_mp_stage(mp)
+    if aerosol_aware(options):
+        return "mp_thompson_aer"
+    if mp in THOMPSON_MP or mp == C.MP_SIMPLE:
+        return path_kernels(options, full_forcing)[0]
+    return None
 
 
 def general_loop(options) -> bool:
@@ -420,22 +495,29 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     (``plain_microphysics``) on the stack's rows, with the mass-level
     thickness; WSM3 reads w_real, formed in the interval's first partial
     diagnostics (and each substep under forced winds), as the JAX loop
-    forms it for mp=6 (icar_tpu/core/step.py:1639-1645, 1748).
+    forms it for mp=6 (icar_tpu/core/step.py:1639-1645, 1748). So does
+    mp=5's aerosol-aware scheme (``thompson_aer_microphysics``, block by
+    block: it is column-local) on its twelve rows, reading w_real as the
+    state holds it; mp=5 without the option runs K5 as Thompson does.
+    Either mode then forms the effective radii (``effective_radii``).
     ``timer(stage)``, when given, returns a context manager around each
     stage's work (``time_paths.StageTimer``: diagnostics, the
-    microphysics' -- mp_simple, mp_simple_rho, mp_thompson, mp_wsm3,
-    mp_wsm6 or mp_morrison --, advection)."""
+    microphysics' -- mp_simple, mp_simple_rho, mp_thompson,
+    mp_thompson_aer, mp_wsm3, mp_wsm6 or mp_morrison --, advection)."""
     stage = timer or (lambda name: contextlib.nullcontext())
     adv_names = tuple(adv_names)
     mp = options.physics.microphysics
     mpdata = options.physics.advection == C.ADV_MPDATA
     advect = options.physics.advection != C.ADV_NONE
-    _check_species(mp, options.physics.advection, adv_names)
-    thompson = mp == C.MP_THOMPSON
+    aware = aerosol_aware(options)
+    _check_species(mp, options.physics.advection, adv_names, aware)
+    # K5: Thompson, and mp=5 without the aerosol-aware option
+    thompson = mp in THOMPSON_MP and not aware
+    radii = mp == C.MP_THOMPSON_AER
     sb04 = mp == C.MP_SIMPLE
     plain = mp in PLAIN_MP
     # the schemes with a graupel accumulator
-    graupel_acc = thompson or mp in (C.MP_WSM6, C.MP_MORRISON)
+    graupel_acc = mp in THOMPSON_MP or mp in (C.MP_WSM6, C.MP_MORRISON)
     # WSM3 reads w_real (icar_tpu/core/step.py:1639)
     w_real_cfg = mp == C.MP_WSM3
     dqdts = dqdts or [{} for _ in states]
@@ -460,14 +542,14 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     exner = [s["exner"].contiguous() for s in states]
     # SB04 takes the interface thickness, the other schemes the mass-level
     # one (icar_tpu/core/step.py:952, 996, 1085, 1113)
-    dz_mp = [(g.dz_mass if thompson or plain else g.dz_interface)
-             .contiguous() for g in geoms]
+    dz_mp = [(g.dz_interface if sb04 else g.dz_mass).contiguous()
+             for g in geoms]
     if not winds_vary:
         winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
                  for s, g in zip(states, geoms)]
     floors = [torch.as_tensor(limit_floors(adv_names), device=q.device)
               for q in stacks]
-    if thompson:
+    if mp in THOMPSON_MP:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
     elif sb04:
@@ -488,11 +570,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     # advection or the microphysics throttle) accumulates in the state,
     # substep by substep; the upwind fast path adds the interval's sum
     density = options.run.advect_density
-    general = mpdata or thompson or full or general_loop(options)
+    general = mpdata or mp in THOMPSON_MP or full or general_loop(options)
     throttle = Throttle(options.mp.update_interval)
-    mp_stage = (plain_mp_stage(mp) if plain else
-                path_kernels(options, full)[0] if sb04 or thompson
-                else None)
+    mp_stage = mp_stage_name(options, full)
     if general:
         # the density follows theta (K3 reads it), the pressure-derived
         # fields a forced pressure
@@ -539,6 +619,11 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
                     sk.thompson_stack_sharded(stacks, smap, exner, pressure,
                                               dz_mp, mp_dt, rain, snow,
                                               graupel, tparams)
+                elif aware:
+                    for b, s in enumerate(states):
+                        thompson_aer_microphysics(
+                            stacks[b], adv_names, s, dz_mp[b], mp_dt,
+                            rain[b], snow[b], graupel[b], tparams)
                 elif sb04:
                     c2r, c2s = formation_rates(mp_dt)
                     sk.mp_simple_sharded(
@@ -551,6 +636,10 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
                         plain_microphysics(mp, stacks[b], adv_names, s,
                                            dz_mp[b], mp_dt, rain[b],
                                            snow[b], graupel[b])
+                if radii:
+                    states = [effective_radii(s, q, adv_names, tparams,
+                                              aware)
+                              for s, q in zip(states, stacks)]
         if advect:
             with stage("advection"):
                 # density advection: the operands weighted by the density
@@ -631,7 +720,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     replaced are written back (Kain-Fritsch's rain and snow too); the
     microphysics (every ``mp.update_interval`` seconds likewise) updates
     the stack and the accumulators in place -- Thompson (K5) on
-    its nine species, SB04 (K3) on its five with the refreshed density
+    its nine species (mp=5 too, then its effective radii, which the next
+    RRTMG call reads; with the aerosol-aware option
+    ``thompson_aer_microphysics`` on its twelve, w_real as the state
+    holds it), SB04 (K3) on its five with the refreshed density
     and the interface thickness (the cloud ice the PBL and convection
     write stays in the state, unadvected, as in the JAX loop), or WSM3,
     WSM6 or Morrison (``plain_microphysics``; WSM3 with w_real, formed
@@ -658,8 +750,8 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     radiation_lw and radiation (the zenith and the heating), surface --
     with the lake its lake column, with Noah-MP its noahmp and glacier
     columns within it --, pbl or pbl_ysu, convection, restack,
-    mp_thompson, mp_simple_rho, mp_wsm3, mp_wsm6 or mp_morrison,
-    advection). Without microphysics
+    mp_thompson, mp_thompson_aer, mp_simple_rho, mp_wsm3, mp_wsm6 or
+    mp_morrison, advection). Without microphysics
     (mp=0) the stack holds theta and water vapour and no microphysics
     runs; without advection (advection=0) the species stay put, neither
     K1 nor K4 launches, and the near-end clamp leaves them alone, as the
@@ -672,8 +764,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     mp = phys.microphysics
     mpdata = phys.advection == C.ADV_MPDATA
     advect = phys.advection != C.ADV_NONE
-    _check_species(mp, phys.advection, adv_names)
-    thompson = mp == C.MP_THOMPSON
+    aware = aerosol_aware(options)
+    _check_species(mp, phys.advection, adv_names, aware)
+    thompson = mp in THOMPSON_MP and not aware
+    radii = mp == C.MP_THOMPSON_AER
     sb04 = mp == C.MP_SIMPLE
     plain = mp in PLAIN_MP
     adv = options.adv
@@ -713,17 +807,15 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     if not winds_vary:
         winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
     floors = torch.as_tensor(limit_floors(adv_names), device=dev)
-    if thompson:
+    if mp in THOMPSON_MP:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
     elif sb04:
         species = [adv_names.index(k) for k in MP_SPECIES]
     # SB04 takes the interface thickness, the other schemes the mass-level
     # one
-    dz_mp = (geom.dz_mass if thompson or plain
-             else geom.dz_interface).contiguous()
-    mp_stage = (path_kernels(options)[0] if sb04 or thompson
-                else plain_mp_stage(mp) if plain else None)
+    dz_mp = (geom.dz_interface if sb04 else geom.dz_mass).contiguous()
+    mp_stage = mp_stage_name(options)
     rest = limited_rest(s, adv_names)
     statics = ps.Statics(geom, options)
     i_qv = adv_names.index("water_vapor")
@@ -833,6 +925,10 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                         q, smap, s["exner"], s["pressure"], dz_mp, mp_dt,
                         s["precipitation"], s["snowfall"], s["graupel"],
                         tparams)
+                elif aware:
+                    thompson_aer_microphysics(
+                        q, adv_names, s, dz_mp, mp_dt, s["precipitation"],
+                        s["snowfall"], s["graupel"], tparams)
                 elif plain:
                     plain_microphysics(mp, q, adv_names, s, dz_mp, mp_dt,
                                        s["precipitation"], s["snowfall"],
@@ -843,6 +939,8 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
                         *(q[i] for i in species), s["pressure"],
                         s["exner"], s["density"], dz_mp, s["precipitation"],
                         s["snowfall"], mp_dt, c2r, c2s)
+                if radii:
+                    s = effective_radii(s, q, adv_names, tparams, aware)
         if advect:
             with stage("advection"):
                 awinds = (kernels.density_winds(winds, s["density"])

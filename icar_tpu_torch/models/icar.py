@@ -4,7 +4,10 @@
 ``ICARModel`` runs on the torch device it is given, the card ("cuda") by
 default; it never falls back to another. The ported configurations are the
 ideal ridge with SB04, Thompson (mp=1), Morrison (mp=3), WSM6 (mp=4),
-WSM3 (mp=6) or no microphysics and upwind,
+Thompson-aerosol (mp=5: K5 then the effective radii, or with
+``mp.use_aerosol_aware`` the aerosol-aware scheme, its default aerosol
+profiles installed at construction), WSM3 (mp=6) or no microphysics and
+upwind,
 MPDATA (any order, with or without FCT) or no advection, with or without
 density advection (``run.advect_density``) and the microphysics throttle
 (``mp.update_interval``), and with any subset of the full physics column
@@ -13,13 +16,12 @@ radiation or RRTMG (longwave and shortwave, or the simple shortwave), the
 forcing's surface fluxes (lsm=1), Noah or Noah-MP (with its glacier
 column), simple water or the CLM lake (water=3, ``physics/water_lake.py``;
 its state from ``lake_init``, as ``core.driver`` does), the simple PBL or
-YSU and Tiedtke convection.
+YSU and Tiedtke, Kain-Fritsch, NSAS or BMJ convection.
 Every wind solver runs with each: balance only, linear theory (wind=1,
 its table built on the model's device at the first wind solve), the
 mass-conserving winds (wind=2), the iterative solver (wind=3), linear
-then iterative (wind=5), and flow blocking. Any other microphysics or
-convection scheme raises ``NotImplementedError`` naming the ROADMAP slice
-that ports it (what the options' validation rejects, ValueError). Forcing
+then iterative (wind=5), and flow blocking: every scheme option the
+options' validation accepts (it raises ValueError for the rest). Forcing
 tendencies (``set_forcing_tendencies``) relax the advected species on
 the boundary ring and change u, v, w, pressure and the 2-D fields
 everywhere (a file-driven run's,
@@ -64,36 +66,11 @@ from ..physics.rrtmg_sw_tables import synthetic_sw_tables
 LINEAR_WINDS = (C.WIND_LINEAR, C.WIND_LINEAR_ITERATIVE)
 
 
-def _unported(options: Options):
-    """Why ``options`` leave the ported configurations, or None. The
-    options both packages' validation rejects (pbl=1, lsm=2, water=1) are
-    left to ``Options.validate``."""
-    ph = options.physics
-    mp_slice = ("Slice F (Thompson-aerosol, mp=5)"
-                if ph.microphysics == C.MP_THOMPSON_AER
-                else "Slice F (the other schemes)")
-    checks = (
-        (ph.microphysics in (C.MP_NONE, C.MP_SIMPLE, C.MP_THOMPSON,
-                             C.MP_MORRISON, C.MP_WSM6, C.MP_WSM3),
-         f"microphysics={ph.microphysics}", mp_slice),
-        (ph.convection in (C.CU_NONE, C.CU_TIEDTKE, C.CU_KF, C.CU_NSAS,
-                           C.CU_BMJ),
-         f"convection={ph.convection}", "Slice F (the other schemes)"),
-    )
-    for ok, what, where in checks:
-        if not ok:
-            return f"{what} is not ported yet: {where} in ROADMAP.md"
-    return None
-
-
 class ICARModel:
     """An ICAR model instance on one torch device."""
 
     def __init__(self, options: Options, terrain: np.ndarray,
                  lat: np.ndarray, lon: np.ndarray, *, device="cuda"):
-        why = _unported(options)
-        if why is not None:
-            raise NotImplementedError(why)
         device = torch.device(device)
         if device.type == "cuda":
             # a kernel of the path takes fewer levels: refuse before any
@@ -110,6 +87,8 @@ class ICARModel:
         self.geom_t = geometry_to_torch(self.geom, self.device)
         self.state = create_state(options, self.device)
         self.advect_names = advected_names(options)
+        if "nwfa" in self.state:
+            self._install_aerosols()
         self.model_time = 0.0          # seconds since run start
         self._dqdt: Dict[str, torch.Tensor] = {}
         self._last_n = 0
@@ -136,6 +115,23 @@ class ICARModel:
         # RRTMG's McICA draw (physics.rrtmg_lw.TorchCdf; the tests put the
         # JAX package's draws here)
         self.mcica_cdf = TorchCdf()
+
+    def _install_aerosols(self):
+        """The default CCN/IN profiles of mp=5's aerosol-aware scheme and
+        the surface CCN flux from the initial lowest level's nwfa
+        (thompson_aer_init, mp_thompson_aer.f90:442-549;
+        icar_tpu/models/icar.py:39-58), made on the host and uploaded; a
+        file-driven run's forcing overwrites them where it holds nwfa and
+        nifa (core.driver)."""
+        from ..physics.mp_thompson import aer_init_profiles, aer_surface_flux
+        z_agl = np.asarray(self.geom.z) \
+            - np.asarray(self.geom.terrain)[None]
+        nwfa, nifa = aer_init_profiles(z_agl, np.asarray(self.geom.terrain))
+        self.state["nwfa"] = self._tensor(np.asarray(nwfa, np.float32))
+        self.state["nifa"] = self._tensor(np.asarray(nifa, np.float32))
+        if "nwfa2d" in self.state:
+            self.state["nwfa2d"] = self._tensor(np.asarray(
+                aer_surface_flux(nwfa[0], self.geom.dx), np.float32))
 
     @property
     def winds_follow_state(self) -> bool:
@@ -504,7 +500,8 @@ class ICARModel:
 # k-tables bench.py injects, seeds 0 and 1) and YSU; then that config as
 # bench.py builds it, with Noah-MP; and the full physics column with each
 # of the other convection schemes (Kain-Fritsch, NSAS, BMJ) in Tiedtke's
-# place
+# place; then bench.py's --config mpdata_thompson ridge with Thompson-aerosol
+# (mp=5) in Thompson's place, without and with the aerosol-aware option
 RIDGE = dict(nx=500, ny=500, nz=20, dx=1000.0, hill_height=1000.0,
              u_speed=10.0, rh=0.95, flat_z_height=-5)
 FULLPHYS = dict(mp=C.MP_THOMPSON, windtype=C.WIND_CONSERVE_MASS,
@@ -531,6 +528,12 @@ def mp_throttle_options(o):
     """The microphysics every MP_THROTTLE_INTERVAL seconds (the namelist's
     mp_parameters update_interval)."""
     o.mp.update_interval = MP_THROTTLE_INTERVAL
+
+
+def aerosol_aware_options(o):
+    """mp=5's aerosol-aware scheme (the namelist's mp_parameters
+    use_aerosol_aware = .true.)."""
+    o.mp.use_aerosol_aware = True
 
 
 def synthetic_rrtmg_tables(o=None):
@@ -619,10 +622,16 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "morrison": dict(mp=C.MP_MORRISON),
                "fullphys_kf": dict(FULLPHYS, conv=C.CU_KF),
                "fullphys_nsas": dict(FULLPHYS, conv=C.CU_NSAS),
-               "fullphys_bmj": dict(FULLPHYS, conv=C.CU_BMJ)}
+               "fullphys_bmj": dict(FULLPHYS, conv=C.CU_BMJ),
+               "thompson_aer": dict(adv=C.ADV_MPDATA,
+                                    mp=C.MP_THOMPSON_AER),
+               "thompson_aer_aware": dict(adv=C.ADV_MPDATA,
+                                          mp=C.MP_THOMPSON_AER,
+                                          options_cb=aerosol_aware_options)}
 # the paths a mesh shards (the column physics is not sharded yet)
 SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
-                 "MPDATA_density", "upwind_mp_throttle")
+                 "MPDATA_density", "upwind_mp_throttle", "thompson_aer",
+                 "thompson_aer_aware")
 
 
 def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,

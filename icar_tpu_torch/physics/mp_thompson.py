@@ -1,5 +1,6 @@
-"""Thompson two-moment microphysics (mp=1): the plain PyTorch version of
-kernel K5 (icar_tpu/physics/mp_thompson.py, Thompson et al. 2004, 2008).
+"""Thompson two-moment microphysics (mp=1) and the aerosol-aware
+Thompson-Eidhammer scheme (mp=5): the plain PyTorch version of kernel K5
+(icar_tpu/physics/mp_thompson.py, Thompson et al. 2004, 2008).
 
 Six water species (vapour, cloud, ice, rain, snow, graupel) with
 prognostic ice and rain number, over the whole (z, y, x) grid, following
@@ -11,10 +12,19 @@ block (four sedimentation loops, instant melt/freeze, final update). The
 CUDA kernel (``csrc/mp_thompson.cu``) runs the same scheme one column per
 thread.
 
+The aerosol-aware scheme (``mp_thompson_aer``, the ``aer`` branches of
+the blocks) adds the droplet number and the water- and ice-friendly
+aerosol numbers: activation, droplet evaporation through the ``tnc_wev``
+table, DeMott dust nucleation, Koop homogeneous freezing, wet scavenging,
+drizzle settling in the lowest 500 m. No TPU kernel runs it (the JAX
+package's core takes its jnp path when aerosol-aware), so it runs as
+plain PyTorch on the card too. ``calc_effect_rad`` forms the effective
+radii RRTMG reads, with or without the droplet number; ``aer_init_profiles``
+and ``aer_surface_flux`` (numpy, copies) the default aerosol profiles and
+the surface replenishment a model installs at set-up.
+
 Differences from the JAX module, none of which changes a value:
 
-- The aerosol-aware scheme (mp=5: ``mp_thompson_aer``, the ``aer``
-  branches, ``calc_effect_rad``) is not ported; ``mp_thompson_aer`` raises.
 - Table values are read by direct indexing. The JAX package reads the
   small 2D tables through one-hot contractions that are exact by
   construction, and skips a big-table gather when no cell of the domain
@@ -28,6 +38,9 @@ Differences from the JAX module, none of which changes a value:
   ``c / x`` as ``(1/x) * c``. ``_dc`` and ``_rd`` write out XLA's form, and
   ``_pow`` its rewrites of constant powers, so the port rounds like the
   JAX package on either device.
+
+Only the sedimentation reads the device: each loop's trip count (the
+domain's largest fall), once a loop.
 
 Layout (z, y, x), level 0 = surface, float32.
 """
@@ -53,10 +66,6 @@ ORV = 1.0 / RV
 OLFUS = 1.0 / LFUS
 SA = tuple(float(v) for v in tt.SA)
 SB = tuple(float(v) for v in tt.SB)
-
-# the ROADMAP slice that ports the aerosol-aware scheme
-AEROSOL_SLICE = "Slice F (Thompson-aerosol, mp=5)"
-
 
 def _f32(x) -> float:
     """``x`` rounded to float32, as a Python float."""
@@ -380,14 +389,119 @@ def _thermo(temp, pres, qv):
 
 
 # ---------------------------------------------------------------------------
+# the aerosol-aware scheme's helpers (mp_thompson_aer.f90)
+# ---------------------------------------------------------------------------
+
+_TNC_CACHE = {}
+
+
+def device_tnc_wev(device):
+    """The droplet-evaporation table ``tnc_wev`` (NBC, NTB_C, NBC),
+    flattened, float32, on ``device``; uploaded once per device."""
+    key = str(torch.device(device))
+    if key not in _TNC_CACHE:
+        _TNC_CACHE[key] = torch.as_tensor(
+            np.ascontiguousarray(tt.get_aer_tables()["tnc_wev"].ravel(),
+                                 np.float32)).to(device)
+    return _TNC_CACHE[key]
+
+
+def _nu_c(ncr):
+    """Per-cell cloud shape parameter nu_c = MIN(15, NINT(1e9/nc)+2)
+    (mp_thompson_aer.f90:1655), int32; ``ncr`` in m^-3. NINT rounds half
+    to even, as jnp.rint does."""
+    return torch.clamp(torch.round(_rd(1000e6, ncr)).to(torch.int32) + 2,
+                       2, 15)
+
+
+def _g_ratios(nu_c):
+    """Integer gamma ratios of the nu_c family: g1 = G(nu+4)/G(nu+1),
+    g2 = G(nu+7)/G(nu+4) (mp_thompson_aer.f90:627-638, bm_r = 3)."""
+    nu = nu_c.to(torch.float32)
+    g1 = (nu + 1.) * (nu + 2.) * (nu + 3.)
+    g2 = (nu + 4.) * (nu + 5.) * (nu + 6.)
+    return g1, g2
+
+
+def _vr_poly(D):
+    """The rain fallspeed polynomial (thompson_tables._vr_poly) with the
+    JAX package's integer powers (binary exponentiation)."""
+    return (-0.1021 + 4.932e3 * D - 0.9551e6 * _ipow(D, 2)
+            + 0.07934e9 * _ipow(D, 3) - 0.002362e12 * _ipow(D, 4))
+
+
+_BOLTZMAN = 1.3806503e-23
+_MEAN_PATH = 0.0256e-6
+
+
+def _cunningham(Da):
+    """The slip correction Cc of an aerosol of diameter ``Da`` (a Python
+    float): the JAX package forms it in float32 from a float32 exp, here
+    on a CPU tensor in its order."""
+    e = pw.exp(torch.tensor(_f32(-0.55 * Da / _MEAN_PATH)))
+    return float(1. + 2. * _MEAN_PATH / Da * (1.257 + 0.4 * e))
+
+
+def _eff_aero(D, Da, visco, rho, temp, vt):
+    """Aerosol collection efficiency by a collector of diameter D falling
+    at vt (Eff_aero, mp_thompson_aer.f90:4993-5024); ``Da`` the aerosol's
+    diameter, a Python float."""
+    Cc = _cunningham(Da)
+    diff = _BOLTZMAN * temp * Cc / (3. * PI * visco * Da)
+    Re = 0.5 * rho * D * vt / visco
+    Sc = visco / (rho * diff)
+    St = Da * Da * vt * 1000. / (9. * visco * D)
+    aval = 1. + pw.log(1. + Re)
+    St2 = (1.2 + 1. / 12. * aval) / (1. + aval)
+    Eff = (_rd(4., Re * Sc) * (1. + 0.4 * torch.sqrt(Re) * _pow(Sc, 1. / 3.)
+                               + 0.16 * torch.sqrt(Re) * torch.sqrt(Sc))
+           + _rd(4. * Da, D) * (0.02 + _rd(Da, D)
+                                * (1. + 2. * torch.sqrt(Re))))
+    Eff = Eff + _where(St > St2,
+                       _pow((St - St2) / (St - St2 + 0.666667), 1.5), 0.0)
+    return _clip(Eff, 1e-5, 1.0)
+
+
+def _ice_demott(tempc, rho, nifa):
+    """Heterogeneous ice nuclei from dust, DeMott et al. (2010)
+    (iceDeMott, mp_thompson_aer.f90:4879-4949). nifa in m^-3; returns
+    m^-3."""
+    nifa_cc = nifa * tt.RHO_NOT0 * 1e-6 / rho
+    xni = (5.94e-5 * _pow(-tempc, 3.33)) \
+        * pw.pow(nifa_cc, (-0.0264 * tempc) + 0.0033)
+    xni = _dc(xni * rho, tt.RHO_NOT0) * 1000.0
+    return _max(0.0, xni)
+
+
+def _ice_koop(temp, qv, qvs, nwfa, dt):
+    """Homogeneous freezing of deliquesced aerosols, Koop et al. (2001)
+    (iceKoop, mp_thompson_aer.f90:4955-4979). Returns m^-3."""
+    R_uni = 8.314
+    satw = qv / qvs
+    mu_diff = (210368.0 + 131.438 * temp - _rd(3.32373e6, temp)
+               - 41729.1 * pw.log(temp))
+    a_w_i = pw.exp(mu_diff / (R_uni * temp))
+    delta_aw = satw - a_w_i
+    log_J = (-906.7 + 8502.0 * delta_aw - 26924.0 * _ipow(delta_aw, 2)
+             + 29180.0 * _ipow(delta_aw, 3))
+    J_rate = pw.pow(10.0, _min(20.0, log_J))
+    prob_h = _min(1. - pw.exp(-J_rate * tt.AR_VOLUME * dt), 1.)
+    return _max(0.0, _min(prob_h * nwfa, 1000e3))
+
+
+# ---------------------------------------------------------------------------
 # the staged blocks: prep -> table indices -> table values -> core -> post
 # ---------------------------------------------------------------------------
 
 def _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d, exner,
-                p1d, c, pp):
+                p1d, c, pp, nc1d=None, nwfa1d=None, nifa1d=None, w1d=None):
     """Hydrometeor loads/clamps, thermodynamics, saturation, snow moments
     and size distributions (mp_thompson.f90:1160-1494). Returns the prep
-    dict P; its q*1d/n*1d entries are the masked (q > R1) values."""
+    dict P; its q*1d/n*1d entries are the masked (q > R1) values. With
+    ``nc1d`` (the aerosol-aware scheme) also the working droplet and
+    aerosol numbers and the vertical velocity ``w1d`` (zeros if None)."""
+    aer = nc1d is not None
+
     t1d = th * exner
     temp = t1d
     qv = _max(1e-10, qv1d)
@@ -397,6 +511,29 @@ def _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d, exner,
     L_qc = qc1d > R1
     qc1d = _where(L_qc, qc1d, 0.0)
     rc = _where(L_qc, qc1d * rho, R1)
+
+    P = {}
+    if aer:
+        # working aerosol numbers in m^-3 (mp_thompson_aer.f90:1649-1650)
+        # and the droplet number with the mean-size clamp into
+        # [D0c, 2*D0r] (:1653-1667)
+        nwfa = _clip(nwfa1d * rho, 11.1e6, 9999.0e6)
+        nifa = _clip(nifa1d * rho, tt.NA_IN1 * 0.01, 9999.0e6)
+        nc1d = _where(L_qc, nc1d, 0.0)
+        ncr = _max(2.0, nc1d * rho)
+        nu_c0 = _nu_c(ncr)
+        g1_0, _ = _g_ratios(nu_c0)
+        lamc0 = _pow(ncr * AM_R * g1_0 / rc, c.obmr)
+        xDc0 = (BM_R + nu_c0 + 1.0) / lamc0
+        cce2 = BM_R + nu_c0.to(torch.float32) + 1.0
+        lamc_cl = torch.where(xDc0 < D0C, _dc(cce2, D0C),
+                              torch.where(xDc0 > D0R * 2.,
+                                          _dc(cce2, D0R * 2.), lamc0))
+        ncr = _where(L_qc, _min(tt.NT_C_MAX, rc / (AM_R * g1_0)
+                                * _pow(lamc_cl, BM_R)), 2.0)
+        w1d = torch.zeros_like(temp) if w1d is None else w1d
+        P.update(nc1d=nc1d, ncr=ncr, nwfa=nwfa, nifa=nifa, w1d=w1d,
+                 nwfa1d=nwfa1d, nifa1d=nifa1d)
 
     L_qi = qi1d > R1
     qi1d = _where(L_qi, qi1d, 0.0)
@@ -453,15 +590,26 @@ def _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d, exner,
 
     zero = torch.zeros_like(temp)
 
-    # cloud-droplet size distribution (mp_thompson.f90:1500-1511)
-    xDc = _max(D0C * 1e6, _pow(_dc(rc, AM_R * pp.Nt_c), c.obmr) * 1e6)
-    lamc = _pow(_rd(pp.Nt_c * AM_R * c.ccg[1] * c.ocg1, rc), c.obmr)
-    mvd_c = _where(L_qc, _rd(3.0 + c.mu_c + 0.672, lamc), D0C)
-    Dc_g = _rd((c.ccg[2] * c.ocg2) ** c.obmr, lamc) * 1e6
+    # cloud-droplet size distribution (mp_thompson.f90:1500-1511; aer
+    # :1955-1980, the droplet number's)
+    if aer:
+        nu_cw = _nu_c(ncr)
+        g1w, g2w = _g_ratios(nu_cw)
+        xDc = _max(D0C * 1e6, _pow(rc / (AM_R * ncr), c.obmr) * 1e6)
+        lamc = _pow(ncr * AM_R * g1w / rc, c.obmr)
+        mvd_c = _where(L_qc, (3.0 + nu_cw + 0.672) / lamc, D0C)
+        Dc_g = (_pow(g2w, c.obmr) / lamc) * 1e6
+        P.update(nu_cw=nu_cw)
+    else:
+        xDc = _max(D0C * 1e6, _pow(_dc(rc, AM_R * pp.Nt_c), c.obmr) * 1e6)
+        lamc = _pow(_rd(pp.Nt_c * AM_R * c.ccg[1] * c.ocg1, rc), c.obmr)
+        mvd_c = _where(L_qc, _rd(3.0 + c.mu_c + 0.672, lamc), D0C)
+        Dc_g = _rd((c.ccg[2] * c.ocg2) ** c.obmr, lamc) * 1e6
     # mean snow size for the snow-cloud collection efficiency index
     xDs = _where(L_qs, smoc / _max(smob, R1), 0.0)
 
     return dict(
+        P,
         t1d=t1d, temp=temp, tempc=tempc, qv=qv, pres=pres, rho=rho,
         rhof=rhof, rhof2=rhof2, diffu=diffu, visco=visco, ocp=ocp,
         vsc2=vsc2, lvap=lvap, tcond=tcond, qvs=qvs, delQvs=delQvs,
@@ -557,12 +705,16 @@ def _lookup(tabs, I):
     return G
 
 
-def _core_block(P, idx_i, G, DT, c, pp):
+def _core_block(P, idx_i, G, DT, c, pp, tnc_wev=None):
     """Process rates, conservation scalings, tendencies, the TAU+1 update,
     cloud condensation/evaporation, rain evaporation and terminal
     velocities (mp_thompson.f90:1496-2655). ``G`` maps table names to their
     looked-up values; ``idx_i`` is the ice bin (the large-ice
-    autoconversion branch reads it). ``DT`` is a float32 value."""
+    autoconversion branch reads it). ``DT`` is a float32 value. With a
+    prep dict of the aerosol-aware scheme (``ncr`` in P) also the droplet
+    and aerosol tendencies; ``tnc_wev`` is then the flattened
+    droplet-evaporation table (``device_tnc_wev``)."""
+    aer = "ncr" in P
     odt = _f32(np.float32(1.0) / np.float32(DT))
     odts = odt
 
@@ -583,6 +735,10 @@ def _core_block(P, idx_i, G, DT, c, pp):
         P["smob"], P["smo2"], P["smo0"], P["smo1"], P["smoc"], P["smod"],
         P["smoe"], P["smof"], P["ilamg"], P["N0_g"], P["ilamr"],
         P["N0_r"], P["zero"], P["qv1d"])
+    if aer:
+        nc1d, ncr, nwfa, nifa, nwfa1d = (P["nc1d"], P["ncr"], P["nwfa"],
+                                         P["nifa"], P["nwfa1d"])
+        nu_cw = P["nu_cw"]
 
     # ---- warm-rain processes (mp_thompson.f90:1496-1545) ---------------
     Ef_rr = 2.0 - pw.exp(_min(2300.0 * (mvd_r - 1600.0e-6), 50.0))
@@ -596,7 +752,14 @@ def _core_block(P, idx_i, G, DT, c, pp):
     tau = _rd(3.72, rc * taud)
     wau_on = L_qc & (rc > 0.01e-3)
     prr_wau = _where(wau_on, _min(rc * odts, zeta / tau), 0.0)
-    pnr_wau = _dc(prr_wau, AM_R * c.mu_c * D0R ** 3)
+    if aer:
+        pnr_wau = prr_wau / (AM_R * nu_cw * D0R ** 3)
+        # droplet number lost to autoconversion (mp_thompson_aer.f90:
+        # 1978-1979)
+        pnc_wau = _where(wau_on, torch.minimum(
+            ncr * odts, prr_wau / (AM_R * _ipow(mvd_c, 3))), 0.0)
+    else:
+        pnr_wau = _dc(prr_wau, AM_R * c.mu_c * D0R ** 3)
 
     # rain collecting cloud water
     Ef_rw = G["t_Efrw"]
@@ -606,6 +769,22 @@ def _core_block(P, idx_i, G, DT, c, pp):
         _min(rc * odts,
              rhof * c.t1_qr_qc * Ef_rw * rc * N0_r
              * _pow(1.0 / ilamr + FV_R, -c.cre[8])), 0.0)
+    if aer:
+        # droplet number collected by rain (mp_thompson_aer.f90:1991-1993)
+        pnc_rcw = _where(rcw_on, torch.minimum(
+            ncr * odts, rhof * c.t1_qr_qc * Ef_rw * ncr * N0_r
+            * _pow(1.0 / ilamr + FV_R, -c.cre[8])), 0.0)
+        # wet scavenging of aerosols by rain (:1997-2008)
+        rca_on = L_qr & (mvd_r > D0R)
+        vt_mvd = _vr_poly(mvd_r)
+        Ef_ra_w = _eff_aero(mvd_r, 0.04e-6, visco, rho, temp, vt_mvd)
+        pna_rca = _where(rca_on, torch.minimum(
+            nwfa * odts, rhof * c.t1_qr_qc * Ef_ra_w * nwfa * N0_r
+            * _pow(1.0 / ilamr + FV_R, -c.cre[8])), 0.0)
+        Ef_ra_d = _eff_aero(mvd_r, 0.8e-6, visco, rho, temp, vt_mvd)
+        pnd_rcd = _where(rca_on, torch.minimum(
+            nifa * odts, rhof * c.t1_qr_qc * Ef_ra_d * nifa * N0_r
+            * _pow(1.0 / ilamr + FV_R, -c.cre[8])), 0.0)
 
     # deposition/sublimation prefactor (Srivastava & Coen 1992)
     otemp = 1.0 / temp
@@ -637,6 +816,36 @@ def _core_block(P, idx_i, G, DT, c, pp):
     gcw_on = (L_qc & (mvd_c > D0C) & (rg >= tt.r_g[0]) & (xDg > D0G))
     prg_gcw = _where(gcw_on, rhof * c.t1_qg_qc * Ef_gw * rc * N0_g
                      * _pow(ilamg, c.cge[8]), 0.0)
+    if aer:
+        # droplet number collected by snow and graupel (mp_thompson_aer.
+        # f90:2177-2198)
+        pnc_scw = _where(scw_on, torch.minimum(
+            ncr * odts, rhof * c.t1_qs_qc * Ef_sw * ncr * smoe), 0.0)
+        pnc_gcw = _where(gcw_on, torch.minimum(
+            ncr * odts, rhof * c.t1_qg_qc * Ef_gw * ncr * N0_g
+            * _pow(ilamg, c.cge[8])), 0.0)
+        # wet scavenging by snow and graupel (:2203-2226)
+        sca_on = rs > tt.r_s[0]
+        xDs_a = smoc / _max(smob, R1)
+        vts_a = pp.av_s * _pow(xDs_a, pp.bv_s)
+        pna_sca = _where(sca_on, torch.minimum(
+            nwfa * odts, rhof * c.t1_qs_qc
+            * _eff_aero(xDs_a, 0.04e-6, visco, rho, temp, vts_a) * nwfa
+            * smoe), 0.0)
+        pnd_scd = _where(sca_on, torch.minimum(
+            nifa * odts, rhof * c.t1_qs_qc
+            * _eff_aero(xDs_a, 0.8e-6, visco, rho, temp, vts_a) * nifa
+            * smoe), 0.0)
+        gca_on = rg > tt.r_g[0]
+        vtg_a = pp.av_g * _pow(xDg, pp.bv_g)
+        pna_gca = _where(gca_on, torch.minimum(
+            nwfa * odts, rhof * c.t1_qg_qc
+            * _eff_aero(xDg, 0.04e-6, visco, rho, temp, vtg_a) * nwfa * N0_g
+            * _pow(ilamg, c.cge[8])), 0.0)
+        pnd_gcd = _where(gca_on, torch.minimum(
+            nifa * odts, rhof * c.t1_qg_qc
+            * _eff_aero(xDg, 0.8e-6, visco, rho, temp, vtg_a) * nifa * N0_g
+            * _pow(ilamg, c.cge[8])), 0.0)
 
     # ---- rain collecting snow / graupel via lookup tables --------------
     rs_on = (rr >= tt.r_r[0]) & (rs >= tt.r_s[0])
@@ -698,22 +907,48 @@ def _core_block(P, idx_i, G, DT, c, pp):
                           torch.minimum(rc * odts, G["tpi_qcfz"] * odts),
                           torch.where((rc > R1) & (temp < HGFR),
                                       rc * odts, zero)), zero)
-    pni_wfz = torch.where(
-        cold & wfz_tab,
-        torch.minimum(_min(_dc(pri_wfz, 2. * XM0I),
-                           _f32(np.float32(pp.Nt_c) * np.float32(odts))),
-                      G["tni_qcfz"] * odts), zero)
+    if aer:
+        pni_wfz = torch.where(
+            cold & wfz_tab,
+            torch.minimum(torch.minimum(ncr * odts,
+                                        _dc(pri_wfz, 2. * XM0I)),
+                          G["tni_qcfz"] * odts), zero)
+    else:
+        pni_wfz = torch.where(
+            cold & wfz_tab,
+            torch.minimum(_min(_dc(pri_wfz, 2. * XM0I),
+                               _f32(np.float32(pp.Nt_c)
+                                    * np.float32(odts))),
+                          G["tni_qcfz"] * odts), zero)
 
-    # ice nucleation: Cooper (1986)
-    nuc_on = cold & ((ssati >= 0.25) | ((ssatw > EPS) & (temp < 261.15)))
-    xnc = _min(250e3, pp.TNO * pw.exp(ATO * (T_0 - temp)))
+    # ice nucleation: Cooper (1986), or DeMott (2010) from nifa when
+    # aerosol-aware (mp_thompson_aer.f90:2355-2366)
+    if aer:
+        nuc_on = cold & ((ssati >= 0.25)
+                         | ((ssatw > EPS) & (temp < 253.15)))
+        xnc = _ice_demott(tempc, rho, nifa)
+    else:
+        nuc_on = cold & ((ssati >= 0.25)
+                         | ((ssatw > EPS) & (temp < 261.15)))
+        xnc = _min(250e3, pp.TNO * pw.exp(ATO * (T_0 - temp)))
     xni_c = ni + (pni_rfz + pni_wfz) * DT
     pni_inu = torch.where(nuc_on, _max(0.0, xnc - xni_c) * odts, zero)
     pri_inu = torch.where(nuc_on, torch.minimum(rate_max_i,
                                                 XM0I * pni_inu), zero)
     pni_inu = _dc(pri_inu, XM0I)
-    pni_iha = zero
-    pri_iha = zero
+    if aer:
+        # homogeneous freezing of deliquesced aerosols, Koop et al. (2001)
+        # (mp_thompson_aer.f90:2369-2377)
+        xni_k = smo0 + ni + (pni_rfz + pni_wfz + pni_inu) * DT
+        koop_on = (xni_k <= 500e3) & (temp < 238.0) & (ssati >= 0.4)
+        xnc_k = _ice_koop(temp, qv, qvs, nwfa, DT)
+        pni_iha = torch.where(koop_on, xnc_k * odts, zero)
+        pri_iha = torch.where(koop_on, torch.minimum(
+            rate_max_i, XM0I * 0.1 * pni_iha), zero)
+        pni_iha = _dc(pri_iha, XM0I * 0.1)
+    else:
+        pni_iha = zero
+        pri_iha = zero
 
     # ice deposition / sublimation
     lami = _pow(AM_I * c.cig[1] * c.oig1 * ni / ri, c.obmi)
@@ -921,6 +1156,33 @@ def _core_block(P, idx_i, G, DT, c, pp):
     niten = (pni_inu + pni_iha + pni_ihm + pni_wfz + pni_rfz + pni_ide
              - pni_iau - pni_sci - pni_rci) * orho
 
+    if aer:
+        # aerosol number tendencies: wet scavenging and nucleation sinks
+        # (mp_thompson_aer.f90:2664-2674)
+        nwfaten = -(pna_rca + pna_sca + pna_gca + pni_iha) * orho
+        nifaten = -(pnd_rcd + pnd_scd + pnd_gcd + pni_inu) * orho
+        # droplet number tendency and the balance keeping the mean size in
+        # [D0c, 2*D0r] and at most Nt_c_max drops (:2687-2716)
+        ncten = (-pnc_wau - pnc_rcw - pni_wfz - pnc_scw - pnc_gcw) * orho
+        xrc_b = _max(R1, (qc1d + qcten * DT) * rho)
+        xnc_b = _max(2.0, (nc1d + ncten * DT) * rho)
+        nu_cb = _nu_c(xnc_b)
+        g1b, _ = _g_ratios(nu_cb)
+        lamc_b = _pow(xnc_b * AM_R * g1b / rc, c.obmr)
+        xDc_b = (BM_R + nu_cb + 1.0) / lamc_b
+        cce2b = BM_R + nu_cb.to(torch.float32) + 1.0
+        lamc_cl = torch.where(xDc_b < D0C, _dc(cce2b, D0C),
+                              _dc(cce2b, D0R * 2.))
+        xnc_cl = xrc_b / (AM_R * g1b) * _pow(lamc_cl, BM_R)
+        ncten = torch.where(
+            xrc_b > R1,
+            torch.where((xDc_b < D0C) | (xDc_b > D0R * 2.),
+                        (xnc_cl - nc1d * rho) * odts * orho, ncten),
+            -nc1d * odts)
+        xnc_b = _max(0.0, (nc1d + ncten * DT) * rho)
+        ncten = torch.where(xnc_b > tt.NT_C_MAX,
+                            (tt.NT_C_MAX - nc1d * rho) * odts * orho, ncten)
+
     # ice number/mass balance
     xri = _max(R1, (qi1d + qiten * DT) * rho)
     xni = _max(R2, (ni1d + niten * DT) * rho)
@@ -1009,6 +1271,9 @@ def _core_block(P, idx_i, G, DT, c, pp):
         _snow_moments(rs, temp, c)
     ilamg, N0_g = _graupel_intercept(rg, temp, mvd_r, L_qr, c)
     ilamr, mvd_r, N0_r = _rain_slope(rr, nr, c)
+    if aer:
+        ncr = _max(2.0, (nc1d + ncten * DT) * rho)
+        nwfa = _max(11.1e6, (nwfa1d + nwfaten * DT) * rho)
 
     # ---- cloud water condensation/evaporation (Newton-Raphson) ---------
     cond_on = (ssatw > EPS) | ((ssatw < -EPS) & L_qc)
@@ -1021,10 +1286,60 @@ def _core_block(P, idx_i, G, DT, c, pp):
     prw_vcd = torch.where(cond_on,
                           torch.where(xrc > 0.0, clap * odt,
                                       -rc / rho * odts), zero)
+    if aer:
+        # droplet activation during condensation: the reference's
+        # activation table is never read (mp_thompson_aer.f90:956-971), so
+        # every aerosol of nwfa activates (:3026-3034)
+        activating = cond_on & (xrc > 0.0) & (clap > EPS)
+        xnc_a = _max(2.0, nwfa)
+        pnc_wcd = torch.where(activating,
+                              _max(0.0, xnc_a - ncr) * odts * orho, zero)
+        # droplet evaporation: the drops smaller than D*, from the tnc_wev
+        # table (:3037-3092)
+        evap_on = (cond_on & (xrc > 0.0) & (clap < -EPS)
+                   & (ssatw < -1e-6))
+        otemp_c = 1.0 / temp
+        rvs_c = rho * qvs
+        rvs_p_c = rvs_c * otemp_c * (lvap * otemp_c * ORV - 1.)
+        rvs_pp_c = rvs_c * (otemp_c * (lvap * otemp_c * ORV - 1.)
+                            * otemp_c * (lvap * otemp_c * ORV - 1.)
+                            + (-2. * lvap * otemp_c ** 3 * ORV)
+                            + otemp_c * otemp_c)
+        gamsc_c = lvap * diffu / tcond * rvs_p_c
+        alphsc_c = _max(1e-9, 0.5 * (gamsc_c / (1. + gamsc_c)) ** 2
+                        * rvs_pp_c / rvs_p_c * rvs_c / rvs_p_c)
+        xsat_c = _where(torch.abs(ssatw) < 1e-9, 0.0, ssatw)
+        t1_ev = 2. * PI * (1.0 - alphsc_c * xsat_c
+                           + 2. * alphsc_c ** 2 * xsat_c ** 2
+                           - 5. * alphsc_c ** 3 * xsat_c ** 3) \
+            / (1. + gamsc_c)
+        Dc_star = torch.sqrt(_max(
+            0.0, _dc(_dc(-2.0 * DT * t1_ev, 2. * PI) * 4. * diffu * ssatw
+                     * rvs_c, RHO_W)))
+        idx_d = torch.clamp((1e6 * Dc_star).to(torch.int32), 1, NBC) - 1
+        idx_n = torch.clamp(_nint(1.0 + _dc(
+            NBC * pw.log(_dc(ncr, tt.t_Nc[0])), tt.NIC1)), 1, NBC) - 1
+        idx_c2 = torch.where(rc > tt.r_c[0],
+                             _mantissa_idx(rc, c.nic2, NTB_C),
+                             torch.zeros_like(idx_d))
+        flat_idx = (idx_d * NTB_C + idx_c2) * NBC + idx_n
+        tnc = tnc_wev[flat_idx.long()]
+        pnc_wcd = torch.where(
+            evap_on,
+            torch.maximum(-ncr * 0.99 * orho * odt, -tnc * orho * odt),
+            pnc_wcd)
+        # total cloud evaporation removes every droplet (:3086-3089)
+        pnc_wcd = torch.where(cond_on & ~(xrc > 0.0), -ncr * orho * odt,
+                              pnc_wcd)
+        ncten = ncten + pnc_wcd
+        nwfaten = nwfaten - pnc_wcd
     qcten = qcten + prw_vcd
     qvten = qvten - prw_vcd
     tten = tten + lvap * ocp * prw_vcd
     rc = torch.where(cond_on, _max(R1, (qc1d + DT * qcten) * rho), rc)
+    if aer:
+        ncr = torch.where(cond_on,
+                          _max(2.0, (nc1d + DT * ncten) * rho), ncr)
     qv = torch.where(cond_on, _max(1e-10, qv1d + DT * qvten), qv)
     temp = torch.where(cond_on, t1d + DT * tten, temp)
     rho = 0.622 * pres / (RR2 * temp * (qv + 0.622))
@@ -1067,6 +1382,9 @@ def _core_block(P, idx_i, G, DT, c, pp):
     qvten = qvten + prv_rev
     nrten = nrten - pnr_rev
     tten = tten - lvap * ocp * prv_rev
+    if aer:
+        # evaporated rain releases its aerosol (mp_thompson_aer.f90:3178)
+        nwfaten = nwfaten + pnr_rev
 
     rr = torch.where(rev_on, _max(R1, (qr1d + DT * qrten) * rho), rr)
     qv = torch.where(rev_on, _max(1e-10, qv1d + DT * qvten), qv)
@@ -1115,18 +1433,23 @@ def _core_block(P, idx_i, G, DT, c, pp):
     vtg_full = torch.where(temp > T_0, torch.maximum(vtg, vtrk), vtg)
     vtgk = _filldown(torch.where(has_rg, vtg_full, zero), has_rg)
 
-    return dict(rr=rr, nr=nr, ri=ri, ni=ni, rs=rs, rg=rg, vtrk=vtrk,
-                vtnrk=vtnrk, vtik=vtik, vtnik=vtnik, vtsk=vtsk, vtgk=vtgk,
-                rho=rho, ocp=ocp, lvap=lvap, tten=tten, qvten=qvten,
-                qcten=qcten, qiten=qiten, niten=niten, qrten=qrten,
-                nrten=nrten, qsten=qsten, qgten=qgten)
+    O = dict(rr=rr, nr=nr, ri=ri, ni=ni, rs=rs, rg=rg, vtrk=vtrk,
+             vtnrk=vtnrk, vtik=vtik, vtnik=vtnik, vtsk=vtsk, vtgk=vtgk,
+             rho=rho, ocp=ocp, lvap=lvap, tten=tten, qvten=qvten,
+             qcten=qcten, qiten=qiten, niten=niten, qrten=qrten,
+             nrten=nrten, qsten=qsten, qgten=qgten)
+    if aer:
+        O.update(ncten=ncten, nwfaten=nwfaten, nifaten=nifaten, rhof=rhof)
+    return O
 
 
 def _post_block(P, O, dzq, DT, c, pp):
-    """Sedimentation, instant melt / homogeneous freeze and the final update
-    (mp_thompson.f90:2657-2844). Returns (th, qv, qc, qi, qr, qs, qg, ni, nr,
+    """Sedimentation, (aerosol-aware) drizzle settling, instant melt /
+    homogeneous freeze and the final update (mp_thompson.f90:2657-2844).
+    Returns (th, qv, qc, qi, qr, qs, qg, ni, nr[, nc, nwfa, nifa],
     ppt_rain, ppt_ice, ppt_snow, ppt_graupel); the ppt fields keep a
     leading singleton level axis."""
+    aer = "ncr" in P
     odt = _f32(np.float32(1.0) / np.float32(DT))
     qv1d, exner = P["qv1d"], P["exner"]
     (rr, nr, ri, ni, rs, rg, vtrk, vtnrk, vtik, vtnik, vtsk, vtgk, rho,
@@ -1137,6 +1460,14 @@ def _post_block(P, O, dzq, DT, c, pp):
         P["qc1d"], P["qi1d"], P["ni1d"], P["qr1d"], P["nr1d"], P["qs1d"],
         P["qg1d"])
     zero = P["zero"]
+    if aer:
+        nc1d, w1d, rhof = P["nc1d"], P["w1d"], O["rhof"]
+        nwfa1d, nifa1d = P["nwfa1d"], P["nifa1d"]
+        ncten, nwfaten, nifaten = O["ncten"], O["nwfaten"], O["nifaten"]
+        # the drizzle's tendency divides by the density before the TAU+1
+        # update, rc_s uses the final one (mp_thompson_aer.f90:2664;
+        # reference quirk kept)
+        orho = 1.0 / P["rho"]
     # every branch of the core's updates wrote t1d + DT*tten
     temp = t1d + DT * tten
 
@@ -1155,6 +1486,35 @@ def _post_block(P, O, dzq, DT, c, pp):
     rg, _, d_q, _, ppt_graupel = _sediment(
         rg, rg, vtgk, vtgk, rho, dzq, DT, False)
     qgten = qgten + d_q
+
+    if aer:
+        # cloud droplet (drizzle) settling in the lowest ~500 m above
+        # ground under weak vertical motion: one explicit upstream pass of
+        # mass and number (mp_thompson_aer.f90:3252-3272, 3411-3424)
+        rc_s = _max(R1, (qc1d + qcten * DT) * rho)
+        nc_s = _max(2.0, (nc1d + ncten * DT) * rho)
+        nu_cs = _nu_c(nc_s)
+        g1s, _ = _g_ratios(nu_cs)
+        nu_f = nu_cs.to(torch.float32)
+        lamc_s = _pow(nc_s * AM_R * g1s / rc_s, c.obmr)
+        ilamc_s = 1.0 / lamc_s
+        sed_ok = (rc_s > R1) & (w1d < 0.1)
+        vtck = torch.where(sed_ok, rhof * tt.AV_C * (nu_f + 4.) * (nu_f + 5.)
+                           * _pow(ilamc_s, tt.BV_C), zero)
+        vtnck = torch.where(sed_ok, rhof * tt.AV_C * (nu_f + 1.)
+                            * (nu_f + 2.) * _pow(ilamc_s, tt.BV_C), zero)
+        # the levels whose base lies within 500 m of the ground, up to the
+        # highest cloudy one among them (ksed1(5))
+        agl = pw.cumsum(dzq, 0)
+        elig = ((agl - dzq) < 500.0) & (rc_s > R2)
+        below_top = torch.flip(torch.cummax(
+            torch.flip(elig.to(torch.int32), [0]), 0).values, [0]) > 0
+        sed_c = vtck * rc_s
+        sed_nc = vtnck * nc_s
+        flux_c = torch.cat([sed_c[1:], zero[:1]], 0) - sed_c
+        flux_n = torch.cat([sed_nc[1:], zero[:1]], 0) - sed_nc
+        qcten = qcten + torch.where(below_top, flux_c / dzq * orho, zero)
+        ncten = ncten + torch.where(below_top, flux_n / dzq * orho, zero)
 
     # ---- instant melt / homogeneous freeze (mp_thompson.f90:2786-2810) -
     xri = _max(0.0, qi1d + qiten * DT)
@@ -1207,8 +1567,34 @@ def _post_block(P, O, dzq, DT, c, pp):
     qv_out = _max(qv_out, 1e-7)
 
     th_out = t_out / exner
+    if not aer:
+        return (th_out, qv_out, qc_out, qi_out, qr_out, qs_out, qg_out,
+                ni_out, nr_out, ppt_rain, ppt_ice, ppt_snow, ppt_graupel)
+
+    # the final droplet and aerosol numbers with the size and
+    # concentration caps (mp_thompson_aer.f90:3540-3561)
+    nc_out = torch.maximum(_rd(2.0, rho), nc1d + ncten * DT)
+    nwfa_out = torch.minimum(torch.maximum(nwfa1d + nwfaten * DT,
+                                           _rd(11.1e6, rho)),
+                             _rd(9999.0e6, rho))
+    nifa_out = torch.minimum(_max(nifa1d + nifaten * DT, tt.NA_IN1 * 0.01),
+                             _rd(9999.0e6, rho))
+    gone_c = qc_out <= R1
+    nu_cf = _nu_c(_max(2.0, nc_out * rho))
+    g1f, _ = _g_ratios(nu_cf)
+    lamc_f = _pow(AM_R * g1f * nc_out / _max(qc_out, R1), c.obmr)
+    xDc_f = (BM_R + nu_cf + 1.0) / lamc_f
+    cce2f = BM_R + nu_cf.to(torch.float32) + 1.0
+    lamc_f = torch.where(xDc_f < D0C, _dc(cce2f, D0C),
+                         torch.where(xDc_f > D0R * 2., _dc(cce2f, D0R * 2.),
+                                     lamc_f))
+    nc_out = torch.where(gone_c, zero,
+                         torch.minimum(qc_out / (AM_R * g1f)
+                                       * _pow(lamc_f, BM_R),
+                                       _rd(tt.NT_C_MAX, rho)))
     return (th_out, qv_out, qc_out, qi_out, qr_out, qs_out, qg_out,
-            ni_out, nr_out, ppt_rain, ppt_ice, ppt_snow, ppt_graupel)
+            ni_out, nr_out, nc_out, nwfa_out, nifa_out,
+            ppt_rain, ppt_ice, ppt_snow, ppt_graupel)
 
 
 # the core outputs, in the JAX package's order
@@ -1219,21 +1605,26 @@ _O_NAMES = ("rr", "nr", "ri", "ni", "rs", "rg", "vtrk", "vtnrk", "vtik",
 
 
 def thompson_step(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d, exner,
-                  p1d, dzq, dt, params: ThompsonParams = None):
+                  p1d, dzq, dt, params: ThompsonParams = None, nc1d=None,
+                  nwfa1d=None, nifa1d=None, w1d=None):
     """One Thompson step: prep -> bins -> table values -> core -> post
-    (mp_thompson.f90:1057-2844). Returns (th, qv, qc, qi, qr, qs, qg, ni,
-    nr, ppt_rain, ppt_ice, ppt_snow, ppt_graupel), the ppt fields (ny, nx)
-    in kg m-2 (= mm)."""
+    (mp_thompson.f90:1057-2844); with ``nc1d`` the aerosol-aware scheme.
+    Returns (th, qv, qc, qi, qr, qs, qg, ni, nr[, nc, nwfa, nifa],
+    ppt_rain, ppt_ice, ppt_snow, ppt_graupel), the ppt fields (ny, nx) in
+    kg m-2 (= mm)."""
     params = params or ThompsonParams()
     _, c = get_tables(params)
     DT = _f32(dt)
     P = _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
-                    exner, p1d, c, params)
+                    exner, p1d, c, params, nc1d=nc1d, nwfa1d=nwfa1d,
+                    nifa1d=nifa1d, w1d=w1d)
     I = _index_block(P, c)
     G = _lookup(device_tables(params, th.device), I)
-    O = _core_block(P, I["idx_i"], G, DT, c, params)
+    O = _core_block(P, I["idx_i"], G, DT, c, params,
+                    tnc_wev=(device_tnc_wev(th.device) if nc1d is not None
+                             else None))
     outs = _post_block(P, O, dzq, DT, c, params)
-    return outs[:9] + tuple(o[0] for o in outs[9:])
+    return outs[:-4] + tuple(o[0] for o in outs[-4:])
 
 
 def _accumulate(rain, snow, graupel, ppt_rain, ppt_ice, ppt_snow,
@@ -1302,11 +1693,100 @@ def mp_thompson_smap(qstack, smap, exner, p, dz, dt, rain, snow, graupel,
     return (out_stack,) + _accumulate(rain, snow, graupel, *outs[9:])
 
 
-def mp_thompson_aer(*args, **kwargs):
-    """The aerosol-aware Thompson-Eidhammer scheme (mp=5) is not ported."""
-    raise NotImplementedError(
-        f"Thompson-aerosol microphysics (mp=5) is not ported yet: "
-        f"{AEROSOL_SLICE} in ROADMAP.md")
+# the aerosol-aware scheme's fields, in its order: the nine of the stack,
+# then the droplet number and the water- and ice-friendly aerosols
+AER_SPECIES = SPECIES + ("cloud_number", "nwfa", "nifa")
+
+
+def mp_thompson_aer(th, qv, qc, qi, qr, qs_, qg, ni, nr, nc, nwfa, nifa,
+                    exner, p, dz, dt, rain, snow, graupel, w=None,
+                    params: ThompsonParams = None):
+    """One aerosol-aware Thompson-Eidhammer step (the is_aerosol_aware
+    path of mp_thompson_aer.f90): the droplet number nc and the water- and
+    ice-friendly aerosol numbers nwfa and nifa (all kg^-1) drive droplet
+    activation, DeMott (2010) dust nucleation and Koop (2001) homogeneous
+    freezing, and precipitation scavenges them. ``w`` is the vertical
+    velocity the drizzle settling reads (zeros if None).
+
+    Returns (th, qv, qc, qi, qr, qs, qg, ni, nr, nc, nwfa, nifa, rain,
+    snow, graupel)."""
+    outs = thompson_step(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz,
+                         dt, params, nc1d=nc, nwfa1d=nwfa, nifa1d=nifa,
+                         w1d=w)
+    return outs[:12] + _accumulate(rain, snow, graupel, *outs[12:])
+
+
+def aer_surface_flux(nwfa_sfc, dx, dy=None):
+    """Copy of icar_tpu/physics/mp_thompson.py aer_surface_flux: the CCN
+    surface-emission rate nwfa2d [kg^-1 s^-1] from the initial lowest-level
+    nwfa (thompson_aer_init, mp_thompson_aer.f90:536-549), scaled down for
+    grids finer than 20 km; added to the lowest level at every
+    microphysics call (numpy)."""
+    dy = dx if dy is None else dy
+    s = float(np.sqrt(dx * dy))
+    if s / 20000.0 >= 1.0:
+        h_01 = 0.875
+    else:
+        h_01 = (0.875 + 0.125 * ((20000.0 - s) / 16000.0)) * s / 20000.0
+    return 10.0 ** (np.log10(nwfa_sfc * 1e-6) - 3.69897) * h_01 * 1e6
+
+
+def aer_init_profiles(z_agl, terrain):
+    """Copy of icar_tpu/physics/mp_thompson.py aer_init_profiles: the
+    default CCN/IN profiles of a run without aerosol input, decaying with
+    height above ground at a terrain-dependent scale (thompson_aer_init,
+    mp_thompson_aer.f90:454-516). ``z_agl`` (z, y, x) [m], ``terrain``
+    (y, x) [m] (numpy). NOTE reference fault kept (ROADMAP section 3): the
+    concentrations, per m^3, go into the kg^-1 aerosol fields."""
+    h_01 = np.where(terrain <= 1000.0, 0.8,
+                    np.where(terrain >= 2500.0, 0.01,
+                             0.8 * np.cos(terrain * 0.001 - 1.0)))[None]
+    niCCN3 = -1.0 * np.log(tt.NA_CCN1 / tt.NA_CCN0) / h_01
+    niIN3 = -1.0 * np.log(tt.NA_IN1 / tt.NA_IN0) / h_01
+    nwfa = tt.NA_CCN1 + tt.NA_CCN0 * np.exp(-(z_agl / 1000.0) * niCCN3)
+    nifa = tt.NA_IN1 + tt.NA_IN0 * np.exp(-(z_agl / 1000.0) * niIN3)
+    return nwfa, nifa
+
+
+def calc_effect_rad(t, p, qv, qc, qi, ni, qs_, params: ThompsonParams = None,
+                    nc=None):
+    """Cloud, ice and snow effective radii [m] for the radiation
+    (calc_effectRad, mp_thompson_aer.f90:5026-5127). ``nc`` is the
+    droplet number [kg^-1] of an aerosol-aware run; without it the droplet
+    number is the constant Nt_c, as the reference driver always runs it
+    (mp_driver.f90:446-476 passes no nc)."""
+    params = params or ThompsonParams()
+    _, c = get_tables(params)
+    rho = 0.622 * p / (RR2 * t * (qv + 0.622))
+    rc = _max(R1, qc * rho)
+    if nc is None:
+        nc = torch.full_like(rc, _f32(params.Nt_c))
+    else:
+        nc = _max(2.0, nc * rho)
+    ri = _max(R1, qi * rho)
+    ni_ = _max(R2, ni * rho)
+    rs = _max(R1, qs_ * rho)
+
+    # cloud droplets: generalised gamma with an nc-dependent shape
+    inu_c = _nu_c(nc)
+    inu_c = torch.where(nc < 100.0, torch.full_like(inu_c, 15), inu_c)
+    # the reference's table g_ratio(inu) = G(inu+4)/G(inu+1) (mp_thompson_
+    # aer.f90:5045-5046; the JAX package's _G_RATIO), computed
+    g_r, _ = _g_ratios(inu_c)
+    lamc = _pow(nc * AM_R * g_r / rc, c.obmr)
+    re_qc = _clip(0.5 * (3.0 + inu_c) / lamc, 2.51e-6, 50e-6)
+    re_qc = _where((rc > R1) & (nc > R2), re_qc, 2.49e-6)
+
+    # cloud ice
+    lami = _pow(AM_I * c.cig[1] * c.oig1 * ni_ / ri, c.obmi)
+    re_qi = _clip(_rd(0.5 * (3.0 + c.mu_i), lami), 5.01e-6, 125e-6)
+    re_qi = _where((ri > R1) & (ni_ > R2), re_qi, 4.99e-6)
+
+    # snow: the (bm_s+1)-th over the bm_s-th Field moment
+    smob, _, _, _, smoc, _, _, _ = _snow_moments(rs, t, c)
+    re_qs = _clip(0.5 * smoc / smob, 10e-6, 999e-6)
+    re_qs = _where(rs > R1, re_qs, 9.99e-6)
+    return re_qc, re_qi, re_qs
 
 
 def _field_block(c):

@@ -10,14 +10,17 @@ loop's options: density advection, the microphysics throttle, the full
 physics column with MPDATA or SB04; bench.py --config fullphys_rrtmg
 with Noah, RRTMG and YSU, and as bench.py builds it; the ridge with WSM3,
 WSM6 or Morrison in SB04's place; the full physics column with
-Kain-Fritsch, NSAS or BMJ in Tiedtke's place) it builds a fresh
+Kain-Fritsch, NSAS or BMJ in Tiedtke's place; bench.py --config
+mpdata_thompson with Thompson-aerosol, without and with the aerosol-aware
+option) it builds a fresh
 model, advances one 1200 s interval to warm up, then times ``--repeat``
 runs of two intervals each (``run_timed``) and prints one JSON line: for
 each path the grid-point substeps per second of every run over the
 natural grid, their median and the final state's float64 digest
 (``ICARModel.digest``), and the card's name; for the full-physics path
-(and the other column-physics paths) and the paths of WSM3, WSM6 and
-Morrison also the CUDA-event milliseconds of each stage of one more
+(and the other column-physics paths) and the paths of WSM3, WSM6,
+Morrison and the aerosol-aware scheme also the CUDA-event milliseconds
+of each stage of one more
 interval (``StageTimer``; the ``convection`` stage holds whichever
 scheme the path runs); for the linear path, whose winds are solved
 anew before each interval as bench.py does, the milliseconds of each of
@@ -40,7 +43,7 @@ import time
 
 import torch
 
-from .core.step import PLAIN_MP, column_physics
+from .core.step import PLAIN_MP, aerosol_aware, column_physics
 from .models.icar import RIDGE, RIDGE_PATHS, SHARDED_PATHS, ideal_ridge_model
 
 INTERVAL = 1200.0
@@ -79,8 +82,9 @@ class StageTimer:
     """CUDA-event milliseconds of the named stages of the interval loops
     (the ``timer`` of ``core.step.run_interval_physics`` and of
     ``run_interval_sharded``: diagnostics, the column stages, the
-    microphysics' -- mp_simple, mp_simple_rho, mp_thompson, mp_wsm3,
-    mp_wsm6, mp_morrison --, advection): each call ``timer(name)``
+    microphysics' -- mp_simple, mp_simple_rho, mp_thompson,
+    mp_thompson_aer, mp_wsm3, mp_wsm6, mp_morrison --, advection): each
+    call ``timer(name)``
     brackets a stage's work with two events on the current stream;
     ``ms()`` synchronizes and sums them per stage."""
 
@@ -144,7 +148,8 @@ def time_path(case, repeat, cards=False):
         rates.append(gp * steps / seconds)
     digest = model.digest()
     stages = (stage_ms(model) if column_physics(model.options)
-              or model.options.physics.microphysics in PLAIN_MP else None)
+              or model.options.physics.microphysics in PLAIN_MP
+              or aerosol_aware(model.options) else None)
     winds = ({"update_ms": wind_ms, "one_update": wind_stage_ms(model)}
              if model.winds_follow_state else None)
     return rates, digest, stages, winds

@@ -152,19 +152,20 @@ def test_interval_matches_the_jax_model(case):
 
 def test_paths_and_unported():
     """The three new paths are the fullphys ridge with the scheme in
-    Tiedtke's place (K5 and K1, the 500x500x20 grid); ``_unported``
-    refuses only Thompson-aerosol now; a mesh is refused with them."""
-    from icar_tpu_torch.models.icar import FULLPHYS, _unported
-    from icar_tpu_torch.config import Options
+    Tiedtke's place (K5 and K1, the 500x500x20 grid); nothing refuses an
+    option the options' validation accepts (``_unported`` is gone since
+    Thompson-aerosol, the last, was ported), and what it rejects (the
+    simple convection scheme, conv=2) raises its ValueError; a mesh is
+    refused with them."""
+    from icar_tpu_torch.models import icar
+    from icar_tpu_torch.models.icar import FULLPHYS
     from icar_tpu_torch.parallel.mesh import make_mesh
     for label, conv in chip_smoke.CU_PATHS:
         assert RIDGE_PATHS[label] == dict(FULLPHYS, conv=conv)
-    o = Options()
-    for conv in (C.CU_NONE, C.CU_TIEDTKE, C.CU_KF, C.CU_NSAS, C.CU_BMJ):
-        o.physics.convection = conv
-        assert _unported(o) is None
-    o.physics.microphysics = C.MP_THOMPSON_AER
-    assert "Thompson-aerosol" in _unported(o)
+    assert not hasattr(icar, "_unported")
+    with pytest.raises(ValueError, match="conv=2"):
+        ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,
+                          **dict(FULLPHYS, conv=C.CU_SIMPLE), device="cpu")
     m = ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,
                           **RIDGE_PATHS["fullphys_bmj"], device="cpu")
     with pytest.raises(NotImplementedError, match="Slice G"):

@@ -213,7 +213,10 @@ def test_short_interval_with_forcing_matches(jax_fullphys):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
+    # Thompson-aerosol, refused until it was ported (its id kept): it now
+    # runs (match None), K5 then the effective radii
+    pytest.param("microphysics", C.MP_THOMPSON_AER, None,
+                 id="microphysics-5-Slice F \\(Thompson-aerosol"),
     # the other convection schemes, refused until they were ported (their
     # ids kept): each now runs (match None)
     pytest.param("convection", C.CU_NSAS, None,
@@ -255,8 +258,8 @@ def test_options_outside_the_slice_raise(option, value, match):
     since (``match`` None: MPDATA, density advection, the microphysics
     throttle, YSU, RRTMG on the synthetic k-tables, Noah-MP, the forcing's
     surface fluxes, the lake -- here without lake cells --, Kain-Fritsch,
-    NSAS, BMJ) build and run one 60 s interval with finite fields; SB04
-    with Tiedtke raises the options' ValueError."""
+    NSAS, BMJ, Thompson-aerosol) build and run one 60 s interval with
+    finite fields; SB04 with Tiedtke raises the options' ValueError."""
     def cb(o):
         if value == C.RA_RRTMG:
             synthetic_rrtmg_tables(o)

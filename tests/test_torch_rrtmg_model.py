@@ -305,14 +305,18 @@ def test_the_cuda_path_and_a_mesh():
                  id="landsurface-4-Slice F \\(Noah-MP"),
     pytest.param("convection", C.CU_NSAS, None,
                  id="watersurface-3-Slice F \\(lake\\)"),
-    ("microphysics", C.MP_THOMPSON_AER, "Slice F \\(Thompson-aerosol"),
+    # Thompson-aerosol, refused until it was ported (its id kept): it now
+    # runs too (match None), its radii reaching RRTMG
+    pytest.param("microphysics", C.MP_THOMPSON_AER, None,
+                 id="microphysics-5-Slice F \\(Thompson-aerosol"),
     pytest.param("convection", C.CU_KF, None,
                  id="convection-3-Slice F \\(the other schemes\\)")])
 def test_the_rest_of_slice_f_still_raises(option, value, match):
-    """Thompson-aerosol still raises naming its slice, with RRTMG and
-    YSU; the other convection schemes (``match`` None) build under RRTMG
-    and YSU and run one 60 s interval with finite fields, NSAS reading
-    the PBL height YSU forms."""
+    """What Slice F left runs under RRTMG and YSU now (``match`` None):
+    the other convection schemes and Thompson-aerosol build and run one
+    60 s interval with finite fields, NSAS reading the PBL height YSU
+    forms; with Thompson-aerosol the effective radii the microphysics
+    formed move off the registry's defaults somewhere."""
     def cb(o):
         synthetic_rrtmg_tables(o)
         setattr(o.physics, option, value)
@@ -324,6 +328,9 @@ def test_the_rest_of_slice_f_still_raises(option, value, match):
         for k in m.state:
             assert np.isfinite(m.field(k)).all(), k
         assert float(m.field("hpbl").max()) > 0
+        if value == C.MP_THOMPSON_AER:
+            assert float(m.field("re_cloud").max()) > 2.49e-6 or \
+                float(m.field("re_ice").max()) > 4.99e-6
         return
     with pytest.raises(NotImplementedError, match=match):
         ideal_ridge_model(**CASE, **dict(FULLPHYS_RRTMG_NOAH,

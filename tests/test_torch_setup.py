@@ -103,6 +103,8 @@ FUNCTION_COPIES = {
         "_VEG_KEYS", "load_mp_tables")),
     "physics/noahmp.py": ("physics/noahmp.py", (
         "ZSOIL", "DZSOIL", "noahmp_init_state")),
+    "physics/mp_thompson.py": ("physics/mp_thompson.py", (
+        "aer_surface_flux", "aer_init_profiles")),
     "physics/water_lake.py": ("physics/water_lake.py", (
         "NLEVLAKE", "NLEVSNOW", "NLEVSOIL", "NSOISNO", "NCOL", "VKC", "GRAV",
         "SB", "TFRZ", "DENH2O", "DENICE", "CPICE", "CPLIQ", "HFUS", "HVAP",

@@ -319,8 +319,28 @@ def test_compare_holds_the_share_of_cells_beyond_rtol():
 
 
 def test_aerosol_scheme_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.mp_thompson_aer()
+    """The aerosol-aware scheme, which raised until it was ported (its
+    name kept), runs on the mixed-regime state with droplet and aerosol
+    numbers: fifteen finite outputs of the fields' and accumulators'
+    shapes, the nine fields off the constant-Nc step's, the droplet
+    number moved (tests/test_torch_thompson_aer.py holds it to the JAX
+    package)."""
+    c = mixed_state(4, nz=8, ny=3, nx=5)
+    T = {k: torch.tensor(v) for k, v in c.items()}
+    acc = torch.zeros(3, 5)
+    nc = torch.full_like(T["qc"], 1e8)
+    nwfa = torch.full_like(T["qc"], 5e8)
+    nifa = torch.full_like(T["qc"], 1e6)
+    out = mt.mp_thompson_aer(*(T[k] for k in NAMES), nc, nwfa, nifa,
+                             T["exner"], T["p"], T["dz"], 60.0, acc, acc,
+                             acc)
+    assert len(out) == 15
+    for o, ref in zip(out, [T["qc"]] * 12 + [acc] * 3):
+        assert o.shape == ref.shape and torch.isfinite(o).all()
+    plain = mt.mp_thompson(*(T[k] for k in NAMES), T["exner"], T["p"],
+                           T["dz"], 60.0, acc, acc, acc)
+    assert any(not torch.equal(a, b) for a, b in zip(out[:9], plain[:9]))
+    assert not torch.equal(out[9], nc)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,11 @@ the convection stage (``--path fullphys_kf``, ``fullphys_nsas`` or
 ``fullphys_bmj``: the fullphys ridge with that scheme in Tiedtke's place;
 Kain-Fritsch's closure runs as many trips, and its feedback substeps as
 many steps, as the state's convecting columns need, each trip's host read
-counted as one operation, so its count follows the state).
+counted as one operation, so its count follows the state);
+``thompson_aer_ops`` one call of the aerosol-aware Thompson-Eidhammer
+scheme (``--path thompson_aer_aware``: bench.py's mpdata_thompson ridge
+with mp=5 and the aerosol-aware option; its four sedimentation loops run
+as many trips as the state's fastest fall needs).
 """
 
 import argparse
@@ -200,6 +204,48 @@ PLAIN_MP_OPS = {"wsm3": wsm3_ops, "wsm6": wsm6_ops,
                 "morrison": morrison_ops}
 
 
+def thompson_aer_ops(m):
+    """The aten operations of one call of the aerosol-aware scheme
+    (``mp_thompson.mp_thompson_aer``) on the state of ``m`` (a model of the
+    thompson_aer_aware path, on any device) at its interval's dt, and of
+    the call with the surface flux and the copies into the species stack
+    (``core.step.thompson_aer_microphysics``) and of the effective radii
+    after it: {name: count}. The host reads of the sedimentation count as
+    one operation each."""
+    import torch
+    from icar_tpu_torch.core import step
+    from icar_tpu_torch.core.diagnostics import diagnostic_update
+    from icar_tpu_torch.physics import mp_thompson
+    s = diagnostic_update(m.state, m.geom_t, full=False)
+    g = m.geom_t
+    dt = step.quantized_dt(s["u"], s["v"], s["w"], g.dz_levels, g.dx,
+                           m.options.run.cfl_reduction_factor,
+                           m.options.run.cfl_strictness)
+    q = torch.stack([s[k] for k in m.advect_names])
+    acc = [s[k].clone() for k in ("precipitation", "snowfall", "graupel")]
+    params = step.thompson_params(m.options)
+    fn = mp_thompson.mp_thompson_aer
+    counts = {}
+
+    def wrap(*a, **k):
+        out = []
+        counts["mp_thompson_aer"] = count(lambda: out.append(fn(*a, **k)))
+        return out[0]
+    mp_thompson.mp_thompson_aer = wrap
+    try:
+        total = count(step.thompson_aer_microphysics, q, m.advect_names, s,
+                      g.dz_mass, dt, *acc, params)
+    finally:
+        mp_thompson.mp_thompson_aer = fn
+    counts["mp_thompson_aer with the flux and the stack's copies"] = total
+    counts["effective_radii"] = count(step.effective_radii, s, q,
+                                      m.advect_names, params, True)
+    return counts
+
+
+SCHEME_OPS = dict(PLAIN_MP_OPS, thompson_aer_aware=thompson_aer_ops)
+
+
 def _convection_ops(m, module, name):
     """The aten operations of one call of ``module.name`` (a convection
     scheme) within one convection stage (dt 25 s) on the state of ``m``
@@ -290,7 +336,7 @@ def main():
     ap.add_argument("--path", default="fullphys",
                     choices=("fullphys", "fullphys_rrtmg_noah",
                              "fullphys_rrtmg", "fullphys_lake")
-                    + tuple(PLAIN_MP_OPS) + tuple(CONVECTION_OPS))
+                    + tuple(SCHEME_OPS) + tuple(CONVECTION_OPS))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -305,9 +351,9 @@ def main():
     m = ideal_ridge_model(nx=30, ny=12, nz=args.nz, dx=1000.0,
                           hill_height=600.0, u_speed=9.0, rh=1.0,
                           **opts, device="cpu")
-    if args.path in PLAIN_MP_OPS or args.path in CONVECTION_OPS:
+    if args.path in SCHEME_OPS or args.path in CONVECTION_OPS:
         m.advance(600.0)
-        fn = PLAIN_MP_OPS.get(args.path) or CONVECTION_OPS[args.path]
+        fn = SCHEME_OPS.get(args.path) or CONVECTION_OPS[args.path]
         print(json.dumps({"nz": args.nz, "path": args.path,
                           "ops_per_call": fn(m)}))
         return
