@@ -204,6 +204,17 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    YSU + Noah-MP case with the aware scheme) on the CPU and the card.
    K1's line adds its 12-species figures under "thompson_aer_aware", K4's
    likewise, K5's its figures under "thompson_aer".
+19. bench.py --config conus (check_conus): the full-physics ridge of
+   phase 9 on a 1x1 mesh of this card over two intervals, holding phase
+   9's substeps and digest exactly, and its stages of one more interval;
+   on a 2x2 mesh of this card over one interval, holding the 1x1 model's
+   first interval's (and, with more than one card, one shard per card
+   over two, holding phase 9's); K5 and K1 launched once per shard and
+   substep in each; then the small cases of every column option
+   (sharded_small_cases) 2x2 on this card against their unsharded card
+   runs, every bit of every field, each kernel of the path once per shard
+   and substep. K1's and K5's lines add the launches under "conus", every
+   kernel's line the small cases' under "sharded_small".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 Prints the kernel table (time, plain time, bound, launches) as one JSON
@@ -400,10 +411,11 @@ def install_lake(model, cols, swe=None):
     the sst the lowest level's temperature, ``swe`` (mm by row) on the
     band when given, ``water_lake.lake_init`` with the default depth, the
     lake cells water in ``land_mask``; uploaded to the model's device.
-    Returns ``model``."""
+    Returns ``model``. On a sharded model the whole state is gathered and
+    the result scattered into the blocks."""
     import torch
     from icar_tpu_torch.physics.water_lake import lake_init
-    st = model.state
+    st = model._global_state()
     s = {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
     s["veg_type"][:, cols[0]:cols[1]] = LAKE_CATEGORY
     s["skin_temperature"] = np.asarray(s["temperature"][0],
@@ -416,7 +428,7 @@ def install_lake(model, cols, swe=None):
                               device=v.device) for k, v in st.items()}
     new["land_mask"] = torch.where(new["lakemask"] > 0.5, 2.0,
                                    new["land_mask"])
-    model.state = new
+    model._install(new)
     return model
 
 
@@ -1832,8 +1844,9 @@ DRIVE_FIELDS = ("potential_temperature", "water_vapor", "cloud_water",
 
 
 def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
-          shards=1, due=None):
-    """Advance ``model`` over two 1200 s intervals (``run_timed``, which
+          shards=1, due=None, intervals=2):
+    """Advance ``model`` over ``intervals`` 1200 s intervals (two by
+    default; ``run_timed``, which
     solves the winds anew before each interval where they follow the
     state) with the launch counts set to 0 just before; check that
     ``fields`` are finite, that there is cloud and precipitation, and that
@@ -1846,7 +1859,7 @@ def drive(model, kernels, label, path, smi, fields=DRIVE_FIELDS,
     from icar_tpu_torch.time_paths import run_timed
     kernels.reset_launches()
     wind_ms = []
-    steps, seconds = run_timed(model, wind_ms=wind_ms)
+    steps, seconds = run_timed(model, intervals=intervals, wind_ms=wind_ms)
     launches = dict(kernels.LAUNCHES)
     for name, n in launches.items():
         want = steps * shards if name in path else 0
@@ -2044,7 +2057,8 @@ def check_fullphys(ideal_ridge_model, case, fullphys, kernels, step,
     """Phase 9: K1 and K5 on the full-physics ridge's state after one
     interval, the drive of two intervals with its launch counts, the
     stages of one more interval, and the small case on the CPU and the
-    card. Returns the figures K1's and K5's table entries add."""
+    card. Returns the figures K1's and K5's table entries add, and the
+    drive's (digest, substeps)."""
     import torch
     from icar_tpu_torch.time_paths import INTERVAL, stage_ms
     t0 = time.perf_counter()
@@ -2068,7 +2082,7 @@ def check_fullphys(ideal_ridge_model, case, fullphys, kernels, step,
 
     model = ideal_ridge_model(**case, device="cuda")
     path = step.path_kernels(model.options)
-    launches, *_ = drive(
+    launches, digest, steps = drive(
         model, kernels, "fullphys", path, smi,
         fields=tuple(model.advect_names) + (
             "precipitation", "convective_precipitation", "sensible_heat",
@@ -2094,7 +2108,7 @@ def check_fullphys(ideal_ridge_model, case, fullphys, kernels, step,
         "mp_thompson": {
             "launches": launches["mp_thompson"], "max_abs_err": err5,
             "ms": ms5, "plain_ms": pms5, "bound_ms": b5, "bound_by": by5,
-            "active_tile_share": share}}
+            "active_tile_share": share}}, (digest, steps)
 
 
 def check_linear_table(model):
@@ -3952,6 +3966,238 @@ def check_thompson_aer(ideal_ridge_model, cases, kernels, step, adv_plain,
     return figures
 
 
+# phase 19, bench.py --config conus (bench.py:109-119): the full physics
+# column of phase 9 on a mesh over every card. On one card a 1x1 mesh (the
+# measured program) and CONUS_SHARDS on this card; the small cases of every
+# column option (sharded_small_cases) on SHARDED_SMALL_MESH on this card
+# against their unsharded card runs, every bit of every field
+CONUS_SHARDS = (2, 2)
+SHARDED_SMALL_MESH = (2, 2)
+
+
+def sharded_small_cases():
+    """{name: (grid, options, interval s)}: the small full-physics case
+    (FULLPHYS_SMALL; Kain-Fritsch on CU_SMALL_KF, whose cloud needs its 20
+    levels) with sets of options that together run every column option:
+    conus (bench.py's conus schemes, with boundary forcing of the species
+    and a rain fraction), SB04 with MPDATA, Kain-Fritsch with WSM3, NSAS
+    with WSM6, YSU and RRTMG (Noah, at noon), BMJ with Morrison and the
+    CLM lake, the aerosol-aware Thompson scheme with RRTMG, YSU and
+    Noah-MP (its glacier rows and snow). Each interval is four substeps (Kain-Fritsch's two), in which every
+    convection scheme rains."""
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.models.icar import FULLPHYS, aerosol_aware_options
+
+    def noon_aware(o):
+        rrtmg_noon_options(o)
+        aerosol_aware_options(o)
+    return {
+        "conus": (FULLPHYS_SMALL, FULLPHYS, 60.0),
+        "mpdata_sb04": (FULLPHYS_SMALL, dict(
+            FULLPHYS, mp=C.MP_SIMPLE, conv=C.CU_NONE, adv=C.ADV_MPDATA),
+            60.0),
+        "kf_wsm3": (CU_SMALL_KF, dict(FULLPHYS, conv=C.CU_KF,
+                                      mp=C.MP_WSM3), 120.0),
+        "nsas_wsm6_ysu_rrtmg": (FULLPHYS_SMALL, dict(
+            FULLPHYS, conv=C.CU_NSAS, mp=C.MP_WSM6, pbl=C.PBL_YSU,
+            rad=C.RA_RRTMG, options_cb=rrtmg_noon_options), 60.0),
+        "bmj_morrison_lake": (FULLPHYS_SMALL, dict(
+            FULLPHYS, conv=C.CU_BMJ, mp=C.MP_MORRISON,
+            water=C.WATER_LAKE), 60.0),
+        "aware_noahmp": (FULLPHYS_SMALL, dict(
+            FULLPHYS, mp=C.MP_THOMPSON_AER, pbl=C.PBL_YSU, rad=C.RA_RRTMG,
+            lsm=C.LSM_NOAHMP, options_cb=noon_aware), 60.0),
+    }
+
+
+def sharded_small_model(name, device, mesh=None, late=False):
+    """The small case ``name`` of ``sharded_small_cases`` on ``device``,
+    with a v flow of 3 m/s across the shard edges: the lake case with its
+    band (columns 4-8), the Noah-MP case with phase 14's glacier rows and
+    snow, the others without RRTMG with the water strip; on ``mesh`` when
+    given, the conus case's forcing and rain fraction set after
+    attach_mesh with ``late``, else before it."""
+    import torch
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.forcing.ideal import make_ideal_case
+    from icar_tpu_torch.models.icar import (NOAHMP_BENCH_FIELDS,
+                                            ideal_ridge_model,
+                                            init_noahmp_state)
+    grid, opts, _ = sharded_small_cases()[name]
+    m = ideal_ridge_model(**grid, **opts, device=device)
+    m.set_initial_conditions(make_ideal_case(m.geom, u_profile=9.0,
+                                             v_profile=3.0, rh=grid["rh"]))
+    s = m.state
+    if name == "bmj_morrison_lake":
+        install_lake(m, (4, 8))
+    elif name == "aware_noahmp":
+        veg, swe = noahmp_small_surface(s["veg_type"].cpu().numpy(),
+                                        s["swe"].cpu().numpy())
+        m.state = {**s, "veg_type": torch.as_tensor(veg, device=device),
+                   "swe": torch.as_tensor(swe, device=device)}
+        init_noahmp_state(m, dict(NOAHMP_BENCH_FIELDS, **NOAHMP_SNOW_FIELDS))
+    elif opts.get("rad") != C.RA_RRTMG:
+        land = s["land_mask"].clone()
+        land[:, :10] = 2.0
+        m.state = {**s, "land_mask": land}
+    shape = tuple(s["pressure"].shape)
+
+    def extras():
+        if name == "conus":
+            r = np.random.default_rng(5)
+            m.set_forcing_tendencies({
+                "potential_temperature": r.uniform(
+                    -1e-4, 1e-4, shape).astype(np.float32),
+                "water_vapor": r.uniform(-1e-7, 1e-8, shape).astype(
+                    np.float32)})
+            m.set_rain_fraction(np.random.default_rng(6).uniform(
+                0.5, 1.5, (12,) + shape[1:]).astype(np.float32))
+    if mesh is not None and not late:
+        extras()
+    if mesh is not None:
+        m.attach_mesh(mesh)
+    if mesh is None or late:
+        extras()
+    return m
+
+
+def sharded_small_run(name, device, mesh=None, late=False):
+    """``sharded_small_model`` advanced over its case's interval (the
+    conus case with the rain fraction's month 2)."""
+    m = sharded_small_model(name, device, mesh, late)
+    m.advance(sharded_small_cases()[name][2],
+              rain_frac_month=2 if name == "conus" else None)
+    return m
+
+
+def bit_mismatches(one, other):
+    """The fields of the model ``one``'s state in which ``other`` differs
+    in any bit (the sign of zero included)."""
+    return [k for k in sorted(one.state)
+            if not np.array_equal(one.field(k).view(np.uint32),
+                                  other.field(k).view(np.uint32))]
+
+
+def check_conus(ideal_ridge_model, case, kernels, step, tp, reference, smi):
+    """Phase 19: bench.py's conus at 500x500x20 -- the full physics column
+    on a 1x1 mesh of this card over two intervals, one at a time, held to
+    phase 9's (digest, substeps) ``reference`` after the second, with its
+    stages of one more interval; then on CONUS_SHARDS of this card over
+    one interval, held to the 1x1 model's first (digest, substeps) (a
+    2x2 mesh on one card has four times the column physics' host
+    dispatch: one interval keeps the phase inside the script's time);
+    with several cards, one shard per card over two intervals against
+    ``reference``; each drive with K5 and K1 launched once per shard and
+    substep. Then the small cases of every column option on
+    SHARDED_SMALL_MESH of this card against their unsharded card runs
+    (the same substeps, every bit of every field, each kernel of the path
+    once per shard and substep). Returns K1's and K5's figures ("small":
+    the small cases' launches)."""
+    import torch
+    from icar_tpu_torch.parallel.mesh import make_mesh
+    from icar_tpu_torch.time_paths import stage_ms
+    t_phase = time.perf_counter()
+    fields = ("precipitation", "convective_precipitation", "sensible_heat",
+              "latent_heat", "skin_temperature", "soil_temperature", "u",
+              "v", "w")
+    out = {"advect_upwind": {}, "mp_thompson": {}, "small": {}}
+
+    def conus(label, mesh, intervals):
+        """(launches, digest, substeps) of each of ``intervals`` drives of
+        one interval (or one drive of two intervals with ``intervals``
+        None) of a fresh conus model on ``mesh``."""
+        t0 = time.perf_counter()
+        model = ideal_ridge_model(**case, device="cuda")
+        model.attach_mesh(mesh)
+        for dev in set(mesh.devices):
+            tp.device_tables(step.thompson_params(model.options), dev)
+        torch.cuda.synchronize()
+        log(f"conus {label} setup: {time.perf_counter() - t0:.1f} s")
+        path = step.path_kernels(model.options)
+        runs = [drive(model, kernels, f"conus {label}", path, smi,
+                      fields=tuple(model.advect_names) + fields,
+                      shards=mesh.size, intervals=1 if intervals else 2)
+                for _ in range(intervals or 1)]
+        if not float(model.global_field(
+                "convective_precipitation").max()) > 0:
+            raise AssertionError(f"conus {label}: no convective rain")
+        return model, runs
+
+    def held(label, got, want, what):
+        launches, digest, steps = got
+        if (digest, steps) != want:
+            raise AssertionError(f"conus {label}: {steps} substeps and "
+                                 f"digest {digest}; {what}: {want[1]} "
+                                 f"substeps, {want[0]}")
+        log(f"conus {label}: {steps} substeps and every digest sum equal "
+            f"to {what}'s; K5 and K1 {launches['mp_thompson']} and "
+            f"{launches['advect_upwind']} launches = shards x {steps} "
+            f"substeps")
+        for name in ("advect_upwind", "mp_thompson"):
+            out[name][f"launches_{label}"] = launches[name]
+
+    model, (first, second) = conus("1x1", one_card_mesh((1, 1)), 2)
+    held("1x1", ({k: n + second[0][k] for k, n in first[0].items()},
+                 second[1], first[2] + second[2]),
+         reference, "fullphys (phase 9)")
+    stages = stage_ms(model)
+    total = sum(stages["stages_ms"].values())
+    log(f"conus 1x1 stages of one more interval ({stages['substeps']} "
+        f"substeps, wall {stages['wall_ms']:.1f} ms, the stages' events "
+        f"{total:.1f} ms), CUDA-event ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages["stages_ms"].items(),
+                                              key=lambda kv: -kv[1])))
+    del model
+    label = f"{CONUS_SHARDS[0]}x{CONUS_SHARDS[1]}"
+    model, (run,) = conus(label, one_card_mesh(CONUS_SHARDS), 1)
+    held(label, run, (first[1], first[2]), "conus 1x1's first interval")
+    del model
+    if torch.cuda.device_count() > 1:
+        model, (run,) = conus("cards", make_mesh(case["nx"], case["ny"]),
+                              None)
+        held("cards", run, reference, "fullphys (phase 9)")
+        del model
+    else:
+        log("conus with one shard per card: not run (1 CUDA device "
+            "visible)")
+    log(f"conus at full width: {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    my, mx = SHARDED_SMALL_MESH
+    for name in sharded_small_cases():
+        one = sharded_small_run(name, "cuda")
+        path = step.path_kernels(one.options)
+        kernels.reset_launches()
+        other = sharded_small_run(name, "cuda", one_card_mesh(
+            SHARDED_SMALL_MESH), late=True)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        n = one.last_n_substeps
+        if other.last_n_substeps != n:
+            raise AssertionError(f"small {name} case {my}x{mx}: "
+                                 f"{other.last_n_substeps} substeps, "
+                                 f"unsharded {n}")
+        for k, v in launches.items():
+            want = n * my * mx if k in path else 0
+            if v != want:
+                raise AssertionError(f"small {name} case {my}x{mx}: {k} "
+                                     f"launched {v} times, expected {want}")
+        bad = bit_mismatches(one, other)
+        if bad:
+            raise AssertionError(f"small {name} case {my}x{mx} on the "
+                                 f"card differs from its unsharded card "
+                                 f"run in {bad}")
+        for k in one.state:
+            if not np.isfinite(one.field(k)).all():
+                raise AssertionError(f"small {name} case: non-finite {k}")
+        out["small"][name] = {k: v for k, v in launches.items() if v}
+        log(f"small {name} case {my}x{mx} on the card: {n} substeps, every "
+            f"bit of every field equal to its unsharded card run; launches "
+            f"{out['small'][name]}")
+    log(f"conus small cases: {time.perf_counter() - t0:.1f} s; phase 19 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_info()
@@ -4077,9 +4323,9 @@ def main():
     # 9. the full-physics ridge: K1 and K5 on its state, two intervals
     # counting kernel launches, its stages, and the small case on the CPU
     # and the card
-    fullphys = check_fullphys(ideal_ridge_model, cases["fullphys"],
-                              RIDGE_PATHS["fullphys"], kernels, step,
-                              adv_plain, thompson_plain, thompson_cases, smi)
+    fullphys, fullphys_ref = check_fullphys(
+        ideal_ridge_model, cases["fullphys"], RIDGE_PATHS["fullphys"],
+        kernels, step, adv_plain, thompson_plain, thompson_cases, smi)
     # 10. the linear-theory ridge: its table on the card against the CPU,
     # the small case's wind solvers on the card against the CPU, two
     # intervals with a wind update before each counting kernel launches
@@ -4136,6 +4382,13 @@ def main():
     aer = check_thompson_aer(ideal_ridge_model, cases, kernels, step,
                              adv_plain, mpdata_plain, thompson_plain,
                              thompson_cases, tuple(thompson_ref), smi)
+    # 19. bench.py's conus (the full physics column on a mesh): 1x1 and
+    # 2x2 on this card (one shard per card with several), each held to
+    # phase 9's digest and substeps, K5 and K1 once per shard and
+    # substep, the stages; the small cases of every column option 2x2 on
+    # this card against their unsharded card runs
+    conus = check_conus(ideal_ridge_model, cases["fullphys"], kernels,
+                        step, thompson_plain, fullphys_ref, smi)
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -4148,6 +4401,7 @@ def main():
             entry["launches"] = launches[name]
         if name in ("advect_upwind", "mp_thompson"):
             entry["fullphys"] = fullphys[name]
+            entry["conus"] = conus[name]
             entry["fullphys_rrtmg_noah"] = rrtmg[name]
             entry["fullphys_rrtmg"] = noahmp[name]
             entry["fullphys_lake"] = lake[name]
@@ -4171,6 +4425,10 @@ def main():
                    if n.get(name)}
         if general:
             entry["general"] = {"launches": general}
+        small = {label: n[name] for label, n in conus["small"].items()
+                 if n.get(name)}
+        if small:
+            entry["sharded_small"] = {"launches": small}
     table += general_table
     log(f"total wall: {time.perf_counter() - t_start:.1f} s")
 

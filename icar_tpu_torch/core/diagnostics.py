@@ -75,7 +75,7 @@ PARTIAL_FIELDS = frozenset(("density", "temperature",
 
 
 def diagnostic_update(state, geom, full: bool = True, needs=None,
-                      with_w_real: bool = False):
+                      with_w_real: bool = False, interior=None):
     """Refresh derived fields (diagnostic_update, time_step.f90:49-198).
 
     ``full=False`` computes only the fields physics consumes; ``full=True``
@@ -85,8 +85,15 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
     refreshes only those fields, the others taken from the state (the
     general loop's per-substep refresh), with w_real when
     ``with_w_real``. ``geom`` holds torch tensors
-    (``convert.geometry_to_torch``). Returns a new dict."""
+    (``convert.geometry_to_torch``). ``interior`` (rows, columns) are the
+    cells off the domain's edge ring, where w_real and the 10 m winds are
+    formed: every cell but the outer ring by default, a block's
+    ``mesh.Shard.interior`` for a block of a sharded domain (its inner
+    edge is interior to the domain). Returns a new dict."""
     s = dict(state)
+    if interior is None:
+        interior = (slice(1, s["pressure"].shape[-2] - 1),
+                    slice(1, s["pressure"].shape[-1] - 1))
     if needs is not None:
         unknown = set(needs) - PARTIAL_FIELDS
         if unknown:
@@ -94,7 +101,8 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
                              "among PARTIAL_FIELDS")
         s = _refresh(s, needs)
         if with_w_real and "w_real" in s:
-            s["w_real"] = w_real(s["w_real"], s["u"], s["v"], s["w"], geom)
+            s["w_real"] = w_real(s["w_real"], s["u"], s["v"], s["w"], geom,
+                                 interior)
         return s
     p = s["pressure"]
     theta = s["potential_temperature"]
@@ -119,7 +127,7 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
         return s
 
     if "w_real" in s:
-        s["w_real"] = w_real(s["w_real"], u, v, w, geom)
+        s["w_real"] = w_real(s["w_real"], u, v, w, geom, interior)
 
     if not full:
         return s
@@ -154,7 +162,7 @@ def diagnostic_update(state, geom, full: bool = True, needs=None,
         # the reference fills interior cells only; edges keep their value
         for name, val in (("u_10m", u10), ("v_10m", v10), ("ustar", ust)):
             s[name] = s[name].clone()
-            s[name][1:-1, 1:-1] = val[1:-1, 1:-1]
+            s[name][interior] = val[interior]
     return s
 
 
@@ -182,18 +190,24 @@ def _refresh(s, needs):
     return s
 
 
-def w_real(old, u, v, w, geom):
+def w_real(old, u, v, w, geom, interior=None):
     """The real vertical velocity at the interior cells (time_step.f90:
-    163-194); the domain's edge keeps ``old``."""
-    uw = u[:, 1:-1, 1:-1] * geom.dzdx[:, 1:-1, 1:-1]
-    vw = v[:, 1:-1, 1:-1] * geom.dzdy[:, 1:-1, 1:-1]
+    163-194): the cells ``interior`` (rows, columns; every cell but the
+    outer ring by default) of a mass-point field whose staggered u and v
+    carry both end faces; the others keep ``old``."""
+    ny, nx = w.shape[-2:]
+    iy, ix = interior or (slice(1, ny - 1), slice(1, nx - 1))
+    # the interior's cells and the faces around them
+    fy, fx = slice(iy.start, iy.stop + 1), slice(ix.start, ix.stop + 1)
+    uw = u[:, iy, fx] * geom.dzdx[:, iy, fx]
+    vw = v[:, fy, ix] * geom.dzdy[:, fy, ix]
     w_below = torch.cat([torch.zeros_like(w[:1]), w[:-1]], dim=0)
     wr = ((uw[:, :, :-1] + uw[:, :, 1:]) * 0.5
           + (vw[:, :-1, :] + vw[:, 1:, :]) * 0.5
-          + geom.jacobian[:, 1:-1, 1:-1]
-          * (w_below[:, 1:-1, 1:-1] + w[:, 1:-1, 1:-1]) * 0.5)
+          + geom.jacobian[:, iy, ix]
+          * (w_below[:, iy, ix] + w[:, iy, ix]) * 0.5)
     out = old.clone()
-    out[:, 1:-1, 1:-1] = wr
+    out[:, iy, ix] = wr
     return out
 
 

@@ -45,10 +45,16 @@ class Statics:
     the state's device (``rrtmg_lw.get_lw_tables`` and, unless
     ``use_simple_sw``, ``rrtmg_sw.get_sw_tables``, uploaded once per table
     set and device) and the greenhouse gases of the run's start
-    (``ghg.ghg_for_options``)."""
+    (``ghg.ghg_for_options``). ``geom`` is a block's geometry on a sharded
+    domain; ``shard`` (``parallel.mesh.Shard``), where the block is not
+    the whole domain, gives its columns' place in the domain (``columns``:
+    their row-major indices and the domain's column count), from which
+    RRTMG's McICA draws are taken (``rrtmg_lw.BlockCdf``)."""
 
-    def __init__(self, geom, options=None):
+    def __init__(self, geom, options=None, shard=None):
         self.noah_tables = load_tables()
+        self.columns = (None if shard is None or shard.whole else
+                        (shard.columns(), shard.domain[0] * shard.domain[1]))
         self.dx = float(geom.dx)
         self.dz = geom.dz_interface
         self.dz_mass = geom.dz_mass
@@ -139,6 +145,10 @@ def radiation_rrtmg(s, g: Statics, options, t, doy, year_length, dt, cdf,
     radiation_lw."""
     stage = stage or (lambda name: contextlib.nullcontext())
     rad = options.rad
+    if g.columns is not None:
+        # a block of a sharded domain: each column's draws are the ones it
+        # takes in the whole domain's call
+        cdf = rrtmg_lw.BlockCdf(cdf, *g.columns)
     s = dict(s)
     zeros = torch.zeros_like(s["potential_temperature"])
     qc = s.get("cloud_water", zeros)
@@ -486,17 +496,34 @@ def apply_fluxes(s, g: Statics, options, dt):
     return s
 
 
-def boundary_layer(s, g: Statics, dt):
+def boundary_layer_diffusivity(s, g: Statics, dt):
+    """pbl_simple's eddy diffusivity Kq*dt/dz of the state ``s``, from
+    which the domain's diffusion substep count is formed
+    (``pbl_simple.substep_bound``) before ``boundary_layer`` runs."""
+    water = (s["land_mask"] == 2.0) if "land_mask" in s else None
+    zeros = torch.zeros_like(s["potential_temperature"])
+    return pbl_simple.eddy_diffusivity(
+        s["potential_temperature"], s["water_vapor"],
+        *(s.get(k, zeros) for k in HYDROMETEORS), s["u_mass"], s["v_mass"],
+        s["exner"], g.z, g.terrain, g.dz, dt, water)
+
+
+def boundary_layer(s, g: Statics, dt, Kq=None, nsub=None):
     """pbl_simple (pbl, time_step.f90:494), less mixing over open water.
     A species the state does not hold (SB04's has no cloud ice) mixes as
-    zeros and is not written, as in the JAX loop."""
+    zeros and is not written, as in the JAX loop. ``Kq``
+    (``boundary_layer_diffusivity`` of ``s``) and ``nsub``, the domain's
+    diffusion substep count, where the caller formed them: the blocks of a
+    sharded domain take the largest of their ``pbl_simple.substep_bound``;
+    by default ``s``'s own."""
     s = dict(s)
     water = (s["land_mask"] == 2.0) if "land_mask" in s else None
     zeros = torch.zeros_like(s["potential_temperature"])
     th, qv, qc, qi, qr, qs = pbl_simple.pbl_simple(
         s["potential_temperature"], s["water_vapor"],
         *(s.get(k, zeros) for k in HYDROMETEORS), s["u_mass"], s["v_mass"],
-        s["exner"], s["density"], g.z, g.dz, g.terrain, dt, water)
+        s["exner"], s["density"], g.z, g.dz, g.terrain, dt, water, Kq,
+        nsub)
     s["potential_temperature"] = th
     s["water_vapor"] = qv
     for name, val in zip(HYDROMETEORS, (qc, qi, qr, qs)):

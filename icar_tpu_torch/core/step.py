@@ -40,14 +40,16 @@ forced pressure the pressure-derived fields are refreshed every substep
 (``substep_needs``). After the advection u, v, w, pressure and the 2-D
 fields take ``tend * dt`` over the whole field (``apply_forcing``).
 
-The loop runs on a list of blocks (``run_interval_sharded``): the whole
-domain is one block, and a model sharded over a device mesh holds one per
-shard (``parallel/mesh.py``), each with its halo, exchanged after every
-substep; the kernels run per block through ``parallel/shard_kernels.py``
-(each block weights its own operands by its density, halo included).
-With column physics (radiation, the surface, the PBL, convection;
-``core/physics_step.py``) the interval runs ``run_interval_physics`` on
-one block, with either microphysics and either advection. Without
+Both loops run on a list of blocks (``run_blocks``): the whole domain is
+one block, and a model sharded over a device mesh holds one per shard
+(``parallel/mesh.py``), each with its halo, exchanged after every
+advection; the kernels run per block through
+``parallel/shard_kernels.py`` (each block weights its own operands by its
+density, halo included). Without column physics the interval runs
+``run_interval_sharded``; with it (radiation, the surface, the PBL,
+convection; ``core/physics_step.py``) ``run_interval_physics``, with
+either microphysics and either advection (bench.py --config conus is
+that loop on a mesh over every card). Without
 microphysics (mp=0: theta and water vapour advected) or without advection
 (advection=0: the species stacked but not advected) either loop runs the
 general loop's work without that scheme's kernel, as the JAX step does.
@@ -65,11 +67,12 @@ import torch
 from .. import constants as C
 from ..ops import kernels
 from ..ops.pointwise import inv
-from ..physics import mp_morrison, mp_thompson, mp_wsm3, mp_wsm6, rrtmg_lw
+from ..physics import (mp_morrison, mp_thompson, mp_wsm3, mp_wsm6,
+                       pbl_simple, rrtmg_lw)
 from ..physics.mp_simple import formation_rates
 from ..physics.thompson_tables import ThompsonParams
 from ..parallel import shard_kernels as sk
-from ..parallel.mesh import Layout, single
+from ..parallel.mesh import Layout, host_max, single
 from . import physics_step as ps
 from .diagnostics import (cfl_maxima, compute_dt, diagnostic_update,
                           dt_from_maxima)
@@ -456,18 +459,37 @@ def run_interval(state: Dict[str, torch.Tensor], geom, options,
     ``dqdt`` maps advected species to boundary forcing tendencies;
     ``time_aux`` holds the interval's ``day_of_year0`` and
     ``year_length`` (the solar geometry of the radiation and Noah-MP).
-    With column physics the interval runs ``run_interval_physics``
-    (``timer`` and ``cdf``: see there);
-    otherwise the whole domain is one block (``run_interval_sharded`` on a
-    one-shard layout; ``timer``: see there)."""
-    if column_physics(options):
-        return run_interval_physics(state, geom, options, adv_names,
-                                    seconds, dqdt, time_aux, timer, cdf)
+    The whole domain is one block (``run_blocks`` on a one-shard layout;
+    ``timer`` and ``cdf``: see there)."""
     layout = single(state["pressure"].device, geom.ny, geom.nx)
-    (state,), n = run_interval_sharded(layout, [state], [geom], options,
-                                       adv_names, seconds, [dqdt or {}],
-                                       timer)
+    (state,), n = run_blocks(layout, [state], [geom], options, adv_names,
+                             seconds, [dqdt or {}], time_aux, timer, cdf)
     return state, n
+
+
+def run_blocks(layout: Layout, states: List[Dict[str, torch.Tensor]],
+               geoms, options, adv_names: Sequence[str], seconds: float,
+               dqdts=None, time_aux: Optional[Dict[str, float]] = None,
+               timer=None, cdf=None
+               ) -> Tuple[List[Dict[str, torch.Tensor]], int]:
+    """One interval of a domain held as blocks (``mesh.Layout``; one block
+    per shard, or the whole domain as one): ``run_interval_physics`` with
+    column physics, else ``run_interval_sharded`` (``time_aux`` and
+    ``cdf`` are the column physics'). Returns the new blocks and the
+    substep count. Raises NotImplementedError for forcing tendencies
+    outside the advected species on more than one block."""
+    if len(states) > 1 and dqdts and full_field_forcing(dqdts[0],
+                                                        adv_names):
+        raise NotImplementedError(
+            "forcing tendencies outside the advected species on a sharded "
+            "model are not ported yet: Slice G (sharded file-driven runs) "
+            "in ROADMAP.md")
+    if column_physics(options):
+        return run_interval_physics(layout, states, geoms, options,
+                                    adv_names, seconds, dqdts, time_aux,
+                                    timer, cdf)
+    return run_interval_sharded(layout, states, geoms, options, adv_names,
+                                seconds, dqdts, timer)
 
 
 def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
@@ -487,9 +509,9 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     at the start of every substep every cell of every block, halo
     included, holds the unsharded value, and the column-local and
     elementwise work gives each cell the unsharded bits. The boundary
-    ring is taken from global positions. Derived fields that the
-    epilogue writes only on a block's interior (w_real, the 10 m winds)
-    are exact at owned cells, not at a block's inner edge.
+    ring is taken from global positions, and the fields formed on the
+    domain's interior only (w_real, the 10 m winds) on each block's part
+    of it (``mesh.Shard.interior``), halo included.
 
     WSM3, WSM6 and Morrison run in the general loop as plain PyTorch
     (``plain_microphysics``) on the stack's rows, with the mass-level
@@ -523,16 +545,13 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
     dqdts = dqdts or [{} for _ in states]
     adv = options.adv
     full = full_field_forcing(dqdts[0], adv_names)
-    if full and len(states) > 1:
-        raise NotImplementedError(
-            "forcing tendencies outside the advected species on a sharded "
-            "model are not ported yet: Slice G (sharded file-driven runs) "
-            "in ROADMAP.md")
     pressure_varies, winds_vary = forcing_varies(dqdts[0]) if full \
         else (False, False)
 
-    states = [diagnostic_update(s, g, full=False, with_w_real=w_real_cfg)
-              for s, g in zip(states, geoms)]
+    inner = [sh.interior for sh in layout.shards]
+    states = [diagnostic_update(s, g, full=False, with_w_real=w_real_cfg,
+                                interior=i)
+              for s, g, i in zip(states, geoms, inner)]
     dt_static = sharded_dt(states, geoms, options.run.cfl_reduction_factor,
                            options.run.cfl_strictness)
 
@@ -606,8 +625,8 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
             with stage("diagnostics"):
                 states = [diagnostic_update(
                     {**s, "potential_temperature": q[th]}, g, needs=needs,
-                    with_w_real=w_real_cfg and winds_vary)
-                    for s, q, g in zip(states, stacks, geoms)]
+                    with_w_real=w_real_cfg and winds_vary, interior=i)
+                    for s, q, g, i in zip(states, stacks, geoms, inner)]
             if pressure_varies:
                 pressure = [s["pressure"].contiguous() for s in states]
                 exner = [s["exner"].contiguous() for s in states]
@@ -683,7 +702,7 @@ def run_interval_sharded(layout: Layout, states: List[Dict[str, torch.Tensor]],
         elif not general:
             s["precipitation"] = s["precipitation"] + rain[b]
             s["snowfall"] = s["snowfall"] + snow[b]
-        out.append(diagnostic_update(s, g, full=True))
+        out.append(diagnostic_update(s, g, full=True, interior=inner[b]))
     return out, n
 
 
@@ -699,27 +718,31 @@ def _relax(q, tend, dt, bmask, floor, advected):
     return torch.maximum(q + tend * (float(dt) * bmask), floor)
 
 
-def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
-                         adv_names: Sequence[str], seconds: float,
-                         dqdt: Optional[Dict[str, torch.Tensor]] = None,
+def run_interval_physics(layout: Layout,
+                         states: List[Dict[str, torch.Tensor]], geoms,
+                         options, adv_names: Sequence[str], seconds: float,
+                         dqdts=None,
                          time_aux: Optional[Dict[str, float]] = None,
                          timer=None, cdf=None
-                         ) -> Tuple[Dict[str, torch.Tensor], int]:
-    """One interval of the general loop with column physics, on one block
-    (icar_tpu/core/step.py ``step`` and ``physics_step`` :241-1232,
-    :1613-1814). Before the loop: the partial diagnostics with w_real, one
-    CFL dt, the species stack and the advection winds. Per substep: the
-    partial refresh (``substep_needs``; under YSU the full one), then
-    ``core/physics_step.py``'s stages -- radiation (ra_simple; or RRTMG
-    every ``rad.update_interval_rrtmg`` seconds by its ``Throttle``, its
-    stored heating applied every substep), the surface every
-    ``lsm.update_interval`` seconds of float32 model time (``Throttle``:
-    its counter starts full, so the first substep runs it), the surface
-    fluxes, the boundary layer (YSU or pbl_simple), convection (Tiedtke,
-    Kain-Fritsch, NSAS or BMJ) --, then the rows of the stack a stage
-    replaced are written back (Kain-Fritsch's rain and snow too); the
-    microphysics (every ``mp.update_interval`` seconds likewise) updates
-    the stack and the accumulators in place -- Thompson (K5) on
+                         ) -> Tuple[List[Dict[str, torch.Tensor]], int]:
+    """One interval of the general loop with column physics on a domain
+    held as blocks (``mesh.Layout``: the whole domain as one block, or one
+    per shard with a halo of ``path_halo(options)``; icar_tpu/core/step.py
+    ``step`` and ``physics_step`` :241-1232, :1613-1814, which the JAX
+    package runs sharded under GSPMD). Returns the new blocks and the
+    substep count. Before the loop: the partial diagnostics with w_real,
+    one CFL dt (``sharded_dt``), the species stack and the advection
+    winds. Per substep: the partial refresh (``substep_needs``; under YSU
+    the full one), then ``core/physics_step.py``'s stages -- radiation
+    (ra_simple; or RRTMG every ``rad.update_interval_rrtmg`` seconds by
+    its ``Throttle``, its stored heating applied every substep), the
+    surface every ``lsm.update_interval`` seconds of float32 model time
+    (``Throttle``: its counter starts full, so the first substep runs it),
+    the surface fluxes, the boundary layer (YSU or pbl_simple), convection
+    (Tiedtke, Kain-Fritsch, NSAS or BMJ) --, then the rows of the stack a
+    stage replaced are written back (Kain-Fritsch's rain and snow too);
+    the microphysics (every ``mp.update_interval`` seconds likewise)
+    updates the stack and the accumulators in place -- Thompson (K5) on
     its nine species (mp=5 too, then its effective radii, which the next
     RRTMG call reads; with the aerosol-aware option
     ``thompson_aer_microphysics`` on its twelve, w_real as the state
@@ -731,27 +754,45 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     or K4 at the configured order and FCT, advects the stack into the
     second buffer with the near-end clamp folded in unless forcing
     follows, on density-weighted operands with ``advect_density``; the
-    water vapour's advection tendency feeds the next substep's
-    convection.
-    Under full-field forcing (``full_field_forcing``) forced winds give a
-    new dt and wind operands every substep, and w_real in the refresh, a
-    forced pressure its derived fields (``substep_needs``), and
-    ``apply_forcing`` follows the advection. The
+    stack's halo is exchanged (``Layout.exchange``), then the water
+    vapour's advection tendency, which the next substep's convection
+    reads, is formed on the whole block.
+
+    Every stage runs block by block through the per-shard wrappers
+    (``parallel/shard_kernels.py``), with one set of throttles for the
+    model (host counters of model time). The column physics is
+    column-local: a halo column is real air whose inputs equal its
+    owner's, so it comes out equal to its owner's column, and after the
+    exchange every cell of every block holds the unsharded value. What a
+    column takes from the domain is taken from the domain: the dt,
+    pbl_simple's diffusion substep count (the largest of the blocks',
+    ``parallel.mesh.host_max``), the boundary ring and the interior where
+    w_real and the 10 m winds are formed (``mesh.Shard.interior``), and
+    RRTMG's McICA draws (``physics_step.Statics``). The loops that read a
+    count per call (the microphysics' sedimentation, Kain-Fritsch's
+    feedback substeps) run each block to its own largest count; they leave
+    a column past its own count as it is, so each column keeps its bits.
+
+    Under full-field forcing (``full_field_forcing``; one block,
+    ``run_blocks``) forced winds give a new dt and wind operands every substep, and
+    w_real in the refresh, a forced pressure its derived fields
+    (``substep_needs``), and ``apply_forcing`` follows the advection. The
     ``time_aux`` of ``run_interval`` is required with the radiation or
     Noah-MP.
     ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by
-    default). pbl_simple's substep count is one host read per substep,
-    WSM3's, WSM6's and Morrison's sedimentation counts two, three and one
-    a call, Kain-Fritsch's feedback substeps one for each closure trip it
-    runs and one more; YSU, RRTMG, NSAS and BMJ read nothing back.
+    default). pbl_simple's substep count is one host read per block and
+    substep, WSM3's, WSM6's and Morrison's sedimentation counts two, three
+    and one a block's call, Kain-Fritsch's feedback substeps one for each
+    closure trip it runs and one more; YSU, RRTMG, NSAS and BMJ read
+    nothing back.
     ``timer(stage)``, when given, returns a context manager around each
-    stage's work (``time_paths.StageTimer``:
+    stage's work over all blocks (``time_paths.StageTimer``:
     diagnostics, radiation, or RRTMG's cloud_fraction, radiation_sw,
     radiation_lw and radiation (the zenith and the heating), surface --
     with the lake its lake column, with Noah-MP its noahmp and glacier
     columns within it --, pbl or pbl_ysu, convection, restack,
     mp_thompson, mp_thompson_aer, mp_simple_rho, mp_wsm3, mp_wsm6 or
-    mp_morrison, advection). Without microphysics
+    mp_morrison, advection with the exchange). Without microphysics
     (mp=0) the stack holds theta and water vapour and no microphysics
     runs; without advection (advection=0) the species stay put, neither
     K1 nor K4 launches, and the near-end clamp leaves them alone, as the
@@ -772,10 +813,9 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     plain = mp in PLAIN_MP
     adv = options.adv
     density = options.run.advect_density
-    dqdt = dqdt or {}
-    dev = state["pressure"].device
-    full = full_field_forcing(dqdt, adv_names)
-    pressure_varies, winds_vary = forcing_varies(dqdt) if full \
+    dqdts = dqdts or [{} for _ in states]
+    full = full_field_forcing(dqdts[0], adv_names)
+    pressure_varies, winds_vary = forcing_varies(dqdts[0]) if full \
         else (False, False)
     needs = substep_needs(options, pressure_varies, winds_vary)
     # YSU reads the 10 m winds and ustar, which only the full refresh
@@ -791,22 +831,31 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
     # every convection scheme and WSM3 read w_real (icar_tpu/core/
     # step.py:1639-1645)
     w_real_cfg = convect or mp == C.MP_WSM3
+    inner = [sh.interior for sh in layout.shards]
+    devs = [s["pressure"].device for s in states]
+
+    def scalars(x):
+        """``x`` as a 0-d float32 tensor on each block's device."""
+        return [torch.full((), float(x), device=d) for d in devs]
 
     with stage("diagnostics"):
-        s = diagnostic_update(state, geom, full=False,
-                              with_w_real=w_real_cfg)
-    dt_static = quantized_dt(s["u"], s["v"], s["w"], geom.dz_levels,
-                             geom.dx, options.run.cfl_reduction_factor,
-                             options.run.cfl_strictness)
+        states = [diagnostic_update(s, g, full=False, with_w_real=w_real_cfg,
+                                    interior=i)
+                  for s, g, i in zip(states, geoms, inner)]
+    dt_static = sharded_dt(states, geoms, options.run.cfl_reduction_factor,
+                           options.run.cfl_strictness)
     # the accumulators are updated in place below: own them
-    for k in ("precipitation", "snowfall", "graupel"):
-        if k in s:
-            s[k] = s[k].clone()
-    q = torch.stack([s[k] for k in adv_names])
-    spare = torch.empty_like(q)
+    for s in states:
+        for k in ("precipitation", "snowfall", "graupel"):
+            if k in s:
+                s[k] = s[k].clone()
+    qs = [torch.stack([s[k] for k in adv_names]) for s in states]
+    spares = [torch.empty_like(q) for q in qs]
     if not winds_vary:
-        winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"], geom)
-    floors = torch.as_tensor(limit_floors(adv_names), device=dev)
+        winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"], g)
+                 for s, g in zip(states, geoms)]
+    floors = [torch.as_tensor(limit_floors(adv_names), device=d)
+              for d in devs]
     if mp in THOMPSON_MP:
         smap = mp_thompson.stack_smap(adv_names)
         tparams = thompson_params(options)
@@ -814,37 +863,40 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         species = [adv_names.index(k) for k in MP_SPECIES]
     # SB04 takes the interface thickness, the other schemes the mass-level
     # one
-    dz_mp = (geom.dz_interface if sb04 else geom.dz_mass).contiguous()
+    dz_mp = [(g.dz_interface if sb04 else g.dz_mass).contiguous()
+             for g in geoms]
     mp_stage = mp_stage_name(options)
-    rest = limited_rest(s, adv_names)
-    statics = ps.Statics(geom, options)
+    rest = limited_rest(states[0], adv_names)
+    statics = [ps.Statics(g, options, sh)
+               for g, sh in zip(geoms, layout.shards)]
     i_qv = adv_names.index("water_vapor")
     tend = None
-    if any(k in dqdt for k in adv_names):
-        tend = torch.stack([dqdt[k] if k in dqdt else torch.zeros_like(q[0])
-                            for k in adv_names])
-        floor_b = floors[:, None, None, None]
+    if any(k in d for d in dqdts for k in adv_names):
+        tend = [torch.stack([d[k] if k in d else torch.zeros_like(q[0])
+                             for k in adv_names])
+                for q, d in zip(qs, dqdts)]
+        floor_b = [f[:, None, None, None] for f in floors]
     if tend is not None or full:
-        bmask = single(dev, geom.ny, geom.nx).boundary_masks()[0]
+        bmask = layout.boundary_masks()
     rrtmg = phys.radiation == C.RA_RRTMG
     noahmp = phys.landsurface == C.LSM_NOAHMP
-    year_length = None
+    year_length = [None] * len(states)
     if phys.radiation in (C.RA_SIMPLE, C.RA_RRTMG) or noahmp:
         if time_aux is None:
             raise ValueError("run_interval_physics: the radiation and "
                              "Noah-MP need time_aux "
                              "(ICARModel._time_aux)")
         day0 = np.float32(time_aux["day_of_year0"])
-        year_length = torch.full((), float(np.float32(
-            time_aux["year_length"])), device=dev)
+        year_length = scalars(np.float32(time_aux["year_length"]))
     if rrtmg:
         cdf = cdf or rrtmg_lw.TorchCdf()
         rad_throttle = Throttle(options.rad.update_interval_rrtmg)
     lsm_throttle = Throttle(options.lsm.update_interval)
     mp_throttle = Throttle(options.mp.update_interval)
 
-    def scalar(x):
-        return torch.full((), float(x), device=dev)
+    def each(fn, *lists):
+        """``fn`` on each block's entries of ``lists``."""
+        return [fn(*a) for a in zip(*lists)]
 
     t = np.float32(0.0)
     end_time = np.float32(seconds)
@@ -853,123 +905,158 @@ def run_interval_physics(state: Dict[str, torch.Tensor], geom, options,
         if winds_vary:
             # the CFL dt of the forced winds (one read to the host a
             # substep) and their advection operands
-            dt_static = quantized_dt(s["u"], s["v"], s["w"], geom.dz_levels,
-                                     geom.dx, options.run.cfl_reduction_factor,
-                                     options.run.cfl_strictness)
-            winds = kernels.prepare_advect_winds(s["u"], s["v"], s["w"],
-                                                 geom)
+            dt_static = sharded_dt(states, geoms,
+                                   options.run.cfl_reduction_factor,
+                                   options.run.cfl_strictness)
+            winds = [kernels.prepare_advect_winds(s["u"], s["v"], s["w"],
+                                                  g)
+                     for s, g in zip(states, geoms)]
         dt = min(dt_static, end_time - t)
         near_end = bool((end_time - t) < dt * np.float32(2))
         clamp = near_end and tend is None
-        dt_t = scalar(dt)
-        views = {k: q[i] for i, k in enumerate(adv_names)}
+        dts = scalars(dt)
+        views = [{k: q[i] for i, k in enumerate(adv_names)} for q in qs]
         with stage("diagnostics"):
             if full_each:
-                s = diagnostic_update({**s, **views}, geom, full=True)
+                states = each(lambda s, v, g, i: diagnostic_update(
+                    {**s, **v}, g, full=True, interior=i),
+                    states, views, geoms, inner)
             else:
-                s = diagnostic_update({**s, **views}, geom, needs=needs,
-                                      with_w_real=w_real_cfg and winds_vary)
+                states = each(lambda s, v, g, i: diagnostic_update(
+                    {**s, **v}, g, needs=needs,
+                    with_w_real=w_real_cfg and winds_vary, interior=i),
+                    states, views, geoms, inner)
         if phys.radiation == C.RA_SIMPLE:
-            doy = day0 + t * np.float32(inv(86400.0))
+            doy = scalars(day0 + t * np.float32(inv(86400.0)))
             with stage("radiation"):
-                s = ps.radiation(s, statics, scalar(doy), year_length, dt_t)
+                states = each(ps.radiation, states, statics, doy,
+                              year_length, dts)
         elif rrtmg:
-            doy = scalar(day0 + t * np.float32(inv(86400.0)))
+            doy = scalars(day0 + t * np.float32(inv(86400.0)))
             with stage("radiation"):
-                s = ps.rrtmg_zenith(s, statics, doy, year_length)
+                states = each(ps.rrtmg_zenith, states, statics, doy,
+                              year_length)
             if rad_throttle.step(dt) is not None:
-                s = ps.radiation_rrtmg(s, statics, options, t, doy,
-                                       year_length, dt_t, cdf, stage)
+                states = each(lambda s, g, d, y, h: ps.radiation_rrtmg(
+                    s, g, options, t, d, y, h, cdf, stage),
+                    states, statics, doy, year_length, dts)
             with stage("radiation"):
-                s = ps.radiative_heating(s, dt_t)
+                states = each(ps.radiative_heating, states, dts)
         if surface:
             with stage("surface"):
                 lsm_dt = lsm_throttle.step(dt)
                 if lsm_dt is not None:
-                    doy_t = scalar(day0 + t * np.float32(inv(86400.0))) \
-                        if noahmp else None
-                    s = ps.surface_fluxes(s, statics, options,
-                                          scalar(lsm_dt), doy_t, year_length,
-                                          stage)
-                s = ps.apply_fluxes(s, statics, options, dt_t)
+                    doys = (scalars(day0 + t * np.float32(inv(86400.0)))
+                            if noahmp else [None] * len(states))
+                    states = each(lambda s, g, h, d, y: ps.surface_fluxes(
+                        s, g, options, h, d, y, stage),
+                        states, statics, scalars(lsm_dt), doys, year_length)
+                states = each(lambda s, g, h: ps.apply_fluxes(
+                    s, g, options, h), states, statics, dts)
         if phys.boundarylayer == C.PBL_YSU:
             with stage("pbl_ysu"):
-                s = ps.boundary_layer_ysu(s, statics, dt_t)
+                states = each(ps.boundary_layer_ysu, states, statics, dts)
                 if tiedtke:
                     # the JAX loop takes the moisture before the PBL after
                     # YSU has run (icar_tpu/core/step.py:746-747, 766-767),
                     # so YSU's tendency reaches Tiedtke as 0
-                    s["tend_qv_pbl"] = (s["water_vapor"]
-                                        - s["water_vapor"]) / dt_t
+                    for s, h in zip(states, dts):
+                        s["tend_qv_pbl"] = (s["water_vapor"]
+                                            - s["water_vapor"]) / h
         if phys.boundarylayer == C.PBL_SIMPLE:
             with stage("pbl"):
-                qv_before_pbl = s["water_vapor"]
-                s = ps.boundary_layer(s, statics, dt_t)
+                kqs = each(ps.boundary_layer_diffusivity, states, statics,
+                           dts)
+                # one substep count for the domain: the blocks' largest
+                nsub = max(host_max(each(
+                    lambda k, g: pbl_simple.substep_bound(k, g.dz),
+                    kqs, statics)), 1)
+                qv_before_pbl = [s["water_vapor"] for s in states]
+                states = each(lambda s, g, h, k: ps.boundary_layer(
+                    s, g, h, k, nsub), states, statics, dts, kqs)
                 if tiedtke:
-                    s["tend_qv_pbl"] = (s["water_vapor"] - qv_before_pbl) \
-                        / dt_t
+                    for s, q0, h in zip(states, qv_before_pbl, dts):
+                        s["tend_qv_pbl"] = (s["water_vapor"] - q0) / h
         if convect:
             with stage("convection"):
-                s = ps.convection(s, statics, options, dt_t)
+                states = each(lambda s, g, h: ps.convection(
+                    s, g, options, h), states, statics, dts)
         with stage("restack"):
             # write back the rows a stage replaced (icar_tpu/core/step.py
             # _restack_dirty)
-            for i, k in enumerate(adv_names):
-                if s[k] is not views[k]:
-                    q[i].copy_(s[k])
+            for s, q, v in zip(states, qs, views):
+                for i, k in enumerate(adv_names):
+                    if s[k] is not v[k]:
+                        q[i].copy_(s[k])
         mp_dt = mp_throttle.step(dt) if mp_stage else None
         if mp_dt is not None:
             with stage(mp_stage):
+                rain = [s["precipitation"] for s in states]
+                snow = [s["snowfall"] for s in states]
                 if thompson:
-                    kernels.mp_thompson_stack(
-                        q, smap, s["exner"], s["pressure"], dz_mp, mp_dt,
-                        s["precipitation"], s["snowfall"], s["graupel"],
-                        tparams)
+                    sk.thompson_stack_sharded(
+                        qs, smap, [s["exner"] for s in states],
+                        [s["pressure"] for s in states], dz_mp, mp_dt, rain,
+                        snow, [s["graupel"] for s in states], tparams)
                 elif aware:
-                    thompson_aer_microphysics(
-                        q, adv_names, s, dz_mp, mp_dt, s["precipitation"],
-                        s["snowfall"], s["graupel"], tparams)
+                    for s, q, dz in zip(states, qs, dz_mp):
+                        thompson_aer_microphysics(
+                            q, adv_names, s, dz, mp_dt, s["precipitation"],
+                            s["snowfall"], s["graupel"], tparams)
                 elif plain:
-                    plain_microphysics(mp, q, adv_names, s, dz_mp, mp_dt,
-                                       s["precipitation"], s["snowfall"],
-                                       s.get("graupel"))
+                    for s, q, dz in zip(states, qs, dz_mp):
+                        plain_microphysics(mp, q, adv_names, s, dz, mp_dt,
+                                           s["precipitation"],
+                                           s["snowfall"], s.get("graupel"))
                 else:
                     c2r, c2s = formation_rates(mp_dt)
-                    kernels.mp_simple_rho(
-                        *(q[i] for i in species), s["pressure"],
-                        s["exner"], s["density"], dz_mp, s["precipitation"],
-                        s["snowfall"], mp_dt, c2r, c2s)
+                    sk.mp_simple_sharded(
+                        *([q[i] for q in qs] for i in species),
+                        [s["pressure"] for s in states],
+                        [s["exner"] for s in states], dz_mp, rain, snow,
+                        mp_dt, c2r, c2s,
+                        rho=[s["density"] for s in states])
                 if radii:
-                    s = effective_radii(s, q, adv_names, tparams, aware)
+                    states = each(lambda s, q: effective_radii(
+                        s, q, adv_names, tparams, aware), states, qs)
         if advect:
             with stage("advection"):
-                awinds = (kernels.density_winds(winds, s["density"])
-                          if density else winds)
+                awinds = (each(lambda w, s: kernels.density_winds(
+                    w, s["density"]), winds, states) if density else winds)
                 if mpdata:
-                    kernels.advect_mpdata(q, awinds, dt, adv.mpdata_order,
-                                          adv.flux_corrected_transport,
-                                          floors, clamp, out=spare)
+                    sk.advect_mpdata_sharded(layout, qs, awinds, dt,
+                                             adv.mpdata_order,
+                                             adv.flux_corrected_transport,
+                                             floors, clamp, spares)
                 else:
-                    kernels.advect_upwind(q, awinds, dt, floors, clamp,
-                                          out=spare)
-                if "tend_qv_adv" in s:
+                    sk.advect_upwind_sharded(layout, qs, awinds, dt, floors,
+                                             clamp, spares)
+                layout.exchange(spares)
+                if "tend_qv_adv" in states[0]:
                     # the moisture convergence the next substep's trigger
                     # reads
-                    s["tend_qv_adv"] = (spare[i_qv] - q[i_qv]) / dt_t
-            q, spare = spare, q
+                    for s, new, old, h in zip(states, spares, qs, dts):
+                        s["tend_qv_adv"] = (new[i_qv] - old[i_qv]) / h
+            qs, spares = spares, qs
         if full:
-            s = apply_forcing(s, dqdt, dt, bmask, adv_names)
+            states = each(lambda s, d, m: apply_forcing(s, d, dt, m,
+                                                        adv_names),
+                          states, dqdts, bmask)
         if tend is not None:
-            q = _relax(q, tend, dt, bmask, floor_b if near_end else
-                       torch.full_like(floor_b, -np.inf), advect)
-            spare = torch.empty_like(q)
+            qs = each(lambda q, te, m, fb: _relax(
+                q, te, dt, m, fb if near_end else
+                torch.full_like(fb, -np.inf), advect),
+                qs, tend, bmask, floor_b)
+            spares = [torch.empty_like(q) for q in qs]
         if near_end:
-            s = _clamp_rest(s, rest)
+            states = [_clamp_rest(s, rest) for s in states]
         t = np.float32(t + dt)
         n += 1
 
-    for i, k in enumerate(adv_names):
-        s[k] = q[i]
-    with stage("diagnostics"):
-        s = diagnostic_update(s, geom, full=True)
-    return s, n
+    out = []
+    for s, q, g, i in zip(states, qs, geoms, inner):
+        for j, k in enumerate(adv_names):
+            s[k] = q[j]
+        with stage("diagnostics"):
+            out.append(diagnostic_update(s, g, full=True, interior=i))
+    return out, n

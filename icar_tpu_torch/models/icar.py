@@ -28,9 +28,9 @@ everywhere (a file-driven run's,
 ``core/driver.py``); a monthly rain fraction scales each interval's
 precipitation (``set_rain_fraction``). ``attach_mesh`` shards a model over
 a device mesh (``parallel/mesh.py``); its state then lives in one block
-per shard (not yet with the column physics, linear theory, blocking, a
-rain fraction, forcing outside the advected species or WSM3, WSM6 or
-Morrison).
+per shard, with every scheme option and a rain fraction (bench.py
+--config conus is the full physics column on a mesh over every card); not
+yet with linear theory, blocking or forcing outside the advected species.
 """
 
 from __future__ import annotations
@@ -47,8 +47,7 @@ from ..convert import geometry_to_torch
 from ..core.diagnostics import diagnostic_update
 from ..core.state import (ACCUMULATORS, advected_names, create_state,
                           state_digest)
-from ..core.step import (PLAIN_MP, column_physics, path_halo,
-                         path_kernels, run_interval, run_interval_sharded)
+from ..core.step import path_halo, path_kernels, run_blocks, run_interval
 from ..forcing.ideal import IdealCase
 from ..grid import build_geometry
 from ..ops import blocking as blk
@@ -87,8 +86,6 @@ class ICARModel:
         self.geom_t = geometry_to_torch(self.geom, self.device)
         self.state = create_state(options, self.device)
         self.advect_names = advected_names(options)
-        if "nwfa" in self.state:
-            self._install_aerosols()
         self.model_time = 0.0          # seconds since run start
         self._dqdt: Dict[str, torch.Tensor] = {}
         self._last_n = 0
@@ -110,28 +107,35 @@ class ICARModel:
         self._blocking = None
         # the initial case's winds, which update_winds solves anew
         self._case_winds = None
-        # the monthly precipitation bias-correction scale (12, ny, nx)
+        # the monthly precipitation bias-correction scale (12, ny, nx), and
+        # with a mesh its blocks
         self._rain_frac_months: Optional[torch.Tensor] = None
+        self._rain_frac_blocks = None
         # RRTMG's McICA draw (physics.rrtmg_lw.TorchCdf; the tests put the
         # JAX package's draws here)
         self.mcica_cdf = TorchCdf()
+        if "nwfa" in self.state:
+            self._install_aerosols()
 
     def _install_aerosols(self):
         """The default CCN/IN profiles of mp=5's aerosol-aware scheme and
         the surface CCN flux from the initial lowest level's nwfa
         (thompson_aer_init, mp_thompson_aer.f90:442-549;
-        icar_tpu/models/icar.py:39-58), made on the host and uploaded; a
-        file-driven run's forcing overwrites them where it holds nwfa and
-        nifa (core.driver)."""
+        icar_tpu/models/icar.py:39-58), made on the host and installed (on
+        a sharded model, scattered into the blocks); a file-driven run's
+        forcing overwrites them where it holds nwfa and nifa
+        (core.driver)."""
         from ..physics.mp_thompson import aer_init_profiles, aer_surface_flux
         z_agl = np.asarray(self.geom.z) \
             - np.asarray(self.geom.terrain)[None]
         nwfa, nifa = aer_init_profiles(z_agl, np.asarray(self.geom.terrain))
-        self.state["nwfa"] = self._tensor(np.asarray(nwfa, np.float32))
-        self.state["nifa"] = self._tensor(np.asarray(nifa, np.float32))
-        if "nwfa2d" in self.state:
-            self.state["nwfa2d"] = self._tensor(np.asarray(
+        s = self._global_state()
+        s["nwfa"] = self._tensor(np.asarray(nwfa, np.float32))
+        s["nifa"] = self._tensor(np.asarray(nifa, np.float32))
+        if "nwfa2d" in s:
+            s["nwfa2d"] = self._tensor(np.asarray(
                 aer_surface_flux(nwfa[0], self.geom.dx), np.float32))
+        self._install(s)
 
     @property
     def winds_follow_state(self) -> bool:
@@ -144,30 +148,18 @@ class ICARModel:
         """Shard the model over ``mesh`` (icar_tpu/models/icar.py
         attach_mesh): every field, the geometry and the forcing
         tendencies move into one block per shard (``parallel.mesh.Layout``,
-        with the halo the model's path reads), each on its device; later
-        ``advance`` calls run ``run_interval_sharded``. Raises ValueError
-        for a mesh on another device type than the model's, or one that
-        leaves a shard without a natural row or column."""
-        if column_physics(self.options):
-            raise NotImplementedError(
-                "attach_mesh: a sharded model with column physics is not "
-                "ported yet: Slice G (sharded full physics; the PBL's "
-                "domain-wide substep count, the convection's w_real) in "
-                "ROADMAP.md")
-        if self.options.physics.microphysics in PLAIN_MP:
-            raise NotImplementedError(
-                "attach_mesh: a sharded model with WSM3, WSM6 or Morrison "
-                "is not ported yet: Slice G remainders (ROADMAP.md section "
-                "1 item 7)")
+        with the halo the model's path reads), each on its device, and so
+        does the rain fraction's table; later ``advance`` calls run
+        ``core.step.run_blocks`` on them (the column physics too: bench.py
+        --config conus). Raises ValueError for a mesh on another device
+        type than the model's, or one that leaves a shard without a
+        natural row or column, and NotImplementedError for linear-theory
+        winds, flow blocking and forcing outside the advected species."""
         if self.winds_follow_state or self.options.block.block_flow:
             raise NotImplementedError(
                 "attach_mesh: a sharded model with linear-theory winds or "
                 "flow blocking is not ported yet: Slice G (the per-shard "
                 "linear-theory and blocking tables) in ROADMAP.md")
-        if self._rain_frac_months is not None:
-            raise NotImplementedError(
-                "attach_mesh: a sharded model with a rain fraction is not "
-                "ported yet: Slice G in ROADMAP.md")
         self._refuse_sharded_forcing(self._dqdt)
         if mesh.device_type != self.device.type:
             raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
@@ -183,6 +175,8 @@ class ICARModel:
         self.state = None
         self._install(state)
         self._dqdt_blocks = self._scatter_dict(self._dqdt)
+        if self._rain_frac_months is not None:
+            self._rain_frac_blocks = layout.scatter(self._rain_frac_months)
 
     def compute_winds(self, u, v, rotate: bool = False, timer=None):
         """The configured wind solution (u, v, w) for the winds (u, v)
@@ -367,11 +361,9 @@ class ICARModel:
         (apply_rain_fraction, mp_driver.f90:350-397): ``monthly_scale`` is
         (12, ny, nx); interior cells of each interval's precipitation
         increment are multiplied by the current month's entry
-        (``advance(rain_frac_month=...)``), on the model's device."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "set_rain_fraction on a sharded model is not ported yet: "
-                "Slice G in ROADMAP.md")
+        (``advance(rain_frac_month=...)``), on the model's device, and on
+        a sharded model scattered like a 2-D field, one block per shard
+        (the JAX package's ``_place_rain_fraction``)."""
         ny, nx = self.geom.ny, self.geom.nx
         frac = np.ones((monthly_scale.shape[0], ny, nx), np.float32)
         fy = min(monthly_scale.shape[1], ny)
@@ -384,6 +376,9 @@ class ICARModel:
         frac[:, :, 0] = 1.0
         frac[:, :, -1] = 1.0
         self._rain_frac_months = self._tensor(frac)
+        if self.mesh is not None:
+            self._rain_frac_blocks = self.layout.scatter(
+                self._rain_frac_months)
 
     def advance(self, seconds: float, rain_frac_month: Optional[int] = None,
                 timer=None):
@@ -394,27 +389,35 @@ class ICARModel:
         (``set_rain_fraction``) applied to this interval's precipitation
         increment at its end. ``timer`` times the interval loop's stages
         (``core.step.run_interval_physics``, or without column physics
-        ``run_interval_sharded``'s; not with a mesh)."""
+        ``run_interval_sharded``'s; on a mesh summed over the blocks)."""
         if rain_frac_month is not None:
             if self._rain_frac_months is None:
                 raise ValueError("advance: rain_frac_month needs a prior "
                                  "set_rain_fraction")
-            precip0 = self.state["precipitation"]
+            precip0 = [s["precipitation"] for s in self._block_states()]
         if self.mesh is None:
             self.state, self._last_n = run_interval(
                 self.state, self.geom_t, self.options, self.advect_names,
                 seconds, self._dqdt, self._time_aux(), timer,
                 self.mcica_cdf)
         else:
-            self.blocks, self._last_n = run_interval_sharded(
+            self.blocks, self._last_n = run_blocks(
                 self.layout, self.blocks, self._geom_blocks, self.options,
-                self.advect_names, seconds, self._dqdt_blocks)
+                self.advect_names, seconds, self._dqdt_blocks,
+                self._time_aux(), timer, self.mcica_cdf)
         if rain_frac_month is not None:
-            p = self.state["precipitation"]
-            self.state["precipitation"] = precip0 + (p - precip0) * \
-                self._rain_frac_months[rain_frac_month]
+            frac = (self._rain_frac_blocks if self.mesh is not None
+                    else [self._rain_frac_months])
+            for s, p0, f in zip(self._block_states(), precip0, frac):
+                s["precipitation"] = p0 + (s["precipitation"] - p0) * \
+                    f[rain_frac_month]
         self.model_time += float(seconds)
         return self.state
+
+    def _block_states(self) -> List[Dict[str, torch.Tensor]]:
+        """The state as the list of its blocks (the state alone without a
+        mesh)."""
+        return [self.state] if self.mesh is None else self.blocks
 
     def _time_aux(self) -> Dict[str, np.float32]:
         """The interval's solar-geometry scalars, in float32: the
@@ -628,10 +631,12 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                "thompson_aer_aware": dict(adv=C.ADV_MPDATA,
                                           mp=C.MP_THOMPSON_AER,
                                           options_cb=aerosol_aware_options)}
-# the paths a mesh shards (the column physics is not sharded yet)
-SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "upwind_density",
-                 "MPDATA_density", "upwind_mp_throttle", "thompson_aer",
-                 "thompson_aer_aware")
+# the paths a mesh shards in time_paths --mesh cards: fullphys there is
+# bench.py --config conus (the full physics column on a mesh over every
+# card)
+SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "fullphys",
+                 "upwind_density", "MPDATA_density", "upwind_mp_throttle",
+                 "thompson_aer", "thompson_aer_aware")
 
 
 def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,

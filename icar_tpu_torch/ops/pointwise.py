@@ -1,5 +1,6 @@
 """Transcendental functions whose result for a cell does not depend on
-where the cell lies in its tensor: ``exp``, ``log``, ``log10``, ``pow``.
+where the cell lies in its tensor: ``exp``, ``log``, ``log10``, ``pow``;
+and ``sum0``, a sum over the first axis likewise.
 
 On the CPU, torch computes an elementwise function of a contiguous tensor
 with its vectorised version (SLEEF) in steps of two vector widths, and the
@@ -63,6 +64,43 @@ def log10(x):
 def pow(x, e):  # noqa: A001 (torch.pow's name)
     """``x ** e``; either may be a number."""
     return _position_free(torch.pow, x, e)
+
+
+# ATen's outer sum: rows of 2**_SUM_LEVEL_POWER (at least) summed in turn,
+# each run's total carried into up to _SUM_LEVELS accumulators
+_SUM_LEVELS = 4
+
+
+def sum0(x):
+    """``torch.sum(x, dim=0)`` of a floating tensor. On the CPU torch sums
+    the leading axis of most columns in its vectorised loop, whose order
+    this reproduces with elementwise additions of whole planes (ATen's
+    ``multi_row_sum``: runs of 16 rows summed in turn, each run's total
+    carried into a cascade of four accumulators), and the columns left
+    over at the end of that loop in another order, so a column's sum
+    would depend on its place in its tensor. A CUDA tensor goes straight
+    to torch."""
+    if x.device.type != "cpu":
+        return torch.sum(x, dim=0)
+    n = x.shape[0]
+    power = max(4, math.ceil(math.log2(n)) // _SUM_LEVELS if n > 1 else 0)
+    step = 1 << power
+    acc = [torch.zeros_like(x[0]) for _ in range(_SUM_LEVELS)]
+    i = 0
+    while i + step <= n:
+        for _ in range(step):
+            acc[0] = acc[0] + x[i]
+            i += 1
+        for j in range(1, _SUM_LEVELS):
+            acc[j] = acc[j] + acc[j - 1]
+            acc[j - 1] = torch.zeros_like(x[0])
+            if i & ((step - 1) << (j * power)):
+                break
+    for k in range(i, n):
+        acc[0] = acc[0] + x[k]
+    for j in range(1, _SUM_LEVELS):
+        acc[0] = acc[0] + acc[j]
+    return acc[0]
 
 
 def inv(c) -> float:

@@ -90,12 +90,13 @@ def owned_ranges(n: int, parts: int) -> List[Tuple[int, int]]:
 class Shard:
     """One block of a layout: mesh position, device, the global ranges of
     its owned cells (y0, y1, x0, x1) and of its block (by0, by1, bx0,
-    bx1), end-exclusive."""
+    bx1), end-exclusive, and the domain's (ny, nx)."""
     r: int
     c: int
     device: torch.device
     own: Tuple[int, int, int, int]
     block: Tuple[int, int, int, int]
+    domain: Tuple[int, int]
 
     @property
     def owned(self) -> Tuple[slice, slice]:
@@ -103,6 +104,31 @@ class Shard:
         y0, y1, x0, x1 = self.own
         by0, _, bx0, _ = self.block
         return slice(y0 - by0, y1 - by0), slice(x0 - bx0, x1 - bx0)
+
+    @property
+    def interior(self) -> Tuple[slice, slice]:
+        """The block's cells off the domain's edge ring (rows, columns):
+        the fields the reference fills on interior cells only (w_real, the
+        10 m winds) are formed there. A side of the block on the domain's
+        edge leaves out its outer row or column; an inner side, whose edge
+        cells are halo and interior to the domain, keeps them."""
+        ny, nx = self.domain
+        by0, by1, bx0, bx1 = self.block
+        return (slice(int(by0 == 0), by1 - by0 - int(by1 == ny)),
+                slice(int(bx0 == 0), bx1 - bx0 - int(bx1 == nx)))
+
+    @property
+    def whole(self) -> bool:
+        """Whether the block is the whole domain."""
+        return self.block == (0, self.domain[0], 0, self.domain[1])
+
+    def columns(self) -> np.ndarray:
+        """The domain's row-major index (y * nx + x) of each of the
+        block's columns, in the block's row-major order."""
+        by0, by1, bx0, bx1 = self.block
+        y = np.arange(by0, by1)[:, None]
+        x = np.arange(bx0, bx1)[None, :]
+        return (y * self.domain[1] + x).reshape(-1)
 
 
 class Layout:
@@ -118,7 +144,8 @@ class Layout:
         self.shards = [
             Shard(r, c, mesh.devices[r * mx + c], rows[r] + cols[c],
                   (max(rows[r][0] - halo, 0), min(rows[r][1] + halo, ny),
-                   max(cols[c][0] - halo, 0), min(cols[c][1] + halo, nx)))
+                   max(cols[c][0] - halo, 0), min(cols[c][1] + halo, nx)),
+                  (ny, nx))
             for r in range(my) for c in range(mx)]
         self._copies = self._plan()
 
@@ -234,6 +261,14 @@ def scatter_geometry(geom: Geometry, layout: Layout) -> List[Geometry]:
         out.append(geometry_to_torch(dataclasses.replace(geom, **kw),
                                      s.device))
     return out
+
+
+def host_max(counts) -> int:
+    """The largest of per-block counts (one tensor per block, on the
+    block's device), each block's read to the host once: a count the whole
+    domain shares, such as pbl_simple's diffusion substeps. A halo cell
+    holds its owner's value, so the blocks' largest is the domain's."""
+    return max(int(c.item()) for c in counts)
 
 
 def single(device, ny: int, nx: int) -> Layout:

@@ -404,7 +404,7 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
                                  0), dim=0)
     t_only = (karr > ltop[None]) & (karr <= lqm[None])
     t_and_q = (karr > torch.maximum(ltop, lqm)[None]) & (karr <= lbot[None])
-    sumdp = torch.sum(_where0(in_deep, dprs), 0)
+    sumdp = pw.sum0(_where0(in_deep, dprs))
     ec_denom = _nz(sumdp - _lev(dprs, ltop))
     avrgt_den = 2.0 * _nz(sumdp)
     pbot_pk0 = torch.where(pbot == pk0, torch.ones_like(pbot), pbot - pk0)
@@ -435,11 +435,11 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
 
         # enthalpy conservation (2 passes, cu_bmj.f90:1118-1157)
         for _ in range(2):
-            sumde = torch.sum(_where0(
-                in_deep, ((t - trefk) * CP + (q - qrefk) * ELWV) * dprs), 0)
+            sumde = pw.sum0(_where0(
+                in_deep, ((t - trefk) * CP + (q - qrefk) * ELWV) * dprs))
             dd = (trefk * ape / apesk) - A4
-            dhdt = torch.sum(_where0(
-                in_deep, (qrefk * A23M4L / (dd * dd) + CP) * dprs), 0)
+            dhdt = pw.sum0(_where0(
+                in_deep, (qrefk * A23M4L / (dd * dd) + CP) * dprs))
             hcorr = sumde / ec_denom
             dhdt = dhdt / ec_denom
             # above LQM: temperature only; below: T and q
@@ -456,10 +456,10 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
         difql = (qrefk - q) * tauk
         avrgtl = t + t + diftl
         dpot = dprs / avrgtl
-        dst = 2.0 * torch.sum(_where0(in_deep, diftl * dpot), 0) * CP
-        dsq = 2.0 * torch.sum(_where0(in_deep, difql * ELWV * dpot), 0)
-        preck = torch.sum(_where0(in_deep, diftl * dprs), 0)
-        avrgt_sum = torch.sum(_where0(in_deep, avrgtl * dprs), 0)
+        dst = 2.0 * pw.sum0(_where0(in_deep, diftl * dpot)) * CP
+        dsq = 2.0 * pw.sum0(_where0(in_deep, difql * ELWV * dpot))
+        preck = pw.sum0(_where0(in_deep, diftl * dprs))
+        avrgt_sum = pw.sum0(_where0(in_deep, avrgtl * dprs))
         avrgt = avrgt_sum / avrgt_den
         dentpy = dst + dsq
         drheat = (preck * sm + torch.clamp(preck, min=1e-7) * sm1) * CP \
@@ -505,8 +505,8 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
                                               / (tlev2 - A4))
     rhshmax = qsat2 / qsat1
     in_top = (karr <= lbot[None]) & (karr >= ltop_sh[None])
-    rhavg0 = torch.sum(_where0(in_top, dprs * q / qsatk), 0)
-    sumdp0 = torch.sum(_where0(in_top, dprs), 0)
+    rhavg0 = pw.sum0(_where0(in_top, dprs * q / qsatk))
+    sumdp0 = pw.sum0(_where0(in_top, dprs))
     need_raise = (rhavg0 / _nz(sumdp0)) > rhshmax
 
     ltsh, rhavg, sumdp_r, flg = ltop_sh, rhavg0, sumdp0, true2
@@ -566,8 +566,8 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
         pkxxxy = torch.where(act, p[lm1], pkxxxy)
 
     in_sh = (karr >= ltop_sh[None]) & (karr <= lbot[None])
-    sumdt = torch.sum(_where0(in_sh, (t - trefk_s) * dprs), 0)
-    sumdp = torch.sum(_where0(in_sh, dprs), 0)
+    sumdt = pw.sum0(_where0(in_sh, (t - trefk_s) * dprs))
+    sumdp = pw.sum0(_where0(in_sh, dprs))
     rdpsum = 1.0 / _nz(sumdp)
     tcorr = sumdt * rdpsum
     trefk_s = torch.where(in_sh, trefk_s + tcorr[None], trefk_s)
@@ -577,14 +577,14 @@ def _bmj_column(dtcnvc, sm, cldefi, dprs, p, q, t, psfc, tables):
     fptk = _lev(fpk, ltop_sh)
     dpkl = fpk - fptk[None]
     rtbar = 2.0 / (trefk_s + t)
-    psum = torch.sum(_where0(in_sh, dpkl * dprs), 0) * rdpsum
-    qsum = torch.sum(_where0(in_sh, q * dprs), 0) * rdpsum
-    otsum = torch.sum(_where0(in_sh, dprs * rtbar), 0)
+    psum = pw.sum0(_where0(in_sh, dpkl * dprs)) * rdpsum
+    qsum = pw.sum0(_where0(in_sh, q * dprs)) * rdpsum
+    otsum = pw.sum0(_where0(in_sh, dprs * rtbar))
     rotsum = 1.0 / _nz(otsum)
-    potsum = torch.sum(_where0(in_sh, dpkl * rtbar * dprs), 0) * rotsum
-    qotsum = torch.sum(_where0(in_sh, q * rtbar * dprs), 0) * rotsum
-    dst = torch.sum(_where0(in_sh, (trefk_s - t) * rtbar * dprs
-                            * inv(ELWV)), 0) * rotsum * CP
+    potsum = pw.sum0(_where0(in_sh, dpkl * rtbar * dprs)) * rotsum
+    qotsum = pw.sum0(_where0(in_sh, q * rtbar * dprs)) * rotsum
+    dst = pw.sum0(_where0(in_sh, (trefk_s - t) * rtbar * dprs
+                            * inv(ELWV))) * rotsum * CP
     sh_ok = sh_ok & (dst <= 0.0)            # positive entropy change
     dstq = dst * EPSDN
     den = potsum - psum

@@ -444,11 +444,11 @@ def _search(col: _Column):
     # mass-weighted mixture (":533-556")
     msk = above & (kidx3 <= kpbl[None])
     mw = torch.where(msk, dp, torch.zeros((), device=dev))
-    dpthmx = torch.sum(mw, 0)
-    thmix = torch.sum(mw * t0 * X(col.exn0), 0) / dpthmx
-    qmix = torch.sum(mw * q0, 0) / dpthmx
-    zmix = torch.sum(mw * z0, 0) / dpthmx
-    pmix = torch.sum(mw * p0, 0) / dpthmx
+    dpthmx = pw.sum0(mw)
+    thmix = pw.sum0(mw * t0 * X(col.exn0)) / dpthmx
+    qmix = pw.sum0(mw * q0) / dpthmx
+    zmix = pw.sum0(mw * z0) / dpthmx
+    pmix = pw.sum0(mw * p0) / dpthmx
     rocpq = _rocp(qmix)
     tmix = thmix * pw.pow(pmix * inv(P00), rocpq)
     emix = qmix * pmix / (EP2 + qmix)
@@ -768,13 +768,13 @@ def _kf_column(u0, v0, t0, qv0, p0, rho, dzq, w0avg, dt, dx):
                                 for x in (uer, umf, pptliq, pptice)]
 
     top_msk = (~same[None]) & (kidx > let[None]) & (kidx <= ltop[None])
-    dptt = torch.sum(_w(top_msk, dp, 0.0), 0)
+    dptt = pw.sum0(_w(top_msk, dp, 0.0))
     umf_let = at(umf, let)
     dumfdp = umf_let / torch.clamp(dptt, min=1e-10)
     udr_top = dp * dumfdp[None]
     umf_top = umf_let[None] - pw.cumsum(_w(top_msk, udr_top, 0.0), 0)
-    trppt = trppt + torch.sum(_w(
-        top_msk, umf_top * (qlqout + qicout) - pptliq - pptice, 0.0), 0)
+    trppt = trppt + pw.sum0(_w(
+        top_msk, umf_top * (qlqout + qicout) - pptliq - pptice, 0.0))
     udr = torch.where(top_msk, udr_top, udr)
     umf = torch.where(top_msk, umf_top, umf)
     detlq = torch.where(top_msk, qliq * udr, detlq)
@@ -957,8 +957,8 @@ def _kf_column(u0, v0, t0, qv0, p0, rho, dzq, w0avg, dt, dx):
                   t1rh * pw.pow(_rd(P00, p_ldb), _rocp(qsrh)))
 
     # precipitation-efficiency consistency (":1294-1345")
-    ppr = torch.sum(_w((kidx >= klcl[None]) & (kidx <= lfs[None]),
-                       pptliq + pptice, 0.0), 0)
+    ppr = pw.sum0(_w((kidx >= klcl[None]) & (kidx <= lfs[None]),
+                       pptliq + pptice, 0.0))
     pptflx_dd = peff * usr
     rced = trppt - pptflx_dd
     devdmf = _sd(tder, dmf0)
@@ -1097,9 +1097,9 @@ def _kf_column(u0, v0, t0, qv0, p0, rho, dzq, w0avg, dt, dx):
         tg_n = thpa / exn_g
 
         # new mixed parcel + ABEG (":1594-1680")
-        thmix_g = torch.sum(mw * tg_n * exn_g, 0) / dpthmx
-        qmix_g = torch.sum(mw * qpa, 0) / dpthmx
-        pmix_g = torch.sum(mw * p0, 0) / dpthmx
+        thmix_g = pw.sum0(mw * tg_n * exn_g) / dpthmx
+        qmix_g = pw.sum0(mw * qpa) / dpthmx
+        pmix_g = pw.sum0(mw * p0) / dpthmx
         tmix_g = thmix_g * pw.pow(pmix_g * inv(P00), _rocp(qmix_g))
         es_g = _esl(tmix_g)
         qs_g = EP2 * es_g / (pmix_g - es_g)
@@ -1152,8 +1152,8 @@ def _kf_column(u0, v0, t0, qv0, p0, rho, dzq, w0avg, dt, dx):
                             dza_dn)
         be_g = ((2.0 * theteu_g)[None] / (thtesg + _down(thtesg)) - 1.0) \
             * dzz_g
-        abeg = torch.sum(_w((kidx > k_g[None]) & (kidx <= ltop[None])
-                            & (be_g > 0.0), be_g * G, 0.0), 0)
+        abeg = pw.sum0(_w((kidx > k_g[None]) & (kidx <= ltop[None])
+                            & (be_g > 0.0), be_g * G, 0.0))
 
         done_noitr = (noitr == 1) | bad_mass
         dabe = torch.maximum(abe - abeg, 0.1 * abe)

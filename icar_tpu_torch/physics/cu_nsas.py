@@ -383,7 +383,7 @@ def nsas_deep(delt, dx, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     dz1_arr = torch.cat([zl[1:] - zl[:-1], zl[-1:] * 0 + 1.0], 0)
     gamma_a = EL2ORC * qeso / (to * to)
     cwf_term = _cwf_term(dz1_arr, to, dbyo, qeso, qo, gamma_a)
-    aa1 = aa1 + torch.sum(_where0(cwf_zone & cnvflg[None], cwf_term), 0)
+    aa1 = aa1 + pw.sum0(_where0(cwf_zone & cnvflg[None], cwf_term))
     cnvflg = cnvflg & (aa1 > 0.0)
 
     # convective overshooting: extend top while aafac*aa1 stays positive
@@ -445,7 +445,7 @@ def nsas_deep(delt, dx, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     # downdraft detrainment profile below cloud base
     sum_zone = karr < kbcon[None]
     dz_if = zi[2:KLEV + 1] - zi[1:KLEV]
-    sumx = torch.sum(_where0(sum_zone[:KLEV - 1], dz_if), 0)
+    sumx = pw.sum0(_where0(sum_zone[:KLEV - 1], dz_if))
     beta = _full(land, BETAL, BETAS)
     kbcon_f = torch.clamp(kbcon, min=1).to(t1.dtype)
     dzm = (sumx + zi[1]) / kbcon_f
@@ -477,8 +477,7 @@ def nsas_deep(delt, dx, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     dd_zone = karr < jmin_[None]
     dz_dn = -(torch.cat([zl[1:], zl[-1:]], 0) - zl)
     dd_term = _cwf_term(dz_dn, to, hcdo - heso, qeso, qo, gamma_a, True)
-    aa1 = aa1 + edto * torch.sum(_where0(dd_zone & cnvflg[None], dd_term),
-                                 0)
+    aa1 = aa1 + edto * pw.sum0(_where0(dd_zone & cnvflg[None], dd_term))
     cnvflg = cnvflg & (aa1 > 0.0)
 
     # ---- unit-mass-flux environmental change (dellah/q/l) --------------
@@ -585,8 +584,8 @@ def nsas_deep(delt, dx, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     gamma_x = EL2ORC * qeso_xh / (to_xh * to_xh)
     xdd_term = _cwf_term(dz_dn, to_xh, xhcd - heso_xh, qeso_xh, qo_xh,
                          gamma_x, True)
-    xaa0 = xaa0 + edtx * torch.sum(_where0(dd_zone & cnvflg[None],
-                                           xdd_term), 0)
+    xaa0 = xaa0 + edtx * pw.sum0(_where0(dd_zone & cnvflg[None],
+                                           xdd_term))
 
     # ---- closure -------------------------------------------------------
     p_top = _lev(p, ktcon)
@@ -617,7 +616,7 @@ def nsas_deep(delt, dx, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     contrib = (aup * pwo + adw_rain * edto[None] * pwdo) \
         * xmb[None] * .001 * dt2
     contrib = _where0(cnvflg[None] & (karr < ktcon[None]), contrib)
-    rntot = torch.sum(contrib, 0)
+    rntot = pw.sum0(contrib)
 
     # rain evaporation sweep (top-down with running rain)
     evef = torch.where(land, edt * EVFACTL, edt * EVFACTS)
@@ -672,7 +671,7 @@ def _edt(uo, vo, zi, kb, ktcon, karr, KLEV):
     dv = vo - _km1(vo)
     shear3 = torch.sqrt(du * du + dv * dv)
     sh_zone = (karr > kb[None]) & (karr <= ktcon[None])
-    vshear = torch.sum(_where0(sh_zone, shear3), 0)
+    vshear = pw.sum0(_where0(sh_zone, shear3))
     zdenom = _lev(zi, torch.clamp(ktcon + 1, max=KLEV)) \
         - _lev(zi, torch.clamp(kb + 1, max=KLEV))
     vshear = 1e3 * vshear / _nz(zdenom)
@@ -857,7 +856,7 @@ def nsas_shallow(delt, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
     gamma_a = EL2ORC * qeso / (to * to)
     cwf_term = _cwf_term(dz1_arr, to, dbyo, qeso, qo, gamma_a)
     cwf_zone = (karr >= kbcon[None]) & (karr < ktcon[None])
-    aa1 = aa1 + torch.sum(_where0(cwf_zone & cnvflg[None], cwf_term), 0)
+    aa1 = aa1 + pw.sum0(_where0(cwf_zone & cnvflg[None], cwf_term))
     cnvflg = cnvflg & (aa1 > 0.0)
 
     # overshoot
@@ -946,7 +945,7 @@ def nsas_shallow(delt, del_, prsl_mb, prsi_mb, zl, ncloud, qc2, qi2,
 
     contrib = _where0(cnvflg[None] & (karr < ktcon[None])
                       & (karr > kb[None]), pwo * xmb[None] * .001 * dt2)
-    rntot = torch.sum(contrib, 0)
+    rntot = pw.sum0(contrib)
     evef_fac = torch.where(land, edt * EVFACTL, edt * EVFACTS)
 
     rain, delqev, flg = zero2, zero2, cnvflg

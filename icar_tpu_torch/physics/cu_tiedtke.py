@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.indexing import take_level as _lev
+from ..ops import pointwise as pw
 from ..ops.pointwise import inv
 
 # constants (cu_tiedtke.f90:38-148)
@@ -212,9 +213,9 @@ def cumastr(ten, qen, uen, ven, verv, qsen, qhfl, dt, pap, paph, geo,
 
     # ---- trigger: moisture convergence (cutrigger=1; :885-905) ---------
     dpaph = paph[1:] - paph[:-1]                   # (KLEV, ...)
-    zdqcv = torch.sum(qte_in * dpaph, dim=0)
-    zdqpbl = torch.sum(torch.where(karr >= kcbot[None], qte_in * dpaph,
-                                   0.0), dim=0)
+    zdqcv = pw.sum0(qte_in * dpaph)
+    zdqpbl = pw.sum0(torch.where(karr >= kcbot[None], qte_in * dpaph,
+                                 0.0))
     ktype = torch.where(zdqcv > torch.clamp(1.1 * qhfl * G, min=0.0), 1, 2)
 
     # ---- cloud-base mass flux (:920-935) -------------------------------
@@ -297,7 +298,7 @@ def cumastr(ten, qen, uen, ven, verv, qsen, qhfl, dt, pap, paph, geo,
     zentr = torch.where(ktype1 == 2,
                         torch.where(lndj == 1, ENTRSCV * 1.05, ENTRSCV),
                         zentr)
-    zrfl = torch.sum(zdmfup, dim=0)
+    zrfl = pw.sum0(zdmfup)
 
     # ---- downdrafts (:1050-1065) ---------------------------------------
     (ztd, zqd, pmfd, zmfds, zmfdq, zdmfdp, idtop,
@@ -806,7 +807,7 @@ def cuflx(qen, qsen, tenh, qenh, paph, geoh, kcbot, kctop, kdtop,
     zmful = torch.where(below, _lev(zmful, kcbot)[None] * zzp, zmful)
 
     # the rain/snow split with snowmelt (:2802-2830), top down
-    prain = torch.sum(torch.where(ldcum[None], zdmfup, 0.0), dim=0)
+    prain = pw.sum0(torch.where(ldcum[None], zdmfup, 0.0))
     prfl = torch.zeros(shape2, dtype=qen.dtype, device=dev)
     psfl = torch.zeros(shape2, dtype=qen.dtype, device=dev)
     zdpmel_r = []

@@ -27,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ops import pointwise as pw
 from ..ops.pointwise import inv
 from . import noah_params as NP
 from .noah_params import NSOIL
@@ -74,17 +75,18 @@ def _layer_dz(k):
 def csnow(sndens):
     """Snow thermal conductivity, doubled Dyachkova form
     (lsm_noahlsm.f90:1119-1158)."""
-    return 2.0 * 0.11631 * 0.328 * 10.0 ** (2.25 * sndens)
+    return 2.0 * 0.11631 * 0.328 * pw.pow(10.0, 2.25 * sndens)
 
 
 def tdfcnd(smc, qz, smcmax, sh2o):
     """Peters-Lidard soil thermal conductivity
     (lsm_noahlsm.f90:3849-3956)."""
     satratio = smc / smcmax
-    thks = 7.7 ** qz * 2.0 ** (1.0 - qz)
+    thks = pw.pow(7.7, qz) * pw.pow(2.0, 1.0 - qz)
     xunfroz = sh2o / torch.clamp(smc, min=1e-9)
     xu = xunfroz * smcmax
-    thksat = thks ** (1. - smcmax) * 2.2 ** (smcmax - xu) * 0.57 ** xu
+    thksat = pw.pow(thks, 1. - smcmax) * pw.pow(2.2, smcmax - xu) \
+        * pw.pow(0.57, xu)
     gammd = (1. - smcmax) * 2700.
     thkdry = (0.135 * gammd + 64.7) / (2700. - 0.947 * gammd)
     ake_unfr = torch.where(
@@ -100,13 +102,13 @@ def wdfcnd(smc, smcmax, bexp, dksat, dwsat, sicemax):
     factr2 = smc / smcmax
     factr1 = torch.minimum(0.05 / smcmax, factr2)
     expon = bexp + 2.0
-    wdf = dwsat * factr2 ** expon
+    wdf = dwsat * pw.pow(factr2, expon)
     s5 = 500. * sicemax
     vkwgt = 1. / (1. + s5 * s5 * s5)
     wdf = torch.where(sicemax > 0.0,
-                      vkwgt * wdf + (1. - vkwgt) * dwsat * factr1 ** expon,
+                      vkwgt * wdf + (1. - vkwgt) * dwsat * pw.pow(factr1, expon),
                       wdf)
-    wcnd = dksat * factr2 ** ((2.0 * bexp) + 3.0)
+    wcnd = dksat * pw.pow(factr2, (2.0 * bexp) + 3.0)
     return wdf, wcnd
 
 
@@ -124,7 +126,8 @@ def frh2o(tkelv, smc, sh2o, smcmax, bexp, psis):
     tlog = torch.log(-(tk - T0) / tk)
     for _ in range(10):
         a = 1. + CK * swl
-        df = torch.log(c0 * (a * a) * (smcmax / (smc - swl)) ** bx) - tlog
+        df = torch.log(c0 * (a * a) * pw.pow(smcmax / (smc - swl), bx)) \
+            - tlog
         denom = 2. * CK / a + bx / (smc - swl)
         swl = _clip(swl - df / denom, 0.0, smc - 0.02)
     return torch.where(frozen, smc - swl, smc)
@@ -146,7 +149,7 @@ def alcalc(alb, snoalb, sncovr, snowng, snotime1, dt, embrd):
     snotime1 = torch.where(snowng, 0.0, snotime1 + dt)
     snoalb2 = torch.where(
         snowng, snoalb1,
-        snoalb1 * SNACCA ** ((snotime1 * inv(86400.0)) ** SNACCB))
+        snoalb1 * pw.pow(SNACCA, pw.pow(snotime1 * inv(86400.0), SNACCB)))
     snoalb2 = torch.maximum(snoalb2, alb)
     albedo = torch.minimum(alb + sncovr * (snoalb2 - alb), snoalb2)
     return albedo, emissi, snotime1
@@ -159,7 +162,7 @@ def snow_new(temp, newsn, snowh, sndens):
     tempc = temp - 273.15
     dsnew = torch.where(
         tempc <= -15., 0.05,
-        0.05 + 0.0017 * torch.clamp(tempc + 15., min=0.) ** 1.5)
+        0.05 + 0.0017 * pw.pow(torch.clamp(tempc + 15., min=0.), 1.5))
     hnewc = newsnc / dsnew
     sndens = torch.where(snowhc + hnewc < 1e-3,
                          torch.maximum(dsnew, sndens),
@@ -522,7 +525,8 @@ def devap(etp1, smc0, shdfac, smcmax, smcdry, fxexp):
     sratio = (smc0 - smcdry) / (smcmax - smcdry)
     fx = torch.where(
         sratio > 0.,
-        torch.clamp(torch.clamp(sratio, min=1e-9) ** fxexp, 0., 1.), 0.)
+        torch.clamp(pw.pow(torch.clamp(sratio, min=1e-9), fxexp), 0., 1.),
+        0.)
     return fx * (1.0 - shdfac) * etp1
 
 
@@ -536,11 +540,11 @@ def transp(etp1, sh2o, cmc, shdfac, smcwlt, pc, smcref, nroot_mask,
                         shdfac * pc * etp1)
     gx = torch.clamp((sh2o - smcwlt) / (smcref - smcwlt), 0., 1.) \
         * nroot_mask
-    nroot = torch.clamp(torch.sum(nroot_mask, dim=0), min=1.0)
-    sgx = torch.sum(gx, dim=0) / nroot
+    nroot = torch.clamp(pw.sum0(nroot_mask), min=1.0)
+    sgx = pw.sum0(gx) / nroot
     rtx = rtdis + gx - sgx[None]
     gx = gx * torch.clamp(rtx, min=0.) * nroot_mask
-    denom = torch.sum(gx, dim=0)
+    denom = pw.sum0(gx)
     denom = torch.where(denom <= 0.0, 1.0, denom)
     return etp1a[None] * gx / denom[None]
 
@@ -556,7 +560,7 @@ def evapo(smc, cmc, etp1, sh2o, pc, shdfac, smcmax, smcwlt, smcref,
     et = torch.where(pos[None] & (shdfac[None] > 0.0),
                      transp(etp1, sh2o, cmc, shdfac, smcwlt, pc, smcref,
                             nroot_mask, rtdis), 0.0)
-    ett = torch.sum(et, dim=0)
+    ett = pw.sum0(et)
     ec = torch.where(pos & (shdfac > 0.0) & (cmc > 0.0),
                      shdfac * torch.clamp(cmc * inv(NP.CMCMAX), 0., 1.)
                      ** NP.CFACTR * etp1, 0.0)
@@ -581,9 +585,9 @@ def canres(solar, ch, sfctmp, q2, sfcprs, sh2o, smcwlt, smcref, rsmin,
     dz_frac = torch.as_tensor(np.concatenate([[ZSOIL[0]], np.diff(ZSOIL)]),
                               dtype=smcwlt.dtype, device=smcwlt.device)
     wz = dz_frac[:, None, None] * nroot_mask
-    zroot = torch.sum(wz, dim=0)
+    zroot = pw.sum0(wz)
     w = wz / torch.where(zroot == 0, 1.0, zroot)[None]
-    rcsoil = torch.clamp(torch.sum(w * gx, dim=0), min=0.0001)
+    rcsoil = torch.clamp(pw.sum0(w * gx), min=0.0001)
     rc = rsmin / (lai * rcs * rct * rcq * rcsoil)
     t2 = sfctmp * sfctmp
     rr = (4. * emissi * SIGMA * RD * inv(CP)) * (t2 * t2) / (sfcprs * ch) \
@@ -876,7 +880,7 @@ def sflx(tables, ffrozp, dt, zlvl, lwdn, soldn, solnet, sfcprs, prcp,
 
     edir = edir1 * 1000.0 * LVH2O
     ec = ec1 * 1000.0 * LVH2O
-    ett = torch.sum(et1, dim=0) * 1000.0 * LVH2O
+    ett = pw.sum0(et1) * 1000.0 * LVH2O
     esnow_w = esnow * LSUBS
     etp_w = etp * ((1. - sncovr) * LVH2O + sncovr * LSUBS)
     eta = torch.where(etp_w > 0., edir + ec + ett + esnow_w, etp_w)
@@ -884,8 +888,8 @@ def sflx(tables, ffrozp, dt, zlvl, lwdn, soldn, solnet, sfcprs, prcp,
     ssoil = -1.0 * ssoil
     runoff3 = runoff3 / dt
     runoff2 = runoff2 + runoff3
-    soilm = torch.sum(smc * torch.as_tensor(
-        NP.DZS, dtype=smc.dtype, device=smc.device)[:, None, None], dim=0)
+    soilm = pw.sum0(smc * torch.as_tensor(
+        NP.DZS, dtype=smc.dtype, device=smc.device)[:, None, None])
 
     return dict(cmc=cmc, t1=t1, stc=stc, smc=smc, sh2o=sh2o, snowh=snowh,
                 sneqv=sneqv, sncovr=sncovr, albedo=albedo, emissi=emissi,
@@ -932,8 +936,8 @@ def noah_driver(tables, dz0, qv0, p_i0, p_i1, t0, exner0, psfc, tsk, chs,
     sfctmp = t0
     zlvl = 0.5 * dz0
     capa = RD / CP
-    apes = (1e5 / psfc_eff) ** capa
-    apelm = (1e5 / sfcprs) ** capa
+    apes = pw.pow(1e5 / psfc_eff, capa)
+    apelm = pw.pow(1e5 / sfcprs, capa)
     th2 = sfctmp * apelm / apes
 
     emissi = emiss_prev

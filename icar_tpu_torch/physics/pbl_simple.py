@@ -5,7 +5,11 @@ explicit substepped vertical diffusion of theta and the moisture species,
 stacked, with one substep count for the whole domain (its largest Kq/dz).
 
 The substep count is read to the host once per call (one synchronisation);
-the substeps then run as a host loop of whole-domain operations. Divisions
+the substeps then run as a host loop of whole-domain operations. A
+sharded domain takes the largest of its blocks' counts
+(``substep_bound`` per block, ``parallel.mesh.host_max``) and passes it
+to each block's call, so that every column diffuses with the domain's
+substep length. Divisions
 by a constant are products with its float32 reciprocal
 (``pointwise.inv``), as in the JAX package's compiled step.
 """
@@ -66,17 +70,26 @@ def substep_count(Kq, dz) -> int:
     """ceil(2 max(Kq/dz)) over the whole domain, at least 1: the number of
     explicit diffusion substeps (pbl_simple.f90:193-196), computed in
     float32 on the tensors' device and read to the host."""
-    return max(int(torch.ceil(2 * torch.max(Kq / dz[:-1])).item()), 1)
+    return max(int(substep_bound(Kq, dz).item()), 1)
 
 
-def diffuse(q_stack, Kq, rho, dz):
+def substep_bound(Kq, dz):
+    """ceil(2 max(Kq/dz)) of ``Kq``'s cells as a 0-d float32 tensor on its
+    device (``substep_count`` before the read)."""
+    return torch.ceil(2 * torch.max(Kq / dz[:-1]))
+
+
+def diffuse(q_stack, Kq, rho, dz, nsub=None):
     """Substepped explicit vertical diffusion of the stacked species
     (pbl_diffusion + diffuse_variable, pbl_simple.f90:143-212).
-    ``q_stack`` (nq, nz, ny, nx); ``Kq`` on half levels (nz-1, ny, nx)."""
+    ``q_stack`` (nq, nz, ny, nx); ``Kq`` on half levels (nz-1, ny, nx);
+    ``nsub`` the substep count (``substep_count`` of ``Kq`` by
+    default)."""
     rho_dz = rho * dz
     rhomean = (rho[:-1] + rho[1:]) * 0.5
 
-    nsub = substep_count(Kq, dz)
+    if nsub is None:
+        nsub = substep_count(Kq, dz)
     # an exact division by the count, as the JAX package divides by a
     # traced integer (a number here would become a reciprocal's product
     # on the card)
@@ -95,12 +108,15 @@ def diffuse(q_stack, Kq, rho, dz):
 
 
 def pbl_simple(th, qv, qc, qi, qr, qs, u_mass, v_mass, exner, rho, z,
-               dz, terrain, dt, water_mask=None):
+               dz, terrain, dt, water_mask=None, Kq=None, nsub=None):
     """The scheme (simple_pbl, pbl_simple.f90:71-141); the top model level
-    is never diffused. Returns the updated (th, qv, qc, qi, qr, qs)."""
-    Kq = eddy_diffusivity(th, qv, qc, qi, qr, qs, u_mass, v_mass, exner, z,
-                          terrain, dz, dt, water_mask)
+    is never diffused. ``Kq``: the ``eddy_diffusivity`` of these inputs
+    when the caller has formed it; ``nsub``: the diffusion's substep count
+    (``diffuse``). Returns the updated (th, qv, qc, qi, qr, qs)."""
+    if Kq is None:
+        Kq = eddy_diffusivity(th, qv, qc, qi, qr, qs, u_mass, v_mass, exner,
+                              z, terrain, dz, dt, water_mask)
     stack = torch.stack([qv, th, qc, qi, qs, qr])
-    stack = diffuse(stack, Kq, rho, dz)
+    stack = diffuse(stack, Kq, rho, dz, nsub)
     qv, th, qc, qi, qs, qr = stack.unbind(0)
     return th, qv, qc, qi, qr, qs

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..ops import pointwise as pw
 from ..ops.pointwise import inv
 
 SOLAR_CONSTANT = 1367.0     # ra_simple.f90:58
@@ -34,9 +35,9 @@ def relative_humidity(t, qv, p):
 
 def cloudfrac(rh, qc):
     """Xu & Randall (1996) cloud fraction (cloudfrac, ra_simple.f90:125-148)."""
-    temporary = torch.clamp(((1 - rh) * qc) ** 0.25, 0.0001, 1.0)
+    temporary = torch.clamp(pw.pow((1 - rh) * qc, 0.25), 0.0001, 1.0)
     qc_eff = torch.clamp(qc - QC_MIN, min=5e-8)
-    frac = (rh ** 0.25) * (1 - torch.exp((-2000 * qc_eff) / temporary))
+    frac = pw.pow(rh, 0.25) * (1 - torch.exp((-2000 * qc_eff) / temporary))
     return torch.clamp(frac, 0.0, 1.0)
 
 
@@ -63,7 +64,7 @@ def shortwave_down(day_frac, cloud_cover, elev):
     s = torch.sin(elev)
     sw = SOLAR_CONSTANT * (1 + 0.035 * torch.cos(day_frac * 2 * np.pi)) \
         * s * (0.48 + 0.29 * s)
-    return sw * (1 - 0.75 * cloud_cover ** 3.4)
+    return sw * (1 - 0.75 * pw.pow(cloud_cover, 3.4))
 
 
 def longwave_down(t_air, cloud_cover):
@@ -84,12 +85,11 @@ def ra_simple(theta, exner, qv, qc, qs, qr, p, lon, sin_lat, cos_lat,
     simple shortwave (use_simple_sw, ra_driver.f90:429-449). Returns
     (theta, swdown, lwdown, cloud_cover)."""
     t = theta * exner
-    t_air = torch.sum(t[:N_RAD_LAYERS], dim=0) * inv(N_RAD_LAYERS)
-    rh = torch.sum(relative_humidity(t[:N_RAD_LAYERS], qv[:N_RAD_LAYERS],
-                                     p[:N_RAD_LAYERS]), dim=0) \
-        * inv(N_RAD_LAYERS)
+    t_air = pw.sum0(t[:N_RAD_LAYERS]) * inv(N_RAD_LAYERS)
+    rh = pw.sum0(relative_humidity(t[:N_RAD_LAYERS], qv[:N_RAD_LAYERS],
+                                   p[:N_RAD_LAYERS])) * inv(N_RAD_LAYERS)
     rh = torch.clamp(rh, max=1.0)
-    hydrometeors = torch.clamp(torch.sum(qc + qs + qr, dim=0), min=0.0)
+    hydrometeors = torch.clamp(pw.sum0(qc + qs + qr), min=0.0)
 
     elev, day_frac = solar_elevation(day_of_year, year_length, lon,
                                      sin_lat, cos_lat)

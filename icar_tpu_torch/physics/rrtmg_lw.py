@@ -996,6 +996,42 @@ class TorchCdf:
         return draw.to(device)
 
 
+class BlockCdf:
+    """The McICA draws of a block of a sharded domain: each of the block's
+    columns takes the draw it takes in the whole domain's call. ``cdf`` is
+    the domain's source (``TorchCdf``, or the tests' JAX draws),
+    ``columns`` the domain's row-major index of each block column (in the
+    block's row-major order, ``parallel.mesh.Shard.columns``), ``n`` the
+    domain's column count. The block's drivers call it with their own
+    chunks (``column_chunked`` over the block's columns); for each, the
+    domain's chunks that hold those columns are drawn at the domain's
+    chunk shape and index, and their columns gathered. Never draw per
+    block: a draw's values follow its chunk and shape."""
+
+    def __init__(self, cdf, columns, n):
+        self.cdf, self.columns, self.n = cdf, np.asarray(columns), int(n)
+
+    def __call__(self, kind, t, chunk, n_chunks, shape, device):
+        ch = RRTMG_COL_CHUNK
+        # the block's columns of this chunk; the last chunk is padded with
+        # the edge column, as column_chunked pads it
+        local = np.minimum(np.arange(chunk * ch, chunk * ch + shape[1]),
+                           len(self.columns) - 1)
+        cols = self.columns[local]
+        one = self.n <= ch
+        whole = self.n if one else ch
+        n_whole = 1 if one else -(-self.n // ch)
+        gchunk, pos = cols // whole, cols % whole
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        for c in np.unique(gchunk):
+            sel = np.nonzero(gchunk == c)[0]
+            draw = self.cdf(kind, t, int(c), n_whole,
+                            (shape[0], whole) + tuple(shape[2:]), device)
+            out[:, torch.as_tensor(sel, device=device)] = draw[
+                :, torch.as_tensor(pos[sel], device=device)]
+        return out
+
+
 def flat_columns(a):
     """(n, ny, nx) or (ny, nx) -> (n, N) or (N,)."""
     return a.reshape(*a.shape[:-2], a.shape[-2] * a.shape[-1])

@@ -4,7 +4,7 @@ physics column) under torch.profiler.
 
     python -m icar_tpu_torch.profile_interval [--adv upwind|mpdata]
         [--mp simple|thompson] [--path NAME] [--nx 500] [--ny 500]
-        [--nz 20] [--interval 1200] [--device cuda]
+        [--nz 20] [--interval 1200] [--device cuda] [--mesh SHAPE]
 
 Builds the model (the bench's ridge, 500x500x20 by default; ``--path``
 takes a path of ``models.icar.RIDGE_PATHS`` -- upwind, MPDATA, Thompson,
@@ -17,7 +17,11 @@ time and count, then one JSON line: the wall time of the profiled
 interval, the summed device time, the device's idle share (1 - device
 time / wall, on one stream) and the card's name. The wall time includes
 the profiler's own cost. With ``--device cpu`` there is no device time
-and the idle share is null.
+and the idle share is null. ``--mesh cards`` shards the model with one
+shard per visible card (``parallel.mesh.make_mesh``; ``--path fullphys``
+is then bench.py --config conus), ``--mesh MYxMX`` over that grid of
+shards on the model's device (on the card: every block's launches on one
+stream).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import constants as C
 from .models.icar import RIDGE as FULL_RIDGE, RIDGE_PATHS, ideal_ridge_model
+from .parallel.mesh import Mesh, make_mesh
 
 # bench.py's ridge case apart from its size
 RIDGE = {k: v for k, v in FULL_RIDGE.items() if k not in ("nx", "ny", "nz")}
@@ -62,12 +67,20 @@ def main(argv=None):
     ap.add_argument("--nz", type=int, default=20)
     ap.add_argument("--interval", type=float, default=1200.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="cards (one shard per visible card) or MYxMX "
+                         "shards on --device")
     args = ap.parse_args(argv)
 
     opts = (RIDGE_PATHS[args.path] if args.path else
             dict(adv=ADVECTION[args.adv], mp=MICROPHYSICS[args.mp]))
     model = ideal_ridge_model(nx=args.nx, ny=args.ny, nz=args.nz, **RIDGE,
                               **opts, device=args.device)
+    if args.mesh == "cards":
+        model.attach_mesh(make_mesh(args.nx, args.ny))
+    elif args.mesh:
+        my, mx = (int(n) for n in args.mesh.split("x"))
+        model.attach_mesh(Mesh([model.device] * (my * mx), (my, mx)))
     on_card = model.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     if model.winds_follow_state:
@@ -91,6 +104,7 @@ def main(argv=None):
               f"{count:5d}x  {name}")
     print(json.dumps({
         "path": args.path, "adv": args.adv, "mp": args.mp,
+        "mesh": args.mesh,
         "shape": [args.nz, args.ny, args.nx],
         "substeps": model.last_n_substeps, "wall_ms": wall_ms,
         "device_ms": device_ms,

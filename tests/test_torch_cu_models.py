@@ -155,8 +155,9 @@ def test_paths_and_unported():
     Tiedtke's place (K5 and K1, the 500x500x20 grid); nothing refuses an
     option the options' validation accepts (``_unported`` is gone since
     Thompson-aerosol, the last, was ported), and what it rejects (the
-    simple convection scheme, conv=2) raises its ValueError; a mesh is
-    refused with them."""
+    simple convection scheme, conv=2) raises its ValueError; on a mesh
+    (refused until the column loop ran on blocks) BMJ's small case takes
+    the unsharded run's substeps and every bit of every field."""
     from icar_tpu_torch.models import icar
     from icar_tpu_torch.models.icar import FULLPHYS
     from icar_tpu_torch.parallel.mesh import make_mesh
@@ -166,10 +167,20 @@ def test_paths_and_unported():
     with pytest.raises(ValueError, match="conv=2"):
         ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,
                           **dict(FULLPHYS, conv=C.CU_SIMPLE), device="cpu")
-    m = ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,
-                          **RIDGE_PATHS["fullphys_bmj"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        m.attach_mesh(make_mesh(30, 12, devices=["cpu"] * 4))
+    models = []
+    for mesh in (None, make_mesh(30, 12, devices=["cpu"] * 4)):
+        m = ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,
+                              **RIDGE_PATHS["fullphys_bmj"], device="cpu")
+        if mesh is not None:
+            m.attach_mesh(mesh)
+        m.advance(40.0)
+        models.append(m)
+    one, sharded = models
+    assert sharded.last_n_substeps == one.last_n_substeps >= 2
+    for k in one.state:
+        np.testing.assert_array_equal(sharded.field(k).view(np.uint32),
+                                      one.field(k).view(np.uint32),
+                                      err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ideal_ridge_model(**chip_smoke.FULLPHYS_SMALL,

@@ -344,7 +344,10 @@ def test_output_file_rotation(runs, tmp_path):
 
 @pytest.mark.parametrize("what", ["mesh", "sharded engine", "rain mesh"])
 def test_sharded_runs_are_refused(runs, tmp_path, what):
-    """File-driven runs sharded over a mesh wait for Slice G."""
+    """File-driven runs sharded over a mesh wait for Slice G. The rain
+    fraction on a mesh ("rain mesh"), refused until its table was
+    scattered like a 2-D field, now scales each block's precipitation as
+    the unsharded run's: every bit of every field equal."""
     from icar_tpu_torch.parallel.mesh import make_mesh
     o = _options(Options, runs["files"], str(tmp_path / "s_"))
     if what == "mesh":
@@ -356,8 +359,19 @@ def test_sharded_runs_are_refused(runs, tmp_path, what):
         with pytest.raises(NotImplementedError, match="Slice G"):
             ICARDriver(o, device="cpu")
     else:
-        m = ideal_ridge_model(nx=24, ny=12, nz=10, hill_height=600.0,
-                              device="cpu")
-        m.set_rain_fraction(np.ones((12, 12, 24), np.float32))
-        with pytest.raises(NotImplementedError, match="Slice G"):
-            m.attach_mesh(make_mesh(24, 12, devices=["cpu"] * 4))
+        scale = np.random.default_rng(2).uniform(0.5, 1.5, (12, 12, 24))
+        models = []
+        for mesh in (None, make_mesh(24, 12, devices=["cpu"] * 4)):
+            m = ideal_ridge_model(nx=24, ny=12, nz=10, hill_height=600.0,
+                                  rh=1.0, device="cpu")
+            m.set_rain_fraction(scale.astype(np.float32))
+            if mesh is not None:
+                m.attach_mesh(mesh)
+            m.advance(600.0, rain_frac_month=4)
+            models.append(m)
+        one, sharded = models
+        assert one.field("precipitation").max() > 0
+        for k in one.state:
+            np.testing.assert_array_equal(sharded.field(k).view(np.uint32),
+                                          one.field(k).view(np.uint32),
+                                          err_msg=k)

@@ -17,9 +17,9 @@ thresholds, so each field is held to a bound on its largest difference
 relative to its largest magnitude, stated per group with what was
 observed.
 
-Also: options outside the slice raise naming their ROADMAP slice, a mesh
-is refused with the column physics, and the path's kernels and level
-limits.
+Also: options outside the slice raise naming their ROADMAP slice, the
+case on a mesh equals its unsharded run, and the path's kernels and
+level limits.
 """
 
 import jax.numpy as jnp
@@ -284,11 +284,21 @@ def test_options_outside_the_slice_raise(option, value, match):
 
 
 def test_a_mesh_is_refused_with_the_column_physics():
+    """A mesh refused the column physics until its loop ran on blocks (the
+    name is kept): the case on a mesh of four CPU devices now takes the
+    unsharded run's two substeps and every bit of every field
+    (tests/test_torch_sharded_physics.py holds every column option so)."""
     from icar_tpu_torch.parallel.mesh import make_mesh
+    one = ideal_ridge_model(**CASE, **FULLPHYS, device="cpu")
     m = ideal_ridge_model(**CASE, **FULLPHYS, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        m.attach_mesh(make_mesh(CASE["nx"], CASE["ny"],
-                                devices=["cpu"] * 4))
+    m.attach_mesh(make_mesh(CASE["nx"], CASE["ny"], devices=["cpu"] * 4))
+    for model in (one, m):
+        model.advance(40.0)
+    assert m.last_n_substeps == one.last_n_substeps == 2
+    for k in one.state:
+        np.testing.assert_array_equal(m.field(k).view(np.uint32),
+                                      one.field(k).view(np.uint32),
+                                      err_msg=k)
 
 
 def test_path_kernels_and_levels():

@@ -169,3 +169,81 @@ def test_scatter_geometry_slices_every_horizontal_field():
             np.testing.assert_array_equal(
                 getattr(g, name).numpy(),
                 layout.block_of(getattr(geom, name), s), err_msg=name)
+
+
+@pytest.mark.parametrize("my,mx", MESHES)
+def test_block_place_interior_columns_and_host_max(my, mx):
+    """Each shard knows its place in the domain: ``interior`` leaves out
+    exactly the domain's edge ring (a block's inner edge is interior),
+    ``columns`` are the domain's row-major indices of its cells, ``whole``
+    only for a one-shard layout; ``host_max`` is the largest of the
+    blocks' counts, which is the domain's."""
+    from icar_tpu_torch.parallel.mesh import host_max
+    layout = Layout(_mesh(my, mx), NY, NX, 2)
+    ring = np.ones((NY, NX), bool)
+    ring[1:-1, 1:-1] = False
+    ids = np.arange(NY * NX).reshape(NY, NX)
+    counts = np.random.default_rng(4).integers(0, 50, (NY, NX))
+    for s in layout.shards:
+        by0, by1, bx0, bx1 = s.block
+        inside = np.zeros((by1 - by0, bx1 - bx0), bool)
+        inside[s.interior] = True
+        np.testing.assert_array_equal(inside, ~ring[by0:by1, bx0:bx1])
+        np.testing.assert_array_equal(s.columns(),
+                                      ids[by0:by1, bx0:bx1].reshape(-1))
+        assert not s.whole
+    blocks = layout.scatter(counts)
+    assert host_max([b.max() for b in blocks]) == counts.max()
+    assert Layout(_mesh(1, 1), NY, NX, 0).shards[0].whole
+
+
+@pytest.mark.parametrize("fn", ["sum0", "pow_scalar", "scalar_pow",
+                                "pow_field"])
+def test_pointwise_blocks_compute_cells_as_the_domain(fn):
+    """``ops/pointwise``'s level sum and powers give a cell of a block the
+    bits the whole domain's call gives it (torch's own CPU kernels compute
+    the elements at the end of a vectorised loop another way, so a cell's
+    bits would follow its place in its tensor); the level sum is torch's
+    sum to float32 rounding."""
+    from icar_tpu_torch.ops import pointwise as pw
+    r = np.random.default_rng(7)
+    x = torch.tensor(r.uniform(0.01, 3.0, (20, NY, NX)), dtype=torch.float32)
+    e = torch.tensor(r.uniform(-1.0, 2.0, (20, NY, NX)), dtype=torch.float32)
+    f = {"sum0": pw.sum0, "pow_scalar": lambda a, b: pw.pow(a, 1.7),
+         "scalar_pow": lambda a, b: pw.pow(7.7, b),
+         "pow_field": pw.pow}[fn]
+    f1 = (lambda a, b: f(a)) if fn == "sum0" else f
+    whole = f1(x, e)
+    for s in Layout(_mesh(2, 2), NY, NX, 1).shards:
+        by0, by1, bx0, bx1 = s.block
+        blk = f1(x[:, by0:by1, bx0:bx1].contiguous(),
+                 e[:, by0:by1, bx0:bx1].contiguous())
+        assert torch.equal(blk.view(torch.int32), whole[
+            ..., by0:by1, bx0:bx1].contiguous().view(torch.int32))
+    if fn == "sum0":
+        torch.testing.assert_close(whole, torch.sum(x, 0), rtol=1e-6,
+                                   atol=0.0)
+
+
+@pytest.mark.parametrize("chunk", [64, 4096])
+def test_block_mcica_draws_are_the_domains(chunk, monkeypatch):
+    """``rrtmg_lw.BlockCdf``: a block's RRTMG chunks (``column_chunked``
+    over its own columns) take, column by column, the draws of the whole
+    domain's chunks, with the domain's chunking (chunks of 64 columns:
+    nine, the last padded; of 4096: one, which the domain draws at its
+    own width)."""
+    from icar_tpu_torch.physics import rrtmg_lw
+    monkeypatch.setattr(rrtmg_lw, "RRTMG_COL_CHUNK", chunk)
+    n, cdf = NY * NX, rrtmg_lw.TorchCdf()
+
+    def draws(source, cols):
+        def one(c, n_chunks, a):
+            d = source("lw", 30.0, c, n_chunks, (3, a.shape[-1], 5), "cpu")
+            return {"d": d.permute(0, 2, 1)}
+        return rrtmg_lw.column_chunked(one, (torch.zeros(cols),), cols,
+                                       chunk)["d"].permute(0, 2, 1)
+    whole = draws(cdf, n)
+    for s in Layout(_mesh(2, 2), NY, NX, 1).shards:
+        cols = s.columns()
+        got = draws(rrtmg_lw.BlockCdf(cdf, cols, n), len(cols))
+        assert torch.equal(got, whole[:, torch.as_tensor(cols)])

@@ -44,3 +44,16 @@ def test_profile_interval_linear_path_on_cpu(capsys, monkeypatch):
     assert times == {} and len(calls) == 2
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["path"] == "linear" and out["substeps"] > 0
+
+
+def test_profile_interval_on_a_cpu_mesh(capsys):
+    """--mesh 2x2 profiles a sharded interval (one interval of every
+    block's work) on the CPU at a small size: one JSON line naming the
+    mesh, no device time."""
+    times = profile_interval.main(["--path", "upwind", "--mesh", "2x2",
+                                   "--nx", "24", "--ny", "8", "--nz", "12",
+                                   "--interval", "60", "--device", "cpu"])
+    assert times == {}
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["mesh"] == "2x2" and out["substeps"] > 0
+    assert out["device_idle_share"] is None

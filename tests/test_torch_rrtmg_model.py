@@ -281,15 +281,27 @@ def test_fields_within_the_fullphys_bounds(interval):
 
 def test_the_cuda_path_and_a_mesh():
     """The path launches K5 and K1 on the card (K5 at most 1565 levels);
-    without a card the default device raises; a mesh is refused with the
-    column physics."""
+    without a card the default device raises; on a mesh (refused until the
+    column loop ran on blocks) the case takes the unsharded run's
+    substeps and every bit of every field, RRTMG's McICA draws
+    included."""
     from icar_tpu_torch.core.step import path_kernels
     from icar_tpu_torch.parallel.mesh import make_mesh
-    m = ideal_ridge_model(**CASE, **FULLPHYS_RRTMG_NOAH, device="cpu")
-    assert path_kernels(m.options) == ("mp_thompson", "advect_upwind")
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        m.attach_mesh(make_mesh(CASE["nx"], CASE["ny"],
-                                devices=["cpu"] * 4))
+    models = []
+    for mesh in (None, make_mesh(CASE["nx"], CASE["ny"],
+                                 devices=["cpu"] * 4)):
+        m = ideal_ridge_model(**CASE, **FULLPHYS_RRTMG_NOAH, device="cpu")
+        assert path_kernels(m.options) == ("mp_thompson", "advect_upwind")
+        if mesh is not None:
+            m.attach_mesh(mesh)
+        m.advance(40.0)
+        models.append(m)
+    one, sharded = models
+    assert sharded.last_n_substeps == one.last_n_substeps >= 2
+    for k in one.state:
+        np.testing.assert_array_equal(sharded.field(k).view(np.uint32),
+                                      one.field(k).view(np.uint32),
+                                      err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ideal_ridge_model(**CASE, **FULLPHYS_RRTMG_NOAH)
