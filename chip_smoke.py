@@ -215,8 +215,29 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    runs, every bit of every field, each kernel of the path once per shard
    and substep. K1's and K5's lines add the launches under "conus", every
    kernel's line the small cases' under "sharded_small".
+20. Slice G, what the JAX package shards and the earlier phases did not
+   (check_slice_g): bench.py --config linear --sharded, the linear ridge
+   of phase 10 built by ideal_ridge_model(mesh=...) on a 1x1 and a 2x2
+   mesh of this card over two intervals with a wind update before each,
+   each holding phase 10's substeps and digest exactly, K1 and K2 once
+   per shard and substep, the wind update's stages on each; then the
+   file hour of phase 11 from its forcing files on a 2x2 mesh of this
+   card through ICARDriver(mesh=...) with the "sharded" output engine:
+   K3 and K1 once per shard and substep, its 3600 s restart equal to
+   phase 11's bit for bit, its four shard files at 3600 s stitched (with
+   NCFile) equal to phase 11's output there, and a per-shard restart
+   (write_restart_sharded) read into a fresh 2x2 model bit for bit. K1's
+   line adds its launches under "linear_sharded" and "file_sharded", K2's
+   under "linear_sharded", K3's under "file_sharded".
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
+
+    python3 chip_smoke.py --phase 20
+
+runs phase 20 alone after what it reads of the earlier phases: the kernels'
+build, phase 10's drive of the linear ridge (its digest and substeps) and
+phase 11's forcing files and uninterrupted file hour (``phase20_alone``);
+it prints their logs and no kernel table.
 Prints the kernel table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
@@ -231,6 +252,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -2187,7 +2209,8 @@ def check_linear(ideal_ridge_model, case, kernels, step, smi):
     the small case's wind solvers on the card against the CPU, two
     intervals of a fresh model with a wind update before each (K1 and K2
     once per substep, u off the balance-only ridge's), and the stages of
-    one more wind update. Returns the drive's launch counts."""
+    one more wind update. Returns the drive's launch counts and its
+    (digest, substeps)."""
     import torch
     from icar_tpu_torch.ops import wind as wind_ops
     from icar_tpu_torch.time_paths import wind_stage_ms
@@ -2203,7 +2226,7 @@ def check_linear(ideal_ridge_model, case, kernels, step, smi):
 
     model = ideal_ridge_model(**case, device="cuda")
     path = step.path_kernels(model.options)
-    launches, *_ = drive(model, kernels, "linear", path, smi)
+    launches, *reference = drive(model, kernels, "linear", path, smi)
     g = model.geom_t
     u_balance = wind_ops.make_winds_grid_relative(
         *model._case_winds, g.sintheta, g.costheta)[0]
@@ -2216,7 +2239,7 @@ def check_linear(ideal_ridge_model, case, kernels, step, smi):
         f"{du:.3f} m/s; one more wind update {one['wall_ms']:.3f} ms of "
         f"wall, CUDA-event ms: " + ", ".join(
             f"{k} {v:.3f}" for k, v in one["stages_ms"].items()))
-    return launches
+    return launches, tuple(reference)
 
 
 def file_driver(nml, device):
@@ -2287,7 +2310,7 @@ def check_file_run_small(tmp):
                                      for g, (r, k, b) in worst.items()))
 
 
-def check_file_run(kernels, step, smi):
+def check_file_run(kernels, step, smi, tmp):
     """Phase 11: the file-driven run at full width through the command
     line's entry (``core.driver.main``, in this process) with the launch
     counts set to 0 just before it: K3 and K1 once per substep, no other
@@ -2296,117 +2319,116 @@ def check_file_run(kernels, step, smi):
     the uninterrupted run's bit for bit; the resumed driver's timers and
     rate, one forcing step's read, regrid and tendencies, the wind solve
     and the dt's read-back timed; then the small case on the CPU and the
-    card. Returns the drive's launch counts."""
-    import tempfile
-
+    card. Its files are written under ``tmp``, where phase 20 reads them.
+    Returns the drive's launch counts and {"init", "forcing", "prefix"}:
+    the forcing files and the uninterrupted run's prefix."""
     import torch
     from icar_tpu_torch.core import driver as drv
     from icar_tpu_torch.forcing.ideal import write_ideal_files
     from icar_tpu_torch.io import netcdf as nc
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        init, forcing = write_ideal_files(tmp, **FILE_RUN)
-        log(f"file run: forcing {FILE_RUN['nx'] + 10}x{FILE_RUN['ny'] + 10}"
-            f"x{FILE_RUN['nz_lo']}, {FILE_RUN['nt']} steps, written in "
-            f"{time.perf_counter() - t0:.1f} s: {os.path.getsize(forcing)} "
-            f"bytes, format {nc.file_format(forcing)} (h5py "
-            f"{'present' if nc.h5py else 'absent'}: new files are "
-            f"{nc.write_format()})")
-        prefix = os.path.join(tmp, "run_")
-        nml = write_namelist(prefix + "options.nml", init, forcing, prefix,
-                             FILE_RUN_Z, dict(mp=2, adv=1))
+    t0 = time.perf_counter()
+    init, forcing = write_ideal_files(tmp, **FILE_RUN)
+    log(f"file run: forcing {FILE_RUN['nx'] + 10}x{FILE_RUN['ny'] + 10}"
+        f"x{FILE_RUN['nz_lo']}, {FILE_RUN['nt']} steps, written in "
+        f"{time.perf_counter() - t0:.1f} s: {os.path.getsize(forcing)} "
+        f"bytes, format {nc.file_format(forcing)} (h5py "
+        f"{'present' if nc.h5py else 'absent'}: new files are "
+        f"{nc.write_format()})")
+    prefix = os.path.join(tmp, "run_")
+    nml = write_namelist(prefix + "options.nml", init, forcing, prefix,
+                         FILE_RUN_Z, dict(mp=2, adv=1))
 
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        rc = drv.main([nml])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        if rc != 0:
-            raise AssertionError(f"file run: main returned {rc}")
-        from icar_tpu_torch.config import Options
-        options = Options.from_namelist(nml)
-        path = step.path_kernels(options, full_forcing=True)
-        steps = launches["advect_upwind"]
-        for name, n in launches.items():
-            want = steps if name in path else 0
-            if n != want or steps == 0:
-                raise AssertionError(f"file run: {name} launched {n} times "
-                                     f"for {steps} substeps, expected "
-                                     f"{want}")
-        out = prefix + "out_run.nc"
-        with nc.NCFile(out) as f:
-            times = f.read("model_time")
-            fields = {n: f.read(n) for n in f.variables()}
-            fmt = f.format
-        if list(times) != [0.0, 1800.0, 3600.0]:
-            raise AssertionError(f"file run output: model_time {times}")
-        for n, a in fields.items():
-            if a.shape[0] != 3 or not np.isfinite(a).all():
-                raise AssertionError(f"file run output: {n} of shape "
-                                     f"{a.shape}, or non-finite")
-        u_median = float(np.median(fields["u"][-1]))
-        if not FILE_U_MEDIAN[0] < u_median < FILE_U_MEDIAN[1]:
-            raise AssertionError(f"file run: median u {u_median} outside "
-                                 f"{FILE_U_MEDIAN}")
-        gp = FILE_RUN_Z["nz"] * FILE_RUN["ny"] * FILE_RUN["nx"]
-        log(f"file run {FILE_RUN['nx']}x{FILE_RUN['ny']}x{FILE_RUN_Z['nz']} "
-            f"(main, SB04 + upwind, 3600 s): {steps} substeps in {wall:.1f} "
-            f"s of wall (set-up, reads, output and restarts included); "
-            f"launches {launches}; output {os.path.getsize(out)} bytes, "
-            f"format {fmt}, {len(fields)} variables x 3 times; median u "
-            f"{u_median:.3f} m/s; restart "
-            f"{os.path.getsize(prefix + 'rst_00001800.nc')} bytes")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = drv.main([nml])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"file run: main returned {rc}")
+    from icar_tpu_torch.config import Options
+    options = Options.from_namelist(nml)
+    path = step.path_kernels(options, full_forcing=True)
+    steps = launches["advect_upwind"]
+    for name, n in launches.items():
+        want = steps if name in path else 0
+        if n != want or steps == 0:
+            raise AssertionError(f"file run: {name} launched {n} times "
+                                 f"for {steps} substeps, expected "
+                                 f"{want}")
+    out = prefix + "out_run.nc"
+    with nc.NCFile(out) as f:
+        times = f.read("model_time")
+        fields = {n: f.read(n) for n in f.variables()}
+        fmt = f.format
+    if list(times) != [0.0, 1800.0, 3600.0]:
+        raise AssertionError(f"file run output: model_time {times}")
+    for n, a in fields.items():
+        if a.shape[0] != 3 or not np.isfinite(a).all():
+            raise AssertionError(f"file run output: {n} of shape "
+                                 f"{a.shape}, or non-finite")
+    u_median = float(np.median(fields["u"][-1]))
+    if not FILE_U_MEDIAN[0] < u_median < FILE_U_MEDIAN[1]:
+        raise AssertionError(f"file run: median u {u_median} outside "
+                             f"{FILE_U_MEDIAN}")
+    gp = FILE_RUN_Z["nz"] * FILE_RUN["ny"] * FILE_RUN["nx"]
+    log(f"file run {FILE_RUN['nx']}x{FILE_RUN['ny']}x{FILE_RUN_Z['nz']} "
+        f"(main, SB04 + upwind, 3600 s): {steps} substeps in {wall:.1f} "
+        f"s of wall (set-up, reads, output and restarts included); "
+        f"launches {launches}; output {os.path.getsize(out)} bytes, "
+        f"format {fmt}, {len(fields)} variables x 3 times; median u "
+        f"{u_median:.3f} m/s; restart "
+        f"{os.path.getsize(prefix + 'rst_00001800.nc')} bytes")
 
-        # resumed from the 1800 s checkpoint
-        rprefix = os.path.join(tmp, "resumed_")
-        resumed = file_driver(write_namelist(
-            rprefix + "options.nml", init, forcing, rprefix, FILE_RUN_Z,
-            dict(mp=2, adv=1), restart_from=prefix + "rst_00001800.nc"),
-            "cuda")
-        want, want_fields = restart_digest(prefix + "rst_00003600.nc")
-        got, got_fields = restart_digest(rprefix + "rst_00003600.nc")
-        for n in want_fields:
-            if not np.array_equal(got_fields[n], want_fields[n]):
-                raise AssertionError(f"file run resumed at 1800 s: {n} at "
-                                     f"3600 s differs from the "
-                                     f"uninterrupted run's")
-        if got != want:
-            raise AssertionError("file run resumed: digest differs")
-        log("digest file (3600 s): " + json.dumps(
-            {k: want[k] for k in DRIVE_FIELDS if k in want}))
-        sec = {k: resumed.timers[k].get_time()
-               for k in ("init", "input", "physics", "output")}
-        n_sub = resumed.substeps[0]
-        log(f"file run resumed at 1800 s: 3600 s checkpoint equal to the "
-            f"uninterrupted run's bit for bit ({len(want_fields)} fields); "
-            f"{n_sub} substeps, {gp * n_sub / sec['physics'] / 1e6:.1f}M "
-            f"gp*steps/s over the physics time on {smi}; driver timers s: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
+    # resumed from the 1800 s checkpoint
+    rprefix = os.path.join(tmp, "resumed_")
+    resumed = file_driver(write_namelist(
+        rprefix + "options.nml", init, forcing, rprefix, FILE_RUN_Z,
+        dict(mp=2, adv=1), restart_from=prefix + "rst_00001800.nc"),
+        "cuda")
+    want, want_fields = restart_digest(prefix + "rst_00003600.nc")
+    got, got_fields = restart_digest(rprefix + "rst_00003600.nc")
+    for n in want_fields:
+        if not np.array_equal(got_fields[n], want_fields[n]):
+            raise AssertionError(f"file run resumed at 1800 s: {n} at "
+                                 f"3600 s differs from the "
+                                 f"uninterrupted run's")
+    if got != want:
+        raise AssertionError("file run resumed: digest differs")
+    log("digest file (3600 s): " + json.dumps(
+        {k: want[k] for k in DRIVE_FIELDS if k in want}))
+    sec = {k: resumed.timers[k].get_time()
+           for k in ("init", "input", "physics", "output")}
+    n_sub = resumed.substeps[0]
+    log(f"file run resumed at 1800 s: 3600 s checkpoint equal to the "
+        f"uninterrupted run's bit for bit ({len(want_fields)} fields); "
+        f"{n_sub} substeps, {gp * n_sub / sec['physics'] / 1e6:.1f}M "
+        f"gp*steps/s over the physics time on {smi}; driver timers s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
 
-        # one forcing step: the host read, then the regrid, wind solve and
-        # tendencies on the card; the wind solve alone; the dt read-back
-        m = resumed.model
-        t0 = time.perf_counter()
-        raw = resumed.forcing.read_step(2)
-        read_ms = (time.perf_counter() - t0) * 1e3
-        tend_ms = host_ms(lambda: resumed.forcing_tendencies(raw))
-        target = resumed.regridder.to_model_grid(raw, m.geom_t)
-        regrid_ms = host_ms(lambda: resumed.regridder.to_model_grid(
-            raw, m.geom_t))
-        wind_ms = cuda_ms(lambda: m.compute_winds(target["u"], target["v"],
-                                                  rotate=True))
-        g, o = m.geom_t, m.options.run
-        dt_ms = host_ms(lambda: step.sharded_dt(
-            [m.state], [g], o.cfl_reduction_factor, o.cfl_strictness), 10)
-        log(f"file run forcing step: read {read_ms:.1f} ms (host), regrid "
-            f"{regrid_ms:.2f} ms, regrid + wind solve + tendencies "
-            f"{tend_ms:.2f} ms, wind solve alone {wind_ms:.3f} ms "
-            f"(CUDA events); dt with its read-back {dt_ms:.3f} ms a "
-            f"substep")
-        del resumed, m, target
-        check_file_run_small(tmp)
-    return launches
+    # one forcing step: the host read, then the regrid, wind solve and
+    # tendencies on the card; the wind solve alone; the dt read-back
+    m = resumed.model
+    t0 = time.perf_counter()
+    raw = resumed.forcing.read_step(2)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    tend_ms = host_ms(lambda: resumed.forcing_tendencies(raw))
+    target = resumed.regridder.to_model_grid(raw, m.geom_t)
+    regrid_ms = host_ms(lambda: resumed.regridder.to_model_grid(
+        raw, m.geom_t))
+    wind_ms = cuda_ms(lambda: m.compute_winds(target["u"], target["v"],
+                                              rotate=True))
+    g, o = m.geom_t, m.options.run
+    dt_ms = host_ms(lambda: step.sharded_dt(
+        [m.state], [g], o.cfl_reduction_factor, o.cfl_strictness), 10)
+    log(f"file run forcing step: read {read_ms:.1f} ms (host), regrid "
+        f"{regrid_ms:.2f} ms, regrid + wind solve + tendencies "
+        f"{tend_ms:.2f} ms, wind solve alone {wind_ms:.3f} ms "
+        f"(CUDA events); dt with its read-back {dt_ms:.3f} ms a "
+        f"substep")
+    del resumed, m, target
+    check_file_run_small(tmp)
+    return launches, {"init": init, "forcing": forcing, "prefix": prefix}
 
 
 def fold_work(nz, ny, nx):
@@ -4198,7 +4220,199 @@ def check_conus(ideal_ridge_model, case, kernels, step, tp, reference, smi):
     return out
 
 
-def main():
+# phase 20, Slice G: bench.py --config linear --sharded (the linear ridge
+# of phase 10 built on a mesh, bench.py:203-205) on LINEAR_SHARDS of this
+# card, and the file hour of phase 11 through the driver on FILE_SHARDS of
+# this card with the "sharded" output engine
+LINEAR_SHARDS = ((1, 1), (2, 2))
+FILE_SHARDS = (2, 2)
+
+
+def stitch_shard_files(paths, shapes):
+    """{name: the whole field} from output files per shard
+    (``ShardedOutputWriter``'s), each piece placed at its file's
+    ``y_start``, ``x_start``; ``shapes`` the fields' whole shapes."""
+    from icar_tpu_torch.io.netcdf import NCFile
+    out = {n: np.full(shape, np.nan, np.float32)
+           for n, shape in shapes.items()}
+    for p in paths:
+        with NCFile(p) as f:
+            y0 = int(f.read_attr(None, "y_start"))
+            x0 = int(f.read_attr(None, "x_start"))
+            for n in shapes:
+                a = f.read(n)
+                out[n][..., y0:y0 + a.shape[-2], x0:x0 + a.shape[-1]] = a
+    return out
+
+
+def check_slice_g(ideal_ridge_model, case, kernels, step, reference,
+                  file_run, smi):
+    """Phase 20: the linear ridge at 500x500x20 built by
+    ``ideal_ridge_model(mesh=...)`` on each of LINEAR_SHARDS of this card,
+    two intervals with a wind update before each, held to phase 10's
+    (digest, substeps) ``reference``, K1 and K2 once per shard and
+    substep, and one more wind update's stages (on a mesh the state's
+    gather and scatter lie outside them); then phase 11's file hour from
+    its files (``file_run``) on a FILE_SHARDS mesh of this card through
+    ``ICARDriver(mesh=...)`` with the "sharded" engine, K3 and K1 once
+    per shard and substep: its 3600 s restart equal to phase 11's bit for
+    bit, its shard files at 3600 s stitched equal to phase 11's output
+    there, and its per-shard restart read into a fresh model on the same
+    mesh bit for bit. Returns {"linear": {kernel: {"launches_1x1": n,
+    ...}}, "file": {kernel: n}}."""
+    import torch
+    from icar_tpu_torch.config import Options
+    from icar_tpu_torch.core.driver import ICARDriver, load_domain
+    from icar_tpu_torch.core.state import restart_names
+    from icar_tpu_torch.io import output as out_io
+    from icar_tpu_torch.io.netcdf import NCFile
+    from icar_tpu_torch.models.icar import ICARModel
+    from icar_tpu_torch.time_paths import wind_stage_ms
+    t_phase = time.perf_counter()
+    out = {"linear": {"advect_upwind": {}, "mp_simple": {}}, "file": {}}
+    for shape in LINEAR_SHARDS:
+        label = f"{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        model = ideal_ridge_model(**case, mesh=one_card_mesh(shape),
+                                  device="cuda")
+        torch.cuda.synchronize()
+        log(f"linear sharded {label} setup (its table and the first wind "
+            f"solve): {time.perf_counter() - t0:.1f} s")
+        path = step.path_kernels(model.options)
+        launches, digest, steps = drive(
+            model, kernels, f"linear sharded {label}", path, smi,
+            shards=shape[0] * shape[1])
+        if (digest, steps) != reference:
+            raise AssertionError(f"linear sharded {label}: {steps} substeps "
+                                 f"and digest {digest}; phase 10: "
+                                 f"{reference[1]} substeps, {reference[0]}")
+        for name in out["linear"]:
+            out["linear"][name][f"launches_{label}"] = launches[name]
+        one = wind_stage_ms(model)
+        stages = one["stages_ms"]
+        log(f"linear sharded {label}: {steps} substeps and every digest sum "
+            f"equal to phase 10's; K1 and K2 {launches['advect_upwind']} and "
+            f"{launches['mp_simple']} launches = shards x {steps} substeps; "
+            f"one more wind update {one['wall_ms']:.3f} ms of wall, "
+            f"{one['wall_ms'] - sum(stages.values()):.3f} of it outside the "
+            f"stages, CUDA-event ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()))
+        del model
+
+    # the file hour on a mesh, from phase 11's files
+    t0 = time.perf_counter()
+    my, mx = FILE_SHARDS
+    prefix = os.path.join(os.path.dirname(file_run["prefix"]), "sharded_")
+    options = Options.from_namelist(write_namelist(
+        prefix + "options.nml", file_run["init"], file_run["forcing"],
+        prefix, FILE_RUN_Z, dict(mp=2, adv=1)))
+    options.validate()
+    options.output.engine = "sharded"
+    mesh = one_card_mesh(FILE_SHARDS)
+    kernels.reset_launches()
+    d = ICARDriver(options, device="cuda", mesh=mesh)
+    d.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = sum(d.substeps)
+    path = step.path_kernels(options, full_forcing=True)
+    for name, n in launches.items():
+        want = my * mx * steps if name in path else 0
+        if n != want or steps == 0:
+            raise AssertionError(f"file run {my}x{mx}: {name} launched {n} "
+                                 f"times for {steps} substeps, expected "
+                                 f"{want}")
+    out["file"] = launches
+    ref = file_run["prefix"]
+    want, want_fields = restart_digest(ref + "rst_00003600.nc")
+    got, got_fields = restart_digest(prefix + "rst_00003600.nc")
+    bad = [n for n in want_fields
+           if not np.array_equal(got_fields[n].view(np.uint32),
+                                 want_fields[n].view(np.uint32))]
+    if bad or got != want or sorted(got_fields) != sorted(want_fields):
+        raise AssertionError(f"file run {my}x{mx}: the 3600 s restart "
+                             f"differs from phase 11's in {bad}")
+    with NCFile(ref + "out_run.nc") as f:
+        whole = {n: f.read(n)[-1] for n in f.variables()
+                 if n != "model_time"}
+    paths = sorted(p for p in d.writer.paths if p.endswith("_00003600.nc"))
+    if len(paths) != my * mx:
+        raise AssertionError(f"file run {my}x{mx}: {len(paths)} shard "
+                             f"files at 3600 s")
+    stitched = stitch_shard_files(paths, {n: a.shape
+                                          for n, a in whole.items()})
+    bad = [n for n in whole
+           if not np.array_equal(stitched[n].view(np.uint32),
+                                 whole[n].view(np.uint32))]
+    if bad:
+        raise AssertionError(f"file run {my}x{mx}: the stitched shard files "
+                             f"differ from phase 11's output in {bad}")
+    log(f"file run {my}x{mx} on this card (ICARDriver, sharded engine): "
+        f"{d.substeps} substeps in {wall:.1f} s of wall (set-up, reads, "
+        f"output and restarts included); launches {launches}; its 3600 s "
+        f"restart equal to phase 11's bit for bit ({len(want_fields)} "
+        f"fields); {len(paths)} shard files at 3600 s stitched equal to "
+        f"phase 11's output ({len(whole)} fields); driver timers s: "
+        + ", ".join(f"{k} {d.timers[k].get_time():.3f}"
+                    for k in ("init", "input", "physics", "output")))
+
+    # per-shard restarts into a fresh model on the same mesh
+    t0 = time.perf_counter()
+    rpaths = out_io.write_restart_sharded(prefix + "shard_rst_", d.model,
+                                          3600.0)
+    fresh = ICARModel(options, *load_domain(options), device="cuda")
+    fresh.attach_mesh(mesh)
+    if out_io.read_restart_sharded(rpaths, fresh) != 3600.0:
+        raise AssertionError("per-shard restart: time not restored")
+    names = [n for n in restart_names(options) if n in fresh._held()]
+    bad = [n for n in names
+           if not torch.equal(fresh.global_field(n).view(torch.int32),
+                              d.model.global_field(n).view(torch.int32))]
+    if bad:
+        raise AssertionError(f"per-shard restart {my}x{mx}: {bad} differ "
+                             f"after the round trip")
+    log(f"per-shard restart {my}x{mx}: {len(rpaths)} files, "
+        f"{sum(os.path.getsize(p) for p in rpaths)} bytes, read into a "
+        f"fresh {my}x{mx} model: {len(names)} fields bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del d, fresh
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase20_alone(ideal_ridge_model, case, kernels, step, smi):
+    """Phase 20 after the parts of phases 10 and 11 that it reads: the
+    linear ridge's drive (phase 10's (digest, substeps)) and phase 11's
+    forcing files and file hour through ``core.driver.main``, none of them
+    checked here beyond what ``check_slice_g`` compares with them."""
+    import torch
+    from icar_tpu_torch.core import driver as drv
+    from icar_tpu_torch.forcing.ideal import write_ideal_files
+    model = ideal_ridge_model(**case, device="cuda")
+    _, *reference = drive(model, kernels, "linear", step.path_kernels(
+        model.options), smi)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        init, forcing = write_ideal_files(tmp, **FILE_RUN)
+        prefix = os.path.join(tmp, "run_")
+        if drv.main([write_namelist(prefix + "options.nml", init, forcing,
+                                    prefix, FILE_RUN_Z,
+                                    dict(mp=2, adv=1))]) != 0:
+            raise AssertionError("file run: main returned non-zero")
+        torch.cuda.synchronize()
+        check_slice_g(ideal_ridge_model, case, kernels, step,
+                      tuple(reference), {"init": init, "forcing": forcing,
+                                         "prefix": prefix}, smi)
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phase", type=int, choices=(20,),
+                        help="run this phase alone, after what it reads of "
+                             "the earlier phases")
+    args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = device_info()
     sys.path.insert(0, ROOT)
@@ -4228,6 +4442,10 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s ({kernels.BUILD_INFO['path']})")
     log(kernels.BUILD_INFO["log"].strip())
+    if args.phase == 20:
+        phase20_alone(ideal_ridge_model, cases["linear"], kernels, step, smi)
+        log(f"total wall: {time.perf_counter() - t_start:.1f} s")
+        return
 
     # 1. K1 and K2 against their plain versions on a real 500x500x20 state;
     # K2 first on the initial state (no cloud or rain: every tile should
@@ -4329,12 +4547,14 @@ def main():
     # 10. the linear-theory ridge: its table on the card against the CPU,
     # the small case's wind solvers on the card against the CPU, two
     # intervals with a wind update before each counting kernel launches
-    linear_launches = check_linear(ideal_ridge_model, cases["linear"],
-                                   kernels, step, smi)
+    linear_launches, linear_ref = check_linear(
+        ideal_ridge_model, cases["linear"], kernels, step, smi)
     # 11. the file-driven run through the command line's entry at full
     # width, counting kernel launches, resumed from its checkpoint, and the
     # small case on the CPU and the card
-    file_launches = check_file_run(kernels, step, smi)
+    file_tmp = tempfile.TemporaryDirectory()
+    file_launches, file_run = check_file_run(kernels, step, smi,
+                                             file_tmp.name)
     # 12. the general loop's options: density advection (K1 and K4 on
     # density-weighted operands), the microphysics throttle, the column
     # physics with MPDATA or SB04, each path counting kernel launches
@@ -4389,6 +4609,14 @@ def main():
     # this card against their unsharded card runs
     conus = check_conus(ideal_ridge_model, cases["fullphys"], kernels,
                         step, thompson_plain, fullphys_ref, smi)
+    # 20. Slice G: the linear ridge built on a 1x1 and a 2x2 mesh of this
+    # card (phase 10's digest), the file hour of phase 11 on a 2x2 mesh
+    # through the driver with the sharded output engine (phase 11's
+    # restart and output), per-shard restarts; launches once per shard
+    # and substep
+    slice_g = check_slice_g(ideal_ridge_model, cases["linear"], kernels,
+                            step, linear_ref, file_run, smi)
+    file_tmp.cleanup()
     for entry in table[:-1]:
         name = entry["name"]
         if name == "mp_thompson":
@@ -4419,8 +4647,10 @@ def main():
             entry["thompson_aer"] = aer["mp_thompson"]
         if name in ("advect_upwind", "mp_simple"):
             entry["linear"] = {"launches": linear_launches[name]}
+            entry["linear_sharded"] = slice_g["linear"][name]
         if name in ("advect_upwind", "mp_simple_rho"):
             entry["file"] = {"launches": file_launches[name]}
+            entry["file_sharded"] = {"launches": slice_g["file"][name]}
         general = {label: n[name] for label, n in general_launches.items()
                    if n.get(name)}
         if general:

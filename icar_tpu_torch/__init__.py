@@ -2,14 +2,14 @@
 
 The JAX package ``icar_tpu`` stays the reference; this package runs the
 same model on torch tensors and replaces each Pallas TPU kernel with a
-CUDA C++ kernel written for ``sm_90a`` (``icar_tpu_torch/csrc``). Ported so
-far: the ideal ridge with SB04 or Thompson microphysics and upwind or
-MPDATA advection, the full-physics column (with Thompson and upwind) and
-every wind solver, on one device, and the ridges sharded over a device
-mesh (``parallel/``); and the file-driven run, ``python -m icar_tpu_torch
-options.nml`` (``core/driver.py``: forcing ingest and regridding on the
-device, NetCDF output and restarts, ``io/``), on one device. Everything
-else raises ``NotImplementedError`` naming its ROADMAP slice.
+CUDA C++ kernel written for ``sm_90a`` (``icar_tpu_torch/csrc``). It runs
+everything the JAX package runs: the ideal ridge with every scheme option
+and wind solver (``models/``), the file-driven run, ``python -m
+icar_tpu_torch options.nml`` (``core/driver.py``: forcing ingest and
+regridding on the device, NetCDF output and restarts, ``io/``), and each
+of them sharded over a device mesh (``parallel/``; a mesh may put several
+shards on one card), with output and restarts per shard as the JAX
+package writes them.
 
 Importing the package imports torch and numpy only: no jax, no
 ``icar_tpu``, and no kernel build (kernels build at their first launch).

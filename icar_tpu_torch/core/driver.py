@@ -3,11 +3,12 @@
 
 Replaces program icar (driver.f90 of the reference) and initialization
 (init.f90): reads terrain + forcing files, builds the model on its device
-(the card unless ``device="cpu"``; there is no fallback), and runs the
-outer loop -- ingest a forcing step, regrid it on the device, run the wind
-solver on the target fields, install the tendencies of every forced field,
-integrate to the next forcing or output event, write output and restarts,
-or resume from a checkpoint. ``main`` is the command line,
+(the card unless ``device="cpu"``; there is no fallback), shards it over a
+device mesh when given one, and runs the outer loop -- ingest a forcing
+step, regrid it on the device, run the wind solver on the target fields,
+install the tendencies of every forced field, integrate to the next
+forcing or output event, write output and restarts, or resume from a
+checkpoint. ``main`` is the command line,
 ``python -m icar_tpu_torch options.nml [--device cpu] [--profile DIR]``.
 """
 
@@ -26,8 +27,8 @@ from ..config import Options
 from ..forcing.boundary import (ForcingData, Regridder, compute_tendencies,
                                 load_external_conditions)
 from ..io.netcdf import NCFile
-from ..io.output import (AsyncStepWriter, OutputWriter, read_restart,
-                         write_restart)
+from ..io.output import (AsyncStepWriter, OutputWriter, ShardedOutputWriter,
+                         read_restart, write_restart)
 from ..models.icar import ICARModel
 from ..utils.calendar import Time, TimeDelta
 from ..utils.diagnostics_debug import Timers, domain_check
@@ -67,18 +68,16 @@ OUTPUT_ALIASES = {
 
 class ICARDriver:
     """Owns the model + forcing machinery and runs the outer loop.
-    ``device``: the model's torch device; a mesh (file-driven runs
-    sharded) is not ported (Slice G)."""
+    ``device``: the model's torch device; ``mesh`` (``parallel.mesh``, its
+    devices of that type): the model is sharded over it after the
+    initial, external, lake and Noah-MP set-up (icar_tpu/core/driver.py:
+    67-73), and every interval runs on its blocks. The output engine
+    (``output.engine``) is the default one-file writer, "classic-async"
+    (one file a step) or "sharded" (one file per shard and step,
+    ``io.output.ShardedOutputWriter``); restarts are whole-domain files
+    either way, as the JAX driver writes them."""
 
     def __init__(self, options: Options, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ICARDriver: a sharded file-driven run is not ported yet: "
-                "Slice G (sharded output and restarts) in ROADMAP.md")
-        if options.output.engine == "sharded":
-            raise NotImplementedError(
-                "output engine 'sharded' (file-per-shard output) is not "
-                "ported yet: Slice G in ROADMAP.md")
         self.options = options
         self.timers = Timers()
         self.timers["init"].start()
@@ -98,10 +97,15 @@ class ICARDriver:
         self._install_external_conditions()
         self._init_lake()
         self._init_noahmp()
+        if mesh is not None:
+            self.model.attach_mesh(mesh)
 
         if options.output.engine == "classic-async":
             self.writer = AsyncStepWriter(options.output.output_file,
                                           self._output_names(), options)
+        elif options.output.engine == "sharded":
+            self.writer = ShardedOutputWriter(options.output.output_file,
+                                              self._output_names(), options)
         else:
             out_name = options.output.output_file + "run.nc"
             self.writer = OutputWriter(out_name, self._output_names(), options)
@@ -287,12 +291,13 @@ class ICARDriver:
     def forcing_tendencies(self, raw):
         """Target fields -> wind solve -> tendencies of every forced field
         (update_winds update path + update_delta_fields,
-        driver.f90:128-138)."""
+        driver.f90:128-138); the current fields are the whole domain's
+        (gathered from the blocks on a mesh)."""
         m = self.model
         target = self.regridder.to_model_grid(raw, m.geom_t)
         u, v, w = m.compute_winds(target["u"], target["v"], rotate=True)
         target["u"], target["v"], target["w"] = u, v, w
-        current = {k: m.state[k] for k in target if k in m.state}
+        current = m._global_fields([k for k in target if k in m._held()])
         m.set_forcing_tendencies(compute_tendencies(
             current, target, self.options.forcing.input_interval))
 
@@ -373,8 +378,9 @@ class ICARDriver:
                 self.substeps.append(self.model.last_n_substeps)
                 t = target_t
                 if debug:
-                    self.model.state, _ = domain_check(
-                        self.model.state, msg=f"t={t:.0f}s", fix=True)
+                    self.model._install(domain_check(
+                        self.model._global_state(), msg=f"t={t:.0f}s",
+                        fix=True)[0])
                 pct = 100.0 * t / total_seconds
                 if pct >= next_progress_pct:
                     # 5% progress ticker (print_progress,

@@ -38,7 +38,13 @@ winds the CFL dt is computed anew from them every substep (one read to the
 host a substep) and the advection's wind operands are prepared anew; with
 forced pressure the pressure-derived fields are refreshed every substep
 (``substep_needs``). After the advection u, v, w, pressure and the 2-D
-fields take ``tend * dt`` over the whole field (``apply_forcing``).
+fields take ``tend * dt`` over the whole field (``apply_forcing``). On
+blocks no field outside the stack needs an exchange for this: the
+tendencies are scattered with their halos, so ``apply_forcing`` gives a
+halo cell its owner's update; the dt is the blocks' reduced one
+(``sharded_dt``); and what is formed from the forced fields (the wind
+operands, the pressure-derived fields, w_real on ``Shard.interior``)
+reads a cell's own column and the faces its block holds.
 
 Both loops run on a list of blocks (``run_blocks``): the whole domain is
 one block, and a model sharded over a device mesh holds one per shard
@@ -476,14 +482,7 @@ def run_blocks(layout: Layout, states: List[Dict[str, torch.Tensor]],
     per shard, or the whole domain as one): ``run_interval_physics`` with
     column physics, else ``run_interval_sharded`` (``time_aux`` and
     ``cdf`` are the column physics'). Returns the new blocks and the
-    substep count. Raises NotImplementedError for forcing tendencies
-    outside the advected species on more than one block."""
-    if len(states) > 1 and dqdts and full_field_forcing(dqdts[0],
-                                                        adv_names):
-        raise NotImplementedError(
-            "forcing tendencies outside the advected species on a sharded "
-            "model are not ported yet: Slice G (sharded file-driven runs) "
-            "in ROADMAP.md")
+    substep count."""
     if column_physics(options):
         return run_interval_physics(layout, states, geoms, options,
                                     adv_names, seconds, dqdts, time_aux,
@@ -773,10 +772,12 @@ def run_interval_physics(layout: Layout,
     feedback substeps) run each block to its own largest count; they leave
     a column past its own count as it is, so each column keeps its bits.
 
-    Under full-field forcing (``full_field_forcing``; one block,
-    ``run_blocks``) forced winds give a new dt and wind operands every substep, and
-    w_real in the refresh, a forced pressure its derived fields
-    (``substep_needs``), and ``apply_forcing`` follows the advection. The
+    Under full-field forcing (``full_field_forcing``) forced winds give a
+    new dt (``sharded_dt`` over the blocks) and each block's wind operands
+    every substep, and w_real in the refresh, a forced pressure its
+    derived fields on each block (``substep_needs``), and
+    ``apply_forcing`` follows the advection on each block, halo included
+    (see ``run_interval_sharded``). The
     ``time_aux`` of ``run_interval`` is required with the radiation or
     Noah-MP.
     ``cdf`` is RRTMG's McICA draw (``physics.rrtmg_lw.TorchCdf`` by

@@ -28,9 +28,12 @@ everywhere (a file-driven run's,
 ``core/driver.py``); a monthly rain fraction scales each interval's
 precipitation (``set_rain_fraction``). ``attach_mesh`` shards a model over
 a device mesh (``parallel/mesh.py``); its state then lives in one block
-per shard, with every scheme option and a rain fraction (bench.py
---config conus is the full physics column on a mesh over every card); not
-yet with linear theory, blocking or forcing outside the advected species.
+per shard, with every scheme option, every wind solver, forcing
+tendencies of any field and a rain fraction (bench.py --config conus is
+the full physics column on a mesh over every card, bench.py --config
+linear --sharded the linear-theory ridge on a mesh; ``core.driver`` runs
+file-driven runs on one). The wind solve stays one solve of the whole
+domain on the model's device, its tables there whole.
 """
 
 from __future__ import annotations
@@ -129,13 +132,12 @@ class ICARModel:
         z_agl = np.asarray(self.geom.z) \
             - np.asarray(self.geom.terrain)[None]
         nwfa, nifa = aer_init_profiles(z_agl, np.asarray(self.geom.terrain))
-        s = self._global_state()
-        s["nwfa"] = self._tensor(np.asarray(nwfa, np.float32))
-        s["nifa"] = self._tensor(np.asarray(nifa, np.float32))
-        if "nwfa2d" in s:
+        s = {"nwfa": self._tensor(np.asarray(nwfa, np.float32)),
+             "nifa": self._tensor(np.asarray(nifa, np.float32))}
+        if "nwfa2d" in self._held():
             s["nwfa2d"] = self._tensor(np.asarray(
                 aer_surface_flux(nwfa[0], self.geom.dx), np.float32))
-        self._install(s)
+        self._install_fields(s)
 
     @property
     def winds_follow_state(self) -> bool:
@@ -151,16 +153,16 @@ class ICARModel:
         with the halo the model's path reads), each on its device, and so
         does the rain fraction's table; later ``advance`` calls run
         ``core.step.run_blocks`` on them (the column physics too: bench.py
-        --config conus). Raises ValueError for a mesh on another device
-        type than the model's, or one that leaves a shard without a
-        natural row or column, and NotImplementedError for linear-theory
-        winds, flow blocking and forcing outside the advected species."""
-        if self.winds_follow_state or self.options.block.block_flow:
-            raise NotImplementedError(
-                "attach_mesh: a sharded model with linear-theory winds or "
-                "flow blocking is not ported yet: Slice G (the per-shard "
-                "linear-theory and blocking tables) in ROADMAP.md")
-        self._refuse_sharded_forcing(self._dqdt)
+        --config conus; full-field forcing of a file-driven run). A wind
+        solve (``compute_winds``: balance, linear theory and its
+        perturbation, blocking, the iterative solver) stays one solve of
+        the whole domain on the model's device, on the fields it reads
+        gathered, the fields it writes (u, v, w, nsquared) scattered into
+        the blocks (``_global_fields``, ``_install_fields``); the
+        linear-theory and blocking tables stay there whole (a table per
+        shard waits for one shard per card). Raises ValueError for a mesh
+        on another device type than the model's, or one that leaves a
+        shard without a natural row or column."""
         if mesh.device_type != self.device.type:
             raise ValueError(f"attach_mesh: a mesh of {mesh.device_type} "
                              f"devices for a model on {self.device}")
@@ -203,7 +205,7 @@ class ICARModel:
         """Install the wind solution for (u, v) into the state."""
         u, v, w = self.compute_winds(self._tensor(u), self._tensor(v),
                                      rotate=rotate, timer=timer)
-        self._install({**self._global_state(), "u": u, "v": v, "w": w})
+        self._install_fields({"u": u, "v": v, "w": w})
 
     def update_winds(self, timer=None):
         """Solve the winds anew from the initial case's winds on the
@@ -254,7 +256,10 @@ class ICARModel:
             self._setup_linear_winds()
         stage = timer or (lambda name: contextlib.nullcontext())
         lt = self.options.lt
-        s = self._global_state()
+        s = self._global_fields(
+            ["potential_temperature", "exner", "water_vapor"]
+            + [k for k in ("cloud_water", "cloud_ice", "rain_mass",
+                           "snow_mass") if k in self._held()])
         with stage("nsquared"):
             hydro = torch.zeros_like(s["water_vapor"])
             for k in ("cloud_water", "cloud_ice", "rain_mass", "snow_mass"):
@@ -265,8 +270,8 @@ class ICARModel:
                 s["water_vapor"], hydro, lt.vert_smooth, lt.variable_n,
                 lt.n_squared, lt.min_stability, lt.max_stability,
                 lt.smooth_nsq, lt.stability_window_size)
-            if "nsquared" in s:
-                self._install({**s, "nsquared": pw.exp(nsq_log)})
+            if "nsquared" in self._held():
+                self._install_fields({"nsquared": pw.exp(nsq_log)})
         with stage("lookup"):
             spd, dirv, nsqv = self._lut_values
             u, v, self.u_perturbation, self.v_perturbation = \
@@ -289,7 +294,8 @@ class ICARModel:
                 np.asarray(self.geom.terrain, np.float64), self.geom.dx, dz,
                 self.options.lt, bo, self.device)
         froude = blk.update_froude(
-            self._global_state()["potential_temperature"], u, v,
+            self._global_fields(["potential_temperature"])[
+                "potential_temperature"], u, v,
             self.geom_t.z, self._blocking.terrain_blocking,
             max(1, int(round(bo.smooth_froude_distance / self.geom.dx))),
             bo.n_smoothing_passes, bo.block_fr_max)
@@ -334,27 +340,16 @@ class ICARModel:
         """Install dqdt fields for the next intervals (update_delta_fields,
         domain_obj.f90:2339-2372): the advected species relax the
         domain's boundary ring, u, v, w, pressure and the 2-D fields
-        change over the whole field (``core.step.apply_forcing``). Raises
-        ValueError for a field the state does not hold, and, on a sharded
-        model, NotImplementedError for fields outside the advected species
-        (Slice G)."""
+        change over the whole field (``core.step.apply_forcing``); on a
+        sharded model each is scattered into the blocks, halo included.
+        Raises ValueError for a field the state does not hold."""
         unknown = sorted(set(dqdt) - set(self._held()))
         if unknown:
             raise ValueError(f"forcing tendencies for {unknown}, which the "
                              "state does not hold")
-        if self.mesh is not None:
-            self._refuse_sharded_forcing(dqdt)
         self._dqdt = {k: self._tensor(v) for k, v in dqdt.items()}
         if self.mesh is not None:
             self._dqdt_blocks = self._scatter_dict(self._dqdt)
-
-    def _refuse_sharded_forcing(self, dqdt):
-        other = sorted(set(dqdt) - set(self.advect_names))
-        if other:
-            raise NotImplementedError(
-                f"forcing tendencies for {other} on a sharded model are not "
-                "ported yet: Slice G (sharded file-driven runs) in "
-                "ROADMAP.md")
 
     def set_rain_fraction(self, monthly_scale: np.ndarray):
         """Install the monthly precipitation bias-correction scale
@@ -462,6 +457,11 @@ class ICARModel:
         return {k: self.global_field(k).to(self.device)
                 for k in self.blocks[0]}
 
+    def _global_fields(self, names) -> Dict[str, torch.Tensor]:
+        """The fields ``names`` of the whole domain on the model's device:
+        the state's own, or with a mesh gathered from the blocks."""
+        return {k: self.global_field(k).to(self.device) for k in names}
+
     def _held(self) -> Dict[str, torch.Tensor]:
         """The state's fields by name (with a mesh, the first block's)."""
         return self.state if self.mesh is None else self.blocks[0]
@@ -473,6 +473,16 @@ class ICARModel:
             self.state = state
         else:
             self.blocks = self._scatter_dict(state)
+
+    def _install_fields(self, fields: Dict[str, torch.Tensor]):
+        """Replace the fields ``fields`` (the whole domain) in the model's
+        state, the others kept: with a mesh each is scattered into the
+        blocks, halo included."""
+        if self.mesh is None:
+            self.state = {**self.state, **fields}
+        else:
+            self.blocks = [{**b, **f} for b, f in zip(
+                self.blocks, self._scatter_dict(fields))]
 
     def _scatter_dict(self, fields: Dict[str, torch.Tensor]):
         """{name: field} of the whole domain as one such dict per block."""
@@ -633,8 +643,8 @@ RIDGE_PATHS = {"upwind": dict(), "MPDATA": dict(adv=C.ADV_MPDATA),
                                           options_cb=aerosol_aware_options)}
 # the paths a mesh shards in time_paths --mesh cards: fullphys there is
 # bench.py --config conus (the full physics column on a mesh over every
-# card)
-SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "fullphys",
+# card), linear bench.py --config linear --sharded
+SHARDED_PATHS = ("upwind", "MPDATA", "Thompson", "fullphys", "linear",
                  "upwind_density", "MPDATA_density", "upwind_mp_throttle",
                  "thompson_aer", "thompson_aer_aware")
 
@@ -645,13 +655,17 @@ def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,
                       dz_levels=None, rad=C.RA_NONE, pbl=C.PBL_NONE,
                       lsm=C.LSM_NONE, water=C.WATER_NONE,
                       adv=C.ADV_UPWIND, conv=C.CU_NONE,
-                      options_cb=None, *, device="cuda") -> ICARModel:
+                      options_cb=None, mesh=None, *,
+                      device="cuda") -> ICARModel:
     """The standard ideal-ridge case (tests/gen_ideal_test.py semantics),
     with the JAX package's defaults, on ``device`` (the card by default).
     ``options_cb(options)`` can adjust scheme sub-options before the model
-    is built. With Noah-MP the land state is initialised as bench.py does
-    (``init_noahmp_state``; the JAX package's ideal_ridge_model leaves
-    that to its caller, bench.py)."""
+    is built. With ``mesh`` the model is sharded over it in the JAX
+    package's order: the thermodynamic state, then ``attach_mesh``, then
+    the initial wind solve (icar_tpu/models/icar.py:680-685; bench.py
+    --config linear --sharded). With Noah-MP the land state is initialised
+    as bench.py does (``init_noahmp_state``; the JAX package's
+    ideal_ridge_model leaves that to its caller, bench.py)."""
     from ..forcing.ideal import (ideal_latlon, make_ideal_case,
                                  schaer_topography)
 
@@ -677,8 +691,13 @@ def ideal_ridge_model(nx=300, ny=20, nz=20, dx=1000.0, hill_height=1000.0,
     terrain = schaer_topography(nx, ny, hill_height, dx)
     lat, lon = ideal_latlon(nx, ny, dx)
     model = ICARModel(o, terrain, lat, lon, device=device)
-    model.set_initial_conditions(make_ideal_case(model.geom, u_profile=u_speed,
-                                                 rh=rh))
+    case = make_ideal_case(model.geom, u_profile=u_speed, rh=rh)
+    if mesh is None:
+        model.set_initial_conditions(case)
+    else:
+        model.set_initial_conditions(case, winds=False)
+        model.attach_mesh(mesh)
+        model.apply_winds(case.u, case.v, rotate=True)
     if model.options.physics.landsurface == C.LSM_NOAHMP:
         init_noahmp_state(model)
     return model

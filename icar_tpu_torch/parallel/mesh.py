@@ -16,6 +16,9 @@ nx + 1 faces, v has ny + 1).
 Shard (r, c) owns the natural rows and columns it owns in the JAX package
 (``padded_sizes``: ny_l = NYP // my with NYP = ceil((ny + 1) / my) * my,
 likewise for x), so the shards of the two packages hold the same cells.
+The JAX package's files per shard (output and restarts) name a shard by
+its row-major index and place it by its start in that padded frame
+(``Layout.shard_id``, ``Layout.frame_start``, ``Layout.frame_piece``).
 The halo exchange (``Layout.exchange``) is explicit tensor copies between
 blocks in two phases: x on owned rows, then y on whole haloed rows, which
 fills the corners. It reaches past a neighbour whose owned range is
@@ -72,12 +75,30 @@ def make_mesh(nx: int, ny: int, devices=None) -> Mesh:
     return Mesh(devices, (yimages, ximages))
 
 
+def part_size(n: int, parts: int) -> int:
+    """The cells of one shard along an axis of the JAX package's padded
+    frame: NP // parts with NP = ceil((n + 1) / parts) * parts, the padded
+    size of n + 1 cells (icar_tpu/parallel/mesh.py padded_sizes; a C-grid
+    mixes n and n + 1 cells, and XLA's shardings divide evenly)."""
+    return -(-(n + 1) // parts)
+
+
+def pad_field(arr, nyp: int, nxp: int):
+    """Copy of icar_tpu/parallel/mesh.py pad_field.
+
+    Edge-replicate pad the trailing two dims to (nyp, nxp)."""
+    a = np.asarray(arr)
+    py = nyp - a.shape[-2]
+    px = nxp - a.shape[-1]
+    pad = [(0, 0)] * (a.ndim - 2) + [(0, py), (0, px)]
+    return np.pad(a, pad, mode="edge")
+
+
 def owned_ranges(n: int, parts: int) -> List[Tuple[int, int]]:
     """The [start, end) of natural cells 0..n-1 that each of ``parts``
-    shards owns along one axis: n_l = NP // parts with NP the padded size
-    of n + 1 cells (icar_tpu/parallel/mesh.py padded_sizes). Raises
+    shards owns along one axis: n_l = ``part_size(n, parts)`` each. Raises
     ValueError if a shard would own none."""
-    n_l = -(-(n + 1) // parts)
+    n_l = part_size(n, parts)
     out = [(i * n_l, min((i + 1) * n_l, n)) for i in range(parts)]
     for i, (a, b) in enumerate(out):
         if a >= b:
@@ -174,25 +195,36 @@ class Layout:
     def gather(self, blocks: Sequence[torch.Tensor],
                device=None) -> torch.Tensor:
         """The global field rebuilt on ``device`` (the first shard's by
-        default) from each block's owned cells; on the last row (column)
-        of shards a staggered field's owned faces include the end face."""
-        my, mx = self.mesh.shape
-        ey = blocks[0].shape[-2] - (self.shards[0].block[1]
-                                    - self.shards[0].block[0])
-        ex = blocks[0].shape[-1] - (self.shards[0].block[3]
-                                    - self.shards[0].block[2])
+        default) from each block's owned cells (``owned_cells``)."""
+        ey, ex = self._block_stagger(blocks[0], self.shards[0])
         device = self.shards[0].device if device is None else device
         out = torch.empty(tuple(blocks[0].shape[:-2])
                           + (self.ny + ey, self.nx + ex),
                           dtype=blocks[0].dtype, device=device)
         for s, b in zip(self.shards, blocks):
-            y0, y1, x0, x1 = s.own
-            ly, lx = s.owned
-            ty = ey if s.r == my - 1 else 0
-            tx = ex if s.c == mx - 1 else 0
-            out[..., y0:y1 + ty, x0:x1 + tx] = b[
-                ..., ly.start:ly.stop + ty, lx.start:lx.stop + tx]
+            y0, _, x0, _ = s.own
+            cells = self.owned_cells(b, s)
+            out[..., y0:y0 + cells.shape[-2],
+                x0:x0 + cells.shape[-1]] = cells
         return out
+
+    @staticmethod
+    def _block_stagger(block, shard: Shard) -> Tuple[int, int]:
+        """(ey, ex): the extra face rows and columns of ``block``, a
+        staggered field's block, over its ``shard``'s block of cells."""
+        by0, by1, bx0, bx1 = shard.block
+        return block.shape[-2] - (by1 - by0), block.shape[-1] - (bx1 - bx0)
+
+    def owned_cells(self, block, shard: Shard):
+        """The view of ``block`` (of ``shard``) holding the cells the shard
+        owns; on the last row (column) of shards a staggered field's owned
+        faces include the end face."""
+        my, mx = self.mesh.shape
+        ey, ex = self._block_stagger(block, shard)
+        ly, lx = shard.owned
+        ty = ey if shard.r == my - 1 else 0
+        tx = ex if shard.c == mx - 1 else 0
+        return block[..., ly.start:ly.stop + ty, lx.start:lx.stop + tx]
 
     def exchange(self, blocks: Sequence[torch.Tensor]):
         """Fill the halo of every block of a mass-point field (..., block
@@ -229,6 +261,38 @@ class Layout:
                         copies.append((i, j, (d, slice(None)),
                                        (o, slice(None))))
         return copies
+
+    def shard_id(self, shard: Shard) -> int:
+        """The shard's row-major index on the mesh (its place in
+        ``shards``): the device id of the JAX package's shard for a JAX
+        mesh over its first my * mx devices."""
+        return shard.r * self.mesh.shape[1] + shard.c
+
+    @property
+    def frame(self) -> Tuple[int, int]:
+        """(NYP, NXP): the JAX package's padded frame of this mesh, in
+        which every field of a sharded JAX model lies (``part_size``
+        cells a shard)."""
+        my, mx = self.mesh.shape
+        return part_size(self.ny, my) * my, part_size(self.nx, mx) * mx
+
+    @staticmethod
+    def frame_start(shard: Shard) -> Tuple[int, int]:
+        """(y_start, x_start) of the shard's piece of the padded frame: its
+        first owned row and column (``owned_ranges`` cuts the frame)."""
+        return shard.own[0], shard.own[2]
+
+    def frame_piece(self, block, shard: Shard) -> np.ndarray:
+        """The shard's piece of the JAX package's padded frame, on the
+        host, from its ``block`` of a field: its owned cells
+        (``owned_cells``) edge-replicated out to NYP / my rows and NXP /
+        mx columns (``pad_field``; only the last row or column of shards
+        reaches past the domain), as a shard of a sharded JAX field holds
+        it."""
+        nyp, nxp = self.frame
+        my, mx = self.mesh.shape
+        return pad_field(self.owned_cells(block, shard).cpu().numpy(),
+                         nyp // my, nxp // mx)
 
     def boundary_masks(self) -> List[torch.Tensor]:
         """Per block, 1 where the cell lies on the domain's lateral

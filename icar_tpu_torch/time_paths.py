@@ -28,7 +28,8 @@ those updates (left out of the rate) and the stages of one more (N^2,
 lookup, balance). With ``--mesh cards`` the model is sharded with one
 shard per visible card (``make_mesh``; the paths of ``SHARDED_PATHS``,
 among them fullphys, which is then bench.py --config conus, its stages
-summed over the blocks); its digest equals the unsharded run's. ``chip_smoke.py`` drives the same
+summed over the blocks, and linear, bench.py --config linear --sharded,
+its wind solve one solve of the whole domain); its digest equals the unsharded run's. ``chip_smoke.py`` drives the same
 cases through the same ``run_timed``; this module repeats the measurement
 so that two checkouts can be compared in one call on one card (run it
 from each checkout in turns).

@@ -17,7 +17,7 @@ import torch
 from icar_tpu.physics import cloud_fraction as jcf
 from icar_tpu_torch.physics import cloud_fraction as tcf
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def case(seed, nz=20, ny=4, nx=6, wet=1.0):

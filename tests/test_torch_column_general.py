@@ -33,7 +33,7 @@ from icar_tpu_torch.core.step import path_kernels, run_interval
 from icar_tpu_torch.models.icar import RIDGE_PATHS, ideal_ridge_model
 from icar_tpu_torch.ops import kernels
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = dict(nx=30, ny=12, nz=10, dx=1000.0, hill_height=600.0, u_speed=9.0,
             rh=1.0)

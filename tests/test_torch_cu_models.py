@@ -39,7 +39,7 @@ from icar_tpu_torch.core.step import path_kernels, run_interval
 from icar_tpu_torch.models.icar import RIDGE_PATHS, ideal_ridge_model
 from icar_tpu_torch.ops import kernels
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

@@ -25,6 +25,7 @@ import copy
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,8 +43,9 @@ from icar_tpu_torch.forcing.ideal import write_ideal_files
 from icar_tpu_torch.io.netcdf import NCFile
 from icar_tpu_torch.models.icar import ideal_ridge_model
 from icar_tpu_torch.ops import kernels
+from icar_tpu_torch.parallel.mesh import Mesh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -80,6 +82,20 @@ def _options(cls, files, prefix):
     return o
 
 
+def commit_state(model):
+    """Commit a JAX model's state to its device (the same values on the
+    same device) before each ``advance``. A jitted step compiles once for
+    uncommitted arguments (a set-up's, a restart's) and again for
+    committed ones (its own outputs): committed, every interval reuses the
+    first one's compilation."""
+    advance = model.advance
+
+    def committed(*args, **kw):
+        model.state = jax.device_put(model.state, jax.devices()[0])
+        return advance(*args, **kw)
+    model.advance = committed
+
+
 def _record_substeps(driver):
     """Record the substeps of each advance of a JAX driver's model."""
     counts = []
@@ -99,6 +115,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("driver")
     files = write_ideal_files(str(tmp), **chip_smoke.FILE_SMALL)
     jd = JDriver(_options(JOptions, files, str(tmp / "jax_")))
+    commit_state(jd.model)
     jax_substeps = _record_substeps(jd)
     jd.run()
     td = ICARDriver(_options(Options, files, str(tmp / "port_")),
@@ -342,22 +359,78 @@ def test_output_file_rotation(runs, tmp_path):
             np.testing.assert_array_equal(f.read("model_time"), times)
 
 
+MESH = (2, 2)
+
+
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+def _sharded(runs, prefix, engine=None, restart=None):
+    """A port driver run of the case on a 2x2 CPU mesh."""
+    o = _options(Options, runs["files"], str(runs["tmp"] / prefix))
+    if engine:
+        o.output.engine = engine
+    if restart:
+        o.run.restart = True
+        o.run.restart_in_file = str(restart)
+    d = ICARDriver(o, device="cpu", mesh=Mesh(["cpu"] * 4, MESH))
+    assert len(d.model.blocks) == 4
+    d.run()
+    return d
+
+
+@pytest.fixture(scope="module")
+def sharded(runs):
+    """The port's run on a 2x2 CPU mesh with the default engine."""
+    return _sharded(runs, "mesh_")
+
+
 @pytest.mark.parametrize("what", ["mesh", "sharded engine", "rain mesh"])
-def test_sharded_runs_are_refused(runs, tmp_path, what):
-    """File-driven runs sharded over a mesh wait for Slice G. The rain
-    fraction on a mesh ("rain mesh"), refused until its table was
-    scattered like a 2-D field, now scales each block's precipitation as
-    the unsharded run's: every bit of every field equal."""
+def test_sharded_runs_are_refused(runs, sharded, tmp_path, what):
+    """File-driven runs on a mesh, once refused, now run. "mesh": the
+    driver on a 2x2 CPU mesh takes the unsharded run's substeps, and its
+    output file and both restarts equal the unsharded run's bit for bit.
+    "sharded engine": the "sharded" output engine on that mesh writes
+    four files a step (``{prefix}img{sid:03d}_{t:08d}.nc``), which
+    tools/aggregate_output.py stitches into the unsharded run's fields
+    bit for bit. "rain mesh": the rain fraction on a mesh scales each
+    block's precipitation as the unsharded run's: every bit of every
+    field equal."""
     from icar_tpu_torch.parallel.mesh import make_mesh
-    o = _options(Options, runs["files"], str(tmp_path / "s_"))
+    port = runs["port"]
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="Slice G"):
-            ICARDriver(o, device="cpu", mesh=make_mesh(48, 14, devices=[
-                "cpu"] * 4))
+        assert sharded.substeps == port.substeps
+        got, want = _read(sharded.writer.path), _read(port.writer.path)
+        assert sorted(got) == sorted(want)
+        for n in want:
+            np.testing.assert_array_equal(_bits(got[n]), _bits(want[n]),
+                                          err_msg=n)
+        for t in (1800, 3600):
+            got = _read(runs["tmp"] / f"mesh_rst_{t:08d}.nc")
+            want = _read(runs["tmp"] / f"port_rst_{t:08d}.nc")
+            assert sorted(got) == sorted(want)
+            for n in want:
+                np.testing.assert_array_equal(_bits(got[n]), _bits(want[n]),
+                                              err_msg=f"{n} at {t} s")
     elif what == "sharded engine":
-        o.output.engine = "sharded"
-        with pytest.raises(NotImplementedError, match="Slice G"):
-            ICARDriver(o, device="cpu")
+        import subprocess
+        d = _sharded(runs, "engine_", engine="sharded")
+        assert d.writer.wait() == 0
+        assert sorted(os.path.basename(p) for p in d.writer.paths) == [
+            f"engine_out_img{i:03d}_{t:08d}.nc" for i in range(4)
+            for t in (0, 1800, 3600)]
+        out = str(tmp_path / "combined.nc")
+        r = subprocess.run(
+            [sys.executable, os.path.join(REPO, "tools/aggregate_output.py"),
+             str(runs["tmp"] / "engine_out_img*.nc"), "-o", out],
+            capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        got, want = _read(out), _read(port.writer.path)
+        np.testing.assert_array_equal(got["model_time"], want["model_time"])
+        for n in OUTPUT:
+            np.testing.assert_array_equal(_bits(got[n]), _bits(want[n]),
+                                          err_msg=n)
     else:
         scale = np.random.default_rng(2).uniform(0.5, 1.5, (12, 12, 24))
         models = []
@@ -375,3 +448,82 @@ def test_sharded_runs_are_refused(runs, tmp_path, what):
             np.testing.assert_array_equal(sharded.field(k).view(np.uint32),
                                           one.field(k).view(np.uint32),
                                           err_msg=k)
+
+
+def test_sharded_run_resumes_from_its_own_restart(runs, sharded):
+    """The 2x2 run resumed on the mesh from its own 1800 s checkpoint
+    reaches its uninterrupted run's 3600 s checkpoint bit for bit."""
+    d = _sharded(runs, "mesh_resumed_",
+                 restart=runs["tmp"] / "mesh_rst_00001800.nc")
+    assert d.substeps == sharded.substeps[1:]
+    got = _read(runs["tmp"] / "mesh_resumed_rst_00003600.nc")
+    want = _read(runs["tmp"] / "mesh_rst_00003600.nc")
+    for n in want:
+        np.testing.assert_array_equal(_bits(got[n]), _bits(want[n]),
+                                      err_msg=n)
+    assert d.model.digest() == sharded.model.digest()
+
+
+def test_full_field_forcing_on_blocks(runs, monkeypatch):
+    """The forced ridge of ``test_full_field_forcing_takes_the_general_
+    loop`` (from the port run's final state) on a 2x2 CPU mesh: one 600 s
+    interval equal to the unsharded model's in every bit of every field,
+    K3 and K1 once per shard and substep, each block's wind operands
+    prepared every substep."""
+    base = runs["port"].model
+    r = np.random.default_rng(8)
+
+    def rnd(name, lo, hi):
+        return r.uniform(lo, hi, base.state[name].shape).astype(np.float32)
+    dqdt = {"u": rnd("u", 2e-3, 6e-3), "v": rnd("v", -2e-3, 2e-3),
+            "w": rnd("w", -1e-5, 1e-5),
+            "pressure": rnd("pressure", -0.05, 0.05),
+            "potential_temperature": rnd("potential_temperature", -1e-4,
+                                         1e-4),
+            "water_vapor": rnd("water_vapor", -1e-7, 1e-8)}
+    one, blocks = copy.deepcopy(base), copy.deepcopy(base)
+    for m in (one, blocks):
+        m.set_forcing_tendencies(dqdt)
+    blocks.attach_mesh(Mesh(["cpu"] * 4, MESH))
+    one.advance(600.0)
+    calls = _counting(monkeypatch)
+    blocks.advance(600.0)
+    n = one.last_n_substeps
+    assert blocks.last_n_substeps == n > 7
+    assert calls == {"mp_simple": 0, "mp_simple_rho": 4 * n,
+                     "advect_upwind": 4 * n, "advect_mpdata": 0,
+                     "mp_thompson_stack": 0, "prepare_advect_winds": 4 * n}
+    assert chip_smoke.bit_mismatches(one, blocks) == []
+
+
+def test_sharded_fullphys_file_run(runs, tmp_path, monkeypatch):
+    """chip_smoke's FILE_PHYSICS full-physics small case (Thompson and
+    upwind under full-field forcing, the fullphys column) over its first
+    1800 s forcing step on a 2x2 CPU mesh: the unsharded run's substeps,
+    K5 and K1 once per shard and substep, its 1800 s output and
+    checkpoint bit for bit."""
+    init, forcing = runs["files"]
+    physics = dict(chip_smoke.FILE_PHYSICS)["Thompson + upwind, fullphys"]
+    drivers = []
+    for mesh in (None, Mesh(["cpu"] * 4, MESH)):
+        prefix = str(tmp_path / ("mesh_" if mesh else "one_"))
+        o = Options.from_namelist(chip_smoke.write_namelist(
+            prefix + "options.nml", init, forcing, prefix,
+            chip_smoke.FILE_SMALL_Z, physics))
+        o.run.end_date = "2020-12-01 00:30:00"
+        o.validate()
+        if mesh is not None:
+            calls = _counting(monkeypatch)
+        d = ICARDriver(o, device="cpu", mesh=mesh)
+        d.run()
+        drivers.append(d)
+    one, sharded = drivers
+    assert sharded.substeps == one.substeps and len(one.substeps) == 1
+    n = one.substeps[0]
+    assert calls["mp_thompson_stack"] == calls["advect_upwind"] == 4 * n
+    for path in (one.writer.path, str(tmp_path / "one_rst_00001800.nc")):
+        want = _read(path)
+        got = _read(path.replace("one_", "mesh_"))
+        for k in want:
+            np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]),
+                                          err_msg=f"{k} in {path}")

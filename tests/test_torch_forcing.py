@@ -30,7 +30,7 @@ from icar_tpu_torch.forcing.ideal import (ideal_latlon, pressure_from_sea_level,
                                           write_ideal_files)
 from icar_tpu_torch.io.netcdf import write_vars
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 NX, NY, NZ_LO, DX = 40, 14, 20, 1000.0
 STEPS = 3

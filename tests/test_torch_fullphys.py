@@ -37,7 +37,7 @@ from icar_tpu_torch.models.icar import (FULLPHYS, ideal_ridge_model,
                                         synthetic_rrtmg_tables)
 from icar_tpu_torch.ops import kernels
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = dict(nx=30, ny=12, nz=10, dx=1000.0, hill_height=600.0, u_speed=9.0,
             rh=1.0)

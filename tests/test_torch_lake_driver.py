@@ -56,9 +56,9 @@ from icar_tpu_torch.io.netcdf import NCFile
 from icar_tpu_torch.io.output import read_restart
 from icar_tpu_torch.ops import kernels
 from icar_tpu_torch.physics import water_lake as twl
-from test_torch_driver import _record_substeps
+from test_torch_driver import _record_substeps, commit_state
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -124,6 +124,7 @@ def runs(tmp_path_factory):
     finally:
         JDriver._init_lake = init
     jax_init = _state(jd)
+    commit_state(jd.model)
     jax_substeps = _record_substeps(jd)
     jd.run()
     with chip_smoke.lake_land_use(chip_smoke.LAKE_FILE_BAND):
@@ -268,6 +269,7 @@ def _resumed_jax(runs):
         jr = JDriver(o)
         jr.model._with_forcing = True
         jr.model._step_fn = runs["jax"].model._step_fn
+        commit_state(jr.model)
         runs["jax_resumed_substeps"] = _record_substeps(jr)
         jr.run()
         runs["jax_resumed"] = jr

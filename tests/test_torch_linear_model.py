@@ -2,7 +2,9 @@
 bench.py --config linear at a small size) against the JAX model, on the
 CPU: the initial winds and N^2, two intervals with a wind update before
 each (as bench.py runs them), wind=5 and flow blocking at their initial
-winds, the options' checks, and what the port refuses.
+winds, the options' checks, and a mesh under them (the sharded ridge of
+bench.py --config linear --sharded against the JAX package's sharded
+model too).
 
 One JAX model (module fixture) serves every comparison: wind=5 and
 blocking take the same geometry as wind=1 (Options.validate sets
@@ -25,10 +27,12 @@ tests/test_torch_model.py holds the SB04 ridge) and take the same
 substeps.
 """
 
+import copy
 import dataclasses
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +42,7 @@ from icar_tpu import constants as C
 from icar_tpu.config import Options as JaxOptions
 from icar_tpu.forcing.ideal import make_ideal_case
 from icar_tpu.models.icar import ideal_ridge_model as jax_model
+from jax.sharding import Mesh as JaxMesh
 from icar_tpu_torch.config import Options
 from icar_tpu_torch.models.icar import ideal_ridge_model
 from icar_tpu_torch.parallel.mesh import Mesh
@@ -144,20 +149,65 @@ def test_two_intervals_with_wind_updates_match_jax(pair):
             mj.advance(1200.0)
             mt.update_winds()
             mt.advance(1200.0)
-            assert mt.last_n_substeps == mj.last_n_substeps
-            for k, bound in chip_smoke.ENSEMBLE_MAX.items():
-                got, want = mt.field(k), np.asarray(mj.field(k))
-                d = np.abs(got - want)
-                assert np.isfinite(got).all(), k
-                assert (d <= bound + 1e-4 * np.abs(want)).all(), (k, d.max())
-                assert d.mean() <= chip_smoke.ENSEMBLE_MEAN[k], k
-            want = [np.asarray(mj.field(k)) for k in "uvw"]
-            _assert_winds(mt, want, *wind_bounds(mt, want[:2]), "interval")
-            assert np.abs(np.log(mt.field("nsquared")) - np.log(np.asarray(
-                mj.field("nsquared")))).max() <= NSQ_LOG
+            _assert_interval(mt, mj)
     finally:
         mt.state = mt_state
         _restore(mj, init)
+
+
+def _assert_interval(mt, mj):
+    """The port's model after an interval against the JAX model's: the
+    same substeps, the prognostics within the ridge tests' spread bounds,
+    the winds and N^2 as at set-up."""
+    assert mt.last_n_substeps == mj.last_n_substeps
+    for k, bound in chip_smoke.ENSEMBLE_MAX.items():
+        got, want = mt.field(k), np.asarray(mj.field(k))
+        d = np.abs(got - want)
+        assert np.isfinite(got).all(), k
+        assert (d <= bound + 1e-4 * np.abs(want)).all(), (k, d.max())
+        assert d.mean() <= chip_smoke.ENSEMBLE_MEAN[k], k
+    want = [np.asarray(mj.field(k)) for k in "uvw"]
+    _assert_winds(mt, want, *wind_bounds(mt, want[:2]), "interval")
+    assert np.abs(np.log(mt.field("nsquared")) - np.log(np.asarray(
+        mj.field("nsquared")))).max() <= NSQ_LOG
+
+
+# the fields formed from the winds (diagnostic_update), which a sharded
+# model's set-up leaves as the case's winds gave them
+WIND_DIAGNOSTICS = ("ivt", "u_10m", "u_mass", "ustar", "v_10m", "v_mass",
+                    "w_real")
+# those fields at set-up: the same winds and state in both packages, so
+# only the diagnostics' own rounding (ivt a column sum of products) parts
+# them; 4 ulps of each field's largest magnitude
+WIND_DIAGNOSTICS_ULPS = 4
+
+
+def test_sharded_linear_ridge_matches_the_jax_sharded_model(pair):
+    """``ideal_ridge_model(mesh=...)`` on a 2x2 CPU mesh against the JAX
+    package's on a 2x2 mesh of four of its CPU devices (bench.py --config
+    linear --sharded): at set-up the winds and N^2 within the unsharded
+    bounds, and the wind-derived diagnostics those of the case's winds in
+    both (within WIND_DIAGNOSTICS_ULPS; v_mass 0, the solved v not); after
+    one 1200 s interval the same bounds as the unsharded runs."""
+    mesh = JaxMesh(np.array(jax.devices()[:4]).reshape(2, 2), ("y", "x"))
+    mj = jax_model(**CASE, windtype=C.WIND_LINEAR, options_cb=small_lt,
+                   mesh=mesh)
+    mt = ideal_ridge_model(**CASE, windtype=C.WIND_LINEAR,
+                           options_cb=small_lt, mesh=Mesh(["cpu"] * 4, (2, 2)),
+                           device="cpu")
+    want = [np.asarray(mj.field(k)) for k in "uvw"]
+    _assert_winds(mt, want, *wind_bounds(mt, want[:2]), "sharded set-up")
+    assert np.abs(np.log(mt.field("nsquared")) - np.log(np.asarray(
+        mj.field("nsquared")))).max() <= NSQ_LOG
+    for k in WIND_DIAGNOSTICS:
+        got, ref = mt.field(k), np.asarray(mj.field(k))
+        d = float(np.abs(got - ref).max())
+        assert d <= WIND_DIAGNOSTICS_ULPS * EPS32 * np.abs(ref).max(), (k, d)
+    assert np.abs(mt.field("v_mass")).max() == 0.0
+    assert np.abs(mt.field("v")).max() > 0.1
+    mj.advance(1200.0)
+    mt.advance(1200.0)
+    _assert_interval(mt, mj)
 
 
 @pytest.mark.parametrize("windtype,block", [
@@ -218,16 +268,24 @@ def test_validate_linear_winds_matches_jax(windtype, capsys):
 
 
 def test_attach_mesh_refuses_linear_winds_and_blocking(pair):
-    _, _, _, mt = pair
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        mt.attach_mesh(Mesh(["cpu"] * 2, (1, 2)))
-
-    def cb(o):
-        small_lt(o)
-        o.block.block_flow = True
-    mb = ideal_ridge_model(**CASE, options_cb=cb, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        mb.attach_mesh(Mesh(["cpu"] * 2, (1, 2)))
+    """A mesh, once refused for linear-theory winds and flow blocking,
+    now takes both (tests/test_torch_sharded_linear.py holds every linear
+    solver on 2x2 and 1x4): copies of the port's wind=1 model, and of it
+    with blocking switched on, one of each pair on a 1x2 CPU mesh, take a
+    wind update and an interval, every bit of every field equal to the
+    unsharded copy's."""
+    for block in (False, True):
+        one = copy.deepcopy(pair[3])
+        if block:
+            chip_smoke.linear_blocking_options(one.options)
+        two = copy.deepcopy(one)
+        two.attach_mesh(Mesh(["cpu"] * 2, (1, 2)))
+        for m in (one, two):
+            m.update_winds()
+            m.advance(300.0)
+        assert two.last_n_substeps == one.last_n_substeps > 0
+        assert (one._blocking is not None) == block
+        assert chip_smoke.bit_mismatches(one, two) == []
 
 
 def test_disk_cache_through_the_model(pair, tmp_path):

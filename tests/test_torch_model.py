@@ -187,19 +187,34 @@ def test_unported_run_options_raise(what):
 
 
 def test_wind_forcing_not_ported():
-    """Forcing tendencies outside the advected species (here u) are ported
-    on one device; on a sharded model they raise naming Slice G, whether
-    set after attach_mesh or before it."""
+    """Forcing tendencies outside the advected species (here u), refused
+    on a sharded model until they ran on blocks (the name is kept): set
+    before attach_mesh or after it, an interval on a mesh of four CPU
+    devices equals the unsharded run's in every bit of every field."""
     from icar_tpu_torch.parallel.mesh import make_mesh
-    u = {"u": np.zeros((12, 8, 21), np.float32)}
-    m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0, device="cpu")
-    m.set_forcing_tendencies(u)
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        m.attach_mesh(make_mesh(20, 8, devices=["cpu"] * 4))
-    m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0, device="cpu")
-    m.attach_mesh(make_mesh(20, 8, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        m.set_forcing_tendencies(u)
+    u = {"u": np.random.default_rng(3).uniform(
+        1e-3, 3e-3, (12, 8, 21)).astype(np.float32)}
+    runs = []
+    for mesh, late in ((None, False), (make_mesh(20, 8, devices=[
+            "cpu"] * 4), False), (make_mesh(20, 8, devices=["cpu"] * 4),
+                                  True)):
+        m = ideal_ridge_model(nx=20, ny=8, nz=12, hill_height=800.0,
+                              device="cpu")
+        if not late:
+            m.set_forcing_tendencies(u)
+        if mesh is not None:
+            m.attach_mesh(mesh)
+        if late:
+            m.set_forcing_tendencies(u)
+        m.advance(300.0)
+        runs.append(m)
+    one = runs[0]
+    for other in runs[1:]:
+        assert other.last_n_substeps == one.last_n_substeps > 1
+        for k in one.state:
+            np.testing.assert_array_equal(
+                other.field(k).view(np.uint32),
+                one.field(k).view(np.uint32), err_msg=k)
 
 
 def test_device_is_required():
@@ -383,6 +398,8 @@ def test_mpdata_bench_case_interval_within_the_spread():
     ENSEMBLE_MAX per cell, ENSEMBLE_MEAN as a domain mean)."""
     mj, mt = _pair(False, BENCH_MPDATA_CASE)
     nudged = _nudged_jax_model(BENCH_MPDATA_CASE, 0)
+    mj._build_step()
+    nudged._step_fn = mj._step_fn  # the same case: one compilation
     for m in (mj, mt, nudged):
         m.advance(1200.0)
     assert (mt.last_n_substeps == mj.last_n_substeps

@@ -10,7 +10,7 @@ import torch
 
 from tests.test_torch_mp_models import check_interval, jax_reference
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module", params=("morrison", "morrison_mpdata"))

@@ -39,7 +39,7 @@ from icar_tpu_torch.models.icar import (MP_THROTTLE_INTERVAL,
 from icar_tpu_torch.ops import kernels
 from icar_tpu_torch.parallel.mesh import Mesh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SB04_CASE = dict(nx=40, ny=12, nz=12, dx=1000.0, hill_height=1200.0,
                  u_speed=10.0, rh=0.9)

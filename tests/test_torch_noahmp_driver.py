@@ -41,9 +41,9 @@ from icar_tpu_torch.forcing.ideal import write_ideal_files
 from icar_tpu_torch.io.netcdf import NCFile
 from icar_tpu_torch.physics import noahmp as tnmp
 from icar_tpu_torch.physics.noahmp import NSNOW
-from test_torch_driver import _options, _record_substeps
+from test_torch_driver import _options, _record_substeps, commit_state
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -108,6 +108,7 @@ def runs(tmp_path_factory):
     finally:
         JDriver._init_noahmp = init
     jax_init = {k: np.asarray(v) for k, v in jd.model.state.items()}
+    commit_state(jd.model)
     jax_substeps = _record_substeps(jd)
     jd.run()
     mp = pytest.MonkeyPatch()

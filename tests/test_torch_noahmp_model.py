@@ -61,7 +61,7 @@ sys.path.insert(0, REPO)
 import bench  # noqa: E402  (its _init_noahmp_state; no jax at import)
 import chip_smoke  # noqa: E402  (the small case and its bounds, no jax)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = chip_smoke.FULLPHYS_SMALL
 JAX_PATH = dict(mp=JC.MP_THOMPSON, windtype=JC.WIND_CONSERVE_MASS,

@@ -54,6 +54,7 @@ def test_owned_cells_match_the_jax_shards(my, mx):
         jax_owned[(int(r), int(c))] = (y0, min(y1, NY), x0, min(x1, NX))
     layout = Layout(_mesh(my, mx), NY, NX, 2)
     assert {(s.r, s.c): s.own for s in layout.shards} == jax_owned
+    assert layout.frame == (nyp, nxp)
     assert owned_ranges(NY, my) == sorted({v[:2] for v in jax_owned.values()})
 
 

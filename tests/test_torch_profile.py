@@ -4,8 +4,11 @@ end on the CPU at a small size: one JSON line, no device time."""
 import json
 
 import pytest
+import torch
 
 from icar_tpu_torch import profile_interval
+
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("adv", ["upwind", "mpdata"])

@@ -28,7 +28,7 @@ from icar_tpu.physics import rrtmg_lw_tables as jlwt
 from icar_tpu_torch.physics import rrtmg_lw as tlw
 from icar_tpu_torch.physics import rrtmg_lw_tables as tlwt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 class JaxCdf:

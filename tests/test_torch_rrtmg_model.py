@@ -55,7 +55,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402  (the small case and its bounds, no jax)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = chip_smoke.FULLPHYS_SMALL
 NOON = "2020-12-01 19:00:00"

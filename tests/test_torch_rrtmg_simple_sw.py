@@ -16,7 +16,7 @@ from icar_tpu_torch.physics import ra_simple as tra
 from test_torch_rrtmg_model import (NIGHT, NOON, ONE_SUBSTEP_ABS, Pair,
                                     hold, interval_runs)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -24,7 +24,7 @@ from icar_tpu_torch.physics import rrtmg_sw_tables as tswt
 from test_torch_rrtmg_lw import (JaxCdf, columns, fields3d, jx,
                                  _namespace_to_torch, rel, tt)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

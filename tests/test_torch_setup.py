@@ -98,6 +98,7 @@ FUNCTION_COPIES = {
         "ForcingData")),
     "utils/diagnostics_debug.py": ("utils/diagnostics_debug.py", (
         "Timer", "Timers")),
+    "parallel/mesh.py": ("parallel/mesh.py", ("pad_field",)),
     "physics/noahmp_params.py": ("physics/noahmp_params.py", (
         "NSOIL", "NSNOW", "SOILCOLOR", "_MODIS", "_RAD", "_GLOBAL",
         "_VEG_KEYS", "load_mp_tables")),

@@ -27,7 +27,7 @@ from icar_tpu_torch.convert import state_from_numpy
 from icar_tpu_torch.models.icar import FULLPHYS, ideal_ridge_model
 from icar_tpu_torch.parallel.mesh import Mesh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = dict(nx=30, ny=12, nz=10, dx=1000.0, hill_height=600.0, u_speed=9.0,
             rh=1.0)

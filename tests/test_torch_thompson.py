@@ -44,7 +44,7 @@ from icar_tpu_torch.physics.thompson_cases import (
     FIELDS, OUTPUTS, column, compare, ice_supersaturated_state, inert_state,
     mixed_state)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES, OUT_NAMES = FIELDS, OUTPUTS

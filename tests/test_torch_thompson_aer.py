@@ -34,7 +34,7 @@ from icar_tpu_torch.physics import mp_thompson as mt
 from icar_tpu_torch.physics import thompson_tables as tt
 from icar_tpu_torch.physics.thompson_cases import column
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 FIELDS = ("th", "qv", "qc", "qi", "qr", "qs", "qg", "ni", "nr", "nc",
           "nwfa", "nifa")

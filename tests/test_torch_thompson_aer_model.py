@@ -56,7 +56,7 @@ from icar_tpu_torch.ops import kernels
 from icar_tpu_torch.parallel.mesh import make_mesh
 from icar_tpu_torch.physics import mp_thompson as mt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

@@ -27,7 +27,7 @@ from icar_tpu_torch.forcing.ideal import make_ideal_case
 from icar_tpu_torch.models.icar import ideal_ridge_model
 from icar_tpu_torch.parallel.mesh import Mesh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASE = dict(nx=48, ny=20, nz=12, dx=1000.0, hill_height=800.0, u_speed=11.0,
             rh=1.0)

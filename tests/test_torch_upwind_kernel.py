@@ -29,6 +29,8 @@ from icar_tpu_torch.ops import advection as adv_plain
 from test_torch_mpdata_kernel import (SHAPES, _STUB_RUNTIME, _case,
                                       with_density, write_upwind_header)
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K1_RTOL, K1_ATOL = 5e-6, 1e-7
 # (S, nz, ny, nx, zero window of species 1) beyond SHAPES: 3, 9 and 11

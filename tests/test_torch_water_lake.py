@@ -35,7 +35,7 @@ import torch
 from icar_tpu.physics import water_lake as jwl
 from icar_tpu_torch.physics import water_lake as twl
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # the routines recorded and replayed, inner ones first
 ROUTINES = ("qsat", "monin_obukhov_init", "_profile_psi",
@@ -321,6 +321,15 @@ class Pair:
     def port(self, k):
         return self.t[k].numpy()
 
+    def copy(self):
+        """A pair that goes on from this one's state (its own tensors; the
+        JAX arrays are immutable)."""
+        p = Pair.__new__(Pair)
+        p.j, p.out_j = dict(self.j), self.out_j
+        p.t = {k: v.clone() for k, v in self.t.items()}
+        p.out_t = {k: v.clone() for k, v in self.out_t.items()}
+        return p
+
 
 def test_warm_equilibrium():
     p = Pair(make_lake_state(tsk=285.0)).drive(t_air=285.0, sw=200.0,
@@ -344,16 +353,24 @@ def test_freezing_cold_air():
     assert np.all(np.diff(icef, axis=0) <= 1e-5)
 
 
-def _snowy(nsteps):
+# the snowfall both snow scenarios drive
+SNOW = dict(t_air=260.0, qv=1e-3, sw=0.0, lw=200.0, prec_mm=2.0, dt=1800.0)
+
+
+@pytest.fixture(scope="module")
+def snowy():
+    """A lake frozen over 60 cold steps, then 20 steps of snowfall: the
+    state both snow scenarios start from, run once."""
     p = Pair(make_lake_state(tsk=270.0, depth=5.0)).drive(
         t_air=248.0, qv=2e-4, sw=0.0, lw=140.0, dt=1800.0, nsteps=60)
     assert float(p.port("lake_icefrac3d")[0].min()) > 0.5
-    return p.drive(t_air=260.0, qv=1e-3, sw=0.0, lw=200.0, prec_mm=2.0,
-                   dt=1800.0, nsteps=nsteps)
+    return p.drive(**SNOW, nsteps=20)
 
 
-def test_snow_accumulation_and_layers():
-    p = _snowy(30)
+def test_snow_accumulation_and_layers(snowy):
+    """30 steps of snowfall on the frozen lake: the snowy state's 20 and
+    10 more."""
+    p = snowy.copy().drive(**SNOW, nsteps=10)
     p.hold(1800.0)
     swe = p.port("swe").astype(np.float64)
     snl = p.port("snl2d")
@@ -364,8 +381,8 @@ def test_snow_accumulation_and_layers():
     np.testing.assert_allclose(layer_mass, swe, rtol=1e-3)
 
 
-def test_snow_melts_in_warmth():
-    p = _snowy(20)
+def test_snow_melts_in_warmth(snowy):
+    p = snowy.copy()
     swe0 = float(p.port("swe").mean())
     assert swe0 > 10.0
     p.drive(t_air=295.0, qv=8e-3, sw=600.0, lw=380.0, dt=1800.0,

@@ -20,7 +20,7 @@ from icar_tpu import constants as JC
 from icar_tpu.physics import ysu as jysu
 from icar_tpu_torch.physics import ysu as tysu
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def column(nz=15, ny=4, nx=4, t_sfc=290.0, lapse=0.0098, qv0=0.008,
