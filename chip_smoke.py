@@ -229,15 +229,29 @@ Builds the CUDA kernels from icar_tpu_torch/csrc, then:
    (write_restart_sharded) read into a fresh 2x2 model bit for bit. K1's
    line adds its launches under "linear_sharded" and "file_sharded", K2's
    under "linear_sharded", K3's under "file_sharded".
+21. The user tooling (check_tools; icar_tpu_torch/tools/, each through its
+   main in this process): aggregate_output on phase 20's files per shard
+   (every field at each time equal to phase 11's output bit for bit; phase
+   20's stitch goes through the same tool), extract_daily_precip on phase
+   11's output, setup_next_run -s 1 on a copy of phase 11's namelist and
+   checkpoints, resumed through core.driver.main (its 3600 s restart equal
+   to phase 11's bit for bit), and make_domain from a seeded DEM with
+   wrf2icar from a seeded classic wrfout at phase 11's 500x500, one
+   forcing interval from them on the card (every field finite; K3 and K1
+   once a substep, added to their lines' "file" entries as
+   "launches_wrf2icar"); each tool's wall.
 After each drive it prints the float64 digest of the final state (sum and
 sum of squares of each advected field, u, v, w and each accumulator).
 
     python3 chip_smoke.py --phase 20
+    python3 chip_smoke.py --phase 21
 
 runs phase 20 alone after what it reads of the earlier phases: the kernels'
 build, phase 10's drive of the linear ridge (its digest and substeps) and
 phase 11's forcing files and uninterrupted file hour (``phase20_alone``);
-it prints their logs and no kernel table.
+or phase 21 alone after the kernels' build, phase 11's files and hour and
+phase 20's sharded hour (``phase21_alone``); either prints its logs and no
+kernel table.
 Prints the kernel table (time, plain time, bound, launches) as one JSON
 line, the card's name and power limit, then, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
@@ -246,6 +260,7 @@ nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import glob
 import json
 import os
 import re
@@ -616,14 +631,15 @@ YSU_LEVEL_FIELDS = ("hpbl", "exch_h")
 
 
 def write_namelist(path, init, forcing, prefix, z, physics,
-                   restart_from=None, var_list=None):
-    """Write an options file for one hour of a file-driven run from the
-    files ``init`` and ``forcing``: ``z`` (FILE_RUN_Z or FILE_SMALL_Z) its
-    levels, ``physics`` its &physics settings, forcing and output every
-    FILE_INTERVAL, output and restarts named from ``prefix`` (a restart at
-    each output), resumed from the checkpoint ``restart_from`` when given,
-    ``var_list`` its &var_list entries (namelist key: variable) when
-    given. Returns ``path``."""
+                   restart_from=None, var_list=None,
+                   end_date="2020-12-01 01:00:00"):
+    """Write an options file for a file-driven run from 00:00 to
+    ``end_date`` (one hour) from the files ``init`` and ``forcing``: ``z``
+    (FILE_RUN_Z or FILE_SMALL_Z) its levels, ``physics`` its &physics
+    settings, forcing and output every FILE_INTERVAL, output and restarts
+    named from ``prefix`` (a restart at each output), resumed from the
+    checkpoint ``restart_from`` when given, ``var_list`` its &var_list
+    entries (namelist key: variable) when given. Returns ``path``."""
     phys = ", ".join(f"{k} = {v}" for k, v in physics.items())
     dz = ", ".join(f"{d:.1f}" for d in z["dz_levels"])
     text = f"""&model_version
@@ -634,7 +650,7 @@ def write_namelist(path, init, forcing, prefix, z, physics,
 /
 &parameters
     start_date = "2020-12-01 00:00:00",
-    end_date = "2020-12-01 01:00:00",
+    end_date = "{end_date}",
     inputinterval = {FILE_INTERVAL},
     dx = 1000.0,
     nz = {z["nz"]},
@@ -4228,21 +4244,38 @@ LINEAR_SHARDS = ((1, 1), (2, 2))
 FILE_SHARDS = (2, 2)
 
 
-def stitch_shard_files(paths, shapes):
-    """{name: the whole field} from output files per shard
-    (``ShardedOutputWriter``'s), each piece placed at its file's
-    ``y_start``, ``x_start``; ``shapes`` the fields' whole shapes."""
+def stitch_shard_files(paths, out_path):
+    """{name: the whole field} from output files per shard of one time
+    (``ShardedOutputWriter``'s), stitched by the port's aggregate_output
+    tool (``icar_tpu_torch/tools/aggregate_output.py``, each piece placed
+    at its file's ``y_start``, ``x_start``) into ``out_path``."""
     from icar_tpu_torch.io.netcdf import NCFile
-    out = {n: np.full(shape, np.nan, np.float32)
-           for n, shape in shapes.items()}
-    for p in paths:
-        with NCFile(p) as f:
-            y0 = int(f.read_attr(None, "y_start"))
-            x0 = int(f.read_attr(None, "x_start"))
-            for n in shapes:
-                a = f.read(n)
-                out[n][..., y0:y0 + a.shape[-2], x0:x0 + a.shape[-1]] = a
-    return out
+    from icar_tpu_torch.tools.aggregate_output import aggregate_shards
+    aggregate_shards(paths, out_path)
+    with NCFile(out_path) as f:
+        return {n: f.read(n)[0] for n in f.variables() if n != "model_time"}
+
+
+def sharded_file_driver(file_run):
+    """Phase 11's file hour from its files (``file_run``) through
+    ``ICARDriver(mesh=...)`` on a FILE_SHARDS mesh of this card with the
+    "sharded" output engine, its files named from ``sharded_`` beside
+    phase 11's; returns (the driver after its run, its options, its
+    prefix, the mesh)."""
+    import torch
+    from icar_tpu_torch.config import Options
+    from icar_tpu_torch.core.driver import ICARDriver
+    prefix = os.path.join(os.path.dirname(file_run["prefix"]), "sharded_")
+    options = Options.from_namelist(write_namelist(
+        prefix + "options.nml", file_run["init"], file_run["forcing"],
+        prefix, FILE_RUN_Z, dict(mp=2, adv=1)))
+    options.validate()
+    options.output.engine = "sharded"
+    mesh = one_card_mesh(FILE_SHARDS)
+    d = ICARDriver(options, device="cuda", mesh=mesh)
+    d.run()
+    torch.cuda.synchronize()
+    return d, options, prefix, mesh
 
 
 def check_slice_g(ideal_ridge_model, case, kernels, step, reference,
@@ -4256,13 +4289,12 @@ def check_slice_g(ideal_ridge_model, case, kernels, step, reference,
     its files (``file_run``) on a FILE_SHARDS mesh of this card through
     ``ICARDriver(mesh=...)`` with the "sharded" engine, K3 and K1 once
     per shard and substep: its 3600 s restart equal to phase 11's bit for
-    bit, its shard files at 3600 s stitched equal to phase 11's output
-    there, and its per-shard restart read into a fresh model on the same
-    mesh bit for bit. Returns {"linear": {kernel: {"launches_1x1": n,
-    ...}}, "file": {kernel: n}}."""
+    bit, its shard files at 3600 s stitched (by the aggregate_output tool)
+    equal to phase 11's output there, and its per-shard restart read into
+    a fresh model on the same mesh bit for bit. Returns {"linear":
+    {kernel: {"launches_1x1": n, ...}}, "file": {kernel: n}}."""
     import torch
-    from icar_tpu_torch.config import Options
-    from icar_tpu_torch.core.driver import ICARDriver, load_domain
+    from icar_tpu_torch.core.driver import load_domain
     from icar_tpu_torch.core.state import restart_names
     from icar_tpu_torch.io import output as out_io
     from icar_tpu_torch.io.netcdf import NCFile
@@ -4302,17 +4334,8 @@ def check_slice_g(ideal_ridge_model, case, kernels, step, reference,
     # the file hour on a mesh, from phase 11's files
     t0 = time.perf_counter()
     my, mx = FILE_SHARDS
-    prefix = os.path.join(os.path.dirname(file_run["prefix"]), "sharded_")
-    options = Options.from_namelist(write_namelist(
-        prefix + "options.nml", file_run["init"], file_run["forcing"],
-        prefix, FILE_RUN_Z, dict(mp=2, adv=1)))
-    options.validate()
-    options.output.engine = "sharded"
-    mesh = one_card_mesh(FILE_SHARDS)
     kernels.reset_launches()
-    d = ICARDriver(options, device="cuda", mesh=mesh)
-    d.run()
-    torch.cuda.synchronize()
+    d, options, prefix, mesh = sharded_file_driver(file_run)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     steps = sum(d.substeps)
@@ -4340,10 +4363,10 @@ def check_slice_g(ideal_ridge_model, case, kernels, step, reference,
     if len(paths) != my * mx:
         raise AssertionError(f"file run {my}x{mx}: {len(paths)} shard "
                              f"files at 3600 s")
-    stitched = stitch_shard_files(paths, {n: a.shape
-                                          for n, a in whole.items()})
+    stitched = stitch_shard_files(paths, prefix + "stitched_3600.nc")
     bad = [n for n in whole
-           if not np.array_equal(stitched[n].view(np.uint32),
+           if n not in stitched
+           or not np.array_equal(stitched[n].view(np.uint32),
                                  whole[n].view(np.uint32))]
     if bad:
         raise AssertionError(f"file run {my}x{mx}: the stitched shard files "
@@ -4406,10 +4429,284 @@ def phase20_alone(ideal_ridge_model, case, kernels, step, smi):
                                          "prefix": prefix}, smi)
 
 
+# phase 21, the user tooling (icar_tpu_torch/tools/) in this process, on the
+# files of phases 11 and 20: their shard files aggregated, the hour's daily
+# precipitation, the run chained from its checkpoint by setup_next_run, and
+# a domain (make_domain, from a DEM made from TOOLS_SEED) with WRF forcing
+# (wrf2icar, from a classic wrfout as WRF's io_form 2 writes it) at phase
+# 11's horizontal size, driving one forcing interval on the card; the WRF
+# file's level interfaces in metres and its times
+TOOLS_SEED = 21
+TOOLS_WRF_INTERFACES = (0.0, 500.0, 1000.0, 2000.0, 3500.0, 5500.0, 8000.0,
+                        11000.0, 15000.0)
+TOOLS_WRF_TIMES = ("2020-12-01_00:00:00", "2020-12-01_00:30:00")
+# the &var_list that wrf2icar prints for its file's 3D and 2D fields
+TOOLS_WRF_VARS = {"pvar": "pressure", "tvar": "theta", "qvvar": "qv",
+                  "uvar": "u", "vvar": "v", "zvar": "z", "latvar": "lat",
+                  "lonvar": "lon", "hgtvar": "hgt"}
+
+
+def write_wrfout(path, lat, lon, seed):
+    """A wrfout file of WRF's io_form 2 (CDF-2, written with scipy) over
+    the grid ``lat``, ``lon``: TOOLS_WRF_TIMES, the levels between
+    TOOLS_WRF_INTERFACES; the Weisman-Klemp theta and a standard
+    atmosphere's pressure, 10 m/s westerlies, moist air, each with
+    seeded noise."""
+    from scipy.io import netcdf_file
+    from icar_tpu_torch import constants as C
+    from icar_tpu_torch.forcing.ideal import (pressure_from_sea_level,
+                                              weisman_klemp_theta)
+    rng = np.random.default_rng(seed)
+    nt, (ny, nx) = len(TOOLS_WRF_TIMES), lat.shape
+    zi = np.asarray(TOOLS_WRF_INTERFACES)
+    z = 0.5 * (zi[1:] + zi[:-1])
+    nz = z.size
+
+    def levels(profile, noise, shape=(ny, nx)):
+        return (profile[None, :, None, None]
+                + rng.normal(0.0, noise, (nt, nz) + shape)).astype(
+                    np.float32)
+
+    def surface(value):
+        return np.full((nt, ny, nx), value, np.float32)
+
+    data = {
+        "P": (("Time", "bottom_top", "south_north", "west_east"),
+              levels(np.zeros(nz), 20.0)),
+        "PB": (("Time", "bottom_top", "south_north", "west_east"),
+               levels(pressure_from_sea_level(z), 0.0)),
+        "PH": (("Time", "bottom_top_stag", "south_north", "west_east"),
+               rng.normal(0.0, 5.0, (nt, nz + 1, ny, nx)).astype(
+                   np.float32)),
+        "PHB": (("Time", "bottom_top_stag", "south_north", "west_east"),
+                np.broadcast_to((C.GRAVITY * zi)[None, :, None, None],
+                                (nt, nz + 1, ny, nx)).astype(np.float32)),
+        "T": (("Time", "bottom_top", "south_north", "west_east"),
+              levels(weisman_klemp_theta(z) - 300.0, 0.2)),
+        "QVAPOR": (("Time", "bottom_top", "south_north", "west_east"),
+                   np.abs(levels(0.006 * np.exp(-z / 3000.0), 1e-4))),
+        "QCLOUD": (("Time", "bottom_top", "south_north", "west_east"),
+                   levels(np.zeros(nz), 0.0)),
+        "U": (("Time", "bottom_top", "south_north", "west_east_stag"),
+              levels(np.full(nz, 10.0), 0.5, (ny, nx + 1))),
+        "V": (("Time", "bottom_top", "south_north_stag", "west_east"),
+              levels(np.zeros(nz), 0.5, (ny + 1, nx))),
+        "HGT": (("Time", "south_north", "west_east"), surface(0.0)),
+        "XLAT": (("Time", "south_north", "west_east"),
+                 np.broadcast_to(lat, (nt, ny, nx)).astype(np.float32)),
+        "XLONG": (("Time", "south_north", "west_east"),
+                  np.broadcast_to(lon, (nt, ny, nx)).astype(np.float32)),
+        "XLAND": (("Time", "south_north", "west_east"), surface(1.0)),
+        "TSK": (("Time", "south_north", "west_east"), surface(288.0)),
+        "SWDOWN": (("Time", "south_north", "west_east"), surface(0.0)),
+        "GLW": (("Time", "south_north", "west_east"), surface(300.0)),
+        "Times": (("Time", "DateStrLen"), np.array(
+            [list(t) for t in TOOLS_WRF_TIMES], "S1")),
+    }
+    f = netcdf_file(path, "w", version=2)
+    f.createDimension("Time", None)
+    for d, n in (("DateStrLen", 19), ("bottom_top", nz),
+                 ("bottom_top_stag", nz + 1), ("south_north", ny),
+                 ("south_north_stag", ny + 1), ("west_east", nx),
+                 ("west_east_stag", nx + 1)):
+        f.createDimension(d, n)
+    for name, (dims, arr) in data.items():
+        f.createVariable(name, "S1" if arr.dtype.kind == "S" else arr.dtype,
+                         dims)[:] = arr
+    f.TITLE = " OUTPUT FROM WRF V4.5 MODEL"
+    f.close()
+
+
+def check_tools(kernels, step, file_run, smi):
+    """Phase 21: the port's user tooling through each tool's ``main``, in
+    this process, on the files of phases 11 and 20 (``file_run``): (a)
+    aggregate_output on phase 20's files per shard, every field at each
+    of the three times equal bit for bit to phase 11's output; (b)
+    extract_daily_precip on phase 11's output, equal to the differences
+    of the accumulation it holds; (c) setup_next_run ``-s 1`` on a copy of
+    phase 11's namelist beside copies of its two checkpoints, then the run
+    it rewrote through ``core.driver.main`` on the card, resumed from the
+    1800 s checkpoint: its 3600 s restart equal to phase 11's bit for bit;
+    (d) make_domain from a seeded DEM and wrf2icar from a seeded classic
+    wrfout at phase 11's horizontal size, then one forcing interval from
+    them through the driver on the card with the launch counts set to 0
+    just before it: every field finite, K3 and K1 once a substep and no
+    other kernel. Logs each tool's wall. Returns the interval's launch
+    counts."""
+    import shutil
+    import torch
+    from icar_tpu_torch.core import driver as drv
+    from icar_tpu_torch.forcing.ideal import ideal_latlon, schaer_topography
+    from icar_tpu_torch.io.netcdf import NCFile, file_format
+    from icar_tpu_torch.tools import (aggregate_output, extract_daily_precip,
+                                      make_domain, setup_next_run, wrf2icar)
+    t_phase = time.perf_counter()
+    ref = file_run["prefix"]
+    tmp = os.path.join(os.path.dirname(ref), "tools")
+    os.makedirs(tmp)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        rc = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        if rc not in (0, None):
+            raise AssertionError(f"tools: {name} returned {rc}")
+
+    with NCFile(ref + "out_run.nc") as f:
+        whole = {n: f.read(n) for n in f.variables()}
+
+    # (a) phase 20's files per shard, the hour's three times
+    pattern = os.path.join(os.path.dirname(ref), "sharded_out_img*.nc")
+    shards = sorted(glob.glob(pattern))
+    agg = os.path.join(tmp, "aggregated.nc")
+    timed("aggregate_output", aggregate_output.main, [pattern, "-o", agg])
+    with NCFile(agg) as f:
+        stitched = {n: f.read(n) for n in f.variables()}
+        agg_format = f.format
+    bad = [n for n in whole
+           if n not in stitched or stitched[n].shape != whole[n].shape
+           or not np.array_equal(stitched[n].view(np.uint8),
+                                 whole[n].view(np.uint8))]
+    if bad or len(shards) != 3 * FILE_SHARDS[0] * FILE_SHARDS[1]:
+        raise AssertionError(f"tools: aggregate_output of {len(shards)} "
+                             f"shard files differs from phase 11's output "
+                             f"in {bad}")
+    log(f"tools (a): aggregate_output of {len(shards)} files per shard "
+        f"({file_format(shards[0])}) into one {agg_format} file of "
+        f"{os.path.getsize(agg)} bytes: model_time "
+        f"{[float(t) for t in stitched['model_time']]}, {len(whole) - 1} "
+        f"fields at each "
+        f"time equal to phase 11's output bit for bit")
+
+    # (b) daily precipitation of phase 11's output
+    daily = os.path.join(tmp, "daily.nc")
+    timed("extract_daily_precip", extract_daily_precip.main,
+          [ref + "out_run.nc", "-o", daily])
+    with NCFile(daily) as f:
+        got = f.read("precipitation")
+    acc = whole["precipitation"].astype(np.float64)
+    want = ((acc[1] - acc[0]) + (acc[2] - acc[1])).astype(np.float32)[None]
+    if not np.array_equal(got, want):
+        raise AssertionError("tools: extract_daily_precip differs from the "
+                             "accumulation's differences")
+    log(f"tools (b): extract_daily_precip of phase 11's output: one day, "
+        f"equal to the accumulation's differences (domain total "
+        f"{float(want.sum(dtype=np.float64))} mm)")
+
+    # (c) the run chained from its checkpoint
+    cprefix = os.path.join(tmp, "chained_")
+    nml = write_namelist(cprefix + "options.nml", file_run["init"],
+                         file_run["forcing"], cprefix, FILE_RUN_Z,
+                         dict(mp=2, adv=1))
+    for t in (1800, 3600):
+        shutil.copyfile(f"{ref}rst_{t:08d}.nc", f"{cprefix}rst_{t:08d}.nc")
+    timed("setup_next_run", setup_next_run.main, [nml, "-s", "1"])
+    if os.path.exists(cprefix + "rst_00003600.nc"):
+        raise AssertionError("tools: setup_next_run -s 1 kept the newest "
+                             "checkpoint")
+    timed("resumed run", drv.main, [nml, "--device", "cuda"])
+    torch.cuda.synchronize()
+    want_digest, want_fields = restart_digest(ref + "rst_00003600.nc")
+    got_digest, got_fields = restart_digest(cprefix + "rst_00003600.nc")
+    bad = [n for n in want_fields
+           if n not in got_fields
+           or not np.array_equal(got_fields[n].view(np.uint8),
+                                 want_fields[n].view(np.uint8))]
+    if bad or got_digest != want_digest:
+        raise AssertionError(f"tools: the run resumed by setup_next_run "
+                             f"differs from phase 11's at 3600 s in {bad}")
+    log(f"tools (c): setup_next_run -s 1 removed the 3600 s checkpoint; "
+        f"the rewritten namelist resumed through core.driver.main from "
+        f"1800 s; its 3600 s restart equal to phase 11's bit for bit "
+        f"({len(want_fields)} fields, the digest of PERF.md)")
+
+    # (d) a domain and WRF forcing made by the tools, one interval
+    ny, nx, dx = FILE_RUN["ny"], FILE_RUN["nx"], FILE_RUN["dx"]
+    rng = np.random.default_rng(TOOLS_SEED)
+    lat, lon = ideal_latlon(nx, ny, dx)
+    elev = schaer_topography(nx, ny, FILE_RUN["hill_height"], dx) \
+        + 20.0 * rng.random((ny, nx))
+    elev[:, :20] = 0.0                     # a strip of sea to the west
+    dem = os.path.join(tmp, "dem.nc")
+    with NCFile(dem, "w") as f:
+        f.create_var("elevation", ("y", "x"), elev.astype(np.float32))
+        f.create_var("lat", ("y", "x"), lat.astype(np.float32))
+        f.create_var("lon", ("y", "x"), lon.astype(np.float32))
+    domain = os.path.join(tmp, "domain.nc")
+    timed("make_domain", make_domain.main, [dem, "-o", domain,
+                                            "--smooth", "1"])
+    wrfout = os.path.join(tmp, "wrfout_d01_2020-12-01_00:00:00")
+    flat, flon = ideal_latlon(nx + 10, ny + 10, dx)
+    write_wrfout(wrfout, flat, flon, TOOLS_SEED)
+    forcing = os.path.join(tmp, "wrf_forcing.nc")
+    timed("wrf2icar", wrf2icar.main, [wrfout, "-o", forcing, "-q"])
+    wprefix = os.path.join(tmp, "wrf_")
+    nml = write_namelist(wprefix + "options.nml", domain, forcing, wprefix,
+                         FILE_RUN_Z, dict(mp=2, adv=1),
+                         var_list=TOOLS_WRF_VARS,
+                         end_date="2020-12-01 00:30:00")
+    from icar_tpu_torch.config import Options
+    options = Options.from_namelist(nml)
+    path = step.path_kernels(options, full_forcing=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    d = file_driver(nml, "cuda")
+    torch.cuda.synchronize()
+    walls["wrf-driven interval"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_sub = d.substeps
+    for name, n in launches.items():
+        want_n = n_sub[0] if name in path else 0
+        if len(n_sub) != 1 or n != want_n or n_sub[0] == 0:
+            raise AssertionError(f"tools: the WRF-driven interval launched "
+                                 f"{name} {n} times for substeps {n_sub}, "
+                                 f"expected {want_n}")
+    bad = [n for n, v in d.model._global_state().items()
+           if v.is_floating_point() and not torch.isfinite(v).all()]
+    if bad or d.model.geom.nx != nx or d.model.geom.ny != ny:
+        raise AssertionError(f"tools: the WRF-driven interval left "
+                             f"non-finite {bad}")
+    u_median = float(np.median(d.model.field("u")))
+    log(f"tools (d): make_domain {ny}x{nx} ({file_format(domain)}), "
+        f"wrf2icar from a classic wrfout of {len(TOOLS_WRF_TIMES)} times x "
+        f"{len(TOOLS_WRF_INTERFACES) - 1} levels "
+        f"({os.path.getsize(wrfout)} bytes) to {file_format(forcing)} "
+        f"({os.path.getsize(forcing)} bytes); one 1800 s interval from them "
+        f"on the card: {n_sub[0]} substeps, launches {launches}, every "
+        f"field finite, median u {u_median:.3f} m/s")
+    del d
+    log(f"tools walls s ({smi}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()))
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase21_alone(kernels, step, smi):
+    """Phase 21 after the parts of phases 11 and 20 that it reads: phase
+    11's forcing files and file hour through ``core.driver.main``, and
+    phase 20's sharded file hour, neither checked here beyond what
+    ``check_tools`` compares with them."""
+    import torch
+    from icar_tpu_torch.core import driver as drv
+    from icar_tpu_torch.forcing.ideal import write_ideal_files
+    with tempfile.TemporaryDirectory() as tmp:
+        init, forcing = write_ideal_files(tmp, **FILE_RUN)
+        prefix = os.path.join(tmp, "run_")
+        if drv.main([write_namelist(prefix + "options.nml", init, forcing,
+                                    prefix, FILE_RUN_Z,
+                                    dict(mp=2, adv=1))]) != 0:
+            raise AssertionError("file run: main returned non-zero")
+        torch.cuda.synchronize()
+        file_run = {"init": init, "forcing": forcing, "prefix": prefix}
+        sharded_file_driver(file_run)
+        check_tools(kernels, step, file_run, smi)
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phase", type=int, choices=(20,),
+    parser.add_argument("--phase", type=int, choices=(20, 21),
                         help="run this phase alone, after what it reads of "
                              "the earlier phases")
     args = parser.parse_args(argv)
@@ -4444,6 +4741,10 @@ def main(argv=None):
     log(kernels.BUILD_INFO["log"].strip())
     if args.phase == 20:
         phase20_alone(ideal_ridge_model, cases["linear"], kernels, step, smi)
+        log(f"total wall: {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.phase == 21:
+        phase21_alone(kernels, step, smi)
         log(f"total wall: {time.perf_counter() - t_start:.1f} s")
         return
 
@@ -4616,6 +4917,12 @@ def main(argv=None):
     # and substep
     slice_g = check_slice_g(ideal_ridge_model, cases["linear"], kernels,
                             step, linear_ref, file_run, smi)
+    # 21. the user tooling on the files of phases 11 and 20: their shard
+    # files aggregated (phase 11's output), the daily precipitation, the
+    # run chained by setup_next_run (phase 11's restart), and a domain and
+    # WRF forcing made by the tools driving one interval (K3 and K1 once a
+    # substep)
+    tools_launches = check_tools(kernels, step, file_run, smi)
     file_tmp.cleanup()
     for entry in table[:-1]:
         name = entry["name"]
@@ -4649,7 +4956,8 @@ def main(argv=None):
             entry["linear"] = {"launches": linear_launches[name]}
             entry["linear_sharded"] = slice_g["linear"][name]
         if name in ("advect_upwind", "mp_simple_rho"):
-            entry["file"] = {"launches": file_launches[name]}
+            entry["file"] = {"launches": file_launches[name],
+                             "launches_wrf2icar": tools_launches[name]}
             entry["file_sharded"] = {"launches": slice_g["file"][name]}
         general = {label: n[name] for label, n in general_launches.items()
                    if n.get(name)}

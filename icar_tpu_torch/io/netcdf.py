@@ -9,7 +9,9 @@ read in the format its first bytes name; a new file is written as
 NetCDF-4 where h5py is importable and as CDF-2 where it is not. The
 classic format has one unlimited (record) dimension, which comes first in
 each variable that uses it, and no unsigned or 64-bit integer types:
-integers are written as int32 there, Python floats as float64.
+integers are written as int32 there, Python floats as float64. A
+coordinate variable (one dimension of its own name) is float64 in both
+formats, as the NetCDF-4 layout keeps it in the dimension's scale.
 """
 
 from __future__ import annotations
@@ -83,13 +85,18 @@ def _classic_attr(v):
 
 class NCFile:
     """A NetCDF file handle (NetCDF-4 through h5py, classic through
-    scipy). Arrays read are copies that outlive the file."""
+    scipy). Arrays read are copies that outlive the file. A new file is
+    written in ``fmt`` ("netcdf4" or "classic"), by default
+    ``write_format()``."""
 
-    def __init__(self, path: str, mode: str = "r"):
+    def __init__(self, path: str, mode: str = "r", fmt: Optional[str] = None):
         self.path = path
         self.mode = mode
         self._dims: Dict[str, int] = {}
-        self.format = write_format() if mode == "w" else file_format(path)
+        if mode == "w":
+            self.format = fmt or write_format()
+        else:
+            self.format = file_format(path)
         if self.format == "netcdf4":
             if h5py is None:
                 raise RuntimeError(f"{path} is a NetCDF-4 (HDF5) file, and "
@@ -123,7 +130,13 @@ class NCFile:
                 raise ValueError(
                     f"dimension name {name!r} collides with an existing "
                     "variable in the file")
-            self.f.createDimension(name, None if unlimited else size)
+            if unlimited and self.f._dims:
+                # scipy makes only the first dimension the record one; the
+                # format holds it at any place, so it goes first
+                self.f.dimensions[name] = None
+                self.f._dims.insert(0, name)
+            else:
+                self.f.createDimension(name, None if unlimited else size)
             self._dims[name] = 0 if unlimited else size
             return
         if name in self.f:
@@ -174,13 +187,23 @@ class NCFile:
         return ds
 
     def _create_classic(self, name, dims, data, attrs, dtype):
+        if len(dims) == 1 and name == dims[0]:
+            # a coordinate variable: float64, as the NetCDF-4 layout stores
+            # it in its dimension's float64 scale
+            dtype = np.float64
         data = _classic_array(data if dtype is None else data.astype(dtype))
         var = self.f.createVariable(name, data.dtype, tuple(dims))
         if var.isrec:
             var[:data.shape[0]] = data
             self._dims[dims[0]] = max(self._dims[dims[0]], data.shape[0])
         elif data.ndim == 0:
-            var.assignValue(data)
+            # scipy's assignValue slices, which a 0-d array refuses
+            var.data[...] = data
+            # scipy lays the variables out in descending order of their
+            # shapes, which puts a scalar after the record variables, whose
+            # records then overwrite it; this shape (read only by that
+            # order) puts it first
+            var.__dict__["_shape"] = (np.iinfo(np.int64).max,)
         else:
             var[:] = data
         for k, v in (attrs or {}).items():
@@ -253,6 +276,17 @@ class NCFile:
             return v.decode()
         return v
 
+    def var_dims(self, name: str):
+        """The dimension names of variable ``name`` (a NetCDF-4 axis with
+        no dimension scale attached is ``phony_dim_{axis}``)."""
+        if self.classic:
+            return tuple(self.f.variables[name].dimensions)
+        ds = self.f[name]
+        if ds.attrs.get("CLASS") == b"DIMENSION_SCALE":
+            return (name,)
+        return tuple(d[0].name.rsplit("/", 1)[-1] if len(d)
+                     else f"phony_dim_{i}" for i, d in enumerate(ds.dims))
+
     def var_shape(self, name: str):
         if self.classic:
             return tuple(self.f.variables[name].shape)
@@ -281,9 +315,11 @@ def read_var(path: str, name: str, step: Optional[int] = None) -> np.ndarray:
         return f.read(name, step)
 
 
-def write_vars(path: str, variables: Dict[str, tuple], attrs: Dict = None):
-    """One-shot write: variables = {name: (dims, data[, var_attrs])}."""
-    with NCFile(path, "w") as f:
+def write_vars(path: str, variables: Dict[str, tuple], attrs: Dict = None,
+               fmt: Optional[str] = None):
+    """One-shot write: variables = {name: (dims, data[, var_attrs])}, in
+    format ``fmt`` (default ``write_format()``)."""
+    with NCFile(path, "w", fmt) as f:
         for name, spec in variables.items():
             dims, data = spec[0], spec[1]
             vattrs = spec[2] if len(spec) > 2 else None

@@ -94,6 +94,36 @@ def test_record_dimension_append(tmp_path, fmt):
         np.testing.assert_array_equal(f.read("q", step=2), 2.0)
 
 
+def test_layout_the_tools_write(tmp_path, fmt):
+    """What the tools write: a 2D field before the time series (the
+    record dimension made after another one), a scalar beside record
+    variables, and coordinate variables; each reads back equal, the
+    coordinates as float64 in both formats (the NetCDF-4 layout keeps
+    them in the dimension's float64 scale), the record dimension sized by
+    the series."""
+    path = str(tmp_path / "t.nc")
+    rng = np.random.default_rng(3)
+    lat = rng.random((4, 5)).astype(np.float32)
+    series = rng.random((3, 2, 4, 5)).astype(np.float32)
+    tnc.write_vars(path, {
+        "lat": (("y", "x"), lat),
+        "theta": (("time", "level", "y", "x"), series),
+        "P0": ((), np.float32(1e5)),
+        "level": (("level",), np.arange(2, dtype=np.int32)),
+        "time": (("time",), np.float32([0.0, 1.0, 2.0]))})
+    with tnc.NCFile(path) as f:
+        assert f.format == fmt
+        np.testing.assert_array_equal(f.read("lat"), lat)
+        np.testing.assert_array_equal(f.read("theta"), series)
+        assert f.read("P0") == np.float32(1e5)
+        for n, want in (("level", [0.0, 1.0]), ("time", [0.0, 1.0, 2.0])):
+            got = f.read(n)
+            assert got.dtype == np.float64 and list(got) == want, n
+        assert f.n_times() == 3
+        assert f.var_dims("theta") == ("time", "level", "y", "x")
+        assert f.var_dims("level") == ("level",)
+
+
 def test_classic_types(tmp_path, monkeypatch):
     """The classic format holds no 64-bit or unsigned integers: they are
     written as int32 (bool as int8); Python floats as float64."""

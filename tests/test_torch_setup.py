@@ -178,6 +178,44 @@ def test_function_copy_matches_original(orig, name):
                         f"icar_tpu/{orig}"
 
 
+# functions (and tables) of the JAX package's tools (``tools/``) that the
+# port's tools (``icar_tpu_torch/tools/``) copy, their imports of the JAX
+# package made imports of the port: tool -> names. The rest of each tool
+# (its readers and writers, fix_time, the mains that take no argv) is
+# rewritten and held by tests/test_torch_tools.py.
+TOOL_COPIES = {
+    "extract_daily_precip.py": ("load_steps", "daily_totals", "main"),
+    "make_domain.py": ("smooth2d", "make_domain", "main"),
+    "wrf2icar.py": ("GRAVITY", "_destagger", "_parse_times", "convert",
+                    "main"),
+    "reanalysis2icar.py": ("GRAVITY", "P0", "ROVCP", "PRESETS", "convert",
+                           "main"),
+    "get_merra.py": ("URL", "VARS_3D", "VARS_2D", "merra_version",
+                     "convert"),
+}
+
+
+@pytest.mark.parametrize("tool,name", sorted(
+    (t, n) for t, names in TOOL_COPIES.items() for n in names))
+def test_tool_copy_matches_original(tool, name):
+    """Each copied tool function's (or table's) AST equals its original's
+    with ``from icar_tpu.`` read as ``from icar_tpu_torch.`` (its own
+    docstring aside); a function's docstring's first line names the
+    source, a table's module docstring does."""
+    src = open(os.path.join(REPO, "tools", tool)).read()
+    want = _functions(src.replace("from icar_tpu.",
+                                  "from icar_tpu_torch."))[name][1]
+    copy_src = open(os.path.join(REPO, "icar_tpu_torch", "tools",
+                                 tool)).read()
+    doc, got = _functions(copy_src)[name]
+    if doc is None:
+        assert f"tools/{tool}" in ast.get_docstring(ast.parse(copy_src))
+    else:
+        assert doc.startswith(f"Copy of tools/{tool}"), doc
+    assert got == want, f"icar_tpu_torch/tools/{tool} {name} drifted " \
+                        f"from tools/{tool}"
+
+
 def _options(pkg, **domain):
     o = pkg.Options()
     for k, v in domain.items():
